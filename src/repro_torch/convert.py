@@ -1,0 +1,57 @@
+"""Build the port's objects from plain numpy fields ("weights carried
+across").
+
+The JAX package's ``Scenario`` and ``RAConstants`` are dataclasses of numpy
+or JAX arrays. A caller that holds both packages (the parity tests) turns
+one into a mapping of numpy arrays and hands it here, so both packages work
+on the identical scenario. Nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import DTYPE, resolve_device
+from repro_torch.core.cost_model import (DeviceParams, LearningParams,
+                                         RAConstants, ServerParams)
+from repro_torch.core.scenario import Scenario
+
+
+def _tensors(cls, fields: Mapping, device: torch.device):
+    return cls(**{name: torch.tensor(np.asarray(value, np.float32),
+                                     dtype=DTYPE, device=device)
+                  for name, value in fields.items()})
+
+
+def scenario_from_numpy(fields: Mapping, device=None) -> Scenario:
+    """A :class:`Scenario` from a mapping with ``dev`` and ``srv`` (each a
+    mapping of parameter name -> (N,) / (K,) array), ``avail``, ``dist``
+    and optionally ``lp`` (mapping of LearningParams fields), ``active``,
+    ``dev_xy``, ``srv_xy``, ``reach_m`` and ``max_devices``."""
+    dev = resolve_device(device)
+
+    def opt(name):
+        value = fields.get(name)
+        return None if value is None else np.asarray(value).copy()
+
+    return Scenario(
+        dev=_tensors(DeviceParams, fields["dev"], dev),
+        srv=_tensors(ServerParams, fields["srv"], dev),
+        avail=np.asarray(fields["avail"], dtype=bool).copy(),
+        dist=np.asarray(fields["dist"], dtype=np.float64).copy(),
+        lp=LearningParams(**fields.get("lp", {})),
+        active=opt("active"),
+        dev_xy=opt("dev_xy"),
+        srv_xy=opt("srv_xy"),
+        reach_m=(None if fields.get("reach_m") is None
+                 else float(fields["reach_m"])),
+        max_devices=opt("max_devices"),
+    )
+
+
+def ra_constants_from_numpy(fields: Mapping, device=None) -> RAConstants:
+    """:class:`RAConstants` from a mapping of its field names to arrays."""
+    return _tensors(RAConstants, fields, resolve_device(device))

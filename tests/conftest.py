@@ -38,6 +38,10 @@ def pytest_configure(config):
         "slow: multi-minute test (launch/serve smoke tests, large "
         "association convergence runs); deselected by scripts/tier1.sh "
         "--fast")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); skips inside "
+        "the test body when torch.cuda.is_available() is False")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,159 @@
+"""Port parity: the dense, transfer-only association engine.
+
+The port's scenario is built from the JAX scenario's fields
+(``repro_torch.convert``), then both packages descend from the nearest
+initial assignment with ``exchange_samples=0`` at the default profile: the
+same assignment and move count, costs at the solver pin (rtol 2e-4), and a
+monotone cost trace. The port runs on the CPU (the kernel's plain
+version); ``chip_smoke.py`` repeats the comparison with the kernel on the
+card.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import assoc_fast as jaf
+from repro.core import scenario as jsc
+from repro_torch import convert
+from repro_torch.core import assoc_fast as taf
+from repro_torch.core import edge_association as tea
+from repro_torch.kernels import golden_section as tgs
+
+torch.set_num_threads(2)
+
+FIXTURES = [(14, 3, 0), (20, 5, 0)]
+
+
+def port_scenario(js):
+    def params(obj):
+        return {f.name: np.asarray(getattr(obj, f.name))
+                for f in dataclasses.fields(obj)}
+
+    return convert.scenario_from_numpy(
+        {"dev": params(js.dev), "srv": params(js.srv), "avail": js.avail,
+         "dist": js.dist, "lp": dataclasses.asdict(js.lp),
+         "active": js.active, "dev_xy": js.dev_xy, "srv_xy": js.srv_xy,
+         "reach_m": js.reach_m, "max_devices": js.max_devices},
+        device="cpu")
+
+
+@pytest.fixture(scope="module", params=FIXTURES, ids=lambda f: "n%d_k%d_s%d" % f)
+def pair(request):
+    n, k, seed = request.param
+    js = jsc.make_scenario(n, k, seed=seed)
+    ts = port_scenario(js)
+    want = jaf.FastAssociationEngine(js, kind="fast", seed=seed,
+                                     compact=False).run(
+        "nearest", exchange_samples=0)
+    eng = taf.FastAssociationEngine(ts, seed=seed, device="cpu")
+    before = tgs.LAUNCHES
+    got = eng.run("nearest", exchange_samples=0)
+    assert tgs.LAUNCHES == before     # CPU tensors never launch the kernel
+    return js, ts, eng, want, got
+
+
+def test_same_stable_point(pair):
+    _, _, _, want, got = pair
+    assert np.array_equal(want.assignment, got.assignment)
+    assert want.n_adjustments == got.n_adjustments > 0
+    assert got.total_cost == pytest.approx(want.total_cost, rel=2e-4)
+    assert got.true_cost == pytest.approx(want.true_cost, rel=2e-4)
+    assert got.true_energy == pytest.approx(want.true_energy, rel=2e-4)
+    assert got.true_delay == pytest.approx(want.true_delay, rel=2e-4)
+    np.testing.assert_allclose(got.server_cost, want.server_cost, rtol=2e-4)
+    np.testing.assert_allclose(got.cost_trace, want.cost_trace, rtol=2e-4)
+
+
+def test_cost_trace_monotone(pair):
+    _, _, _, _, got = pair
+    trace = np.asarray(got.cost_trace)
+    assert trace.shape == (got.n_adjustments + 1,)
+    assert np.all(np.diff(trace) <= 0)
+    assert trace[-1] < trace[0]
+
+
+def test_evaluation_helpers_match(pair):
+    js, ts, eng, want, _ = pair
+    jeng = jaf.FastAssociationEngine(js, kind="fast", compact=False)
+    a = want.assignment
+    assert eng.evaluate_assignment(a) == pytest.approx(
+        jeng.evaluate_assignment(a), rel=2e-4)
+    np.testing.assert_allclose(
+        taf.assignment_true_cost(ts, a, device="cpu"),
+        jaf.assignment_true_cost(js, a), rtol=2e-4)
+    assert np.array_equal(taf._dense_member(a, ts.active_mask, ts.n_servers),
+                          jaf._dense_member(a, js.active_mask, js.n_servers))
+
+
+def test_explicit_assignment_and_finalize_off():
+    js = jsc.make_scenario(14, 3, seed=0)
+    ts = port_scenario(js)
+    start = jaf.FastAssociationEngine(js, compact=False).initial_assignment(
+        "random")
+    ref = jaf.FastAssociationEngine(js, compact=False).run(
+        assignment=start, exchange_samples=0, finalize=False)
+    got = taf.FastAssociationEngine(ts, device="cpu").run(
+        assignment=start, exchange_samples=0, finalize=False)
+    assert np.array_equal(ref, got)
+
+
+def test_engine_raises_for_what_is_not_ported():
+    ts = port_scenario(jsc.make_scenario(8, 2, seed=0))
+    eng = taf.FastAssociationEngine(ts, device="cpu")
+    with pytest.raises(NotImplementedError, match="6\\(d\\)"):
+        eng.run("nearest")                  # the default of 64 exchanges
+    with pytest.raises(NotImplementedError, match="6\\(d\\)"):
+        eng.run("nearest", exchange_samples=8)
+    for compact in (True, "bucketed"):
+        with pytest.raises(NotImplementedError, match="6\\(b\\)"):
+            taf.FastAssociationEngine(ts, compact=compact, device="cpu")
+    with pytest.raises(NotImplementedError):
+        taf.FastAssociationEngine(ts, shards=2, device="cpu")
+    with pytest.raises(NotImplementedError):
+        eng.run_tiered("nearest")
+    with pytest.raises(NotImplementedError):
+        eng.rerun_incremental(ts, None)
+    for kind in ("optimal", "paper", "comp_only", "comm_only", "uniform",
+                 "proportional"):
+        with pytest.raises(NotImplementedError):
+            taf.FastAssociationEngine(ts, kind=kind, device="cpu")
+    with pytest.raises(ValueError):
+        taf.FastAssociationEngine(ts, permission="nash", device="cpu")
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
+    ts = port_scenario(jsc.make_scenario(8, 2, seed=0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        taf.FastAssociationEngine(ts)
+    with pytest.raises(RuntimeError):
+        tea.GroupSolver(ts)
+    from repro_torch.core import scenario as tsc
+    with pytest.raises(RuntimeError):
+        tsc.make_scenario(8, 2)
+
+
+def test_pareto_permission_matches():
+    js = jsc.make_scenario(14, 3, seed=0)
+    want = jaf.FastAssociationEngine(js, permission="pareto",
+                                     compact=False).run(
+        "nearest", exchange_samples=0)
+    got = taf.FastAssociationEngine(port_scenario(js), permission="pareto",
+                                    device="cpu").run(
+        "nearest", exchange_samples=0)
+    assert np.array_equal(want.assignment, got.assignment)
+    assert want.n_adjustments == got.n_adjustments
+
+
+def test_binding_caps_match():
+    js = jsc.make_scenario(20, 5, seed=0, cap_slack=1.0)
+    want = jaf.FastAssociationEngine(js, compact=False).run(
+        "nearest", exchange_samples=0)
+    got = taf.FastAssociationEngine(port_scenario(js), device="cpu").run(
+        "nearest", exchange_samples=0)
+    assert np.array_equal(want.assignment, got.assignment)
+    assert want.n_adjustments == got.n_adjustments
+    assert (np.bincount(got.assignment, minlength=5) <= js.capacity).all()
