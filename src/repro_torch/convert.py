@@ -2,9 +2,10 @@
 across").
 
 The JAX package's ``Scenario`` and ``RAConstants`` are dataclasses of numpy
-or JAX arrays. A caller that holds both packages (the parity tests) turns
-one into a mapping of numpy arrays and hands it here, so both packages work
-on the identical scenario. Nothing here imports the JAX package.
+or JAX arrays, and its FL models dicts of arrays. A caller that holds both
+packages (the parity tests) turns one into a mapping of numpy arrays and
+hands it here, so both packages work on the identical scenario or start
+from the identical model. Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -55,3 +56,16 @@ def scenario_from_numpy(fields: Mapping, device=None) -> Scenario:
 def ra_constants_from_numpy(fields: Mapping, device=None) -> RAConstants:
     """:class:`RAConstants` from a mapping of its field names to arrays."""
     return _tensors(RAConstants, fields, resolve_device(device))
+
+
+def fl_params_from_numpy(params: Mapping, n_clients: int,
+                         device=None) -> dict:
+    """Client-stacked FL params from one model's params (a mapping of leaf
+    name -> numpy array, as ``repro.fl`` models hold them): every client
+    gets the same omega^0, as ``(n_clients, *shape)`` float32 tensors. Set
+    them as ``FederatedTrainer.client_params``."""
+    dev = resolve_device(device)
+    return {name: torch.tensor(np.asarray(value, np.float32), dtype=DTYPE,
+                               device=dev).expand(n_clients,
+                                                  *np.shape(value)).clone()
+            for name, value in params.items()}

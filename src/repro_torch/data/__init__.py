@@ -1,0 +1,5 @@
+from repro_torch.data.federated import (FederatedDataset, make_femnist_like,
+                                        make_mnist_like, partition_power_law)
+
+__all__ = ["FederatedDataset", "make_femnist_like", "make_mnist_like",
+           "partition_power_law"]

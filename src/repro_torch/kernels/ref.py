@@ -1,5 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
+``hier_aggregate_ref`` is the plain version of ``csrc/hier_aggregate.cu``,
+the eq. (8)/(14) weighted mean, summed in that kernel's order.
+
 ``golden_section_ref`` is the plain version of the CUDA kernel in
 ``csrc/golden_section.cu`` and the counterpart of
 ``repro.kernels.ref.golden_section_ref``: the KKT-path solve of problem (18)
@@ -44,16 +47,19 @@ def cbrt(x: torch.Tensor) -> torch.Tensor:
     return torch.pow(x.double(), 1.0 / 3.0).to(x.dtype)
 
 
-def block_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis of ``(G, R)`` in the kernel's order, so the
-    plain version and the kernel round alike. Each thread adds its slots in
-    turn; each warp's xor-shuffle reduction leaves lane 0 the halving tree
-    of its 32 lanes (lane l adds lane l + w at width w); one warp then
-    reduces the warp partials the same way (its lanes past the warp count
-    hold exact zeros, so that is the halving tree of the partials).
-    Returns ``(G, 1)``."""
+def block_sum(x: torch.Tensor,
+              layout: tuple[int, int] | None = None) -> torch.Tensor:
+    """Sum over the last axis of ``(G, R)`` in a kernel's order, so the
+    plain version and the kernel round alike. ``layout`` is the kernel's
+    (threads, slots per thread), slot r on thread r % threads; by default
+    the golden-section kernel's :func:`kernel_layout`. Each thread adds its
+    slots in turn; each warp's xor-shuffle reduction leaves lane 0 the
+    halving tree of its 32 lanes (lane l adds lane l + w at width w); one
+    warp then reduces the warp partials the same way (its lanes past the
+    warp count hold exact zeros, so that is the halving tree of the
+    partials). Returns ``(G, 1)``."""
     g, r = x.shape
-    nt, it = kernel_layout(r)
+    nt, it = layout or kernel_layout(r)
     slots = torch.nn.functional.pad(x, (0, nt * it - r)).view(g, it, nt)
     part = slots[:, 0]
     for i in range(1, it):
@@ -172,3 +178,28 @@ def golden_section_ref(a, b, d, e, w, f_min, f_max, mask, *,
                           torch.where(go_right, cp, c1))
     f, beta = fb_of_t(0.5 * (lo + hi))
     return finalize(a, b, d, e, w, mask, f_min, f_max, f, beta)
+
+
+# Threads per block of csrc/hier_aggregate.cu; its weight sum follows
+# block_sum with the layout (AGG_THREADS, ceil(C / AGG_THREADS)).
+AGG_THREADS = 256
+
+
+def hier_aggregate_ref(updates: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """Weighted mean over the leading client axis, eq. (8)/(14).
+
+    ``updates`` (C, P), ``weights`` (C,); returns (P,) in ``updates``'
+    dtype. The weights are normalised by ``max(sum, 1e-30)`` in float32,
+    the sum taken in the kernel's reduction order, and the products are
+    accumulated in float32 row by row, c = 0 to C - 1, as each kernel thread
+    does: with ``-fmad=false`` the two agree bit for bit."""
+    c = updates.shape[0]
+    w = weights.to(torch.float32)
+    total = block_sum(w[None], (AGG_THREADS, -(-c // AGG_THREADS)))[0, 0]
+    w = w / torch.clamp_min(total, 1e-30)
+    u = updates.to(torch.float32)
+    acc = torch.zeros_like(u[0])
+    for i in range(c):
+        acc = acc + w[i] * u[i]
+    return acc.to(updates.dtype)
