@@ -10,9 +10,10 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 1. ``card``: device name and count, and the ``nvidia-smi`` name and power
    limit (also printed raw on a line of its own).
 2. ``build``: builds every kernel of the main paths with ``nvcc`` from the
-   checkout's sources (golden_section, its cbrtf variant of phase 3b, and
-   hier_aggregate), all at once; build seconds and the ptxas register/spill
-   report.
+   checkout's sources (golden_section, its cbrtf variant of phase 3b,
+   hier_aggregate, rmsnorm, flash_attention), and the flash kernel's two
+   planted faults of phase 8 in a temporary directory, all at once; build
+   seconds and the ptxas register/spill report.
 3. ``kernel``: each kernel against its plain PyTorch version on the same
    card tensors, at the main path's shapes and at ragged ones, with the
    stated tolerance; kernel and plain times (CUDA events), the operation
@@ -41,6 +42,29 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 7. ``train_card_vs_cpu``: ``train_federated`` on the card and on the CPU
    agree on ``make_mnist_like(30)`` with the engine's assignment for
    ``make_scenario(30, 5)``.
+8. ``kernel`` (rmsnorm, flash_attention): each serving kernel against its
+   plain version at the serving path's shapes (qwen3-0.6b's prefill and
+   decode rows; its attention layer at B=4, S=4096) and at ragged ones;
+   kernel, plain and library-call times, the bound and the kernel's share.
+   Then ``fault``: copies of the flash kernel with a planted fault (one kv
+   tile skipped; O accumulated in bfloat16) at the layer shape, each of
+   which the flash tolerance must reject.
+9. ``prefill_path``: ``Model.logits`` of full-size qwen3-0.6b (28 layers,
+   random weights from seed 0, bfloat16 serving copy, the flash kernel) on
+   4 x 4096 tokens; seconds and tokens/s per forward, the launch counts
+   (28 flash, 57 rmsnorm per forward, asserted), peak memory, and
+   ``prefill_profile``: device time of flash, GEMMs and the rest, and the
+   idle share.
+10. ``serve_path``: the server answers 8 requests of a 256-token prompt
+   and 32 greedy tokens: prompts prefilled by ``Model.logits``, fed through
+   the decode step token by token, then decoded greedily by the serve
+   step; ms per step, tokens/s, launches per step (57 rmsnorm, 0 flash,
+   asserted) and the gap between decode and prefill logits (asserted).
+   Then ``serve_profile``: two serve steps under ``torch.profiler``, wall
+   and device time per step, kernels per step, idle share.
+11. ``serve_card_vs_cpu``: reduced qwen3-0.6b in float32, the same params on
+   the card (kernels) and the CPU (plain versions): logits and 8 decode
+   steps agree, greedy tokens identical.
 
 Then a ``kernels`` line, the raw ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +77,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -61,8 +86,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, bfloat16 dense on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 PIN_RTOL = 2e-4          # cost, deadline, f (tests/test_assoc_sharded.py)
@@ -72,6 +98,46 @@ FLIP_COST_RTOL = 2e-2
 AGG_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # hier_aggregate vs plain
 TRAIN_LR = 0.05          # benchmarks/paper_training.py's learning rate
 TRAIN_ROUNDS = 3
+
+# serving kernels vs their plain versions. rmsnorm must agree bit for bit
+# (same reduction order, -fmad=false). flash attention is held to its plain
+# version computed in float32 on the same inputs, not rounded, by (atol,
+# rtol, block): elementwise |got - want| <= atol + rtol * scale, and the
+# largest norm-relative error ||got - want|| / ||want|| of a block of 64
+# query rows of one (batch, head) at most ``block``. float32: scale = |want|,
+# 1e-5 (another summation order). bfloat16: the kernel rounds each P entry
+# and the output to bf16, each by at most u = 2^-8 relatively, so its
+# error is at most u (|want| + P|V|), P|V| being attention over |v|; scale =
+# |want| + P|V| and rtol = 2u, and 5e-3 per block (about 2u, where the
+# roundings give 1e-3 to 2.5e-3). A kernel that skips a kv tile or keeps O
+# in bf16 must fail (phase 8 plants both and checks).
+FLASH_TOL = {"float32": (1e-5, 1e-5, None),
+             "bfloat16": (1e-5, 2 ** -7, 5e-3)}
+FLASH_ROWS = 64          # query rows of a block in the norm-relative error
+# faults planted in copies of csrc/flash_attention.cu (bfloat16 kernel):
+# (text that must occur once, text put in its place)
+_KV_LOOP = ("    const int kv0 = t * kBKV;\n"
+            "    __syncthreads();  // every warp is done with the previous "
+            "K, V tiles\n")
+_PV_MMA = ("        wmma::mma_sync(o[n], fp, fv, o[n]);\n"
+           "      }\n")
+FLASH_FAULTS = {
+    "skip_one_kv_tile": (_KV_LOOP, "    if (n_tiles > 2 && t == n_tiles / 2)"
+                         " continue;\n" + _KV_LOOP),
+    "bf16_accumulator": (_PV_MMA, _PV_MMA + (
+        "#pragma unroll\n"
+        "      for (int i = 0; i < o[n].num_elements; ++i)\n"
+        "        o[n].x[i] = __bfloat162float(__float2bfloat16_rn("
+        "o[n].x[i]));\n")),
+}
+PREFILL_BATCH, PREFILL_SEQ, PREFILL_REPS = 4, 4096, 3
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 256, 32
+# decode logits vs prefill logits of the full bfloat16 model, elementwise
+# |decode - prefill| <= atol + rtol * |prefill|: both paths round every
+# activation of 28 layers to bfloat16 (2^-8 relative) at other places, the
+# bf16 analogue of tests/test_models.py's 2e-3 float32 bound
+SERVE_GAP_ATOL, SERVE_GAP_RTOL = 0.1, 0.05
+CARD_VS_CPU_TOL = 1e-4   # reduced float32 model: kernels vs plain versions
 
 
 def emit(phase: str, **fields) -> None:
@@ -105,7 +171,8 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 def ptxas_report(log: str) -> dict:
     """Registers and spills per kernel instantiation, from nvcc -Xptxas -v
     (golden_section<NT, IT>: threads per block, slots per thread;
-    hier_aggregate<T, V>: element type, elements per thread)."""
+    hier_aggregate<T, V> and rmsnorm<T, V>: element type, elements per
+    thread or load; flash_fwd_<type><HD>: input type, head dim)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -113,9 +180,12 @@ def ptxas_report(log: str) -> dict:
             t = re.search(r"ILi(\d+)ELi(\d+)E", entry.group(1))
             v = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E",
                           entry.group(1))
+            f = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)E", entry.group(1))
             name = (f"NT={t.group(1)},IT={t.group(2)}" if t else
                     f"T={'f32' if v.group(1) == 'f' else 'bf16'},"
-                    f"V={v.group(2)}" if v else entry.group(1))
+                    f"V={v.group(2)}" if v else
+                    f"{f.group(1)},HD={f.group(2)}" if f else
+                    entry.group(1))
             out[name] = []
         elif name and re.search(r"registers|spill", line):
             out[name].append(line.split(":", 1)[-1].strip())
@@ -161,8 +231,9 @@ def cuda_ms_cold(fn, reps: int, flush) -> float:
     return total / reps
 
 
-def bound_ms(ops: int, nbytes: int) -> tuple[float, str]:
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
+def bound_ms(ops: int, nbytes: int,
+             peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -222,34 +293,463 @@ class KeepTrainer:
         return None
 
 
-def profile_round(trainer, assignment, n_servers, n_local, n_edge) -> None:
-    """One more HFEL round under ``torch.profiler``: device time by kernel
-    and the device's idle share of the round (profiler on). Reports a
-    profiler failure on its line instead of failing the run."""
+def profiled(phase: str, fn):
+    """``fn()`` under ``torch.profiler``: (wall seconds, [(kernel name,
+    device microseconds, count)]) of the card's events. A failure of the
+    profiler itself is reported on the phase's line and gives None; an
+    error raised by ``fn`` (a kernel launch, say) fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.hfel_round(assignment, n_servers, n_local, n_edge)
-            torch.cuda.synchronize()
-            round_s = time.perf_counter() - t0
-        rows = []
-        for e in prof.key_averages():
-            if "CUDA" not in str(e.device_type):
-                continue
-            rows.append((e.key, e.self_device_time_total, e.count))
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
     except (RuntimeError, AttributeError) as exc:
-        emit("train_profile", error=repr(exc))
+        emit(phase, error=repr(exc))
+        return None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    except BaseException:
+        try:
+            prof.stop()
+        except (RuntimeError, AttributeError):
+            pass
+        raise
+    try:
+        prof.stop()
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if "CUDA" in str(e.device_type)]
+    except (RuntimeError, AttributeError) as exc:
+        emit(phase, error=repr(exc))
+        return None
+    return wall_s, rows
+
+
+def profile_round(trainer, assignment, n_servers, n_local, n_edge) -> None:
+    """One more HFEL round under ``torch.profiler``: device time by kernel
+    and the device's idle share of the round (profiler on)."""
+    run = profiled("train_profile", lambda: trainer.hfel_round(
+        assignment, n_servers, n_local, n_edge))
+    if run is None:
         return
+    round_s, rows = run
     busy_s = sum(us for _, us, _ in rows) / 1e6
     rows.sort(key=lambda x: -x[1])
     emit("train_profile", round_s=round_s, device_busy_s=busy_s,
          idle_share=1.0 - busy_s / round_s, n_device_events=len(rows),
          top=[dict(name=name[:80], ms=us / 1e3, count=cnt)
               for name, us, cnt in rows[:10]])
+
+
+def attention_work(b, sq, skv, hq, hkv, hd, causal, itemsize):
+    """Operations and bytes of one attention forward: QK^T and PV over the
+    visible (q, kv) pairs, 2 operations per multiply-add (the exponentials
+    of the softmax are not counted); q, k, v read once, o written once."""
+    if causal:   # kv_pos <= q_pos, top-left
+        pairs = sum(min(i + 1, skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    ops = 2 * 2 * b * hq * hd * pairs
+    nbytes = itemsize * hd * (2 * b * sq * hq + 2 * b * skv * hkv)
+    return ops, nbytes
+
+
+def flash_error(got, want, want_abs, dtype: str) -> tuple[dict, bool]:
+    """A flash-attention output against the float32 plain version ``want``
+    (and ``want_abs``, the plain version over |v|) under
+    :data:`FLASH_TOL`: the error measures, and whether it passes."""
+    import torch
+    import torch.nn.functional as F
+    atol, rtol, block_limit = FLASH_TOL[dtype]
+    err = (got.float() - want).abs()
+    scale = want.abs() if dtype == "float32" else want.abs() + want_abs
+    share = float((err / (atol + rtol * scale)).max())
+    b, s, h, d = want.shape
+    pad = (0, 0, 0, 0, 0, (-s) % FLASH_ROWS)
+
+    def block_norm(x):
+        return F.pad(x.square(), pad).view(b, -1, FLASH_ROWS, h, d).sum(
+            (2, 4)).sqrt()
+
+    block_rel = float((block_norm(err)
+                       / block_norm(want).clamp_min(1e-30)).max())
+    ok = (bool(torch.isfinite(got.float()).all()) and share <= 1.0
+          and (block_limit is None or block_rel <= block_limit))
+    return dict(tolerance=dict(atol=atol, rtol=rtol,
+                               scale="|want|" if dtype == "float32"
+                               else "|want| + P|V|",
+                               max_block_rel_err=block_limit),
+                max_abs_err=float(err.max()), limit_share=share,
+                max_block_rel_err=block_rel), ok
+
+
+def build_flash_fault(directory: str, name: str):
+    """A copy of ``csrc/flash_attention.cu`` with the fault
+    ``FLASH_FAULTS[name]`` planted, built with the kernels' flags into
+    ``directory`` and loaded; returns the bound library."""
+    import ctypes
+
+    from repro_torch.kernels import build, flash_attention
+    old, new = FLASH_FAULTS[name]
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    if text.count(old) != 1:
+        raise AssertionError(f"fault {name}: its anchor is not in the source "
+                             "exactly once")
+    src = Path(directory) / f"flash_attention_{name}.cu"
+    src.write_text(text.replace(old, new))
+    out = src.with_suffix(".so")
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+                           str(out), str(src)], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on fault {name}:\n{proc.stderr}")
+    return flash_attention.bind(ctypes.CDLL(str(out)))
+
+
+def serving_kernels(dev, fault_libs: dict) -> dict:
+    """Phase 8: rmsnorm and flash_attention against their plain versions
+    at the serving path's shapes and at ragged ones, with times at the
+    main shapes, and the flash kernel's planted faults (``fault_libs``)
+    against the same tolerance at the layer shape. Returns the main
+    shapes' fields for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, rmsnorm
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = {}
+    for case, rows, d, dtype in (("prefill", PREFILL_BATCH * PREFILL_SEQ,
+                                  1024, bf16),
+                                 ("decode", SERVE_REQUESTS, 1024, bf16),
+                                 ("ragged", 5, 37, f32),
+                                 ("ragged", 3, 3584, f32),
+                                 ("ragged", 7, 1030, bf16),
+                                 ("prefill_f32", 4096, 1024, f32)):
+        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        got = rmsnorm.rmsnorm(x, scale)
+        torch.cuda.synchronize()
+        want = ref.rmsnorm_ref(x, scale, vec=rmsnorm.vector_width(d, dtype))
+        err = float((got.float() - want.float()).abs().max())
+        fields = dict(kernel="rmsnorm", case=case, shape=[rows, d],
+                      dtype=str(dtype).removeprefix("torch."),
+                      vector_width=rmsnorm.vector_width(d, dtype),
+                      tolerance="bitwise", max_abs_err=err)
+        if not (torch.equal(got, want) and torch.isfinite(got.float()).all()):
+            emit("kernel", **fields)
+            raise AssertionError(f"rmsnorm {case} {rows}x{d} disagrees with "
+                                 "its plain version")
+        if case in ("prefill", "decode"):
+            nbytes = 2 * rows * d * x.element_size() + d * 4
+            b_ms, b_by = bound_ms(4 * rows * d, nbytes)
+            k_ms = cuda_ms(lambda: rmsnorm.rmsnorm(x, scale), reps=100)
+            w = scale.to(dtype)
+            lib = getattr(F, "rms_norm", None)      # torch 2.4 and later
+            fields.update(
+                ms=k_ms, plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(
+                    x, scale, vec=rmsnorm.vector_width(d, dtype)), reps=5),
+                library_ms=None if lib is None else cuda_ms(
+                    lambda: lib(x, (d,), w, 1e-6), reps=100),
+                library="torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)",
+                bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / k_ms)
+            main.setdefault("rmsnorm", fields)
+        emit("kernel", **fields)
+
+    for case, b, sq, skv, hq, hkv, hd, dtype, causal in (
+            ("layer", PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 16, 8, 128,
+             bf16, True),
+            ("gqa_ragged", 2, 1000, 1000, 8, 2, 64, f32, True),
+            ("full", 2, 777, 777, 4, 4, 128, bf16, False),
+            ("top_left", 1, 300, 700, 4, 2, 16, f32, True),
+            ("serve_prompt", SERVE_REQUESTS, SERVE_PROMPT, SERVE_PROMPT, 16,
+             8, 128, bf16, True)):
+        q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal)
+        tname = str(dtype).removeprefix("torch.")
+        want_abs = None if dtype == f32 else ref.flash_attention_ref(
+            q.float(), k.float(), v.float().abs(), causal=causal)
+        measures, ok = flash_error(got, want, want_abs, tname)
+        fields = dict(kernel="flash_attention", case=case,
+                      shape=[b, sq, skv, hq, hkv, hd], dtype=tname,
+                      causal=causal, **measures)
+        if not ok:
+            emit("kernel", **fields)
+            raise AssertionError(f"flash_attention {case} disagrees with its "
+                                 "plain version")
+        if case == "layer":
+            for fault, lib in fault_libs.items():
+                bad = flash_attention.launch(q, k, v, causal, lib)
+                torch.cuda.synchronize()
+                f_measures, caught = flash_error(bad, want, want_abs,
+                                                 tname)
+                caught = not caught
+                emit("fault", kernel="flash_attention", fault=fault,
+                     case=case, caught=caught, **f_measures)
+                if not caught:
+                    raise AssertionError(f"the tolerance lets the planted "
+                                         f"fault {fault} pass")
+                del bad
+        del want, want_abs
+        if case == "layer":
+            ops, nbytes = attention_work(b, sq, skv, hq, hkv, hd, causal,
+                                         q.element_size())
+            b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
+            k_ms = cuda_ms(lambda: flash_attention.flash_attention(
+                q, k, v, causal=causal), reps=20)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            try:
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
+                lib_ms = cuda_ms(library, reps=20)
+                lib_name = ("torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True, enable_gqa=True)")
+            except TypeError:      # a torch without enable_gqa
+                kr = kt.repeat_interleave(hq // hkv, dim=1)
+                vr = vt.repeat_interleave(hq // hkv, dim=1)
+                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kr, vr, is_causal=causal), reps=20)
+                lib_name = ("torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal=True) on kv repeated beforehand")
+            fields.update(
+                ms=k_ms, plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, causal=causal), reps=3),
+                library_ms=lib_ms, library=lib_name, operations=ops,
+                bytes=nbytes, peak_flops=PEAK_BF16_FLOPS, bound_ms=b_ms,
+                bound_by=b_by, bound_share=b_ms / k_ms,
+                tflops=ops / (k_ms * 1e-3) / 1e12)
+            main["flash_attention"] = fields
+        emit("kernel", **fields)
+    return main
+
+
+def profile_forward(model, params, batch) -> None:
+    """One more forward under ``torch.profiler``: device time of the flash
+    kernel, the GEMMs, rmsnorm and the rest, and the device's idle share
+    of the forward (profiler on)."""
+    gemm = re.compile(r"gemm|cutlass|xmma|nvjet|cublas|sm90_", re.I)
+    run = profiled("prefill_profile", lambda: model.logits(params, batch))
+    if run is None:
+        return
+    wall_s, rows = run
+    split = {"flash_attention": 0.0, "gemm": 0.0, "rmsnorm": 0.0,
+             "other": 0.0}
+    for name, us, _ in rows:
+        key = ("flash_attention" if "flash_fwd" in name else
+               "rmsnorm" if "rmsnorm_kernel" in name else
+               "gemm" if gemm.search(name) else "other")
+        split[key] += us / 1e3
+    busy_ms = sum(split.values())
+    rows.sort(key=lambda x: -x[1])
+    emit("prefill_profile", wall_ms=1e3 * wall_s, device_busy_ms=busy_ms,
+         idle_share=1.0 - busy_ms / (1e3 * wall_s), device_ms=split,
+         share={k: v / busy_ms for k, v in split.items()} if busy_ms else {},
+         top=[dict(name=name[:80], ms=us / 1e3, count=cnt)
+              for name, us, cnt in rows[:12]])
+
+
+def profile_decode(model, params, prompts) -> None:
+    """Two serve steps under ``torch.profiler``, after a few warm steps on
+    a fresh cache: wall and device time per step, device kernels per step
+    and the idle share (profiler on)."""
+    from repro_torch.launch.steps import make_serve_step
+    step = make_serve_step(model)
+    cache = model.decode_init(params, {"tokens": prompts},
+                              SERVE_PROMPT + SERVE_NEW)
+    state = {"tok": prompts[:, 0], "cache": cache}
+    for t in range(4):
+        state["tok"], state["cache"] = step(params, state["cache"],
+                                            prompts[:, t])
+    n = 2
+
+    def steps():
+        for _ in range(n):
+            state["tok"], state["cache"] = step(params, state["cache"],
+                                                state["tok"])
+
+    run = profiled("serve_profile", steps)
+    if run is None:
+        return
+    wall_s, rows = run
+    busy_ms = sum(us for _, us, _ in rows) / 1e3
+    rows.sort(key=lambda x: -x[1])
+    emit("serve_profile", steps=n, wall_ms_per_step=1e3 * wall_s / n,
+         device_busy_ms_per_step=busy_ms / n,
+         idle_share=1.0 - busy_ms / (1e3 * wall_s),
+         device_kernels_per_step=sum(c for _, _, c in rows) / n,
+         top=[dict(name=name[:80], ms=us / 1e3 / n, count=cnt / n)
+              for name, us, cnt in rows[:8]])
+
+
+def serving_paths(dev) -> dict:
+    """Phases 9 and 10: the prefill and serve paths of full-size
+    qwen3-0.6b on the card. Returns the kernels' launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.launch.serve import serve_shape
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.serving_params(params)    # the copy the server keeps
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                     (PREFILL_BATCH, PREFILL_SEQ + 1)),
+                        device=dev)
+    batch = {"tokens": toks}
+    per_fwd = (cfg.n_layers, 2 * cfg.n_layers + 1)   # flash, rmsnorm
+
+    # ---- 9. prefill ----
+    with torch.inference_mode():
+        model.logits(params, batch)                  # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+        times, logits = [], None
+        for _ in range(PREFILL_REPS):
+            del logits                      # one logits tensor at a time
+            t0 = time.perf_counter()
+            logits = model.logits(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launched = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        ok = (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ,
+                                      cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()))
+        emit("prefill_path", arch=cfg.name, n_layers=cfg.n_layers,
+             n_params=n_params, param_bytes=param_bytes, init_s=init_s,
+             batch=PREFILL_BATCH, seq=PREFILL_SEQ, dtype=cfg.dtype,
+             s_per_forward=times, mean_s=sum(times) / len(times),
+             tokens_per_s=PREFILL_BATCH * PREFILL_SEQ / min(times),
+             launches_flash=launched[0], launches_rmsnorm=launched[1],
+             launches_expected=[PREFILL_REPS * n for n in per_fwd],
+             max_memory_allocated=peak,
+             logits_bytes=logits.numel() * logits.element_size(),
+             logits_std=float(logits[0, :64].float().std()), finite=ok)
+        if launched != tuple(PREFILL_REPS * n for n in per_fwd):
+            raise AssertionError(f"prefill launches {launched}, expected "
+                                 f"{PREFILL_REPS} x {per_fwd}")
+        if not ok:
+            raise AssertionError("prefill logits are not finite or of the "
+                                 "wrong shape")
+        del logits
+        profile_forward(model, params, batch)
+    prefill_launches = launched
+    del batch, toks
+
+    # ---- 10. serve: prefill the prompts, feed them, decode greedily ----
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                        (SERVE_REQUESTS, SERVE_PROMPT)),
+                           dtype=torch.int32, device=dev)
+    shape = ShapeSpec("serve_smoke", seq_len=SERVE_PROMPT + SERVE_NEW,
+                      global_batch=SERVE_REQUESTS, kind="decode")
+    flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pad = torch.zeros(SERVE_REQUESTS, 1, dtype=torch.int32, device=dev)
+        prefill = model.logits(params, {"tokens": torch.cat([prompts, pad],
+                                                            1)})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    at_prefill = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+    res = serve_shape(cfg, shape, SERVE_NEW, device=dev, params=params,
+                      prompts=prompts, keep_prompt_logits=True)
+    steps = res.prompt_steps + res.decode_steps
+    decode = (flash_attention.LAUNCHES - at_prefill[0],
+              rmsnorm.LAUNCHES - at_prefill[1])
+    pre, dec = prefill.float(), res.prompt_logits.float()
+    gap = (dec - pre).abs()
+    within = bool((gap <= SERVE_GAP_ATOL + SERVE_GAP_RTOL * pre.abs()).all())
+    first = int((res.tokens[:, 0] == pre[:, -1].argmax(-1)).sum())
+    emit("serve_path", arch=cfg.name, requests=SERVE_REQUESTS,
+         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, cache_len=shape.seq_len,
+         prefill_s=prefill_s, prompt_steps=res.prompt_steps,
+         prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+         decode_steps=res.decode_steps,
+         decode_ms_per_step=res.ms_per_decode_step,
+         decode_tokens_per_s=SERVE_REQUESTS / (res.ms_per_decode_step / 1e3),
+         tokens_per_s=res.tokens_per_s,
+         launches_prefill=list(at_prefill),
+         launches_decode_flash=decode[0],
+         rmsnorm_per_step=decode[1] / steps,
+         max_gap=float(gap.max()), mean_gap=float(gap.mean()),
+         max_abs_prefill_logit=float(pre.abs().max()),
+         gap_bound=[SERVE_GAP_ATOL, SERVE_GAP_RTOL], gap_within=within,
+         first_token_equal=first, tokens=res.tokens[:2, :8].tolist())
+    if at_prefill != per_fwd or decode != (0, per_fwd[1] * steps):
+        raise AssertionError(f"serve launches: prefill {at_prefill}, decode "
+                             f"{decode}; expected {per_fwd} and (0, "
+                             f"{per_fwd[1]} x {steps})")
+    if not (within and torch.isfinite(dec).all()
+            and tuple(res.tokens.shape) == (SERVE_REQUESTS, SERVE_NEW)):
+        raise AssertionError("decode logits leave the bound around the "
+                             "prefill logits")
+    profile_decode(model, params, prompts)
+    return {"flash_attention": prefill_launches[0] + at_prefill[0]
+            + decode[0],
+            "rmsnorm": prefill_launches[1] + at_prefill[1] + decode[1]}
+
+
+def serve_card_vs_cpu(dev) -> None:
+    """Phase 11: reduced qwen3-0.6b in float32, the same params on the card
+    (kernels) and the CPU (plain versions)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_map
+
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    card_params = tree_map(lambda p: p.to(dev), cpu_params)
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 33)))
+    out = {}
+    for where, params in (("card", card_params), ("cpu", cpu_params)):
+        on = next(iter(params["embed"].values())).device
+        with torch.inference_mode():
+            logits = model.logits(params, {"tokens": toks.to(on)})
+        res = serve(model, params, toks[:, :8].to(on), 8,
+                    keep_prompt_logits=True)
+        out[where] = (logits.cpu(), res.prompt_logits.cpu(), res.tokens.cpu())
+    (lc, pc, tc), (lh, ph, th) = out["card"], out["cpu"]
+    err_fwd = float((lc - lh).abs().max())
+    err_dec = float((pc - ph).abs().max())
+    close = all(torch.allclose(a, b, atol=CARD_VS_CPU_TOL,
+                               rtol=CARD_VS_CPU_TOL)
+                for a, b in ((lc, lh), (pc, ph)))
+    emit("serve_card_vs_cpu", arch=cfg.name + " (reduced)",
+         dtype=cfg.dtype, tolerance=CARD_VS_CPU_TOL,
+         max_abs_err_logits=err_fwd, max_abs_err_decode=err_dec,
+         tokens_card=tc.tolist(), tokens_cpu=th.tolist(),
+         same_tokens=bool(torch.equal(tc, th)))
+    if not (close and torch.equal(tc, th)):
+        raise AssertionError("card and CPU serving disagree")
 
 
 def main() -> int:
@@ -288,11 +788,19 @@ def main() -> int:
     # ---- 2. build the main paths' kernels and the variant, all at once ----
     variants = {"golden_section": ("golden_section", ()),
                 "golden_section_cbrtf": ("golden_section", ("GS_CBRT_F32",)),
-                "hier_aggregate": ("hier_aggregate", ())}
+                "hier_aggregate": ("hier_aggregate", ()),
+                "rmsnorm": ("rmsnorm", ()),
+                "flash_attention": ("flash_attention", ())}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(variants)) as pool:
+    # the planted faults of phase 8 build beside them, into a directory
+    # that goes once they are loaded
+    with tempfile.TemporaryDirectory() as fault_dir, ThreadPoolExecutor(
+            len(variants) + len(FLASH_FAULTS)) as pool:
+        faults = {f: pool.submit(build_flash_fault, fault_dir, f)
+                  for f in FLASH_FAULTS}
         built = dict(zip(variants, pool.map(
             lambda job: build.load(*job), variants.values())))
+        fault_libs = {f: job.result() for f, job in faults.items()}
     build_s = time.perf_counter() - t0
     for kname, b in built.items():
         emit("build", kernel=kname, seconds=build_s, nvcc_seconds=b.seconds,
@@ -606,7 +1114,13 @@ def main() -> int:
     if not (params_close and acc_gap <= one_sample + 1e-9):
         raise AssertionError("card and CPU training disagree on (30, 5, 0)")
 
+    # ---- 8-11. serving: kernels, prefill and serve paths, card vs CPU ----
+    serving = serving_kernels(dev, fault_libs)
+    serve_launches = serving_paths(dev)
+    serve_card_vs_cpu(dev)
+
     cloud = agg["cloud"]
+    rms, fla = serving["rmsnorm"], serving["flash_attention"]
     print(json.dumps({"kernels": [
         dict(name="golden_section", route="cuda",
              source="src/repro_torch/kernels/csrc/golden_section.cu",
@@ -619,7 +1133,23 @@ def main() -> int:
              launches=train_launches, max_abs_err=cloud["max_abs_err"],
              ms=cloud["ms"], plain_ms=cloud["plain_ms"],
              bound_ms=cloud["bound_ms"], bound_by=cloud["bound_by"],
-             library_ms=cloud["library_ms"], shape=cloud["shape"])]}),
+             library_ms=cloud["library_ms"], shape=cloud["shape"]),
+        dict(name="rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm.py:39",
+             launches=serve_launches["rmsnorm"],
+             max_abs_err=rms["max_abs_err"], ms=rms["ms"],
+             plain_ms=rms["plain_ms"], bound_ms=rms["bound_ms"],
+             bound_by=rms["bound_by"], library_ms=rms["library_ms"],
+             shape=rms["shape"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:103",
+             launches=serve_launches["flash_attention"],
+             max_abs_err=fla["max_abs_err"], ms=fla["ms"],
+             plain_ms=fla["plain_ms"], bound_ms=fla["bound_ms"],
+             bound_by=fla["bound_by"], library_ms=fla["library_ms"],
+             shape=fla["shape"])]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,62 @@
-"""Configurations of the port. Only the paper's own FL task so far; the LM
-configurations come with the model zoo."""
+"""Configurations of the port: the paper's own FL task and the model zoo's
+architecture registry (port of ``repro.configs``).
+
+``get_config(name)`` accepts either the registry id (``qwen3-0.6b``) or the
+module name (``qwen3_0p6b``). The dense configurations are here as data;
+the other families' modules come with their layers, and asking for one of
+them raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import importlib
 
 from repro_torch.configs.paper_mnist import CONFIG, PaperTaskConfig
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import NOT_PORTED_FAMILIES
 
-__all__ = ["CONFIG", "PaperTaskConfig"]
+_MODULES = {
+    "whisper-large-v3": "whisper_large_v3",
+    "olmo-1b": "olmo_1b",
+    "qwen2-7b": "qwen2_7b",
+    "qwen3-0.6b": "qwen3_0p6b",
+    "qwen3-32b": "qwen3_32b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "internvl2-1b": "internvl2_1b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "zamba2-2.7b": "zamba2_2p7b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+# architectures whose family the port does not run yet -> that family
+NOT_PORTED = {
+    "whisper-large-v3": "encdec",
+    "kimi-k2-1t-a32b": "moe",
+    "deepseek-v2-lite-16b": "mla",
+    "internvl2-1b": "vlm",
+    "mamba2-1.3b": "ssm",
+    "zamba2-2.7b": "hybrid",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    module_name = _MODULES.get(name, name)
+    arch = next((a for a, m in _MODULES.items() if m == module_name), name)
+    if arch in NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet: ROADMAP "
+            f"{NOT_PORTED_FAMILIES[NOT_PORTED[arch]]}")
+    mod = importlib.import_module(f"repro_torch.configs.{module_name}")
+    return mod.CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    """Every architecture the port runs, by registry id."""
+    return {arch: get_config(arch) for arch in ARCH_IDS
+            if arch not in NOT_PORTED}
+
+
+__all__ = ["ARCH_IDS", "CONFIG", "NOT_PORTED", "PaperTaskConfig",
+           "all_configs", "get_config"]

@@ -69,3 +69,22 @@ def fl_params_from_numpy(params: Mapping, n_clients: int,
                                device=dev).expand(n_clients,
                                                   *np.shape(value)).clone()
             for name, value in params.items()}
+
+
+def lm_params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
+    """LM params from the JAX package's ``lm_init`` params as nested
+    mappings of numpy arrays, leaf for leaf (``blocks`` stacked along the
+    layer axis). ``dtype=None`` keeps every leaf float32, as JAX inits
+    them; a ``dtype`` (bfloat16 for serving) gives the serving copy of
+    :func:`repro_torch.models.transformer.cast_params`: matrices in
+    ``dtype``, norm scales and biases float32, the same numbers."""
+    from repro_torch.models.transformer import cast_params
+    dev = resolve_device(device)
+
+    def build(node):
+        if isinstance(node, Mapping):
+            return {k: build(v) for k, v in node.items()}
+        return torch.tensor(np.asarray(node, np.float32), device=dev)
+
+    params = build(tree)
+    return params if dtype is None else cast_params(params, dtype)

@@ -10,11 +10,28 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.golden_section import golden_section_solve
 from repro_torch.kernels.hier_aggregate import hier_aggregate
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.utils import tree_leaves, tree_unflatten
 
-__all__ = ["golden_section_solve", "hier_aggregate", "hier_aggregate_tree"]
+__all__ = ["flash_attention", "golden_section_solve", "hier_aggregate",
+           "hier_aggregate_tree", "rmsnorm"]
+
+
+def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
+                    block_kv: int = 512):
+    """Flash attention forward, with the JAX package's signature. Forward
+    only: the backward (a reference-recompute ``torch.autograd.Function``,
+    as the JAX package's custom VJP) comes with the training slice, so a
+    call that would need a gradient raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward yet: ROADMAP queue 1 item "
+            "10(g), training")
+    return _flash.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                  block_kv=block_kv)
 
 
 def hier_aggregate_tree(trees: list, weights):

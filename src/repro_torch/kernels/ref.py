@@ -1,5 +1,11 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
+``rmsnorm_ref`` is the plain version of ``csrc/rmsnorm.cu``, RMSNorm with
+float32 statistics, its sum of squares taken in that kernel's order.
+``flash_attention_ref`` is the plain version of ``csrc/flash_attention.cu``:
+attention computed whole, in float32, with the Pallas kernel's top-left
+causal mask.
+
 ``hier_aggregate_ref`` is the plain version of ``csrc/hier_aggregate.cu``,
 the eq. (8)/(14) weighted mean, summed in that kernel's order.
 
@@ -203,3 +209,60 @@ def hier_aggregate_ref(updates: torch.Tensor,
     for i in range(c):
         acc = acc + w[i] * u[i]
     return acc.to(updates.dtype)
+
+
+# Warps (rows) per block of csrc/rmsnorm.cu; one warp normalises one row.
+RMSNORM_WARPS = 4
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
+                vec: int = 1) -> torch.Tensor:
+    """RMSNorm over the last axis: ``x * rsqrt(mean(x^2) + eps) * scale``
+    with float32 statistics, returned in ``x``'s dtype (the function of
+    ``repro.kernels.ref.rmsnorm_ref``). The sum of squares follows the
+    kernel's order for vector width ``vec``: lane l of the row's warp adds
+    the squares of the vectors l, l + 32, ... element by element, then the
+    halving tree of the 32 lane sums; the mean is a true division and the
+    reciprocal square root ``1 / sqrt``. With ``-fmad=false`` the kernel
+    agrees bit for bit."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).to(torch.float32)
+    nv = d // vec
+    k = -(-nv // 32)
+    sq = torch.nn.functional.pad((xf * xf).view(-1, nv, vec),
+                                 (0, 0, 0, 32 * k - nv))
+    sq = sq.view(-1, k, 32, vec)
+    acc = torch.zeros_like(sq[:, 0, :, 0])
+    for i in range(k):
+        for j in range(vec):
+            acc = acc + sq[:, i, :, j]
+    width = 32
+    while width > 1:
+        width //= 2
+        acc = acc[:, :width] + acc[:, width:]
+    # divide by a tensor: PyTorch's CUDA division by a scalar multiplies by
+    # its reciprocal, which rounds otherwise than the kernel's division
+    inv = torch.reciprocal(torch.sqrt(acc / torch.full_like(acc, d) + eps))
+    y = xf * inv * scale.to(torch.float32)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """Attention computed whole. q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd)
+    with Hq % Hkv == 0 (q head h reads kv head h // (Hq // Hkv)); scores
+    scaled by hd ** -0.5; float32 throughout, output in q's dtype. The causal mask keeps kv_pos <= q_pos,
+    aligned top-left as the Pallas kernel aligns it; the JAX reference
+    aligns it bottom-right (``tril(k=skv - sq)``), which is the same only
+    when Sq == Skv."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qr = q.reshape(b, sq, hkv, g, hd).to(torch.float32) * hd ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.to(torch.float32))
+    if causal:
+        mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)

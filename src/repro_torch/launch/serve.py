@@ -1,0 +1,154 @@
+"""Serving launcher: batched greedy decode over the KV cache on one device.
+Port of ``repro.launch.serve`` (one card, no mesh; multi-GPU serving is
+ROADMAP queue 1 item 10(h)).
+
+    python -m repro_torch.launch.serve --arch qwen3-0.6b --new-tokens 32 \\
+        --reduced --device cpu
+
+Without ``--device`` it runs on the card. Params are a random
+initialisation from a seed; no weights are downloaded.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models import SHAPES, Model, ShapeSpec, build_model
+from repro_torch.models.transformer import activation_dtype
+
+
+@dataclass
+class ServeResult:
+    tokens: torch.Tensor        # (B, new_tokens) int32, the greedy tokens
+    prompt_logits: torch.Tensor | None   # (B, P, V) decode logits per prompt
+    prompt_s: float             # seconds feeding the prompts, step by step
+    decode_s: float             # seconds of the greedy steps after them
+    prompt_steps: int
+    decode_steps: int
+
+    @property
+    def tokens_per_s(self) -> float:
+        """Generated tokens over the seconds of every step."""
+        return self.tokens.numel() / (self.prompt_s + self.decode_s)
+
+    @property
+    def ms_per_decode_step(self) -> float:
+        return 1e3 * self.decode_s / max(self.decode_steps, 1)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def serve(model: Model, params, prompts: torch.Tensor, new_tokens: int, *,
+          max_len: int | None = None,
+          keep_prompt_logits: bool = False) -> ServeResult:
+    """Answer a batch of requests: feed each prompt (B, P) through the
+    decode step token by token (teacher forced; the last prompt step's
+    argmax is the first new token), then decode greedily with the serve
+    step until ``new_tokens`` tokens per request exist. The cache holds
+    ``max_len`` positions (default P + new_tokens)."""
+    b, p = prompts.shape
+    if p < 1 or new_tokens < 1:
+        raise ValueError("need at least one prompt token and one new token")
+    steps = p + new_tokens - 1
+    max_len = max_len or steps + 1
+    if max_len < steps:
+        raise ValueError(f"a cache of {max_len} positions cannot hold "
+                         f"{steps} steps")
+    device = prompts.device
+    cache = model.decode_init(params, {"tokens": prompts}, max_len,
+                              dtype=activation_dtype(model.cfg))
+    step = make_serve_step(model)
+    kept = []
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in range(p):
+        logits, cache = model.decode_step(params, cache, prompts[:, t])
+        if keep_prompt_logits:
+            kept.append(logits)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    _sync(device)
+    t1 = time.perf_counter()
+    out = [tok]
+    for _ in range(new_tokens - 1):
+        tok, cache = step(params, cache, tok)
+        out.append(tok)
+    _sync(device)
+    t2 = time.perf_counter()
+    return ServeResult(
+        tokens=torch.stack(out, dim=1),
+        prompt_logits=torch.stack(kept, dim=1) if keep_prompt_logits
+        else None,
+        prompt_s=t1 - t0, decode_s=t2 - t1, prompt_steps=p,
+        decode_steps=new_tokens - 1)
+
+
+def cache_bytes(cfg, batch: int, max_len: int, dtype: torch.dtype) -> int:
+    """Device bytes of the decode cache (k and v of every layer)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return (2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads
+            * cfg.resolved_head_dim * item)
+
+
+def serve_shape(cfg, shape: ShapeSpec, new_tokens: int, *, device=None,
+                params=None, prompts=None,
+                keep_prompt_logits: bool = False) -> ServeResult:
+    """The launcher's body: serve ``shape.global_batch`` requests with a
+    cache of ``shape.seq_len`` positions. ``params`` default to a random
+    init from seed 0 kept as the serving copy; ``prompts`` default to one
+    token 0 per request, as the JAX launcher starts."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    dtype = activation_dtype(cfg)
+    need = cache_bytes(cfg, shape.global_batch, shape.seq_len, dtype)
+    if dev.type == "cuda" and need > torch.cuda.mem_get_info(dev)[0]:
+        raise ValueError(
+            f"{cfg.name} at {shape.name}: the decode cache needs "
+            f"{need / 1e9:.1f} GB, more than the card has free; use "
+            "--reduced or a smaller shape")
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = model.serving_params(model.init(gen))
+    if prompts is None:
+        prompts = torch.zeros(shape.global_batch, 1, dtype=torch.int32,
+                              device=dev)
+    return serve(model, params, prompts, new_tokens, max_len=shape.seq_len,
+                 keep_prompt_logits=keep_prompt_logits)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(dtype="float32")
+    shape = SHAPES[args.shape]
+    if args.reduced:
+        shape = ShapeSpec(shape.name, seq_len=128, global_batch=2,
+                          kind="decode")
+    res = serve_shape(cfg, shape, args.new_tokens, device=args.device)
+    dt = res.prompt_s + res.decode_s
+    print(f"{args.arch}: {res.tokens.numel()} tokens in {dt:.2f}s "
+          f"-> {res.tokens_per_s:.1f} tok/s on {res.tokens.device}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,141 @@
+"""Shared neural-net building blocks (plain functions on tensors, parameter
+dicts). Port of ``repro.models.layers``.
+
+Every block is a pair of plain functions: ``<block>_init(gen, ...) ->
+params`` and ``<block>(params, x, ...) -> y``. Init draws from an explicit
+``torch.Generator`` on the generator's device; it does not reproduce
+``jax.random``, so parity with the JAX package carries its params across
+(:func:`repro_torch.convert.lm_params_from_numpy`). Per-layer parameters
+are stacked along a leading layer axis by the model builders.
+
+RMSNorm with a scale goes through the ``rmsnorm`` kernel
+(:func:`repro_torch.kernels.ops.rmsnorm`), which computes exactly
+``apply_norm``'s function for that case; LayerNorm, the scale-less norm
+and the per-head ``rms_norm_heads`` are other functions and stay plain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+def _randn(gen: torch.Generator, *shape: int) -> torch.Tensor:
+    return torch.randn(*shape, generator=gen, device=gen.device)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
+               scale: float | None = None, bias: bool = False):
+    scale = scale if scale is not None else d_in ** -0.5
+    w = _randn(gen, d_in, d_out) * scale
+    if bias:
+        return {"w": w, "b": torch.zeros(d_out, device=gen.device)}
+    return {"w": w}
+
+
+def dense(params, x):
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int):
+    return {"table": _randn(gen, vocab, d) * 0.02}
+
+
+def embed(params, ids):
+    return params["table"][ids]
+
+
+def unembed(params, x):
+    """Tied read-out: logits = x @ table^T in the activation dtype."""
+    return x @ params["table"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+def norm_init(d: int, *, kind: str = "rmsnorm", parametric: bool = True,
+              device=None):
+    p = {}
+    if parametric:
+        p["scale"] = torch.ones(d, device=device)
+        if kind == "layernorm":
+            p["bias"] = torch.zeros(d, device=device)
+    return p
+
+
+def apply_norm(params, x, *, kind: str = "rmsnorm", eps: float = 1e-6):
+    if kind == "rmsnorm" and set(params) == {"scale"}:
+        return ops.rmsnorm(x, params["scale"], eps=eps)
+    xf = x.to(torch.float32)
+    if kind == "layernorm":
+        xf = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if "scale" in params:
+        y = y * params["scale"].to(torch.float32)
+    if "bias" in params:
+        y = y + params["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def rms_norm_heads(x, scale, eps: float = 1e-6):
+    """Per-head qk-norm (qwen3): x (..., H, hd), scale (hd,). Statistics in
+    float32; the normalized product in x.dtype (it rounds at other places
+    than the rmsnorm kernel, so it stays plain)."""
+    var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, *,
+             kind: str = "swiglu"):
+    if kind == "swiglu":
+        return {"wi": dense_init(gen, d, d_ff),
+                "wg": dense_init(gen, d, d_ff),
+                "wo": dense_init(gen, d_ff, d)}
+    return {"wi": dense_init(gen, d, d_ff),
+            "wo": dense_init(gen, d_ff, d)}
+
+
+def mlp(params, x, *, kind: str = "swiglu"):
+    if kind == "swiglu":
+        h = torch.nn.functional.silu(dense(params["wg"], x)) \
+            * dense(params["wi"], x)
+    else:
+        h = torch.nn.functional.gelu(dense(params["wi"], x),
+                                     approximate="tanh")
+    return dense(params["wo"], h)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    """``1 / theta^(2i / hd)`` in float32, computed in float64 and rounded
+    once, so the CPU and the card hold the same table."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64,
+                        device=device) / head_dim
+    return (1.0 / theta ** exps).to(torch.float32)
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). The
+    rotation tables are computed in float32 and cast to x.dtype."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)       # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs    # (..., S, ·)
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)      # (..., S, 1, ·)
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

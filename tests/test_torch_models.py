@@ -1,0 +1,441 @@
+"""Port parity: the dense-LM serving path (``repro_torch.models``,
+``repro_torch.launch``) against the JAX package's model zoo.
+
+Inputs come from numpy seeds and the JAX package's ``lm_init`` params,
+carried across leaf for leaf with ``convert.lm_params_from_numpy``; both
+sides run on the CPU in float32 (reduced configs), where the port's kernel
+wrappers take their plain versions. Tolerances, stated per test:
+
+- layers: 1e-5 in float32 (the same arithmetic in another op order);
+  bfloat16 norms 2e-2 (the output's rounding);
+- attention and full forwards: 1e-5 and 1e-4 (two and more matrix products
+  in another summation order);
+- decode against the port's own forward: atol/rtol 2e-3, the bound of
+  ``tests/test_models.py``'s decode-vs-forward test.
+
+Greedy tokens must be identical. A machine with a card may have no JAX:
+there the oracle tests skip, e.g. ``PYTHONPATH=src python -m pytest
+--noconftest -m gpu tests/test_torch_models.py`` runs the ``gpu`` test
+alone.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert
+from repro_torch.configs import ARCH_IDS as T_ARCH_IDS
+from repro_torch.configs import NOT_PORTED, all_configs
+from repro_torch.configs import get_config as tget
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import rmsnorm as trms
+from repro_torch.launch import serve as tserve
+from repro_torch.launch.steps import make_serve_step
+from repro_torch.models import SHAPES as T_SHAPES
+from repro_torch.models import attention as tatt
+from repro_torch.models import build_model as tbuild
+from repro_torch.models import layers as tl
+from repro_torch.models import shape_applicable as t_applicable
+from repro_torch.models import transformer as ttr
+
+try:                     # the oracle; absent on a machine with only torch
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    from repro.configs import get_config as jget
+    from repro.models import SHAPES as J_SHAPES
+    from repro.models import attention as jatt
+    from repro.models import build_model as jbuild
+    from repro.models import layers as jl
+    from repro.models import shape_applicable as j_applicable
+except ImportError:
+    jax = None
+
+torch.set_num_threads(2)
+
+DENSE = ["qwen3-0.6b", "olmo-1b", "qwen2-7b"]
+
+
+def need_jax():
+    if jax is None:
+        pytest.skip("needs JAX, the oracle")
+
+
+def rng(seed):
+    return np.random.default_rng(seed)
+
+
+def to_numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def jax_model(arch, **overrides):
+    cfg = jget(arch).reduced(**overrides)
+    model = jbuild(cfg)
+    return cfg, model, model.init(jax.random.key(0))
+
+
+def port_cfg(arch, **overrides):
+    return tget(arch).reduced(**overrides)
+
+
+def tokens(cfg, b, s, seed=0):
+    return rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# configs and shapes
+# ---------------------------------------------------------------------------
+
+# the JAX config's fields that steer its training and kernels; the port
+# reads none of them and has none of them
+JAX_ONLY_FIELDS = {"remat", "scan_layers", "attn_vjp", "attn_block_q",
+                   "attn_block_kv", "use_flash_kernel"}
+
+
+def same_fields(cfg, want):
+    """The port's config equals the JAX config on every field the port
+    has, and lacks only :data:`JAX_ONLY_FIELDS`."""
+    got = dataclasses.asdict(cfg)
+    ref = dataclasses.asdict(want)
+    assert set(ref) - set(got) == JAX_ONLY_FIELDS
+    assert got == {k: v for k, v in ref.items() if k in got}
+
+
+def test_configs_and_shapes_match_jax():
+    need_jax()
+    assert T_ARCH_IDS == J_ARCH_IDS
+    for arch, cfg in all_configs().items():
+        want = jget(arch)
+        same_fields(cfg, want)
+        same_fields(cfg.reduced(), want.reduced())
+        assert cfg.param_count() == want.param_count()
+    assert {k: dataclasses.asdict(v) for k, v in T_SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in J_SHAPES.items()}
+    for name, shape in T_SHAPES.items():
+        for arch in all_configs():
+            assert t_applicable(tget(arch), shape) == j_applicable(
+                jget(arch), J_SHAPES[name])
+
+
+def test_dense_configs_are_ported_and_the_rest_raise():
+    assert sorted(all_configs()) == sorted(
+        ["olmo-1b", "qwen2-7b", "qwen3-0.6b", "qwen3-32b"])
+    assert tget("qwen3_0p6b") == tget("qwen3-0.6b")
+    for arch in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tget(arch)
+    cfg = tget("qwen3-0.6b").reduced()
+    for family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbuild(dataclasses.replace(cfg, family=family))
+    with pytest.raises(NotImplementedError, match="10\\(g\\)"):
+        tbuild(cfg).loss({}, {})
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,parametric,dtype", [
+    ("rmsnorm", True, "float32"), ("rmsnorm", True, "bfloat16"),
+    ("rmsnorm", False, "float32"), ("layernorm", True, "float32"),
+    ("layernorm", False, "float32")])
+def test_apply_norm_matches_jax(kind, parametric, dtype):
+    need_jax()
+    r = rng(1)
+    x = r.normal(size=(3, 5, 64)).astype(np.float32)
+    params = {}
+    if parametric:
+        params["scale"] = (1 + 0.1 * r.normal(size=64)).astype(np.float32)
+        if kind == "layernorm":
+            params["bias"] = (0.1 * r.normal(size=64)).astype(np.float32)
+    tx = torch.tensor(x).to(getattr(torch, dtype))
+    got = tl.apply_norm({k: torch.tensor(v) for k, v in params.items()}, tx,
+                        kind=kind)
+    want = jl.apply_norm({k: jnp.asarray(v) for k, v in params.items()},
+                         jnp.asarray(x).astype(getattr(jnp, dtype)),
+                         kind=kind)
+    assert got.dtype == tx.dtype
+    close(got.float(), want, 1e-5 if dtype == "float32" else 2e-2)
+
+
+def test_apply_norm_routes_scaled_rmsnorm_to_the_kernel(monkeypatch):
+    calls = []
+    real = tl.ops.rmsnorm
+
+    def spy(x, scale, **kw):
+        calls.append(x.shape)
+        return real(x, scale, **kw)
+
+    monkeypatch.setattr(tl.ops, "rmsnorm", spy)
+    x = torch.ones(2, 4, 8)
+    tl.apply_norm({"scale": torch.ones(8)}, x)
+    tl.apply_norm({}, x)                                    # olmo: plain
+    tl.apply_norm({"scale": torch.ones(8), "bias": torch.zeros(8)}, x,
+                  kind="layernorm")
+    assert calls == [(2, 4, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_heads_matches_jax(dtype):
+    need_jax()
+    r = rng(2)
+    x = r.normal(size=(2, 7, 4, 16)).astype(np.float32)
+    scale = (1 + 0.1 * r.normal(size=16)).astype(np.float32)
+    got = tl.rms_norm_heads(torch.tensor(x).to(getattr(torch, dtype)),
+                            torch.tensor(scale))
+    want = jl.rms_norm_heads(jnp.asarray(x).astype(getattr(jnp, dtype)),
+                             jnp.asarray(scale))
+    close(got.float(), want, 1e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.parametrize("hd,theta", [(16, 1e4), (128, 1e6)])
+def test_apply_rope_matches_jax(hd, theta):
+    need_jax()
+    x = rng(3).normal(size=(2, 40, 3, hd)).astype(np.float32)
+    for pos in (np.arange(40)[None, :], rng(4).integers(0, 300, (2, 40))):
+        got = tl.apply_rope(torch.tensor(x), torch.tensor(pos), theta)
+        want = jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+        close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "gelu"])
+def test_mlp_matches_jax(kind):
+    need_jax()
+    params = to_numpy(jl.mlp_init(jax.random.key(1), 32, 96, kind=kind))
+    x = rng(5).normal(size=(2, 6, 32)).astype(np.float32)
+    got = tl.mlp(convert.lm_params_from_numpy(params, "cpu"),
+                 torch.tensor(x), kind=kind)
+    want = jl.mlp(params, jnp.asarray(x), kind=kind)
+    close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seq", [32, 40])
+@pytest.mark.parametrize("arch", DENSE)
+def test_attention_matches_jax_blocked(arch, seq):
+    """The port's ``attention`` (the flash kernel's plain version on the
+    CPU) against JAX's blocked attention (its ``use_flash_kernel=False``
+    path): GQA with qk-norm (qwen3), plain MHA (olmo), QKV bias (qwen2),
+    with and without a ragged last tile of the JAX blocks."""
+    need_jax()
+    jcfg = jget(arch).reduced()
+    assert not jcfg.use_flash_kernel
+    params = to_numpy(jatt.attention_init(jax.random.key(2), jcfg))
+    x = rng(6).normal(size=(2, seq, jcfg.d_model)).astype(np.float32)
+    want = jatt.attention(params, jcfg, jnp.asarray(x))
+    tcfg = port_cfg(arch)
+    before = tfa.LAUNCHES
+    got = tatt.attention(convert.lm_params_from_numpy(params, "cpu"), tcfg,
+                         torch.tensor(x))
+    assert tfa.LAUNCHES == before
+    close(got, want, 1e-5)
+
+
+def test_cached_attention_matches_jax():
+    need_jax()
+    r = rng(10)
+    q = r.normal(size=(3, 1, 4, 16)).astype(np.float32)
+    kc, vc = (r.normal(size=(3, 12, 2, 16)).astype(np.float32)
+              for _ in range(2))
+    length = np.array([1, 7, 12], np.int32)
+    got = tatt.cached_attention(*(torch.tensor(a) for a in (q, kc, vc,
+                                                             length)))
+    want = jatt.cached_attention(*(jnp.asarray(a) for a in (q, kc, vc,
+                                                             length)))
+    close(got, want, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+def test_lm_params_carry_over_leaf_for_leaf():
+    need_jax()
+    cfg, _, params = jax_model("qwen2-7b")
+    tree = to_numpy(params)
+    got = convert.lm_params_from_numpy(tree, "cpu")
+    flat_j = jax.tree_util.tree_flatten_with_path(tree)[0]
+    for path, leaf in flat_j:
+        node = got
+        for p in path:
+            node = node[p.key]
+        assert node.dtype == torch.float32
+        np.testing.assert_array_equal(node.numpy(), leaf)
+    serving = convert.lm_params_from_numpy(tree, "cpu", dtype=torch.bfloat16)
+    assert serving["blocks"]["attn"]["wq"]["w"].dtype == torch.bfloat16
+    assert serving["blocks"]["attn"]["wq"]["b"].dtype == torch.float32
+    assert serving["embed"]["table"].dtype == torch.bfloat16
+    assert serving["final_norm"]["scale"].dtype == torch.float32
+    assert serving["unembed"]["w"].dtype == torch.bfloat16
+
+
+def test_lm_init_has_jax_structure():
+    need_jax()
+    for arch in DENSE:
+        _, _, jp = jax_model(arch)
+        tp = tbuild(port_cfg(arch)).init(torch.Generator().manual_seed(0))
+        shapes_j = jax.tree.map(lambda a: tuple(a.shape), jp)
+        shapes_t = ttr.tree_map(lambda a: tuple(a.shape), tp)
+        assert shapes_t == shapes_j, arch
+        std = float(tp["embed"]["table"].std())
+        assert 0.018 < std < 0.022
+
+
+@pytest.mark.parametrize("seq", [41, 70])
+@pytest.mark.parametrize("arch", DENSE)
+def test_lm_forward_matches_jax(arch, seq):
+    """Reduced f32 forwards (qwen3: GQA + qk-norm + tied; olmo:
+    non-parametric LayerNorm; qwen2: QKV bias + untied read-out), against
+    the JAX model's blocked attention; 40 and 69 positions (a JAX block
+    of 32 whole or ragged)."""
+    need_jax()
+    cfg, model, params = jax_model(arch)
+    toks = tokens(cfg, 2, seq, seed=1)
+    want = model.logits(params, {"tokens": jnp.asarray(toks)})
+    tmodel = tbuild(port_cfg(arch))
+    got = tmodel.logits(convert.lm_params_from_numpy(to_numpy(params),
+                                                     "cpu"),
+                        {"tokens": torch.tensor(toks)})
+    assert got.shape == (2, seq - 1, cfg.vocab_size)
+    close(got, want, 1e-4)
+
+
+def test_decode_steps_and_greedy_tokens_match_jax():
+    """8 decode steps of reduced qwen3-0.6b (teacher forced) against JAX's,
+    then the serve step's greedy tokens against JAX's decode + argmax (what
+    its serve step computes)."""
+    need_jax()
+    cfg, model, params = jax_model("qwen3-0.6b")
+    tparams = convert.lm_params_from_numpy(to_numpy(params), "cpu")
+    tmodel = tbuild(port_cfg("qwen3-0.6b"))
+    toks = tokens(cfg, 2, 8, seed=2)
+    jcache = model.decode_init(params, {"tokens": jnp.asarray(toks)}, 20,
+                               dtype=jnp.float32)
+    tcache = tmodel.decode_init(tparams, {"tokens": torch.tensor(toks)}, 20,
+                                dtype=torch.float32)
+    for t in range(8):
+        want, jcache = model.decode_step(params, jcache,
+                                         jnp.asarray(toks[:, t]))
+        got, tcache = tmodel.decode_step(tparams, tcache,
+                                         torch.tensor(toks[:, t]))
+        close(got, want, 1e-4)
+    assert tcache["stack"]["length"].tolist() == [[8, 8]] * cfg.n_layers
+    close(tcache["stack"]["k"], jcache["stack"]["k"], 1e-5)
+    close(tcache["stack"]["v"], jcache["stack"]["v"], 1e-5)
+    # greedy: 8 more tokens from both
+    jtok = jnp.argmax(want, axis=-1).astype(jnp.int32)
+    jout = [np.asarray(jtok)]
+    for _ in range(7):
+        logits, jcache = model.decode_step(params, jcache, jtok)
+        jtok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        jout.append(np.asarray(jtok))
+    step = make_serve_step(tmodel)
+    ttok = torch.argmax(got, dim=-1).to(torch.int32)
+    tout = [ttok.numpy()]
+    for _ in range(7):
+        ttok, tcache = step(tparams, tcache, ttok)
+        tout.append(ttok.numpy())
+    np.testing.assert_array_equal(np.stack(tout, 1), np.stack(jout, 1))
+    # the launcher's loop gives the same tokens from the same prompts
+    res = tserve.serve(tmodel, tparams, torch.tensor(toks), 8, max_len=20)
+    np.testing.assert_array_equal(res.tokens.numpy(), np.stack(jout, 1))
+
+
+@pytest.mark.parametrize("prompt", [8, 13])
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_forward_in_port(arch, prompt):
+    """The port's decode logits against its own teacher-forced forward, at
+    the bound of tests/test_models.py (2e-3)."""
+    cfg = port_cfg(arch)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(1))
+    toks = torch.tensor(tokens(cfg, 2, prompt + 1, seed=3))
+    full = model.logits(params, {"tokens": toks})
+    res = tserve.serve(model, params, toks[:, :prompt], 4,
+                       max_len=prompt + 4, keep_prompt_logits=True)
+    torch.testing.assert_close(res.prompt_logits, full, atol=2e-3,
+                               rtol=2e-3)
+    assert res.tokens.shape == (2, 4) and res.tokens.dtype == torch.int32
+    assert torch.equal(res.tokens[:, 0],
+                       torch.argmax(full[:, -1], -1).to(torch.int32))
+
+
+def test_serving_params_give_the_same_numbers():
+    """A bfloat16 model's serving copy (matrices bf16, scales f32) gives
+    bit-identical logits and decode steps to its float32 params."""
+    cfg = port_cfg("qwen2-7b", dtype="bfloat16")
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(2))
+    serving = model.serving_params(params)
+    toks = torch.tensor(tokens(cfg, 2, 7, seed=4))
+    assert torch.equal(model.logits(params, {"tokens": toks}),
+                       model.logits(serving, {"tokens": toks}))
+    a = tserve.serve(model, params, toks, 3, keep_prompt_logits=True)
+    b = tserve.serve(model, serving, toks, 3, keep_prompt_logits=True)
+    assert torch.equal(a.prompt_logits, b.prompt_logits)
+    assert torch.equal(a.tokens, b.tokens)
+
+
+def test_rmsnorm_launch_count_on_the_path_is_zero_on_cpu():
+    """On the CPU every norm takes the plain version: no launch is
+    counted (the card's counts are ``chip_smoke.py``'s)."""
+    cfg = port_cfg("qwen3-0.6b")
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(3))
+    before = (trms.LAUNCHES, tfa.LAUNCHES)
+    model.logits(params, {"tokens": torch.zeros(1, 5, dtype=torch.int64)})
+    assert (trms.LAUNCHES, tfa.LAUNCHES) == before
+
+
+def test_serve_cli_runs_on_cpu(capsys):
+    res = tserve.main(["--reduced", "--device", "cpu", "--new-tokens", "4"])
+    assert res.tokens.shape == (2, 4)
+    assert "tok/s on cpu" in capsys.readouterr().out
+    with pytest.raises(ValueError):
+        tserve.serve(tbuild(port_cfg("qwen3-0.6b")), None,
+                     torch.zeros(1, 4, dtype=torch.int32), 8, max_len=6)
+
+
+def test_cache_bytes_of_decode_32k():
+    """qwen3-0.6b's decode_32k cache (batch 128) is 481 GB in bf16: more
+    than one card holds."""
+    n = tserve.cache_bytes(tget("qwen3-0.6b"), 128, 32_768, torch.bfloat16)
+    assert n == 2 * 28 * 128 * 32_768 * 8 * 128 * 2
+    assert 480e9 < n < 482e9
+
+
+@pytest.mark.gpu
+def test_reduced_model_on_card_matches_cpu():
+    """Reduced qwen3-0.6b in float32 with the kernels on the card against
+    the plain versions on the CPU: logits at 1e-4, identical greedy
+    tokens, and the launch counts of one forward and one decode step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = port_cfg("qwen3-0.6b")
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(4))
+    on_card = ttr.tree_map(lambda p: p.cuda(), params)
+    toks = torch.tensor(tokens(cfg, 2, 33, seed=5))
+    want = model.logits(params, {"tokens": toks})
+    trms.LAUNCHES = tfa.LAUNCHES = 0
+    got = model.logits(on_card, {"tokens": toks.cuda()})
+    assert (tfa.LAUNCHES, trms.LAUNCHES) == (cfg.n_layers,
+                                             2 * cfg.n_layers + 1)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    a = tserve.serve(model, params, toks[:, :8], 8)
+    b = tserve.serve(model, on_card, toks[:, :8].cuda(), 8)
+    assert torch.equal(a.tokens, b.tokens.cpu())
