@@ -11,9 +11,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    limit (also printed raw on a line of its own).
 2. ``build``: builds every kernel of the main paths with ``nvcc`` from the
    checkout's sources (golden_section, its cbrtf variant of phase 3b,
-   hier_aggregate, rmsnorm, flash_attention), and the flash kernel's two
-   planted faults of phase 8 in a temporary directory, all at once; build
-   seconds and the ptxas register/spill report.
+   hier_aggregate, rmsnorm, flash_attention, ssd_scan), and the flash
+   kernel's two planted faults of phase 8 in a temporary directory, all at
+   once; build seconds and the ptxas register/spill report.
 3. ``kernel``: each kernel against its plain PyTorch version on the same
    card tensors, at the main path's shapes and at ragged ones, with the
    stated tolerance; kernel and plain times (CUDA events), the operation
@@ -65,6 +65,35 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 11. ``serve_card_vs_cpu``: reduced qwen3-0.6b in float32, the same params on
    the card (kernels) and the CPU (plain versions): logits and 8 decode
    steps agree, greedy tokens identical.
+12. ``kernel`` (ssd_state_scan, flash_attention at head dim 80): the scan
+   kernel against its plain version, bit for bit, at mamba2-1.3b's and
+   zamba2-2.7b's prefill shapes (NC=16 chunks of 4 x 4096 tokens), a long
+   sequence (NC=128), a ragged shape and bfloat16 states, with kernel and
+   plain times, bytes, bound and share at mamba2's (no PyTorch call
+   computes it); the flash kernel at zamba2's shared attention layer (B=4,
+   S=4096, 32 heads of 80, bf16, causal) under phase 8's bf16 tolerance,
+   with its time, bound and SDPA's time.
+13. ``ssm_prefill_path``: ``Model.logits`` of full-size mamba2-1.3b (48
+   layers) and zamba2-2.7b (54 layers, the shared block after every 6),
+   random weights from seed 0, bfloat16 serving copy, on 4 x 4096 tokens:
+   seconds and tokens/s per forward, launches (asserted: 48 scans and 97
+   rmsnorm; 54 scans, 9 flash and 127 rmsnorm per forward), peak memory;
+   ``ssm_layer_split``: device time in the SSM blocks and in
+   ``ssd_chunked``; ``ssm_prefill_profile``: device time by kernel class
+   and idle share.
+14. ``ssm_serve_path``: the server answers 128 requests of mamba2-1.3b
+   (decode_32k's batch) with a 512-token prompt (two chunks) and 32 greedy
+   tokens: ms per step, tokens/s, the cache's bytes (asserted equal to
+   ``cache_bytes``), launches (48 scans in the check prefill, 97 rmsnorm
+   per step and no scan in decode, asserted); on the first 8 requests the
+   decode logits against ``Model.logits`` (state carried across the chunk
+   boundary by the scan kernel): in float32 at 2e-3 (asserted), in bf16
+   against phase 10's bound beside the bf16 prefill's own distance to the
+   float32 one (reported), first tokens equal to the prefill argmax;
+   ``ssm_serve_profile``: a profiled step.
+15. ``ssm_card_vs_cpu``: reduced mamba2 and zamba2 in float32 over 64
+   positions (two chunks), card vs CPU: logits and decode within 1e-4,
+   greedy tokens identical.
 
 Then a ``kernels`` line, the raw ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -138,6 +167,17 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 256, 32
 # bf16 analogue of tests/test_models.py's 2e-3 float32 bound
 SERVE_GAP_ATOL, SERVE_GAP_RTOL = 0.1, 0.05
 CARD_VS_CPU_TOL = 1e-4   # reduced float32 model: kernels vs plain versions
+# mamba2-1.3b serving: decode_32k's batch of 128 (its float32 state, 13.2
+# GB, fits one card), a prompt of two chunks of 256, and greedy tokens; the
+# decode-vs-prefill gap is checked on the first 8 requests
+SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT, SSM_SERVE_NEW = 128, 512, 32
+SSM_CHECK_REQUESTS = 8
+# float32 decode vs float32 prefill of full mamba2-1.3b: atol = rtol, the
+# bound of tests/test_models.py's decode-vs-forward test. Phase 10's bf16
+# bound is reported for mamba2, not asserted: at 48 layers the bf16 gap is
+# as large as the bf16 prefill's own distance to the float32 one, in the
+# JAX package too (PERF.md, Findings)
+SSM_GAP_F32 = 2e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -172,7 +212,8 @@ def ptxas_report(log: str) -> dict:
     """Registers and spills per kernel instantiation, from nvcc -Xptxas -v
     (golden_section<NT, IT>: threads per block, slots per thread;
     hier_aggregate<T, V> and rmsnorm<T, V>: element type, elements per
-    thread or load; flash_fwd_<type><HD>: input type, head dim)."""
+    thread or load; flash_fwd_<type><HD>: input type, head dim;
+    ssd_scan_kernel<T>: states type)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -181,10 +222,13 @@ def ptxas_report(log: str) -> dict:
             v = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E",
                           entry.group(1))
             f = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)E", entry.group(1))
+            sc = re.search(r"ssd_scan_kernelI(f|13__nv_bfloat16)E",
+                           entry.group(1))
             name = (f"NT={t.group(1)},IT={t.group(2)}" if t else
                     f"T={'f32' if v.group(1) == 'f' else 'bf16'},"
                     f"V={v.group(2)}" if v else
                     f"{f.group(1)},HD={f.group(2)}" if f else
+                    f"T={'f32' if sc.group(1) == 'f' else 'bf16'}" if sc else
                     entry.group(1))
             out[name] = []
         elif name and re.search(r"registers|spill", line):
@@ -534,39 +578,44 @@ def serving_kernels(dev, fault_libs: dict) -> dict:
     return main
 
 
-def profile_forward(model, params, batch) -> None:
-    """One more forward under ``torch.profiler``: device time of the flash
-    kernel, the GEMMs, rmsnorm and the rest, and the device's idle share
-    of the forward (profiler on)."""
+def profile_forward(model, params, batch,
+                    phase: str = "prefill_profile") -> None:
+    """One more forward under ``torch.profiler``: device time of the flash,
+    ssd_scan and rmsnorm kernels, the GEMMs (float32 ones apart) and the
+    rest, and the device's idle share of the forward (profiler on)."""
     gemm = re.compile(r"gemm|cutlass|xmma|nvjet|cublas|sm90_", re.I)
-    run = profiled("prefill_profile", lambda: model.logits(params, batch))
+    f32_gemm = re.compile(r"sgemm|f32f32|fp32|tf32", re.I)
+    run = profiled(phase, lambda: model.logits(params, batch))
     if run is None:
         return
     wall_s, rows = run
-    split = {"flash_attention": 0.0, "gemm": 0.0, "rmsnorm": 0.0,
-             "other": 0.0}
+    split = {"flash_attention": 0.0, "ssd_state_scan": 0.0, "gemm": 0.0,
+             "gemm_f32": 0.0, "rmsnorm": 0.0, "other": 0.0}
     for name, us, _ in rows:
         key = ("flash_attention" if "flash_fwd" in name else
+               "ssd_state_scan" if "ssd_scan_kernel" in name else
                "rmsnorm" if "rmsnorm_kernel" in name else
-               "gemm" if gemm.search(name) else "other")
+               ("gemm_f32" if f32_gemm.search(name) else "gemm")
+               if gemm.search(name) else "other")
         split[key] += us / 1e3
     busy_ms = sum(split.values())
     rows.sort(key=lambda x: -x[1])
-    emit("prefill_profile", wall_ms=1e3 * wall_s, device_busy_ms=busy_ms,
+    emit(phase, arch=model.cfg.name, wall_ms=1e3 * wall_s,
+         device_busy_ms=busy_ms,
          idle_share=1.0 - busy_ms / (1e3 * wall_s), device_ms=split,
          share={k: v / busy_ms for k, v in split.items()} if busy_ms else {},
          top=[dict(name=name[:80], ms=us / 1e3, count=cnt)
               for name, us, cnt in rows[:12]])
 
 
-def profile_decode(model, params, prompts) -> None:
+def profile_decode(model, params, prompts, max_len: int,
+                   phase: str = "serve_profile") -> None:
     """Two serve steps under ``torch.profiler``, after a few warm steps on
-    a fresh cache: wall and device time per step, device kernels per step
-    and the idle share (profiler on)."""
+    a fresh cache of ``max_len`` positions: wall and device time per step,
+    device kernels per step and the idle share (profiler on)."""
     from repro_torch.launch.steps import make_serve_step
     step = make_serve_step(model)
-    cache = model.decode_init(params, {"tokens": prompts},
-                              SERVE_PROMPT + SERVE_NEW)
+    cache = model.decode_init(params, {"tokens": prompts}, max_len)
     state = {"tok": prompts[:, 0], "cache": cache}
     for t in range(4):
         state["tok"], state["cache"] = step(params, state["cache"],
@@ -578,13 +627,13 @@ def profile_decode(model, params, prompts) -> None:
             state["tok"], state["cache"] = step(params, state["cache"],
                                                 state["tok"])
 
-    run = profiled("serve_profile", steps)
+    run = profiled(phase, steps)
     if run is None:
         return
     wall_s, rows = run
     busy_ms = sum(us for _, us, _ in rows) / 1e3
     rows.sort(key=lambda x: -x[1])
-    emit("serve_profile", steps=n, wall_ms_per_step=1e3 * wall_s / n,
+    emit(phase, arch=model.cfg.name, steps=n, wall_ms_per_step=1e3 * wall_s / n,
          device_busy_ms_per_step=busy_ms / n,
          idle_share=1.0 - busy_ms / (1e3 * wall_s),
          device_kernels_per_step=sum(c for _, _, c in rows) / n,
@@ -707,15 +756,17 @@ def serving_paths(dev) -> dict:
             and tuple(res.tokens.shape) == (SERVE_REQUESTS, SERVE_NEW)):
         raise AssertionError("decode logits leave the bound around the "
                              "prefill logits")
-    profile_decode(model, params, prompts)
+    profile_decode(model, params, prompts, SERVE_PROMPT + SERVE_NEW)
     return {"flash_attention": prefill_launches[0] + at_prefill[0]
             + decode[0],
             "rmsnorm": prefill_launches[1] + at_prefill[1] + decode[1]}
 
 
-def serve_card_vs_cpu(dev) -> None:
-    """Phase 11: reduced qwen3-0.6b in float32, the same params on the card
-    (kernels) and the CPU (plain versions)."""
+def serve_card_vs_cpu(dev, arch: str = "qwen3-0.6b", n_tokens: int = 33,
+                      phase: str = "serve_card_vs_cpu") -> None:
+    """Phase 11 (and 15): reduced ``arch`` in float32, the same params on
+    the card (kernels) and the CPU (plain versions): logits of
+    ``n_tokens - 1`` positions, 8 prompt and 8 decode steps."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -723,12 +774,12 @@ def serve_card_vs_cpu(dev) -> None:
     from repro_torch.models import build_model
     from repro_torch.utils import tree_map
 
-    cfg = get_config("qwen3-0.6b").reduced()
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     cpu_params = model.init(torch.Generator().manual_seed(0))
     card_params = tree_map(lambda p: p.to(dev), cpu_params)
     toks = torch.tensor(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (2, 33)))
+        0, cfg.vocab_size, (2, n_tokens)))
     out = {}
     for where, params in (("card", card_params), ("cpu", cpu_params)):
         on = next(iter(params["embed"].values())).device
@@ -743,13 +794,366 @@ def serve_card_vs_cpu(dev) -> None:
     close = all(torch.allclose(a, b, atol=CARD_VS_CPU_TOL,
                                rtol=CARD_VS_CPU_TOL)
                 for a, b in ((lc, lh), (pc, ph)))
-    emit("serve_card_vs_cpu", arch=cfg.name + " (reduced)",
+    emit(phase, arch=cfg.name + " (reduced)", positions=n_tokens - 1,
          dtype=cfg.dtype, tolerance=CARD_VS_CPU_TOL,
          max_abs_err_logits=err_fwd, max_abs_err_decode=err_dec,
          tokens_card=tc.tolist(), tokens_cpu=th.tolist(),
          same_tokens=bool(torch.equal(tc, th)))
     if not (close and torch.equal(tc, th)):
-        raise AssertionError("card and CPU serving disagree")
+        raise AssertionError(f"card and CPU serving of {cfg.name} disagree")
+
+
+def ssm_kernels(dev) -> dict:
+    """Phase 12: ssd_state_scan against its plain version on the same card
+    tensors, bit for bit, at mamba2-1.3b's and zamba2-2.7b's prefill
+    shapes (4 x 4096 tokens in chunks of 256), a long sequence, a ragged
+    shape and bfloat16 states, with times at mamba2's; then the flash
+    kernel at zamba2's shared attention layer (head dim 80). Returns the
+    main shapes' fields for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ref, ssd_scan
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def prefill_shape(arch, nc=None):
+        """(NC, B, H, N, P) of ``arch``'s scan on the prefill batch."""
+        cfg = get_config(arch)
+        s = cfg.ssm
+        return (nc or PREFILL_SEQ // s.chunk_size, PREFILL_BATCH,
+                s.expand * cfg.d_model // s.head_dim, s.state_size,
+                s.head_dim)
+
+    mamba = prefill_shape("mamba2-1.3b")           # (16, 4, 64, 128, 64)
+    main = {}
+    for case, shape, dtype, with_init in (
+            ("mamba2_prefill", mamba, f32, False),
+            ("mamba2_prefill", mamba, f32, True),
+            ("zamba2_prefill", prefill_shape("zamba2-2.7b"), f32, False),
+            ("long", (128, 1, *mamba[2:]), f32, True),
+            ("ragged", (3, 1, 5, 7, 9), f32, True),
+            ("bfloat16", mamba, bf16, True),
+            ("bfloat16", (3, 1, 5, 7, 9), bf16, False)):
+        _, b, h, n, p = shape
+        states = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        # exp(sum(da)) of a chunk lies in (0, 1)
+        decay = 0.3 + 0.7 * torch.rand(shape[:3], generator=gen, device=dev)
+        init = (torch.randn((b, h, n, p), generator=gen, device=dev)
+                if with_init else None)
+        got = ssd_scan.ssd_state_scan(states, decay, init)
+        torch.cuda.synchronize()
+        want = ref.ssd_state_scan_ref(states, decay, init)
+        equal = all(torch.equal(g, w) and bool(torch.isfinite(g.float()).all())
+                    for g, w in zip(got, want))
+        fields = dict(kernel="ssd_state_scan", case=case, shape=list(shape),
+                      dtype=str(dtype).removeprefix("torch."),
+                      initial_state=with_init, tolerance="bitwise",
+                      max_abs_err=max(float((g.float() - w.float()).abs()
+                                            .max()) for g, w in zip(got,
+                                                                    want)))
+        if not equal:
+            emit("kernel", **fields)
+            raise AssertionError(f"ssd_state_scan {case} {shape} disagrees "
+                                 "with its plain version")
+        del got, want
+        if case == "mamba2_prefill" and not with_init:   # the path's call
+            item = states.element_size()
+            nbytes = (2 * states.numel() + b * h * n * p) * item \
+                + decay.numel() * 4
+            b_ms, b_by = bound_ms(2 * states.numel(), nbytes)
+            k_ms = cuda_ms(lambda: ssd_scan.ssd_state_scan(states, decay),
+                           reps=50)
+            fields.update(
+                ms=k_ms, plain_ms=cuda_ms(lambda: ref.ssd_state_scan_ref(
+                    states, decay), reps=5),
+                library_ms=None,
+                library="none: no single PyTorch call computes it",
+                bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / k_ms)
+            main["ssd_state_scan"] = fields
+        emit("kernel", **fields)
+        del states, decay, init
+
+    # zamba2's shared attention layer: B=4, S=4096, 32/32 heads of 80
+    zamba = get_config("zamba2-2.7b")
+    b, sq, hq, hd = (PREFILL_BATCH, PREFILL_SEQ, zamba.n_heads,
+                     zamba.resolved_head_dim)
+    q, k, v = (torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(bf16)
+               for _ in range(3))
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    want_abs = ref.flash_attention_ref(q.float(), k.float(), v.float().abs())
+    measures, ok = flash_error(got, want, want_abs, "bfloat16")
+    fields = dict(kernel="flash_attention", case="zamba2_layer",
+                  shape=[b, sq, sq, hq, hq, hd], dtype="bfloat16",
+                  causal=True, **measures)
+    del got, want, want_abs
+    if not ok:
+        emit("kernel", **fields)
+        raise AssertionError("flash_attention at head dim 80 disagrees with "
+                             "its plain version")
+    ops, nbytes = attention_work(b, sq, sq, hq, hq, hd, True, 2)
+    b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
+    k_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=20)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fields.update(
+        ms=k_ms, plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                  reps=3),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=20),
+        library="torch.nn.functional.scaled_dot_product_attention("
+                "is_causal=True)",
+        operations=ops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+        bound_share=b_ms / k_ms, tflops=ops / (k_ms * 1e-3) / 1e12)
+    main["flash_attention_hd80"] = fields
+    emit("kernel", **fields)
+    return main
+
+
+def ssm_layer_times(model, params, batch) -> dict:
+    """Device milliseconds of every SSM block and of every ``ssd_chunked``
+    inside one forward, from CUDA events around each call."""
+    import torch
+    from repro_torch.models import ssm, transformer
+    spans = {"ssm_apply": [], "ssd_chunked": []}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            stop.record()
+            spans[key].append((start, stop))
+            return out
+        return wrapper
+
+    real = (transformer.ssm_apply, ssm.ssd_chunked)
+    transformer.ssm_apply = timed("ssm_apply", real[0])
+    ssm.ssd_chunked = timed("ssd_chunked", real[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.logits(params, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        transformer.ssm_apply, ssm.ssd_chunked = real
+    out = {f"{key}_ms": sum(a.elapsed_time(b) for a, b in v)
+           for key, v in spans.items()}
+    out.update(forward_wall_ms=wall_ms,
+               calls=len(spans["ssd_chunked"]))
+    return out
+
+
+def ssm_prefill_path(dev, arch: str) -> dict:
+    """Phase 13: ``Model.logits`` of full-size ``arch`` on 4 x 4096 tokens,
+    ``PREFILL_REPS`` times: seconds and tokens/s per forward, the kernels'
+    launches (asserted: one scan per layer; rmsnorm at norm1, the gated
+    norm and the final norm, plus zamba2's shared block's two norms and one
+    flash launch per application), peak memory, the per-layer split and a
+    profiled forward. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.serving_params(                 # random, seed 0, bf16
+        model.init(torch.Generator(device=dev).manual_seed(0)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+    apps = cfg.n_layers // cfg.hybrid_attn_period \
+        if cfg.hybrid_attn_period else 0
+    per_fwd = (cfg.n_layers, apps, 2 * cfg.n_layers + 2 * apps + 1)
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ + 1)), device=dev)
+    batch = {"tokens": toks}
+
+    def counts():
+        return (ssd_scan.LAUNCHES, flash_attention.LAUNCHES,
+                rmsnorm.LAUNCHES)
+
+    with torch.inference_mode():
+        model.logits(params, batch)                  # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ssd_scan.LAUNCHES = flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+        times, logits = [], None
+        for _ in range(PREFILL_REPS):
+            del logits
+            t0 = time.perf_counter()
+            logits = model.logits(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated()
+        ok = (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ,
+                                      cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()))
+        expected = tuple(PREFILL_REPS * n for n in per_fwd)
+        emit("ssm_prefill_path", arch=cfg.name, family=cfg.family,
+             n_layers=cfg.n_layers, n_params=n_params,
+             param_bytes=param_bytes, init_s=init_s, batch=PREFILL_BATCH,
+             seq=PREFILL_SEQ, chunk=cfg.ssm.chunk_size, dtype=cfg.dtype,
+             s_per_forward=times, mean_s=sum(times) / len(times),
+             tokens_per_s=PREFILL_BATCH * PREFILL_SEQ / min(times),
+             launches_ssd_state_scan=launched[0],
+             launches_flash=launched[1], launches_rmsnorm=launched[2],
+             launches_expected=list(expected), max_memory_allocated=peak,
+             logits_std=float(logits[0, :64].float().std()), finite=ok)
+        if launched != expected:
+            raise AssertionError(f"{cfg.name} prefill launches {launched}, "
+                                 f"expected {PREFILL_REPS} x {per_fwd}")
+        if not ok:
+            raise AssertionError(f"{cfg.name} prefill logits are not finite "
+                                 "or of the wrong shape")
+        del logits
+        split = ssm_layer_times(model, params, batch)
+        emit("ssm_layer_split", arch=cfg.name, **split,
+             ssm_apply_share=split["ssm_apply_ms"] / split["forward_wall_ms"],
+             ssd_chunked_share=split["ssd_chunked_ms"]
+             / split["forward_wall_ms"])
+        profile_forward(model, params, batch, phase="ssm_prefill_profile")
+    return dict(zip(("ssd_state_scan", "flash_attention", "rmsnorm"),
+                    launched))
+
+
+def ssm_serve_path(dev) -> dict:
+    """Phase 14: the server answers ``SSM_SERVE_REQUESTS`` requests of
+    full-size mamba2-1.3b (decode_32k's batch, whose float32 state fits one
+    card) with a ``SSM_SERVE_PROMPT``-token prompt (two chunks) and
+    ``SSM_SERVE_NEW`` greedy tokens from the bfloat16 serving copy: ms per
+    step, tokens/s, the cache's bytes against ``cache_bytes``, launches and
+    a profiled step. On the first ``SSM_CHECK_REQUESTS`` requests the
+    decode logits are held to ``Model.logits`` (which carries the state
+    across the chunk boundary through the scan kernel): in float32, on the
+    float32 weights the serving copy rounds, at ``SSM_GAP_F32`` (asserted);
+    in bfloat16 against phase 10's bound, reported beside the bfloat16
+    prefill's own distance to the float32 one. Returns the launch
+    counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.launch.serve import cache_bytes, serve, serve_shape
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves
+
+    cfg = get_config("mamba2-1.3b")
+    model = build_model(cfg)
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = model.init(torch.Generator(device=dev).manual_seed(0))
+    params = model.serving_params(params32)
+    per_step = 2 * cfg.n_layers + 1
+    rng = np.random.default_rng(1)
+    prompts = torch.tensor(rng.integers(
+        0, cfg.vocab_size, (SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT)),
+        dtype=torch.int32, device=dev)
+    shape = ShapeSpec("ssm_serve_smoke",
+                      seq_len=SSM_SERVE_PROMPT + SSM_SERVE_NEW,
+                      global_batch=SSM_SERVE_REQUESTS, kind="decode")
+    expected_bytes = cache_bytes(cfg, SSM_SERVE_REQUESTS, shape.seq_len,
+                                 torch.bfloat16)
+    cache = model.decode_init(params, {"tokens": prompts}, shape.seq_len)
+    built = sum(t.nbytes for t in tree_leaves(cache) if t.is_floating_point())
+    del cache
+    if built != expected_bytes:
+        raise AssertionError(f"cache of {built} B, cache_bytes says "
+                             f"{expected_bytes}")
+    check = prompts[:SSM_CHECK_REQUESTS]
+    pad = torch.zeros(len(check), 1, dtype=torch.int32, device=dev)
+    ssd_scan.LAUNCHES = flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill = model.logits(params, {"tokens": torch.cat([check, pad], 1)})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    at_prefill = (ssd_scan.LAUNCHES, rmsnorm.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_shape(cfg, shape, SSM_SERVE_NEW, device=dev, params=params,
+                      prompts=prompts, keep_prompt_logits=True)
+    peak = torch.cuda.max_memory_allocated()
+    steps = res.prompt_steps + res.decode_steps
+    decode = (ssd_scan.LAUNCHES - at_prefill[0],
+              rmsnorm.LAUNCHES - at_prefill[1])
+    pre = prefill.float()
+    dec = res.prompt_logits[:SSM_CHECK_REQUESTS].float()
+    del res.prompt_logits, prefill
+
+    # the same check in float32 on the float32 weights
+    before = (ssd_scan.LAUNCHES, rmsnorm.LAUNCHES)
+    with torch.inference_mode():
+        pre32 = model32.logits(params32,
+                               {"tokens": torch.cat([check, pad], 1)})
+    dec32 = serve(model32, params32, check, 1,
+                  keep_prompt_logits=True).prompt_logits
+    f32_launches = (ssd_scan.LAUNCHES - before[0],
+                    rmsnorm.LAUNCHES - before[1])
+    del params32
+    gap32 = (dec32 - pre32).abs()
+    within32 = bool((gap32 <= SSM_GAP_F32 + SSM_GAP_F32 * pre32.abs()).all())
+    gap = (dec - pre).abs()
+    within = bool((gap <= SERVE_GAP_ATOL + SERVE_GAP_RTOL * pre.abs()).all())
+    floor, dec_err = (pre - pre32).abs(), (dec - pre32).abs()
+    first = int((res.tokens[:SSM_CHECK_REQUESTS, 0]
+                 == pre[:, -1].argmax(-1)).sum())
+    emit("ssm_serve_path", arch=cfg.name, requests=SSM_SERVE_REQUESTS,
+         prompt=SSM_SERVE_PROMPT, chunk=cfg.ssm.chunk_size,
+         new_tokens=SSM_SERVE_NEW, cache_bytes=built,
+         cache_bytes_expected=expected_bytes,
+         max_memory_allocated_serving=peak, prefill_check_s=prefill_s,
+         prompt_steps=res.prompt_steps,
+         prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+         decode_steps=res.decode_steps,
+         decode_ms_per_step=res.ms_per_decode_step,
+         decode_tokens_per_s=SSM_SERVE_REQUESTS
+         / (res.ms_per_decode_step / 1e3),
+         tokens_per_s=res.tokens_per_s,
+         launches_prefill=list(at_prefill),
+         launches_decode_ssd_state_scan=decode[0],
+         rmsnorm_per_step=decode[1] / steps,
+         checked_requests=SSM_CHECK_REQUESTS,
+         f32_max_gap=float(gap32.max()), f32_mean_gap=float(gap32.mean()),
+         f32_gap_bound=SSM_GAP_F32, f32_gap_within=within32,
+         bf16_max_gap=float(gap.max()), bf16_mean_gap=float(gap.mean()),
+         bf16_gap_bound=[SERVE_GAP_ATOL, SERVE_GAP_RTOL],
+         bf16_gap_within=within,
+         bf16_prefill_vs_f32_max=float(floor.max()),
+         bf16_prefill_vs_f32_mean=float(floor.mean()),
+         bf16_decode_vs_f32_max=float(dec_err.max()),
+         bf16_decode_vs_f32_mean=float(dec_err.mean()),
+         max_abs_prefill_logit=float(pre.abs().max()),
+         first_token_equal=first, tokens=res.tokens[:2, :8].tolist())
+    if at_prefill != (cfg.n_layers, per_step) or decode != (
+            0, per_step * steps) or f32_launches != (
+            cfg.n_layers, per_step * (1 + SSM_SERVE_PROMPT)):
+        raise AssertionError(f"ssm serve launches: prefill {at_prefill}, "
+                             f"decode {decode}, float32 check "
+                             f"{f32_launches}; expected ({cfg.n_layers}, "
+                             f"{per_step}), (0, {per_step} x {steps})")
+    if not (within32 and torch.isfinite(dec).all()
+            and tuple(res.tokens.shape) == (SSM_SERVE_REQUESTS,
+                                            SSM_SERVE_NEW)):
+        raise AssertionError("mamba2 float32 decode logits leave the bound "
+                             "around the float32 prefill logits")
+    del pre, dec, pre32, dec32, gap, gap32, floor, dec_err
+    profile_decode(model, params, prompts, shape.seq_len,
+                   phase="ssm_serve_profile")
+    return {"ssd_state_scan": at_prefill[0] + decode[0] + f32_launches[0],
+            "rmsnorm": at_prefill[1] + decode[1] + f32_launches[1]}
 
 
 def main() -> int:
@@ -790,7 +1194,8 @@ def main() -> int:
                 "golden_section_cbrtf": ("golden_section", ("GS_CBRT_F32",)),
                 "hier_aggregate": ("hier_aggregate", ()),
                 "rmsnorm": ("rmsnorm", ()),
-                "flash_attention": ("flash_attention", ())}
+                "flash_attention": ("flash_attention", ()),
+                "ssd_state_scan": ("ssd_scan", ())}
     t0 = time.perf_counter()
     # the planted faults of phase 8 build beside them, into a directory
     # that goes once they are loaded
@@ -1119,8 +1524,20 @@ def main() -> int:
     serve_launches = serving_paths(dev)
     serve_card_vs_cpu(dev)
 
+    # ---- 12-15. SSM and hybrid serving ----
+    ssm = ssm_kernels(dev)
+    ssm_launches = [ssm_prefill_path(dev, arch)
+                    for arch in ("mamba2-1.3b", "zamba2-2.7b")]
+    ssm_launches.append(ssm_serve_path(dev))
+    for arch in ("mamba2-1.3b", "zamba2-2.7b"):   # 64 positions, 2 chunks
+        serve_card_vs_cpu(dev, arch, n_tokens=65, phase="ssm_card_vs_cpu")
+
+    def launched(kernel):
+        return sum(run.get(kernel, 0) for run in ssm_launches)
+
     cloud = agg["cloud"]
     rms, fla = serving["rmsnorm"], serving["flash_attention"]
+    scan, fla80 = ssm["ssd_state_scan"], ssm["flash_attention_hd80"]
     print(json.dumps({"kernels": [
         dict(name="golden_section", route="cuda",
              source="src/repro_torch/kernels/csrc/golden_section.cu",
@@ -1137,7 +1554,7 @@ def main() -> int:
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:39",
-             launches=serve_launches["rmsnorm"],
+             launches=serve_launches["rmsnorm"] + launched("rmsnorm"),
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
              plain_ms=rms["plain_ms"], bound_ms=rms["bound_ms"],
              bound_by=rms["bound_by"], library_ms=rms["library_ms"],
@@ -1145,11 +1562,23 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:103",
-             launches=serve_launches["flash_attention"],
+             launches=serve_launches["flash_attention"]
+             + launched("flash_attention"),
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
              plain_ms=fla["plain_ms"], bound_ms=fla["bound_ms"],
              bound_by=fla["bound_by"], library_ms=fla["library_ms"],
-             shape=fla["shape"])]}),
+             shape=fla["shape"],
+             hd80={key: fla80[key] for key in (
+                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")}),
+        dict(name="ssd_state_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:47",
+             launches=launched("ssd_state_scan"),
+             max_abs_err=scan["max_abs_err"], ms=scan["ms"],
+             plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
+             bound_by=scan["bound_by"], library_ms=None,
+             shape=scan["shape"])]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

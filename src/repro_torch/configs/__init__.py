@@ -2,9 +2,10 @@
 architecture registry (port of ``repro.configs``).
 
 ``get_config(name)`` accepts either the registry id (``qwen3-0.6b``) or the
-module name (``qwen3_0p6b``). The dense configurations are here as data;
-the other families' modules come with their layers, and asking for one of
-them raises ``NotImplementedError`` naming its ROADMAP item.
+module name (``qwen3_0p6b``). The dense, SSM (mamba2) and hybrid (zamba2)
+configurations are here as data; the other families' modules come with
+their layers, and asking for one of them raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,8 +37,6 @@ NOT_PORTED = {
     "kimi-k2-1t-a32b": "moe",
     "deepseek-v2-lite-16b": "mla",
     "internvl2-1b": "vlm",
-    "mamba2-1.3b": "ssm",
-    "zamba2-2.7b": "hybrid",
 }
 
 

@@ -367,7 +367,8 @@ cudaError_t launch_hd(const Args& a, int dtype, cudaStream_t stream) {
 // dtype 0 is float32, 1 is bfloat16. q (B, Sq, Hq, hd), k and v
 // (B, Skv, Hkv, hd), o like q, all contiguous and 16-byte aligned;
 // Hq % Hkv == 0. The head dims below are exactly
-// flash_attention.HEAD_DIMS; a CPU test checks it.
+// flash_attention.HEAD_DIMS; a CPU test checks it. Each is a multiple of
+// 16 (whole wmma tiles, 16-byte row loads); 80 is zamba2's shared block.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int hd,
@@ -382,6 +383,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (hd == 16) err = launch_hd<16>(a, dtype, s);
   else if (hd == 32) err = launch_hd<32>(a, dtype, s);
   else if (hd == 64) err = launch_hd<64>(a, dtype, s);
+  else if (hd == 80) err = launch_hd<80>(a, dtype, s);
   else if (hd == 128) err = launch_hd<128>(a, dtype, s);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);

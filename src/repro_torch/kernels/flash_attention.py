@@ -28,7 +28,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)    # the kernel's template instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's template instantiations
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

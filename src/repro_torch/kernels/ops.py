@@ -14,10 +14,11 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.golden_section import golden_section_solve
 from repro_torch.kernels.hier_aggregate import hier_aggregate
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_state_scan
 from repro_torch.utils import tree_leaves, tree_unflatten
 
 __all__ = ["flash_attention", "golden_section_solve", "hier_aggregate",
-           "hier_aggregate_tree", "rmsnorm"]
+           "hier_aggregate_tree", "rmsnorm", "ssd_state_scan"]
 
 
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,

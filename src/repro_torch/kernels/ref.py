@@ -9,6 +9,9 @@ causal mask.
 ``hier_aggregate_ref`` is the plain version of ``csrc/hier_aggregate.cu``,
 the eq. (8)/(14) weighted mean, summed in that kernel's order.
 
+``ssd_state_scan_ref`` is the plain version of ``csrc/ssd_scan.cu``, the
+Mamba2 inter-chunk state recurrence with a float32 carry.
+
 ``golden_section_ref`` is the plain version of the CUDA kernel in
 ``csrc/golden_section.cu`` and the counterpart of
 ``repro.kernels.ref.golden_section_ref``: the KKT-path solve of problem (18)
@@ -266,3 +269,27 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def ssd_state_scan_ref(states: torch.Tensor, decay: torch.Tensor,
+                       initial_state: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inter-chunk SSD recurrence ``S_{c+1} = decay_c * S_c + states_c``.
+
+    ``states`` (NC, B, H, N, P) per-chunk states, ``decay`` (NC, B, H) each
+    chunk's total decay, ``initial_state`` (B, H, N, P) or None (zeros).
+    Returns (entering (NC, B, H, N, P), final (B, H, N, P)), both in
+    ``states``' dtype; ``entering[c]`` is the carry at the START of chunk c
+    (the function of ``repro.kernels.ref.ssd_state_scan_ref``). The carry
+    is float32, and each step rounds ``carry * decay`` and then the sum, as
+    the kernel does with ``-fmad=false``: the two agree bit for bit."""
+    nc, b, h, n, p = states.shape
+    f32 = torch.float32
+    carry = (torch.zeros((b, h, n, p), dtype=f32, device=states.device)
+             if initial_state is None else initial_state.to(f32))
+    dec = decay.to(f32)[..., None, None]
+    entering = []
+    for c in range(nc):
+        entering.append(carry)
+        carry = carry * dec[c] + states[c].to(f32)
+    return (torch.stack(entering).to(states.dtype), carry.to(states.dtype))

@@ -5,7 +5,8 @@ ROADMAP queue 1 item 10(h)).
     python -m repro_torch.launch.serve --arch qwen3-0.6b --new-tokens 32 \\
         --reduced --device cpu
 
-Without ``--device`` it runs on the card. Params are a random
+``--arch`` takes a dense, SSM (``mamba2-1.3b``) or hybrid
+(``zamba2-2.7b``) architecture. Without ``--device`` it runs on the card. Params are a random
 initialisation from a seed; no weights are downloaded.
 """
 
@@ -21,7 +22,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import SHAPES, Model, ShapeSpec, build_model
-from repro_torch.models.transformer import activation_dtype
+from repro_torch.models.transformer import SSM_FAMILIES, activation_dtype
 
 
 @dataclass
@@ -94,10 +95,24 @@ def serve(model: Model, params, prompts: torch.Tensor, new_tokens: int, *,
 
 
 def cache_bytes(cfg, batch: int, max_len: int, dtype: torch.dtype) -> int:
-    """Device bytes of the decode cache (k and v of every layer)."""
+    """Device bytes of the decode cache's float tensors, by family: dense
+    k and v of every layer in ``dtype``; an SSM layer's state (B, H, N, P)
+    and conv buffer (B, K - 1, conv_dim) in float32, whatever ``dtype``
+    and ``max_len``; zamba2 both, with one k/v cache per application of
+    the shared block. The int32 lengths and positions (4 bytes per request
+    and layer) are not counted."""
     item = torch.empty((), dtype=dtype).element_size()
-    return (2 * cfg.n_layers * batch * max_len * cfg.n_kv_heads
-            * cfg.resolved_head_dim * item)
+    kv = 2 * batch * max_len * cfg.n_kv_heads * cfg.resolved_head_dim * item
+    if cfg.family not in SSM_FAMILIES:
+        return cfg.n_layers * kv
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    state = batch * d_inner * s.state_size * 4        # H * P = d_inner
+    conv = batch * (s.conv_kernel - 1) * (d_inner + 2 * s.n_groups
+                                          * s.state_size) * 4
+    apps = (cfg.n_layers // cfg.hybrid_attn_period
+            if cfg.family == "hybrid" and cfg.hybrid_attn_period else 0)
+    return cfg.n_layers * (state + conv) + apps * kv
 
 
 def serve_shape(cfg, shape: ShapeSpec, new_tokens: int, *, device=None,

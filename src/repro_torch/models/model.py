@@ -1,6 +1,6 @@
 """Model facade: a uniform init / logits / decode interface, plus the
 (arch x shape) grid's shape specs. Port of ``repro.models.model``; the
-dense family so far.
+dense, SSM and hybrid families so far.
 """
 
 from __future__ import annotations
@@ -74,6 +74,8 @@ class Model:
 
     def decode_init(self, params, batch: dict, max_len: int,
                     dtype=torch.bfloat16):
+        """The decode cache on the device of ``batch["tokens"]``: k and v
+        in ``dtype``, SSM state and conv buffers in float32."""
         tokens = batch["tokens"]
         return transformer.lm_decode_init(self.cfg, tokens.shape[0], max_len,
                                           dtype, device=tokens.device)

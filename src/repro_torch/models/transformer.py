@@ -1,9 +1,11 @@
-"""Decoder-only LM assembly, dense family (olmo / qwen2 / qwen3). Port of
-``repro.models.transformer``.
+"""Decoder-only LM assembly: the dense (olmo / qwen2 / qwen3), SSM (mamba2)
+and hybrid (zamba2) families. Port of ``repro.models.transformer``.
 
 Layer parameters are stacked along a leading axis, as in the JAX package;
-a Python loop over layer slices takes the place of ``lax.scan``. The
-other families raise ``NotImplementedError`` naming their ROADMAP items.
+a Python loop over layer slices takes the place of ``lax.scan``. Zamba2's
+weight-tied shared attention+MLP block sits outside the stack and runs
+after every ``hybrid_attn_period`` layers. The other families raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -15,20 +17,24 @@ from repro_torch.models.attention import (attention, attention_decode,
 from repro_torch.models.layers import (apply_norm, dense, dense_init, embed,
                                        embedding_init, mlp, mlp_init,
                                        norm_init, unembed)
+from repro_torch.models.ssm import (init_ssm_cache, ssm_apply, ssm_decode,
+                                    ssm_init)
 from repro_torch.utils import tree_map
 
 # families of ModelConfig the port does not run yet -> ROADMAP item
 NOT_PORTED_FAMILIES = {
     "moe": "queue 1 item 10(b), MoE",
     "mla": "queue 1 item 10(c), MLA",
-    "ssm": "queue 1 item 10(d), SSM (with queue 2 item 4)",
-    "hybrid": "queue 1 item 10(d), hybrid SSM (with queue 2 item 4)",
     "encdec": "queue 1 item 10(e), encoder-decoder",
     "vlm": "queue 1 item 10(f), VLM",
 }
 
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+SSM_FAMILIES = ("ssm", "hybrid")
+
 # parameter leaves that are matrices: the ones a serving copy holds in the
-# activation dtype (``dense``/``embed``/``unembed`` cast them to it anyway)
+# activation dtype (``dense``/``embed``/``unembed`` cast them to it anyway;
+# the SSM's conv_w, a_log, d_skip, dt_bias and norm_scale stay float32)
 MATRIX_LEAVES = ("w", "table")
 
 
@@ -36,7 +42,7 @@ def require_ported(cfg) -> None:
     """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
     what = ("mla" if cfg.mla is not None else
             "moe" if cfg.moe is not None else cfg.family)
-    if what != "dense":
+    if what not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {what} family is not ported yet: ROADMAP "
             f"{NOT_PORTED_FAMILIES.get(what, 'queue 1 item 10')}")
@@ -51,7 +57,7 @@ def cast_params(params, dtype: torch.dtype):
     ``dtype`` and every other leaf (norm scales, biases) float32. With
     ``dtype`` the activation dtype it computes the same numbers as the
     float32 params, since every use casts a matrix to the activation dtype
-    first and a norm scale to float32."""
+    first and every other leaf to float32 or the activation dtype."""
     def cast(node, key=None):
         if isinstance(node, dict):
             return {k: cast(v, k) for k, v in node.items()}
@@ -83,19 +89,48 @@ def _layers(blocks, n: int) -> list:
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg):
+    """One layer of the stack, its structure fixed by ``cfg.family``."""
     require_ported(cfg)
+    if cfg.family in SSM_FAMILIES:
+        return {"norm1": _norm_params(cfg, gen.device),
+                "ssm": ssm_init(gen, cfg)}
+    return shared_attn_init(gen, cfg)
+
+
+def shared_attn_init(gen: torch.Generator, cfg):
+    """Zamba2's weight-tied attention+MLP block. A dense layer has the same
+    structure, so the dense family's layers are built and run by these
+    functions too."""
     return {"norm1": _norm_params(cfg, gen.device),
             "norm2": _norm_params(cfg, gen.device),
             "attn": attention_init(gen, cfg),
             "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, kind=cfg.mlp_type)}
 
 
-def block_apply(params, cfg, x, aux):
+def shared_attn_apply(params, cfg, x):
     h = _apply_norm(cfg, params["norm1"], x)
     h = attention(params["attn"], cfg, h, causal=True, rope=cfg.use_rope)
     x = x + h
     h = _apply_norm(cfg, params["norm2"], x)
-    return x + mlp(params["ffn"], h, kind=cfg.mlp_type), aux
+    return x + mlp(params["ffn"], h, kind=cfg.mlp_type)
+
+
+def block_apply(params, cfg, x, aux):
+    if cfg.family in SSM_FAMILIES:
+        return x + ssm_apply(params["ssm"], cfg,
+                             _apply_norm(cfg, params["norm1"], x)), aux
+    return shared_attn_apply(params, cfg, x), aux
+
+
+def _shared_period(cfg) -> int:
+    """Layers between two applications of zamba2's shared block; 0 for a
+    model without one."""
+    if cfg.family != "hybrid" or not cfg.hybrid_attn_period:
+        return 0
+    if cfg.n_layers % cfg.hybrid_attn_period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                         f"multiple of the period {cfg.hybrid_attn_period}")
+    return cfg.hybrid_attn_period
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +145,8 @@ def lm_init(cfg, gen: torch.Generator):
     params["blocks"] = tree_map(lambda *ls: torch.stack(ls), *layers)
     del layers
     params["final_norm"] = _norm_params(cfg, gen.device)
+    if _shared_period(cfg):
+        params["shared_attn"] = shared_attn_init(gen, cfg)
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        scale=cfg.d_model ** -0.5)
@@ -117,10 +154,14 @@ def lm_init(cfg, gen: torch.Generator):
 
 
 def _run_stack(params, cfg, x):
-    """Run the layer stack, one layer slice at a time. Returns (x, aux)."""
+    """Run the layer stack, one layer slice at a time, with zamba2's shared
+    block after every ``period`` layers. Returns (x, aux)."""
     aux = torch.zeros((), device=x.device)
-    for layer in _layers(params["blocks"], cfg.n_layers):
+    period = _shared_period(cfg)
+    for i, layer in enumerate(_layers(params["blocks"], cfg.n_layers)):
         x, aux = block_apply(layer, cfg, x, aux)
+        if period and (i + 1) % period == 0:
+            x = shared_attn_apply(params["shared_attn"], cfg, x)
     return x, aux
 
 
@@ -147,22 +188,34 @@ def lm_forward(params, cfg, tokens, *, prefix_embeds=None):
 # ---------------------------------------------------------------------------
 
 def _layer_cache_init(cfg, batch, max_len, dtype, device):
+    """One layer's cache: an SSM layer's is float32 whatever ``dtype``."""
     require_ported(cfg)
+    if cfg.family in SSM_FAMILIES:
+        return init_ssm_cache(cfg, batch, torch.float32, device)
     return init_kv_cache(cfg, batch, max_len, dtype, device)
+
+
+def _stacked(caches: list) -> dict:
+    return tree_map(lambda *ls: torch.stack(ls), *caches)
 
 
 def lm_decode_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):
-    """The decode cache: per-layer caches stacked over the layers."""
-    layers = [_layer_cache_init(cfg, batch, max_len, dtype, device)
-              for _ in range(cfg.n_layers)]
-    stack = tree_map(lambda *ls: torch.stack(ls), *layers)
-    return {"stack": stack,
-            "position": torch.zeros(batch, dtype=torch.int32,
-                                    device=device)}
+    """The decode cache: per-layer caches stacked over the layers, and for
+    zamba2 one k/v cache per application of the shared block."""
+    cache = {"stack": _stacked([
+        _layer_cache_init(cfg, batch, max_len, dtype, device)
+        for _ in range(cfg.n_layers)]),
+        "position": torch.zeros(batch, dtype=torch.int32, device=device)}
+    period = _shared_period(cfg)
+    if period:
+        cache["shared"] = _stacked([
+            init_kv_cache(cfg, batch, max_len, dtype, device)
+            for _ in range(cfg.n_layers // period)])
+    return cache
 
 
-def _block_decode(params, cfg, x, layer_cache, position):
+def shared_attn_decode(params, cfg, x, layer_cache):
     h = _apply_norm(cfg, params["norm1"], x)
     h, new = attention_decode(params["attn"], cfg, h, layer_cache,
                               rope=cfg.use_rope)
@@ -171,20 +224,47 @@ def _block_decode(params, cfg, x, layer_cache, position):
     return x + mlp(params["ffn"], h, kind=cfg.mlp_type), new
 
 
+def _block_decode(params, cfg, x, layer_cache, position):
+    if cfg.family in SSM_FAMILIES:
+        h, new = ssm_decode(params["ssm"], cfg,
+                            _apply_norm(cfg, params["norm1"], x), layer_cache)
+        return x + h, new
+    return shared_attn_decode(params, cfg, x, layer_cache)
+
+
+def _slice(stack: dict, i: int) -> dict:
+    """Layer ``i``'s view of a stacked cache."""
+    return {k: v[i] for k, v in stack.items()}
+
+
+def _restacked(stack: dict, news: list) -> dict:
+    """A stacked cache after a step: the layers updated k, v, state and
+    conv in place; the lengths they return are stacked anew."""
+    out = dict(stack)
+    if "length" in stack:
+        out["length"] = torch.stack([new["length"] for new in news])
+    return out
+
+
 def lm_decode_step(params, cfg, cache, tokens):
     """One decode step. tokens: (B,) integer -> (logits (B, V), cache). The
-    cache's k and v are updated in place."""
+    cache's k, v, SSM state and conv buffer are updated in place."""
     require_ported(cfg)
     x = embed(params["embed"], tokens[:, None]).to(activation_dtype(cfg))
     position = cache["position"]
-    stack = cache["stack"]
-    lengths = []
+    period = _shared_period(cfg)
+    news, shared_news = [], []
     for i, layer in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        layer_cache = {"k": stack["k"][i], "v": stack["v"][i],
-                       "length": stack["length"][i]}
-        x, new = _block_decode(layer, cfg, x, layer_cache, position)
-        lengths.append(new["length"])
-    new_cache = {"stack": {"k": stack["k"], "v": stack["v"],
-                           "length": torch.stack(lengths)},
+        x, new = _block_decode(layer, cfg, x, _slice(cache["stack"], i),
+                               position)
+        news.append(new)
+        if period and (i + 1) % period == 0:
+            x, new = shared_attn_decode(
+                params["shared_attn"], cfg, x,
+                _slice(cache["shared"], i // period))
+            shared_news.append(new)
+    new_cache = {"stack": _restacked(cache["stack"], news),
                  "position": position + 1}
+    if period:
+        new_cache["shared"] = _restacked(cache["shared"], shared_news)
     return _read_out(params, cfg, x)[:, 0], new_cache

@@ -54,10 +54,11 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}   # atol, rtol
 # the kernel vs the plain version in float32: atol, rtol, block limit
 KERNEL_TOL = {"float32": (1e-5, 1e-5, None),
               "bfloat16": (1e-5, 2 ** -7, 5e-3)}
-# (B, S, Hq, Hkv, hd), causal: tests/test_kernels.py's sweep and GQA case
+# (B, S, Hq, Hkv, hd), causal: tests/test_kernels.py's sweep and GQA case,
+# then zamba2's head dim of 80
 CASES = [((1, 128, 4, 4, 32), True), ((2, 256, 8, 8, 64), True),
          ((2, 128, 4, 4, 64), False), ((1, 512, 2, 2, 16), True),
-         ((2, 128, 8, 2, 32), True)]
+         ((2, 128, 8, 2, 32), True), ((2, 96, 4, 4, 80), True)]
 
 
 def need_jax():
@@ -205,7 +206,8 @@ def test_kernel_matches_plain_version_on_card():
     cases = [(1, 128, 128, 4, 4, 32, True), (2, 200, 200, 8, 2, 64, True),
              (2, 100, 100, 4, 4, 64, False), (1, 77, 77, 6, 3, 16, True),
              (1, 70, 130, 4, 2, 128, True), (2, 130, 60, 4, 1, 128, False),
-             (4, 1024, 1024, 16, 8, 128, True)]
+             (4, 1024, 1024, 16, 8, 128, True),
+             (2, 300, 300, 8, 8, 80, True), (1, 129, 129, 4, 2, 80, False)]
     for b, sq, skv, hq, hkv, hd, causal in cases:
         for dtype in ("float32", "bfloat16"):
             q, k, v = (torch.tensor(x, device="cuda").to(getattr(torch,

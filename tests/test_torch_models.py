@@ -1,5 +1,6 @@
-"""Port parity: the dense-LM serving path (``repro_torch.models``,
-``repro_torch.launch``) against the JAX package's model zoo.
+"""Port parity: the LM serving path (``repro_torch.models``,
+``repro_torch.launch``) of the dense, SSM (mamba2) and hybrid (zamba2)
+families against the JAX package's model zoo.
 
 Inputs come from numpy seeds and the JAX package's ``lm_init`` params,
 carried across leaf for leaf with ``convert.lm_params_from_numpy``; both
@@ -11,7 +12,13 @@ wrappers take their plain versions. Tolerances, stated per test:
 - attention and full forwards: 1e-5 and 1e-4 (two and more matrix products
   in another summation order);
 - decode against the port's own forward: atol/rtol 2e-3, the bound of
-  ``tests/test_models.py``'s decode-vs-forward test.
+  ``tests/test_models.py``'s decode-vs-forward test;
+- SSM and hybrid decode caches: 1e-5 (float32 state, a few products per
+  step).
+
+The SSM forwards run 96 positions, three chunks of the reduced config's
+32, so the state carried across chunk boundaries is checked (the JAX
+suite's own decode test stays inside one chunk).
 
 Greedy tokens must be identical. A machine with a card may have no JAX:
 there the oracle tests skip, e.g. ``PYTHONPATH=src python -m pytest
@@ -31,6 +38,7 @@ from repro_torch.configs import NOT_PORTED, all_configs
 from repro_torch.configs import get_config as tget
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import rmsnorm as trms
+from repro_torch.kernels import ssd_scan as tscan
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import SHAPES as T_SHAPES
@@ -39,6 +47,7 @@ from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as tl
 from repro_torch.models import shape_applicable as t_applicable
 from repro_torch.models import transformer as ttr
+from repro_torch.utils import tree_leaves
 
 try:                     # the oracle; absent on a machine with only torch
     import jax
@@ -57,6 +66,7 @@ except ImportError:
 torch.set_num_threads(2)
 
 DENSE = ["qwen3-0.6b", "olmo-1b", "qwen2-7b"]
+SSM = ["mamba2-1.3b", "zamba2-2.7b"]
 
 
 def need_jax():
@@ -128,14 +138,21 @@ def test_configs_and_shapes_match_jax():
 
 
 def test_dense_configs_are_ported_and_the_rest_raise():
+    """The dense, SSM and hybrid configs are ported; the other families
+    raise naming their ROADMAP item."""
     assert sorted(all_configs()) == sorted(
-        ["olmo-1b", "qwen2-7b", "qwen3-0.6b", "qwen3-32b"])
+        ["olmo-1b", "qwen2-7b", "qwen3-0.6b", "qwen3-32b", "mamba2-1.3b",
+         "zamba2-2.7b"])
+    assert sorted(NOT_PORTED) == sorted(
+        ["whisper-large-v3", "kimi-k2-1t-a32b", "deepseek-v2-lite-16b",
+         "internvl2-1b"])
     assert tget("qwen3_0p6b") == tget("qwen3-0.6b")
+    assert tget("mamba2_1p3b") == tget("mamba2-1.3b")
     for arch in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tget(arch)
     cfg = tget("qwen3-0.6b").reduced()
-    for family in ("moe", "ssm", "hybrid", "encdec", "vlm"):
+    for family in ("moe", "encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(dataclasses.replace(cfg, family=family))
     with pytest.raises(NotImplementedError, match="10\\(g\\)"):
@@ -283,9 +300,31 @@ def test_lm_params_carry_over_leaf_for_leaf():
     assert serving["unembed"]["w"].dtype == torch.bfloat16
 
 
+def test_ssm_lm_params_carry_over_leaf_for_leaf():
+    """zamba2's JAX params (``blocks.ssm.*`` stacked over the layers,
+    ``shared_attn.*``) reach the port leaf for leaf; the bf16 serving copy
+    keeps every SSM vector float32."""
+    need_jax()
+    _, _, params = jax_model("zamba2-2.7b")
+    tree = to_numpy(params)
+    got = convert.lm_params_from_numpy(tree, "cpu")
+    flat_j = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(flat_j) == len(tree_leaves(got))
+    for path, leaf in flat_j:
+        node = got
+        for p in path:
+            node = node[p.key]
+        np.testing.assert_array_equal(node.numpy(), leaf)
+    assert {"blocks", "shared_attn"} <= set(got)
+    serving = convert.lm_params_from_numpy(tree, "cpu", dtype=torch.bfloat16)
+    assert serving["blocks"]["ssm"]["out_proj"]["w"].dtype == torch.bfloat16
+    assert serving["blocks"]["ssm"]["conv_w"].dtype == torch.float32
+    assert serving["shared_attn"]["ffn"]["wo"]["w"].dtype == torch.bfloat16
+
+
 def test_lm_init_has_jax_structure():
     need_jax()
-    for arch in DENSE:
+    for arch in DENSE + SSM:
         _, _, jp = jax_model(arch)
         tp = tbuild(port_cfg(arch)).init(torch.Generator().manual_seed(0))
         shapes_j = jax.tree.map(lambda a: tuple(a.shape), jp)
@@ -374,6 +413,128 @@ def test_decode_matches_forward_in_port(arch, prompt):
                        torch.argmax(full[:, -1], -1).to(torch.int32))
 
 
+def test_ssm_configs_are_the_published_widths():
+    """mamba2-1.3b and zamba2-2.7b at their published widths
+    (the JAX package's configs, checked field for field above)."""
+    m, z = tget("mamba2-1.3b"), tget("zamba2-2.7b")
+    assert (m.family, m.n_layers, m.d_model, m.vocab_size,
+            m.tie_embeddings) == ("ssm", 48, 2048, 50_280, True)
+    assert (m.ssm.expand * m.d_model // m.ssm.head_dim, m.ssm.head_dim,
+            m.ssm.state_size, m.ssm.n_groups, m.ssm.chunk_size) == (
+                64, 64, 128, 1, 256)
+    assert (z.family, z.n_layers, z.d_model, z.hybrid_attn_period,
+            z.n_heads, z.resolved_head_dim, z.d_ff) == (
+                "hybrid", 54, 2560, 6, 32, 80, 10_240)
+    assert (z.ssm.expand * z.d_model // z.ssm.head_dim,
+            z.ssm.state_size) == (80, 64)
+    assert tfa.HEAD_DIMS.count(z.resolved_head_dim) == 1
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_lm_forward_matches_jax(arch):
+    """Reduced f32 mamba2 (tied read-out) and zamba2 (the shared
+    attention+MLP block after every 2 layers, untied read-out) over 96
+    positions, three chunks of 32, against the JAX model."""
+    need_jax()
+    cfg, model, params = jax_model(arch)
+    assert cfg.ssm.chunk_size == 32
+    toks = tokens(cfg, 2, 97, seed=6)
+    want = model.logits(params, {"tokens": jnp.asarray(toks)})
+    got = tbuild(port_cfg(arch)).logits(
+        convert.lm_params_from_numpy(to_numpy(params), "cpu"),
+        {"tokens": torch.tensor(toks)})
+    assert got.shape == (2, 96, cfg.vocab_size)
+    close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_decode_steps_and_greedy_tokens_match_jax(arch):
+    """8 teacher-forced decode steps of reduced mamba2 / zamba2 against
+    JAX's: logits (1e-4), every cache leaf (1e-5: SSM state and conv
+    buffer, zamba2's shared k/v and lengths), then 8 greedy tokens."""
+    need_jax()
+    cfg, model, params = jax_model(arch)
+    tparams = convert.lm_params_from_numpy(to_numpy(params), "cpu")
+    tmodel = tbuild(port_cfg(arch))
+    toks = tokens(cfg, 2, 8, seed=7)
+    jcache = model.decode_init(params, {"tokens": jnp.asarray(toks)}, 20,
+                               dtype=jnp.float32)
+    tcache = tmodel.decode_init(tparams, {"tokens": torch.tensor(toks)}, 20,
+                                dtype=torch.float32)
+    assert (ttr.tree_map(lambda a: tuple(a.shape), tcache)
+            == jax.tree.map(lambda a: tuple(a.shape), jcache))
+    for t in range(8):
+        want, jcache = model.decode_step(params, jcache,
+                                         jnp.asarray(toks[:, t]))
+        got, tcache = tmodel.decode_step(tparams, tcache,
+                                         torch.tensor(toks[:, t]))
+        close(got, want, 1e-4)
+    flat_j = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    assert len(flat_j) == len(tree_leaves(tcache))
+    for path, leaf in flat_j:
+        node = tcache
+        for p in path:
+            node = node[p.key]
+        close(node, leaf, 1e-5)
+    jtok = jnp.argmax(want, axis=-1).astype(jnp.int32)
+    jout = [np.asarray(jtok)]
+    for _ in range(7):
+        logits, jcache = model.decode_step(params, jcache, jtok)
+        jtok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        jout.append(np.asarray(jtok))
+    step = make_serve_step(tmodel)
+    ttok = torch.argmax(got, dim=-1).to(torch.int32)
+    tout = [ttok.numpy()]
+    for _ in range(7):
+        ttok, tcache = step(tparams, tcache, ttok)
+        tout.append(ttok.numpy())
+    np.testing.assert_array_equal(np.stack(tout, 1), np.stack(jout, 1))
+
+
+@pytest.mark.parametrize("arch,prompt", [("mamba2-1.3b", 64),
+                                         ("zamba2-2.7b", 64),
+                                         ("mamba2-1.3b", 13)])
+def test_ssm_decode_matches_forward_in_port(arch, prompt):
+    """The port's decode logits against its own forward over a prompt of
+    two chunks (and one shorter than a chunk), at 2e-3; the decode step
+    runs no scan."""
+    cfg = port_cfg(arch)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(5))
+    toks = torch.tensor(tokens(cfg, 2, prompt + 1, seed=8))
+    full = model.logits(params, {"tokens": toks})
+    res = tserve.serve(model, params, toks[:, :prompt], 4,
+                       keep_prompt_logits=True)
+    torch.testing.assert_close(res.prompt_logits, full, atol=2e-3,
+                               rtol=2e-3)
+    assert torch.equal(res.tokens[:, 0],
+                       torch.argmax(full[:, -1], -1).to(torch.int32))
+
+
+def test_ssm_serving_params_keep_ssm_leaves_float32():
+    """The bf16 serving copy of zamba2 holds only ``w`` and ``table`` in
+    bf16 (conv_w, a_log, d_skip, dt_bias, norm_scale, norms stay float32)
+    and gives bit-identical logits and decode steps to its float32
+    params."""
+    cfg = port_cfg("zamba2-2.7b", dtype="bfloat16")
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(6))
+    serving = model.serving_params(params)
+    ssm = serving["blocks"]["ssm"]
+    assert ssm["in_proj"]["w"].dtype == torch.bfloat16
+    assert serving["shared_attn"]["attn"]["wq"]["w"].dtype == torch.bfloat16
+    for name in ("conv_w", "conv_b", "a_log", "d_skip", "dt_bias",
+                 "norm_scale"):
+        assert ssm[name].dtype == torch.float32, name
+    toks = torch.tensor(tokens(cfg, 2, 9, seed=9))
+    assert torch.equal(model.logits(params, {"tokens": toks}),
+                       model.logits(serving, {"tokens": toks}))
+    a = tserve.serve(model, params, toks, 3, keep_prompt_logits=True)
+    b = tserve.serve(model, serving, toks, 3, keep_prompt_logits=True)
+    assert torch.equal(a.prompt_logits, b.prompt_logits)
+    assert torch.equal(a.tokens, b.tokens)
+
+
 def test_serving_params_give_the_same_numbers():
     """A bfloat16 model's serving copy (matrices bf16, scales f32) gives
     bit-identical logits and decode steps to its float32 params."""
@@ -401,8 +562,10 @@ def test_rmsnorm_launch_count_on_the_path_is_zero_on_cpu():
     assert (trms.LAUNCHES, tfa.LAUNCHES) == before
 
 
-def test_serve_cli_runs_on_cpu(capsys):
-    res = tserve.main(["--reduced", "--device", "cpu", "--new-tokens", "4"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b"] + SSM)
+def test_serve_cli_runs_on_cpu(capsys, arch):
+    res = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--new-tokens", "4"])
     assert res.tokens.shape == (2, 4)
     assert "tok/s on cpu" in capsys.readouterr().out
     with pytest.raises(ValueError):
@@ -416,6 +579,75 @@ def test_cache_bytes_of_decode_32k():
     n = tserve.cache_bytes(tget("qwen3-0.6b"), 128, 32_768, torch.bfloat16)
     assert n == 2 * 28 * 128 * 32_768 * 8 * 128 * 2
     assert 480e9 < n < 482e9
+
+
+def float_bytes(cache) -> int:
+    return sum(t.nbytes for t in tree_leaves(cache)
+               if t.is_floating_point())
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("qwen3-0.6b", torch.bfloat16), ("mamba2-1.3b", torch.bfloat16),
+    ("zamba2-2.7b", torch.bfloat16), ("zamba2-2.7b", torch.float32),
+    ("olmo-1b", torch.float32)])
+def test_cache_bytes_count_a_built_cache(arch, dtype):
+    """``cache_bytes`` per family equals the bytes of the float leaves of
+    a built reduced cache: dense k/v in ``dtype``; SSM state and conv in
+    float32 whatever ``dtype``; zamba2 both, its k/v one per application
+    of the shared block."""
+    cfg = port_cfg(arch)
+    cache = tbuild(cfg).decode_init(
+        None, {"tokens": torch.zeros(3, 1, dtype=torch.int32)}, 24,
+        dtype=dtype)
+    assert tserve.cache_bytes(cfg, 3, 24, dtype) == float_bytes(cache)
+
+
+def test_cache_bytes_of_ssm_decode_32k(monkeypatch):
+    """mamba2-1.3b at decode_32k (128 requests) needs 48 x 275,120,128 B of
+    float32 state and conv, whatever the cache length: it fits one card.
+    zamba2-2.7b needs 9.5 GB of SSM state and about 387 GB of shared k/v
+    in bf16, so ``serve_shape`` refuses it on an 80 GB card before
+    allocating anything."""
+    shape = T_SHAPES["decode_32k"]
+    m = tserve.cache_bytes(tget("mamba2-1.3b"), 128, shape.seq_len,
+                           torch.bfloat16)
+    assert m == 48 * 275_120_128 == 13_205_766_144
+    z = tget("zamba2-2.7b")
+    ssm_part = tserve.cache_bytes(z, 128, 0, torch.bfloat16)
+    assert ssm_part == 54 * 128 * (80 * 64 * 64 + 3 * (5120 + 128)) * 4
+    kv = tserve.cache_bytes(z, 128, shape.seq_len, torch.bfloat16) - ssm_part
+    assert kv == 2 * 9 * 128 * 32_768 * 32 * 80 * 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev=None: (80 * 10 ** 9, 80 * 10 ** 9))
+    with pytest.raises(ValueError, match="zamba2-2.7b at decode_32k"):
+        tserve.serve_shape(z, shape, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", SSM)
+def test_reduced_ssm_model_on_card_matches_cpu(arch):
+    """Reduced mamba2 / zamba2 in float32 with the kernels on the card
+    against the plain versions on the CPU over two chunks: logits at 1e-4,
+    identical greedy tokens, and the launch counts of one forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = port_cfg(arch)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(7))
+    on_card = ttr.tree_map(lambda p: p.cuda(), params)
+    toks = torch.tensor(tokens(cfg, 2, 65, seed=10))
+    want = model.logits(params, {"tokens": toks})
+    trms.LAUNCHES = tfa.LAUNCHES = tscan.LAUNCHES = 0
+    got = model.logits(on_card, {"tokens": toks.cuda()})
+    apps = cfg.n_layers // cfg.hybrid_attn_period if cfg.hybrid_attn_period \
+        else 0
+    assert (tscan.LAUNCHES, tfa.LAUNCHES, trms.LAUNCHES) == (
+        cfg.n_layers, apps, 2 * cfg.n_layers + 2 * apps + 1)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    a = tserve.serve(model, params, toks[:, :8], 8)
+    b = tserve.serve(model, on_card, toks[:, :8].cuda(), 8)
+    assert torch.equal(a.tokens, b.tokens.cpu())
 
 
 @pytest.mark.gpu
