@@ -12,8 +12,10 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 2. ``build``: builds every kernel of the main paths with ``nvcc`` from the
    checkout's sources (golden_section, its cbrtf variant of phase 3b,
    hier_aggregate, rmsnorm, flash_attention, ssd_scan), and the flash
-   kernel's two planted faults of phase 8 in a temporary directory, all at
-   once; build seconds and the ptxas register/spill report.
+   kernel's three planted faults of phase 8 in a temporary directory, all
+   at once, each with its own nvcc flags (``build.nvcc_flags``: every
+   kernel but flash with -fmad=false); build seconds and the ptxas
+   register/spill report.
 3. ``kernel``: each kernel against its plain PyTorch version on the same
    card tensors, at the main path's shapes and at ragged ones, with the
    stated tolerance; kernel and plain times (CUDA events), the operation
@@ -45,10 +47,14 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 8. ``kernel`` (rmsnorm, flash_attention): each serving kernel against its
    plain version at the serving path's shapes (qwen3-0.6b's prefill and
    decode rows; its attention layer at B=4, S=4096) and at ragged ones;
-   kernel, plain and library-call times, the bound and the kernel's share.
+   kernel times on warm inputs and with the L2 flushed before each launch,
+   plain and library-call times, the bound and the kernel's share, flash's
+   TFLOP/s, each kernel's registers and spills from phase 2, and
+   rmsnorm's host and device microseconds per call at the decode shape.
    Then ``fault``: copies of the flash kernel with a planted fault (one kv
-   tile skipped; O accumulated in bfloat16) at the layer shape, each of
-   which the flash tolerance must reject.
+   tile skipped; O rounded to bfloat16 after each PV product; the K/V of
+   the other ring stage) at the layer shape, each of which the flash
+   tolerance must reject.
 9. ``prefill_path``: ``Model.logits`` of full-size qwen3-0.6b (28 layers,
    random weights from seed 0, bfloat16 serving copy, the flash kernel) on
    4 x 4096 tokens; seconds and tokens/s per forward, the launch counts
@@ -72,7 +78,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    plain times, bytes, bound and share at mamba2's (no PyTorch call
    computes it); the flash kernel at zamba2's shared attention layer (B=4,
    S=4096, 32 heads of 80, bf16, causal) under phase 8's bf16 tolerance,
-   with its time, bound and SDPA's time.
+   with its warm and L2-cold times, bound and SDPA's time.
 13. ``ssm_prefill_path``: ``Model.logits`` of full-size mamba2-1.3b (48
    layers) and zamba2-2.7b (54 layers, the shared block after every 6),
    random weights from seed 0, bfloat16 serving copy, on 4 x 4096 tokens:
@@ -138,26 +144,31 @@ TRAIN_ROUNDS = 3
 # and the output to bf16, each by at most u = 2^-8 relatively, so its
 # error is at most u (|want| + P|V|), P|V| being attention over |v|; scale =
 # |want| + P|V| and rtol = 2u, and 5e-3 per block (about 2u, where the
-# roundings give 1e-3 to 2.5e-3). A kernel that skips a kv tile or keeps O
-# in bf16 must fail (phase 8 plants both and checks).
+# roundings give 1e-3 to 2.5e-3). A kernel that skips a kv tile, rounds O
+# to bf16 after each PV product or computes on the other ring stage's K/V
+# must fail (phase 8 plants all three and checks).
 FLASH_TOL = {"float32": (1e-5, 1e-5, None),
              "bfloat16": (1e-5, 2 ** -7, 5e-3)}
 FLASH_ROWS = 64          # query rows of a block in the norm-relative error
 # faults planted in copies of csrc/flash_attention.cu (bfloat16 kernel):
 # (text that must occur once, text put in its place)
-_KV_LOOP = ("    const int kv0 = t * kBKV;\n"
-            "    __syncthreads();  // every warp is done with the previous "
-            "K, V tiles\n")
-_PV_MMA = ("        wmma::mma_sync(o[n], fp, fv, o[n]);\n"
-           "      }\n")
+_STAGE = ("    const int stage = tt % kStages;  // the ring stage tile tt "
+          "arrived in\n")
+_PV_MMA = "        mma_bf16(o[j + 1], pa, vb[2], vb[3]);\n"
 FLASH_FAULTS = {
-    "skip_one_kv_tile": (_KV_LOOP, "    if (n_tiles > 2 && t == n_tiles / 2)"
-                         " continue;\n" + _KV_LOOP),
+    "skip_one_kv_tile": (_STAGE, "    if (n_tiles > 2 && tt == n_tiles / 2)"
+                         " continue;\n" + _STAGE),
     "bf16_accumulator": (_PV_MMA, _PV_MMA + (
         "#pragma unroll\n"
-        "      for (int i = 0; i < o[n].num_elements; ++i)\n"
-        "        o[n].x[i] = __bfloat162float(__float2bfloat16_rn("
-        "o[n].x[i]));\n")),
+        "        for (int e = 0; e < 4; ++e) {\n"
+        "          o[j][e] = __bfloat162float(__float2bfloat16_rn(o[j][e]));\n"
+        "          o[j + 1][e] = __bfloat162float(__float2bfloat16_rn("
+        "o[j + 1][e]));\n"
+        "        }\n")),
+    # the consumer reads the ring stage being filled with tile tt + 1 (or
+    # still holding tile tt - 1): a stale or not-yet-landed tile
+    "stale_ring_stage": (_STAGE, _STAGE.replace("tt % kStages",
+                                                "(tt + 1) % kStages")),
 }
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_REPS = 4, 4096, 3
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 256, 32
@@ -211,22 +222,24 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 def ptxas_report(log: str) -> dict:
     """Registers and spills per kernel instantiation, from nvcc -Xptxas -v
     (golden_section<NT, IT>: threads per block, slots per thread;
-    hier_aggregate<T, V> and rmsnorm<T, V>: element type, elements per
-    thread or load; flash_fwd_<type><HD>: input type, head dim;
+    hier_aggregate<T, V>: element type, elements per thread; rmsnorm<T,
+    V, K>: element type, elements per load, vectors per lane held in
+    registers; flash_fwd_<type><HD>: input type, head dim;
     ssd_scan_kernel<T>: states type)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             t = re.search(r"ILi(\d+)ELi(\d+)E", entry.group(1))
-            v = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E",
+            v = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?",
                           entry.group(1))
             f = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)E", entry.group(1))
             sc = re.search(r"ssd_scan_kernelI(f|13__nv_bfloat16)E",
                            entry.group(1))
             name = (f"NT={t.group(1)},IT={t.group(2)}" if t else
                     f"T={'f32' if v.group(1) == 'f' else 'bf16'},"
-                    f"V={v.group(2)}" if v else
+                    f"V={v.group(2)}"
+                    + (f",K={v.group(3)}" if v.group(3) else "") if v else
                     f"{f.group(1)},HD={f.group(2)}" if f else
                     f"T={'f32' if sc.group(1) == 'f' else 'bf16'}" if sc else
                     entry.group(1))
@@ -259,12 +272,16 @@ def golden_section_work(mask, n_golden: int, n_inner: int, n_bracket: int):
 
 def cuda_ms_cold(fn, reps: int, flush) -> float:
     """Mean milliseconds of ``fn()`` alone, with ``flush`` (a write larger
-    than the L2 cache) run before each launch outside the timed span."""
+    than the L2 cache) run before each launch outside the timed span. A
+    spin of the card (about 0.1 ms) after the flush keeps the card busy
+    while the host enqueues ``fn``, so the span holds the kernel and not
+    the host's latency in reaching it."""
     import torch
     fn()
     total = 0.0
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(200_000)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -434,8 +451,8 @@ def flash_error(got, want, want_abs, dtype: str) -> tuple[dict, bool]:
 
 def build_flash_fault(directory: str, name: str):
     """A copy of ``csrc/flash_attention.cu`` with the fault
-    ``FLASH_FAULTS[name]`` planted, built with the kernels' flags into
-    ``directory`` and loaded; returns the bound library."""
+    ``FLASH_FAULTS[name]`` planted, built with the flash kernel's own flags
+    into ``directory`` and loaded; returns the bound library."""
     import ctypes
 
     from repro_torch.kernels import build, flash_attention
@@ -447,7 +464,8 @@ def build_flash_fault(directory: str, name: str):
     src = Path(directory) / f"flash_attention_{name}.cu"
     src.write_text(text.replace(old, new))
     out = src.with_suffix(".so")
-    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o",
+    proc = subprocess.run([build.nvcc_path(),
+                           *build.nvcc_flags("flash_attention"), "-o",
                            str(out), str(src)], capture_output=True,
                           text=True, timeout=600)
     if proc.returncode != 0:
@@ -455,17 +473,46 @@ def build_flash_fault(directory: str, name: str):
     return flash_attention.bind(ctypes.CDLL(str(out)))
 
 
-def serving_kernels(dev, fault_libs: dict) -> dict:
+def rmsnorm_decode_split(x, scale, calls: int = 200) -> dict:
+    """Host and device microseconds per ``rmsnorm`` call at a small shape:
+    the host clock around ``calls`` enqueues (no synchronize between them),
+    and the kernel's device time per launch under ``torch.profiler``
+    (None when the profiler gives none)."""
+    import torch
+    from repro_torch.kernels import rmsnorm
+    rmsnorm.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        rmsnorm.rmsnorm(x, scale)
+    host_us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    run = profiled("kernel", lambda: [rmsnorm.rmsnorm(x, scale)
+                                      for _ in range(calls)])
+    device_us = None
+    if run is not None:
+        spans = [(us, cnt) for name, us, cnt in run[1]
+                 if "rmsnorm_kernel" in name]
+        if spans:
+            device_us = sum(us for us, _ in spans) / sum(c for _, c in spans)
+    return dict(host_us_per_call=host_us, device_us_per_call=device_us,
+                calls=calls)
+
+
+def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
     """Phase 8: rmsnorm and flash_attention against their plain versions
-    at the serving path's shapes and at ragged ones, with times at the
-    main shapes, and the flash kernel's planted faults (``fault_libs``)
-    against the same tolerance at the layer shape. Returns the main
-    shapes' fields for the kernels line."""
+    at the serving path's shapes and at ragged ones, with warm and
+    L2-cold times at the main shapes beside each kernel's ptxas report
+    (``ptxas``, from phase 2), rmsnorm's host and device time per call at
+    the decode shape, and the flash kernel's planted faults
+    (``fault_libs``) against the same tolerance at the layer shape.
+    Returns the main shapes' fields for the kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref, rmsnorm
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
+    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_   # 64 MiB > L2
     main = {}
     for case, rows, d, dtype in (("prefill", PREFILL_BATCH * PREFILL_SEQ,
                                   1024, bf16),
@@ -494,14 +541,25 @@ def serving_kernels(dev, fault_libs: dict) -> dict:
             k_ms = cuda_ms(lambda: rmsnorm.rmsnorm(x, scale), reps=100)
             w = scale.to(dtype)
             lib = getattr(F, "rms_norm", None)      # torch 2.4 and later
+            vec = rmsnorm.vector_width(d, dtype)
             fields.update(
-                ms=k_ms, plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(
-                    x, scale, vec=rmsnorm.vector_width(d, dtype)), reps=5),
+                ms=k_ms, ms_cold_l2=cuda_ms_cold(
+                    lambda: rmsnorm.rmsnorm(x, scale), 50, flush),
+                plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(
+                    x, scale, vec=vec), reps=5),
                 library_ms=None if lib is None else cuda_ms(
                     lambda: lib(x, (d,), w, 1e-6), reps=100),
+                library_ms_cold_l2=None if lib is None else cuda_ms_cold(
+                    lambda: lib(x, (d,), w, 1e-6), 50, flush),
                 library="torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)",
                 bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
-                bound_share=b_ms / k_ms)
+                bound_share=b_ms / k_ms,
+                held_vectors=rmsnorm.held_vectors(d, vec),
+                ptxas=ptxas["rmsnorm"].get(
+                    f"T={'f32' if dtype == f32 else 'bf16'},V={vec},"
+                    f"K={rmsnorm.held_vectors(d, vec)}"))
+            if case == "decode":    # host-bound: the wrapper's cost apart
+                fields.update(rmsnorm_decode_split(x, scale))
             main.setdefault("rmsnorm", fields)
         emit("kernel", **fields)
 
@@ -551,6 +609,8 @@ def serving_kernels(dev, fault_libs: dict) -> dict:
             b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
             k_ms = cuda_ms(lambda: flash_attention.flash_attention(
                 q, k, v, causal=causal), reps=20)
+            k_cold = cuda_ms_cold(lambda: flash_attention.flash_attention(
+                q, k, v, causal=causal), 10, flush)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             try:
                 def library():
@@ -567,12 +627,14 @@ def serving_kernels(dev, fault_libs: dict) -> dict:
                 lib_name = ("torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True) on kv repeated beforehand")
             fields.update(
-                ms=k_ms, plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                ms=k_ms, ms_cold_l2=k_cold,
+                plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
                     q, k, v, causal=causal), reps=3),
                 library_ms=lib_ms, library=lib_name, operations=ops,
                 bytes=nbytes, peak_flops=PEAK_BF16_FLOPS, bound_ms=b_ms,
                 bound_by=b_by, bound_share=b_ms / k_ms,
-                tflops=ops / (k_ms * 1e-3) / 1e12)
+                tflops=ops / (k_ms * 1e-3) / 1e12,
+                ptxas=ptxas["flash_attention"].get(f"bf16,HD={hd}"))
             main["flash_attention"] = fields
         emit("kernel", **fields)
     return main
@@ -803,13 +865,14 @@ def serve_card_vs_cpu(dev, arch: str = "qwen3-0.6b", n_tokens: int = 33,
         raise AssertionError(f"card and CPU serving of {cfg.name} disagree")
 
 
-def ssm_kernels(dev) -> dict:
+def ssm_kernels(dev, ptxas: dict) -> dict:
     """Phase 12: ssd_state_scan against its plain version on the same card
     tensors, bit for bit, at mamba2-1.3b's and zamba2-2.7b's prefill
     shapes (4 x 4096 tokens in chunks of 256), a long sequence, a ragged
     shape and bfloat16 states, with times at mamba2's; then the flash
-    kernel at zamba2's shared attention layer (head dim 80). Returns the
-    main shapes' fields for the kernels line."""
+    kernel at zamba2's shared attention layer (head dim 80; ``ptxas`` is
+    its build's report from phase 2). Returns the main shapes' fields for
+    the kernels line."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -897,16 +960,20 @@ def ssm_kernels(dev) -> dict:
     ops, nbytes = attention_work(b, sq, sq, hq, hq, hd, True, 2)
     b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
     k_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=20)
+    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_   # 64 MiB > L2
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fields.update(
-        ms=k_ms, plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
+        ms=k_ms, ms_cold_l2=cuda_ms_cold(
+            lambda: flash_attention.flash_attention(q, k, v), 10, flush),
+        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
                                   reps=3),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), reps=20),
         library="torch.nn.functional.scaled_dot_product_attention("
                 "is_causal=True)",
         operations=ops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
-        bound_share=b_ms / k_ms, tflops=ops / (k_ms * 1e-3) / 1e12)
+        bound_share=b_ms / k_ms, tflops=ops / (k_ms * 1e-3) / 1e12,
+        ptxas=ptxas.get(f"bf16,HD={hd}"))
     main["flash_attention_hd80"] = fields
     emit("kernel", **fields)
     return main
@@ -1520,12 +1587,13 @@ def main() -> int:
         raise AssertionError("card and CPU training disagree on (30, 5, 0)")
 
     # ---- 8-11. serving: kernels, prefill and serve paths, card vs CPU ----
-    serving = serving_kernels(dev, fault_libs)
+    ptxas = {kname: ptxas_report(b.ptxas_log) for kname, b in built.items()}
+    serving = serving_kernels(dev, fault_libs, ptxas)
     serve_launches = serving_paths(dev)
     serve_card_vs_cpu(dev)
 
     # ---- 12-15. SSM and hybrid serving ----
-    ssm = ssm_kernels(dev)
+    ssm = ssm_kernels(dev, ptxas["flash_attention"])
     ssm_launches = [ssm_prefill_path(dev, arch)
                     for arch in ("mamba2-1.3b", "zamba2-2.7b")]
     ssm_launches.append(ssm_serve_path(dev))
@@ -1556,21 +1624,23 @@ def main() -> int:
              replaces="src/repro/kernels/rmsnorm.py:39",
              launches=serve_launches["rmsnorm"] + launched("rmsnorm"),
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
+             ms_cold_l2=rms["ms_cold_l2"],
              plain_ms=rms["plain_ms"], bound_ms=rms["bound_ms"],
              bound_by=rms["bound_by"], library_ms=rms["library_ms"],
-             shape=rms["shape"]),
+             shape=rms["shape"], ptxas=rms["ptxas"]),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:103",
              launches=serve_launches["flash_attention"]
              + launched("flash_attention"),
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
+             ms_cold_l2=fla["ms_cold_l2"], tflops=fla["tflops"],
              plain_ms=fla["plain_ms"], bound_ms=fla["bound_ms"],
              bound_by=fla["bound_by"], library_ms=fla["library_ms"],
-             shape=fla["shape"],
+             shape=fla["shape"], ptxas=fla["ptxas"],
              hd80={key: fla80[key] for key in (
-                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")}),
+                 "shape", "max_abs_err", "ms", "ms_cold_l2", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "tflops")}),
         dict(name="ssd_state_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:47",

@@ -22,10 +22,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# -fmad=false keeps every multiply and add separately rounded, as in the
-# plain PyTorch version, so the kernel follows it op for op.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false keeps every multiply and add separately rounded, as in the
+# plain PyTorch version, so a kernel follows it op for op: every kernel but
+# these, which are held to a tolerance rather than to bit-equality and may
+# fuse a multiply and an add.
+FUSED_MULTIPLY_ADD = frozenset({"flash_attention"})
+
+
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    if name in FUSED_MULTIPLY_ADD:
+        return NVCC_FLAGS
+    return (*NVCC_FLAGS, "-fmad=false")
 
 
 @dataclass(frozen=True)
@@ -59,7 +69,7 @@ def load(name: str, defines: tuple[str, ...] = ()) -> Built:
     if key in _LOADED:
         return _LOADED[key]
     src = CSRC / f"{name}.cu"
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    flags = (*nvcc_flags(name), *(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             ).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"

@@ -1,56 +1,71 @@
 // Flash attention forward (online softmax) on (B, S, H, hd), for Hopper
 // (sm_90a).
 //
-// Replaces repro/kernels/flash_attention.py::_fwd_kernel (the Pallas TPU
-// kernel behind flash_attention_fwd). Same function: for q (B, Sq, Hq, hd)
-// and k, v (B, Skv, Hkv, hd), q head h reads kv head h / (Hq / Hkv) (GQA, no
-// repeat), scores scaled by the wrapper's scale (hd^-0.5), causal mask
-// kv_pos <= q_pos aligned top-left as the Pallas kernel aligns it (the same
-// as the reference's bottom-right mask when Sq == Skv), float32 softmax
-// statistics and float32 accumulation, output divided by max(l, 1e-30)
-// and rounded to q's type. The plain PyTorch version is
-// repro_torch/kernels/ref.py::flash_attention_ref.
+// Replaces repro/kernels/flash_attention.py::_fwd_kernel (line 30; the
+// Pallas TPU kernel behind flash_attention_fwd). Same function: for q
+// (B, Sq, Hq, hd) and k, v (B, Skv, Hkv, hd), q head h reads kv head
+// h / (Hq / Hkv) (GQA, no repeat), scores scaled by the wrapper's scale
+// (hd^-0.5), causal mask kv_pos <= q_pos aligned top-left as the Pallas
+// kernel aligns it (the same as the reference's bottom-right mask when
+// Sq == Skv), float32 softmax statistics and float32 accumulation, output
+// divided by max(l, 1e-30) and rounded to q's type. The plain PyTorch
+// version is repro_torch/kernels/ref.py::flash_attention_ref.
 //
 // What bounds it: operations. Causal attention at qwen3-0.6b's prefill
 // shape (B=4, S=4096, 16 heads of 128) is 2.75e11 multiply-adds counted as
-// 2 operations (QK^T and PV over the visible half), 0.28 ms at the bf16
-// dense tensor-core peak, against 0.05 ms for its bytes. Design: one block
-// of four warps per 64 query rows of one (batch, head); it walks the kv
-// tiles of 64 rows from the first to the last one its rows can see
-// (causal tiles above the diagonal are never loaded), with q, k and v
-// tiles in shared memory. The ragged edge (Sq or Skv not a multiple of 64)
-// is masked here; the Pallas block_q / block_kv do not reach the kernel,
-// whose tile is its own choice.
-//   bfloat16: each warp owns 16 query rows; S = Q K^T and O += P V run on
-//   the tensor cores (wmma 16x16x16, bf16 in, f32 accumulate); S goes
-//   through shared memory to the softmax, where lanes 2r and 2r + 1 share
-//   row r, and P is rounded to bf16 for the PV product (the one rounding
-//   the plain version does not make). O stays in accumulator fragments and
-//   is rescaled through a fragment of the per-row correction factors,
-//   which has the same element layout.
-//   float32: the same walk on the CUDA cores, thread pair per row, so no
-//   TF32 rounding enters.
-// Faster designs (wgmma, TMA, a producer warp, larger tiles) are later
-// work.
+// 2 operations (QK^T and PV over the visible half), 0.278 ms at the bf16
+// dense tensor-core peak, against 0.05 ms for its bytes. Both kernels walk,
+// for one block of query rows of one (batch, head), the kv tiles from the
+// first to the last one its rows can see (causal tiles above the diagonal
+// are never loaded), longest blocks first; the ragged edge (Sq or Skv not a
+// multiple of the tile) is masked here. The Pallas block_q / block_kv do
+// not reach the kernel, whose tiles are its own choice.
+//
+// bfloat16 (the serving path): register-resident, asynchronous copies.
+//   Tiles: 64 query rows per block of four warps, 16 rows per warp; kv
+//   tiles of 64 rows in a ring of kStages = 2 shared-memory stages.
+//   Shared memory: Q plus two K and two V tiles, rows padded to hd + 8
+//   elements so that the eight rows an ldmatrix reads fall on distinct
+//   banks: 85.0 KB at hd 128, two blocks per SM. ptxas reports the
+//   registers per thread (phase 2 of chip_smoke.py; about 160 at hd 128).
+//   What it does about the causes that held the wmma design back:
+//   - K/V tile t + 1 is copied by cp.async.cg (16 bytes a thread, zero
+//     filled past Skv) into the other ring stage while tile t is computed;
+//     one __syncthreads a tile both publishes tile t and frees the stage
+//     tile t + 1 overwrites.
+//   - The products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate)
+//     through inline PTX, whose fragment layout the PTX ISA documents:
+//     lane l holds rows l/4 and l/4 + 8, columns 2(l%4) + {0, 1} of each
+//     n8 tile. Q's A fragments are loaded once (ldmatrix.x4) and stay in
+//     registers for the whole kv walk; K's B fragments come by ldmatrix.x4,
+//     V's by ldmatrix.x4.trans.
+//   - S stays in its accumulator registers. The row max takes two
+//     __shfl_xor_sync within the quad that shares a row; the row sum stays
+//     a per-lane partial until the end. P is rounded to bf16 in registers
+//     and is the A operand of PV as it stands (the accumulator layout of
+//     two n8 tiles is the A layout of one k16 step), and the O accumulator
+//     is rescaled in place: S, P and the correction factors never touch
+//     shared memory. P's rounding is the one rounding the plain version
+//     does not make.
+//   - Built with fused multiply-add (build.py gives this kernel alone no
+//     -fmad=false): the softmax is exp2(s * scale * log2 e - m'), one FMA
+//     and one MUFU.EX2 an element.
+//   Every head dim in HEAD_DIMS (16, 32, 64, 80, 128) runs this layout: a
+//   head dim is a whole number of k16 steps of QK^T and of n8 pairs of PV.
+//   The wgmma / TMA / producer-warp design is ROADMAP queue 1's next step.
+//
+// float32 (the card-vs-CPU checks): the same walk on the CUDA cores, a
+//   thread pair per row, through shared memory, so no TF32 rounding enters.
 //
 // Plain C entry point flash_attention_launch: launches on the given stream,
 // does not synchronise, allocates nothing, returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int kBQ = 64;    // query rows per block
-constexpr int kBKV = 64;   // kv rows per tile
-constexpr int kWarps = 4;  // 16 query rows per warp
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCols = kBKV / 2;  // score columns per thread
-constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Args {
@@ -67,24 +82,307 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
-// kv tiles the block starting at query row q0 has to visit
+// kv tiles of BKV rows that a block of BQ query rows from q0 has to visit
+template <int BQ, int BKV>
 __device__ __forceinline__ int visible_tiles(const Args& a, int q0) {
-  const int all = cdiv(a.Skv, kBKV);
+  const int all = cdiv(a.Skv, BKV);
   if (!a.causal) return all;
-  const int q_last = min(q0 + kBQ, a.Sq) - 1;
-  return min(all, q_last / kBKV + 1);
+  const int q_last = min(q0 + BQ, a.Sq) - 1;
+  return min(all, q_last / BKV + 1);
 }
 
-// rows [s0, s0 + 64) of head h of batch b of a (B, S, H, HD) tensor into
-// shared memory with row stride LD elements, zeros past row S - 1.
-// 16-byte loads; HD * sizeof(T) is a multiple of 16.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int b, int s0,
-                                          int S, int H, int h) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;
-  for (int i = threadIdx.x; i < kBKV * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+// ---------------------------------------------------------------- bf16 --
+
+constexpr int kBQ = 64;     // query rows per block
+constexpr int kBKV = 64;    // kv rows per tile
+constexpr int kWarps = 4;   // 16 query rows per warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;  // K/V ring
+
+template <int HD>
+struct Bf16Smem {
+  static constexpr int kLd = HD + 8;        // bf16 elements per row
+  static constexpr int kTile = kBKV * kLd;  // elements of one K or V tile
+  static constexpr int kQ = 0;              // element offsets
+  static constexpr int kK = kQ + kBQ * kLd;           // + stage * kTile
+  static constexpr int kV = kK + kStages * kTile;     // + stage * kTile
+  static constexpr int kBytes = 2 * (kV + kStages * kTile);
+};
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros if !valid
+// (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a b for one m16n8k16 tile, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [s0, s0 + ROWS) of head h of batch b of a (B, S, H, HD) tensor into
+// shared memory at dst (row stride LD elements) by cp.async; zeros past
+// row S - 1
+template <int HD, int ROWS, int LD>
+__device__ __forceinline__ void copy_tile(uint32_t dst,
+                                          const __nv_bfloat16* src, int b,
+                                          int s0, int S, int H, int h) {
+  constexpr int kPerRow = HD / 8;  // 16-byte chunks
+  static_assert(ROWS * kPerRow % kThreads == 0, "whole rounds of copies");
+#pragma unroll
+  for (int n = 0; n < ROWS * kPerRow / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / kPerRow, c = (i % kPerRow) * 8;
+    const int s = s0 + r;
+    const bool ok = s < S;
+    const __nv_bfloat16* p =
+        src + ((static_cast<long long>(b) * S + (ok ? s : 0)) * H + h) * HD +
+        c;
+    cp_async16(dst + 2 * (r * LD + c), p, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_bf16(Args a) {
+  using L = Bf16Smem<HD>;
+  constexpr int kLd = L::kLd;
+  constexpr int kSteps = HD / 16;   // k16 steps of QK^T
+  constexpr int kN8 = HD / 8;       // n8 tiles of O
+  constexpr int kS8 = kBKV / 8;     // n8 tiles of S
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto* sm = reinterpret_cast<__nv_bfloat16*>(smem);
+  const uint32_t base = smem_u32(sm);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // long tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  const float c = a.scale * kLog2e;
+  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
+  const auto* k = static_cast<const __nv_bfloat16*>(a.k);
+  const auto* v = static_cast<const __nv_bfloat16*>(a.v);
+
+  // ldmatrix.x4 row addresses: lane l gives row l % 8 of matrix l / 8.
+  // A-like (Q, and V through .trans): matrices (rows 0-7, 8-15) x (cols
+  // 0-7, 8-15), rows first. K: (n8 tile j, j + 1) x (k 0-7, 8-15), k first.
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int k_row = (lane & 7) + 8 * (lane >> 4), k_col = 8 * ((lane >> 3) & 1);
+
+  const int n_tiles = visible_tiles<kBQ, kBKV>(a, q0);
+  copy_tile<HD, kBQ, kLd>(base + 2 * L::kQ, q, b, q0, a.Sq, a.Hq, h);
+  copy_tile<HD, kBKV, kLd>(base + 2 * L::kK, k, b, 0, a.Skv, a.Hkv, hk);
+  copy_tile<HD, kBKV, kLd>(base + 2 * L::kV, v, b, 0, a.Skv, a.Hkv, hk);
+  cp_async_commit();
+
+  uint32_t qf[kSteps][4];  // Q's A fragments, loaded at the first tile
+  float o[kN8][4];
+#pragma unroll
+  for (int j = 0; j < kN8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  // running max (raw score units) and this lane's partial row sums. Every
+  // row sees kv position 0 in tile 0, so m is finite from the first tile
+  // on and a masked score of -inf gives p = 0.
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+
+  for (int tt = 0; tt < n_tiles; ++tt) {
+    cp_async_wait_all();  // this thread's copies of tile tt have landed
+    __syncthreads();      // everyone's have, and tile tt - 1 is consumed
+    if (tt + 1 < n_tiles) {  // tile tt + 1 loads while tile tt computes
+      const int nxt = (tt + 1) % kStages;
+      copy_tile<HD, kBKV, kLd>(base + 2 * (L::kK + nxt * L::kTile), k, b,
+                               (tt + 1) * kBKV, a.Skv, a.Hkv, hk);
+      copy_tile<HD, kBKV, kLd>(base + 2 * (L::kV + nxt * L::kTile), v, b,
+                               (tt + 1) * kBKV, a.Skv, a.Hkv, hk);
+      cp_async_commit();
+    }
+    if (tt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk)
+        ldmatrix_x4(qf[kk], base + 2 * (L::kQ + (warp * 16 + a_row) * kLd +
+                                         16 * kk + a_col));
+    }
+    const int stage = tt % kStages;  // the ring stage tile tt arrived in
+    const uint32_t ks = base + 2 * (L::kK + stage * L::kTile);
+    const uint32_t vs = base + 2 * (L::kV + stage * L::kTile);
+    const int kv0 = tt * kBKV;
+
+    // S = Q K^T, 16 rows x 64 columns per warp, in registers
+    float s[kS8][4];
+#pragma unroll
+    for (int j = 0; j < kS8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kS8; j += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + 2 * ((8 * j + k_row) * kLd + 16 * kk + k_col));
+        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // mask the ragged edge and, on the diagonal tiles, the causal half
+    if (kv0 + kBKV > a.Skv || (a.causal && kv0 + kBKV - 1 > q0)) {
+#pragma unroll
+      for (int j = 0; j < kS8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kv_pos = kv0 + 8 * j + 2 * t4 + (e & 1);
+          const int q_pos = row0 + 8 * (e >> 1);
+          if (kv_pos >= a.Skv || (a.causal && kv_pos > q_pos))
+            s[j][e] = neg_inf();
+        }
+    }
+
+    // online softmax of the lane's two rows (e >> 1 picks the row)
+    float mc[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int j = 0; j < kS8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[r] = exp2f((m[r] - mx) * c);
+      m[r] = mx;
+      mc[r] = mx * c;
+    }
+#pragma unroll
+    for (int j = 0; j < kS8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(fmaf(s[j][e], c, -mc[e >> 1]));
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < kN8; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+
+    // O += P V: P's k16 step kk is S's n8 tiles 2kk and 2kk + 1
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < kN8; j += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vs + 2 * ((16 * kk + a_row) * kLd + 8 * j +
+                                        a_col));
+        mma_bf16(o[j], pa, vb[0], vb[1]);
+        mma_bf16(o[j + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // out = O / max(l, 1e-30): the quad's partial sums first; then the
+  // warp's 16 rows through its own rows of the Q tile (read by this warp
+  // only, at the first tile) for 16-byte coalesced stores
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  auto* stage_o = sm + L::kQ + warp * 16 * kLd;
+#pragma unroll
+  for (int j = 0; j < kN8; ++j) {
+    const int col = 8 * j + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(stage_o + g * kLd + col) =
+        __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(stage_o + (g + 8) * kLd + col) =
+        __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
+  }
+  __syncwarp();
+  auto* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int n = 0; n < 16 * kN8 / 32; ++n) {
+    const int i = lane + 32 * n;
+    const int r = i / kN8, col = 8 * (i % kN8);
+    const int q_pos = q0 + warp * 16 + r;
+    if (q_pos < a.Sq)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<long long>(b) * a.Sq + q_pos) * a.Hq + h) * HD +
+          col) = *reinterpret_cast<const uint4*>(stage_o + r * kLd + col);
+  }
+}
+
+// ----------------------------------------------------------------- f32 --
+
+constexpr int kF32BQ = 64;    // query rows per block, a thread pair each
+constexpr int kF32BKV = 64;   // kv rows per tile
+constexpr int kF32Threads = 2 * kF32BQ;
+constexpr int kCols = kF32BKV / 2;  // score columns per thread
+constexpr float kNegInf = -1e30f;
+
+// rows [s0, s0 + 64) of head h of batch b of a (B, S, H, HD) float32 tensor
+// into shared memory with row stride LD elements, zeros past row S - 1.
+// 16-byte loads; HD * 4 is a multiple of 16.
+template <int HD, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int b,
+                                          int s0, int S, int H, int h) {
+  constexpr int kPerRow = HD / 4;
+  for (int i = threadIdx.x; i < kF32BKV * kPerRow; i += kF32Threads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
     const int s = s0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (s < S)
@@ -119,157 +417,19 @@ __device__ __forceinline__ float softmax_step(float (&x)[kCols], float& m,
   return corr;
 }
 
-// ---------------------------------------------------------------- bf16 --
-
-template <int HD>
-struct Bf16Smem {
-  static constexpr int kLdQK = HD + 8;     // bf16 elements (16-byte pad)
-  static constexpr int kLdS = kBKV + 4;    // f32
-  static constexpr int kLdP = kBKV + 8;    // bf16
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBQ * kLdQK * 2;
-  static constexpr int kV = kK + kBKV * kLdQK * 2;
-  static constexpr int kS = kV + kBKV * kLdQK * 2;
-  static constexpr int kP = kS + kBQ * kLdS * 4;
-  static constexpr int kC = kP + kBQ * kLdP * 2;
-  static constexpr int kBytes = kC + kWarps * 16 * 16 * 4;
-};
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(Args a) {
-  using L = Bf16Smem<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  auto* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::kQ);
-  auto* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kK);
-  auto* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::kV);
-  auto* Ss = reinterpret_cast<float*>(smem + L::kS);
-  auto* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::kP);
-  auto* Cs = reinterpret_cast<float*>(smem + L::kC);
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // long tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rr = lane >> 1, half = lane & 1;
-  const int row = warp * 16 + rr;  // this lane pair's query row in the tile
-  const int q_pos = q0 + row;
-  const float qk_scale = a.scale * kLog2e;
-  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
-  const auto* k = static_cast<const __nv_bfloat16*>(a.k);
-  const auto* v = static_cast<const __nv_bfloat16*>(a.v);
-  float* Cw = Cs + warp * 256;
-
-  load_tile<__nv_bfloat16, HD, L::kLdQK>(Qs, q, b, q0, a.Sq, a.Hq, h);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[HD / 16];
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(o[n], 0.f);
-  float m = kNegInf, l = 0.f;
-
-  const int n_tiles = visible_tiles(a, q0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBKV;
-    __syncthreads();  // every warp is done with the previous K, V tiles
-    load_tile<__nv_bfloat16, HD, L::kLdQK>(Ks, k, b, kv0, a.Skv, a.Hkv, hk);
-    load_tile<__nv_bfloat16, HD, L::kLdQK>(Vs, v, b, kv0, a.Skv, a.Hkv, hk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-#pragma unroll
-    for (int n = 0; n < kBKV / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + warp * 16 * L::kLdQK + kk * 16,
-                               L::kLdQK);
-        wmma::load_matrix_sync(fb, Ks + n * 16 * L::kLdQK + kk * 16,
-                               L::kLdQK);
-        wmma::mma_sync(s, fa, fb, s);
-      }
-      wmma::store_matrix_sync(Ss + warp * 16 * L::kLdS + n * 16, s, L::kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    float x[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = 2 * j + half, kv_pos = kv0 + c;
-      const bool ok = kv_pos < a.Skv && (!a.causal || kv_pos <= q_pos);
-      x[j] = ok ? Ss[row * L::kLdS + c] * qk_scale : kNegInf;
-    }
-    const float corr = softmax_step(x, m, l);
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      Ps[row * L::kLdP + 2 * j + half] = __float2bfloat16_rn(x[j]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Cw[rr * 16 + half * 8 + j] = corr;
-    __syncwarp();
-
-    // O = O * corr + P V
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> cf;
-    wmma::load_matrix_sync(cf, Cw, 16, wmma::mem_row_major);
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-#pragma unroll
-      for (int i = 0; i < cf.num_elements; ++i) o[n].x[i] = o[n].x[i] * cf.x[i];
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fp;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fv;
-        wmma::load_matrix_sync(fp, Ps + warp * 16 * L::kLdP + kk * 16,
-                               L::kLdP);
-        wmma::load_matrix_sync(fv, Vs + kk * 16 * L::kLdQK + n * 16,
-                               L::kLdQK);
-        wmma::mma_sync(o[n], fp, fv, o[n]);
-      }
-    }
-  }
-
-  // out = O / max(l, 1e-30), 16 columns at a time through this warp's
-  // staging tile; lanes 2r, 2r + 1 write row r's two 8-column halves
-  const float denom = fmaxf(l, 1e-30f);
-  auto* out = static_cast<__nv_bfloat16*>(a.o);
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n) {
-    __syncwarp();
-    wmma::store_matrix_sync(Cw, o[n], 16, wmma::mem_row_major);
-    __syncwarp();
-    if (q_pos < a.Sq) {
-      __align__(16) __nv_bfloat16 y[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        y[j] = __float2bfloat16_rn(Cw[rr * 16 + half * 8 + j] / denom);
-      *reinterpret_cast<uint4*>(
-          out + ((static_cast<long long>(b) * a.Sq + q_pos) * a.Hq + h) * HD +
-          n * 16 + half * 8) = *reinterpret_cast<const uint4*>(y);
-    }
-  }
-}
-
-// ----------------------------------------------------------------- f32 --
-
 template <int HD>
 struct F32Smem {
   static constexpr int kLd = HD + 4;      // f32 elements (16-byte pad)
-  static constexpr int kLdP = kBKV + 4;
+  static constexpr int kLdP = kF32BKV + 4;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBQ * kLd * 4;
-  static constexpr int kV = kK + kBKV * kLd * 4;
-  static constexpr int kP = kV + kBKV * kLd * 4;
-  static constexpr int kBytes = kP + kBQ * kLdP * 4;
+  static constexpr int kK = kQ + kF32BQ * kLd * 4;
+  static constexpr int kV = kK + kF32BKV * kLd * 4;
+  static constexpr int kP = kV + kF32BKV * kLd * 4;
+  static constexpr int kBytes = kP + kF32BQ * kLdP * 4;
 };
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32(Args a) {
   using L = F32Smem<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -278,7 +438,7 @@ __global__ void __launch_bounds__(kThreads)
   auto* Vs = reinterpret_cast<float*>(smem + L::kV);
   auto* Ps = reinterpret_cast<float*>(smem + L::kP);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kF32BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hkv);
   const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
@@ -288,19 +448,19 @@ __global__ void __launch_bounds__(kThreads)
   const auto* k = static_cast<const float*>(a.k);
   const auto* v = static_cast<const float*>(a.v);
 
-  load_tile<float, HD, L::kLd>(Qs, q, b, q0, a.Sq, a.Hq, h);
+  load_tile<HD, L::kLd>(Qs, q, b, q0, a.Sq, a.Hq, h);
 
   float o[HD / 2];  // columns 2j + half of this row
 #pragma unroll
   for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  const int n_tiles = visible_tiles(a, q0);
+  const int n_tiles = visible_tiles<kF32BQ, kF32BKV>(a, q0);
   for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBKV;
+    const int kv0 = t * kF32BKV;
     __syncthreads();
-    load_tile<float, HD, L::kLd>(Ks, k, b, kv0, a.Skv, a.Hkv, hk);
-    load_tile<float, HD, L::kLd>(Vs, v, b, kv0, a.Skv, a.Hkv, hk);
+    load_tile<HD, L::kLd>(Ks, k, b, kv0, a.Skv, a.Hkv, hk);
+    load_tile<HD, L::kLd>(Vs, v, b, kv0, a.Skv, a.Hkv, hk);
     __syncthreads();
 
     float x[kCols];
@@ -324,7 +484,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();  // a warp's 16 rows are written by that warp only
 #pragma unroll
     for (int j = 0; j < HD / 2; ++j) o[j] = o[j] * corr;
-    for (int c = 0; c < kBKV; ++c) {
+    for (int c = 0; c < kF32BKV; ++c) {
       const float p = Ps[row * L::kLdP + c];
 #pragma unroll
       for (int j = 0; j < HD / 2; ++j)
@@ -343,22 +503,24 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem_bytes, const Args& a,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, int bq, int threads, int smem_bytes,
+                   const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(a.Sq, kBQ), a.Hq, a.B);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(a);
+  const dim3 grid(cdiv(a.Sq, bq), a.Hq, a.B);
+  kernel<<<grid, threads, smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_hd(const Args& a, int dtype, cudaStream_t stream) {
   if (dtype == 0)
-    return launch(flash_fwd_f32<HD>, F32Smem<HD>::kBytes, a, stream);
+    return launch(flash_fwd_f32<HD>, kF32BQ, kF32Threads, F32Smem<HD>::kBytes,
+                  a, stream);
   if (dtype == 1)
-    return launch(flash_fwd_bf16<HD>, Bf16Smem<HD>::kBytes, a, stream);
+    return launch(flash_fwd_bf16<HD>, kBQ, kThreads, Bf16Smem<HD>::kBytes, a,
+                  stream);
   return cudaErrorInvalidValue;
 }
 
@@ -368,7 +530,7 @@ cudaError_t launch_hd(const Args& a, int dtype, cudaStream_t stream) {
 // (B, Skv, Hkv, hd), o like q, all contiguous and 16-byte aligned;
 // Hq % Hkv == 0. The head dims below are exactly
 // flash_attention.HEAD_DIMS; a CPU test checks it. Each is a multiple of
-// 16 (whole wmma tiles, 16-byte row loads); 80 is zamba2's shared block.
+// 16 (whole k16 steps, 16-byte row copies); 80 is zamba2's shared block.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int hd,

@@ -3,14 +3,16 @@
 The kernel (``csrc/flash_attention.cu``) replaces
 ``repro/kernels/flash_attention.py::_fwd_kernel``, the Pallas TPU kernel.
 Its bound on the H100 is operations: the QK^T and PV products over the
-visible (causal) part of the score matrix. One block of four warps owns 64
-query rows of one (batch, head) and walks the kv tiles it can see, with
-the products of bfloat16 inputs on the tensor cores and float32 inputs on
-the CUDA cores; no score matrix reaches device memory.
+visible (causal) part of the score matrix. One block owns a tile of query
+rows of one (batch, head) and walks the kv tiles it can see, with the
+products of bfloat16 inputs on the tensor cores (scores and probabilities
+in registers, K/V tiles copied asynchronously while the previous one
+computes) and float32 inputs on the CUDA cores; no score matrix reaches
+device memory.
 
 The causal mask keeps kv_pos <= q_pos, aligned top-left as the Pallas
 kernel aligns it; ``block_q`` and ``block_kv`` are accepted for the JAX
-signature, and the kernel's tile (64 x 64) is its own choice.
+signature, and the kernel's tiles are its own choice.
 
 A CPU tensor goes to the plain version, :func:`repro_torch.kernels.ref.
 flash_attention_ref`. A CUDA tensor launches the kernel or raises; nothing
@@ -103,11 +105,10 @@ def launch(q, k, v, causal: bool, lib: ctypes.CDLL) -> torch.Tensor:
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        hq, hkv, hd, hd ** -0.5, int(causal), DTYPES[q.dtype], stream)
+        hq, hkv, hd, hd ** -0.5, int(causal), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())

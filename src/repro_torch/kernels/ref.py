@@ -214,8 +214,10 @@ def hier_aggregate_ref(updates: torch.Tensor,
     return acc.to(updates.dtype)
 
 
-# Warps (rows) per block of csrc/rmsnorm.cu; one warp normalises one row.
-RMSNORM_WARPS = 4
+# Warps (rows) per block of csrc/rmsnorm.cu; one warp normalises one row,
+# so the plain version's order follows the lanes of one warp, whatever the
+# rows per block.
+RMSNORM_WARPS = 8
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,

@@ -3,7 +3,8 @@
 The kernel (``csrc/rmsnorm.cu``) replaces
 ``repro/kernels/rmsnorm.py::_rmsnorm_kernel``, the Pallas TPU kernel. Its
 bound on the H100 is bytes: it reads ``x`` once and writes ``y`` once. One
-warp normalises one row with vector loads, so every read is coalesced.
+warp normalises one row with vector loads, so every read is coalesced, and
+holds the row in registers between its two passes.
 
 The JAX package's models do not call their kernel: they normalise with
 ``layers.apply_norm``, which computes the same function. The port's
@@ -30,6 +31,10 @@ LAUNCHES = 0
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VEC_WIDTHS = {torch.float32: (4, 2, 1), torch.bfloat16: (8, 4, 2, 1)}
 
+# vectors per lane the kernel holds in registers between its two passes
+# (its launch_k<T, V, K> instantiations); a wider row reads the rest twice
+HELD_VECTORS = (4, 8, 16, 24)
+
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_float, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_void_p]
@@ -50,6 +55,15 @@ def vector_width(d: int, dtype: torch.dtype) -> int:
     """The widest vector that divides the row length ``d``; the plain
     version sums in the order this width gives."""
     return next(v for v in VEC_WIDTHS[dtype] if d % v == 0)
+
+
+def held_vectors(d: int, vec: int) -> int:
+    """The register budget K (vectors per lane) the kernel picks for rows
+    of ``d`` elements loaded ``vec`` at a time: the smallest that holds the
+    row, else the largest. It changes where the row lives, not the order
+    of the arithmetic."""
+    per_lane = -(-(d // vec) // 32)
+    return next((k for k in HELD_VECTORS if per_lane <= k), HELD_VECTORS[-1])
 
 
 def _check(x, scale):
@@ -84,13 +98,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     if x.data_ptr() % (vec * x.element_size()):
         raise ValueError(f"rmsnorm needs x aligned to {vec} elements")
     scale = scale.to(torch.float32).contiguous()
+    if scale.data_ptr() % 16:            # the kernel reads it as float4s
+        scale = scale.clone()
     y = torch.empty_like(x)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
     rc = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
                             x.numel() // d, d, eps, DTYPES[x.dtype], vec,
-                            stream)
+                            torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("rmsnorm kernel launch failed: "
                            + lib.rmsnorm_error_string(rc).decode())

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -54,6 +55,10 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}   # atol, rtol
 # the kernel vs the plain version in float32: atol, rtol, block limit
 KERNEL_TOL = {"float32": (1e-5, 1e-5, None),
               "bfloat16": (1e-5, 2 ** -7, 5e-3)}
+# kv tile sizes the dropped-tile check runs at: the first kernel's 64 and
+# 128; the kernel's own tile (read from its source) must be among them
+KV_TILES = (64, 128)
+SOURCE = Path(tref.__file__).parent / "csrc" / "flash_attention.cu"
 # (B, S, Hq, Hkv, hd), causal: tests/test_kernels.py's sweep and GQA case,
 # then zamba2's head dim of 80
 CASES = [((1, 128, 4, 4, 32), True), ((2, 256, 8, 8, 64), True),
@@ -166,11 +171,13 @@ def test_wrapper_checks_its_inputs():
         tfa.flash_attention(q, k, v, block_q=0)
 
 
-def test_kernel_tolerance_rejects_a_dropped_kv_tile():
+@pytest.mark.parametrize("tile", KV_TILES)
+def test_kernel_tolerance_rejects_a_dropped_kv_tile(tile):
     """``KERNEL_TOL`` in bfloat16 passes the plain version rounded to
     bfloat16 (the kernel's output rounding) and rejects the same function
-    with one 64-row kv tile left out for the rows that see past it (the
-    fault ``chip_smoke.py`` plants in the kernel)."""
+    with one kv tile of ``tile`` rows left out for the rows that see past
+    it (the fault ``chip_smoke.py`` plants in the kernel, which skips the
+    middle one of the tiles a block visits)."""
     q, k, v = (torch.tensor(x).bfloat16()
                for x in inputs(1, 1024, 1024, 4, 2, 64, 7))
     want = tref.flash_attention_ref(q.float(), k.float(), v.float())
@@ -178,7 +185,8 @@ def test_kernel_tolerance_rejects_a_dropped_kv_tile():
     qr = q.float().reshape(1, 1024, 2, 2, 64) * 64 ** -0.5
     s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.float())
     pos = torch.arange(1024)
-    skip = (pos[None, :] // 64 == 8) & (pos[:, None] >= 576)
+    mid = 512 // tile
+    skip = (pos[None, :] // tile == mid) & (pos[:, None] >= (mid + 1) * tile)
     s = s.masked_fill((pos[None, :] > pos[:, None]) | skip, -1e30)
     bad = torch.einsum("bhgqk,bkhd->bhgqd", s.softmax(-1), v.float())
     bad = bad.permute(0, 3, 1, 2, 4).reshape(want.shape).bfloat16()
@@ -188,12 +196,25 @@ def test_kernel_tolerance_rejects_a_dropped_kv_tile():
 
 
 def test_kernel_instantiates_every_head_dim():
-    """The CUDA source's head-dim dispatch lists exactly ``HEAD_DIMS``."""
-    src = (Path(tref.__file__).parent / "csrc" / "flash_attention.cu"
-           ).read_text()
+    """The CUDA source's head-dim dispatch lists exactly ``HEAD_DIMS``, and
+    its bf16 kv tile is one the dropped-tile check runs at."""
+    src = SOURCE.read_text()
     found = re.findall(r"hd == (\d+)\) err = launch_hd<(\d+)>", src)
     assert found and all(a == b for a, b in found)
     assert tuple(int(a) for a, _ in found) == tfa.HEAD_DIMS
+    tile = re.search(r"constexpr int kBKV = (\d+);", src)
+    assert tile and int(tile.group(1)) in KV_TILES
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in tbuild.CSRC.glob(
+    "*.cu")))
+def test_build_fuses_multiply_add_for_flash_only(name):
+    """Every kernel but flash attention is built with ``-fmad=false``, on
+    which its bit-equality with its plain version rests; flash attention,
+    held to a tolerance, is built with fused multiply-add."""
+    flags = tbuild.nvcc_flags(name)
+    assert ("-fmad=false" in flags) == (name != "flash_attention")
+    assert set(tbuild.NVCC_FLAGS) <= set(flags)
 
 
 @pytest.mark.gpu

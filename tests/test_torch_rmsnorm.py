@@ -139,8 +139,10 @@ def test_wrapper_checks_its_inputs():
 
 def test_kernel_instantiates_every_vector_width():
     """The CUDA source's launch<T, V> dispatch lists exactly the
-    (dtype, width) pairs of ``VEC_WIDTHS``, and its rows per block are the
-    plain version's ``RMSNORM_WARPS``."""
+    (dtype, width) pairs of ``VEC_WIDTHS``, its register budgets
+    (launch_k<T, V, K>) exactly ``HELD_VECTORS``, and its rows per block
+    are the plain version's ``RMSNORM_WARPS``: one warp a row, whose lanes
+    give the plain version its order."""
     src = (Path(tref.__file__).parent / "csrc" / "rmsnorm.cu").read_text()
     found = re.findall(r"dtype == (\d) && vec == (\d)\) err = "
                        r"launch<(float|__nv_bfloat16), (\d)>", src)
@@ -152,6 +154,22 @@ def test_kernel_instantiates_every_vector_width():
         for v in widths]
     warps = re.search(r"constexpr int kWarps = (\d+);", src)
     assert int(warps.group(1)) == tref.RMSNORM_WARPS
+    held = re.findall(r"per_lane <= (\d+)\)\s*return launch_k<T, V, (\d+)>",
+                      src)
+    last = re.findall(r"return launch_k<T, V, (\d+)>\(", src)
+    assert [int(a) for a, b in held if a == b] == list(trms.HELD_VECTORS[:-1])
+    assert int(last[-1]) == trms.HELD_VECTORS[-1]
+
+
+@pytest.mark.parametrize("d,vec,held", [(1024, 8, 4), (37, 1, 4),
+                                        (2048, 8, 8), (3584, 8, 16),
+                                        (5120, 8, 24), (65_536, 8, 24)])
+def test_row_held_in_registers_up_to_qwen3_32b(d, vec, held):
+    """The register budget follows the row: d = 1024 bf16 holds four
+    vectors a lane, qwen2-7b's 3584 and qwen3-32b's 5120 still fit, and a
+    wider row keeps 24 and reads the rest twice."""
+    assert trms.held_vectors(d, vec) == held
+    assert held * 32 * vec >= d or held == trms.HELD_VECTORS[-1]
 
 
 @pytest.mark.gpu
