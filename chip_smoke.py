@@ -52,9 +52,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    TFLOP/s, each kernel's registers and spills from phase 2, and
    rmsnorm's host and device microseconds per call at the decode shape.
    Then ``fault``: copies of the flash kernel with a planted fault (one kv
-   tile skipped; O rounded to bfloat16 after each PV product; the K/V of
-   the other ring stage) at the layer shape, each of which the flash
-   tolerance must reject.
+   tile left out; O rounded to bfloat16 after each k16 step of P V; S
+   reading K from the next ring stage, a stale or not-yet-landed tile) at
+   the layer shape, each of which the flash tolerance must reject.
 9. ``prefill_path``: ``Model.logits`` of full-size qwen3-0.6b (28 layers,
    random weights from seed 0, bfloat16 serving copy, the flash kernel) on
    4 x 4096 tokens; seconds and tokens/s per forward, the launch counts
@@ -152,24 +152,33 @@ FLASH_TOL = {"float32": (1e-5, 1e-5, None),
 FLASH_ROWS = 64          # query rows of a block in the norm-relative error
 # faults planted in copies of csrc/flash_attention.cu (bfloat16 kernel):
 # (text that must occur once, text put in its place)
-_STAGE = ("    const int stage = tt % kStages;  // the ring stage tile tt "
-          "arrived in\n")
-_PV_MMA = "        mma_bf16(o[j + 1], pa, vb[2], vb[3]);\n"
+_BUF = "    const int buf = stage;  // the ring stage S(t) reads\n"
+_SOFTMAX = ("    online_softmax(s, m, l, corr, a, t * kBKV, q_lo, row0, t4, "
+            "cl);\n")
+_PV = "    pv_tile<HD>(o, pa, v_tile(prev));  // O += P(t-1) V(t-1)\n"
 FLASH_FAULTS = {
-    "skip_one_kv_tile": (_STAGE, "    if (n_tiles > 2 && tt == n_tiles / 2)"
-                         " continue;\n" + _STAGE),
-    "bf16_accumulator": (_PV_MMA, _PV_MMA + (
+    # the middle tile's scores all masked: it adds nothing
+    "skip_one_kv_tile": (_SOFTMAX, "    if (n_tiles > 2 && t == n_tiles / 2)"
+                         "\n      for (int i = 0; i < kBKV / 2; ++i) s[i] = "
+                         "neg_inf();\n" + _SOFTMAX),
+    # O rounded to bf16 after each k16 step of P V
+    "bf16_accumulator": (_PV, (
+        "    for (int kk = 0; kk < kBKV / 16; ++kk) {\n"
+        "      pv_step<HD>(o, pa[kk], v_tile(prev), kk);\n"
+        "      wgmma_commit();\n"
+        "      wgmma_wait0();\n"
+        "      fence_regs(o);\n"
         "#pragma unroll\n"
-        "        for (int e = 0; e < 4; ++e) {\n"
-        "          o[j][e] = __bfloat162float(__float2bfloat16_rn(o[j][e]));\n"
-        "          o[j + 1][e] = __bfloat162float(__float2bfloat16_rn("
-        "o[j + 1][e]));\n"
-        "        }\n")),
-    # the consumer reads the ring stage being filled with tile tt + 1 (or
-    # still holding tile tt - 1): a stale or not-yet-landed tile
-    "stale_ring_stage": (_STAGE, _STAGE.replace("tt % kStages",
-                                                "(tt + 1) % kStages")),
+        "      for (int i = 0; i < HD / 2; ++i)\n"
+        "        o[i] = __bfloat162float(__float2bfloat16_rn(o[i]));\n"
+        "      wgmma_fence();\n"
+        "    }\n")),
+    # S(t) reads K from the next ring stage (the tile in flight, or one
+    # already consumed): a stale or not-yet-landed tile
+    "stale_ring_stage": (_BUF, _BUF.replace("= stage;",
+                                            "= (stage + 1) % kStages;")),
 }
+
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_REPS = 4, 4096, 3
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 256, 32
 # decode logits vs prefill logits of the full bfloat16 model, elementwise
@@ -203,14 +212,24 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds of ``fn()`` on the current stream (CUDA events)."""
+# card cycles per microsecond of torch.cuda._sleep, at the H100's 1.98 GHz
+# boost clock (a lower clock only lengthens the spin)
+SLEEP_CYCLES_PER_US = 1980
+
+
+def cuda_ms(fn, reps: int, warm: int = 1, host_us: float = 60.0) -> float:
+    """Mean milliseconds of ``fn()`` on the current stream (CUDA events).
+    The card spins first for ``reps * host_us`` microseconds, so the host
+    can enqueue every rep before the first runs: a call that is shorter on
+    the card than on the host is timed at the card's rate, not the
+    host's."""
     import torch
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(reps * host_us * SLEEP_CYCLES_PER_US))
     start.record()
     for _ in range(reps):
         fn()
@@ -270,18 +289,26 @@ def golden_section_work(mask, n_golden: int, n_inner: int, n_bracket: int):
     return per_slot * active, nbytes, active
 
 
+def l2_flush(dev):
+    """A call that reads 64 MiB (more than the 50 MB L2) and writes one
+    number, so the L2 holds other, clean lines before a cold launch."""
+    import torch
+    buf = torch.ones(64 * 2**20 // 4, device=dev)
+    return lambda: buf.sum()
+
+
 def cuda_ms_cold(fn, reps: int, flush) -> float:
-    """Mean milliseconds of ``fn()`` alone, with ``flush`` (a write larger
-    than the L2 cache) run before each launch outside the timed span. A
-    spin of the card (about 0.1 ms) after the flush keeps the card busy
-    while the host enqueues ``fn``, so the span holds the kernel and not
-    the host's latency in reaching it."""
+    """Mean milliseconds of ``fn()`` alone, with ``flush`` (see
+    :func:`l2_flush`) run before each launch outside the timed span. A spin
+    of the card (0.1 ms) after the flush keeps the card busy while the host
+    enqueues ``fn``, so the span holds the kernel and not the host's
+    latency in reaching it."""
     import torch
     fn()
     total = 0.0
     for _ in range(reps):
         flush()
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(100 * SLEEP_CYCLES_PER_US)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -512,7 +539,7 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
     from repro_torch.kernels import flash_attention, ref, rmsnorm
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
-    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_   # 64 MiB > L2
+    flush = l2_flush(dev)
     main = {}
     for case, rows, d, dtype in (("prefill", PREFILL_BATCH * PREFILL_SEQ,
                                   1024, bf16),
@@ -960,7 +987,7 @@ def ssm_kernels(dev, ptxas: dict) -> dict:
     ops, nbytes = attention_work(b, sq, sq, hq, hq, hd, True, 2)
     b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
     k_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=20)
-    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_   # 64 MiB > L2
+    flush = l2_flush(dev)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fields.update(
         ms=k_ms, ms_cold_l2=cuda_ms_cold(
@@ -1386,7 +1413,7 @@ def main() -> int:
     group_sizes = np.bincount(res.assignment, minlength=k)
     n_params = 784 * 128 + 128 + 128 * 10 + 10     # the MLP at MNIST width
     gen = torch.Generator(device=dev).manual_seed(0)
-    flush = torch.empty(64 * 2**20 // 4, device=dev).zero_   # 64 MiB > L2
+    flush = l2_flush(dev)
     f32, bf16 = torch.float32, torch.bfloat16
     agg = {}
     for case, c_, p_, dtype in (

@@ -14,45 +14,59 @@
 // What bounds it: operations. Causal attention at qwen3-0.6b's prefill
 // shape (B=4, S=4096, 16 heads of 128) is 2.75e11 multiply-adds counted as
 // 2 operations (QK^T and PV over the visible half), 0.278 ms at the bf16
-// dense tensor-core peak, against 0.05 ms for its bytes. Both kernels walk,
+// dense tensor-core peak, against 0.06 ms for its bytes. Both kernels walk,
 // for one block of query rows of one (batch, head), the kv tiles from the
 // first to the last one its rows can see (causal tiles above the diagonal
 // are never loaded), longest blocks first; the ragged edge (Sq or Skv not a
 // multiple of the tile) is masked here. The Pallas block_q / block_kv do
 // not reach the kernel, whose tiles are its own choice.
 //
-// bfloat16 (the serving path): register-resident, asynchronous copies.
-//   Tiles: 64 query rows per block of four warps, 16 rows per warp; kv
-//   tiles of 64 rows in a ring of kStages = 2 shared-memory stages.
-//   Shared memory: Q plus two K and two V tiles, rows padded to hd + 8
-//   elements so that the eight rows an ldmatrix reads fall on distinct
-//   banks: 85.0 KB at hd 128, two blocks per SM. ptxas reports the
-//   registers per thread (phase 2 of chip_smoke.py; about 160 at hd 128).
-//   What it does about the causes that held the wmma design back:
-//   - K/V tile t + 1 is copied by cp.async.cg (16 bytes a thread, zero
-//     filled past Skv) into the other ring stage while tile t is computed;
-//     one __syncthreads a tile both publishes tile t and frees the stage
-//     tile t + 1 overwrites.
-//   - The products run on mma.sync.m16n8k16 (bf16 in, f32 accumulate)
-//     through inline PTX, whose fragment layout the PTX ISA documents:
-//     lane l holds rows l/4 and l/4 + 8, columns 2(l%4) + {0, 1} of each
-//     n8 tile. Q's A fragments are loaded once (ldmatrix.x4) and stay in
-//     registers for the whole kv walk; K's B fragments come by ldmatrix.x4,
-//     V's by ldmatrix.x4.trans.
-//   - S stays in its accumulator registers. The row max takes two
-//     __shfl_xor_sync within the quad that shares a row; the row sum stays
-//     a per-lane partial until the end. P is rounded to bf16 in registers
-//     and is the A operand of PV as it stands (the accumulator layout of
-//     two n8 tiles is the A layout of one k16 step), and the O accumulator
-//     is rescaled in place: S, P and the correction factors never touch
-//     shared memory. P's rounding is the one rounding the plain version
-//     does not make.
-//   - Built with fused multiply-add (build.py gives this kernel alone no
-//     -fmad=false): the softmax is exp2(s * scale * log2 e - m'), one FMA
-//     and one MUFU.EX2 an element.
-//   Every head dim in HEAD_DIMS (16, 32, 64, 80, 128) runs this layout: a
-//   head dim is a whole number of k16 steps of QK^T and of n8 pairs of PV.
-//   The wgmma / TMA / producer-warp design is ROADMAP queue 1's next step.
+// bfloat16 (the serving path): warp-specialised wgmma with a TMA ring.
+//   Block: 128 query rows of one (batch, head), three warpgroups. Warpgroup
+//   0 produces: it gives up registers (setmaxnreg.dec 24) and one thread
+//   issues every copy by TMA (cp.async.bulk.tensor): Q once, then K and V
+//   tiles of 64 kv rows into a ring of kStages = 3 stages, each with a
+//   full mbarrier (the copies' bytes) and an empty one (one arrival per
+//   consumer warp). Warpgroups 1 and 2 consume (setmaxnreg.inc 240), 64
+//   query rows each.
+//   Tensor maps over the (hd, H, S, B) view of q, k and v are built on the
+//   host per launch with cuTensorMapEncodeTiled, which the runtime hands
+//   over (cudaGetDriverEntryPointByVersion), so the library links no driver
+//   library; they are __grid_constant__ parameters. A box is a column part
+//   of the head dim: 64 columns (128-byte rows, 128-byte swizzle; two
+//   boxes at hd 128, whose 256-byte rows are wider than the swizzle span),
+//   all of hd 32 or 16 (64- and 32-byte swizzle), and at hd 80 a 64-column
+//   part plus a 16-column one (32-byte swizzle). Rows past Sq or Skv come
+//   as zeros.
+//   S = Q K^T: wgmma.m64n64k16 with Q and K read from shared memory
+//   through matrix descriptors (K-major, the swizzle the boxes were written
+//   with; a k16 step inside a row advances the start address by 32 bytes).
+//   O += P V: wgmma with P from registers as the A operand (the S
+//   accumulator packed to bf16: the accumulator layout of two n8 blocks is
+//   the A layout of one k16 step) and V as B from shared memory, MN-major
+//   (transposed), N = hd: one m64n128k16 over both 64-column parts at hd
+//   128 (the part stride is the leading byte offset), n64 + n16 at hd 80.
+//   Schedule: S(t) and P(t-1) V(t-1) are issued together and the online
+//   softmax of S(t) runs while P V is in flight; the two consumers take
+//   turns to issue (named barriers), so one's softmax runs beside the
+//   other's products.
+//   Registers and shared memory: ptxas gives the kernel 168 registers a
+//   thread and allocates the consumers' code within them (a 128-row kv
+//   tile, S 64 + O 64 + P 32 live at once, spilled 200 bytes); at 64 kv
+//   rows S takes 32, O hd / 2 and P 16, without spills (phase 2 of
+//   chip_smoke.py prints the report). Shared memory at hd 128: Q 32 KB and
+//   three stages of K and V of 16 KB each, 128 KB and 1 KB of alignment:
+//   one block of 12 warps per SM, whose latency the ring and the schedule
+//   hide instead of more blocks.
+//   What it does about the causes that held the earlier designs back: K/V
+//   copies are asynchronous and run ahead of the products by up to three
+//   tiles; S, P and the rescale factors never touch shared memory; the
+//   products run on wgmma instead of mma.sync, Q is read by the tensor
+//   cores from shared memory and never staged through registers; P's
+//   rounding to bf16 is the one rounding the plain version does not make.
+//   Built with fused multiply-add (build.py gives this kernel alone no
+//   -fmad=false): p = 2^(s * scale * log2 e - m'), one FMA and one
+//   ex2.approx.ftz an element.
 //
 // float32 (the card-vs-CPU checks): the same walk on the CUDA cores, a
 //   thread pair per row, through shared memory, so no TF32 rounding enters.
@@ -60,6 +74,7 @@
 // Plain C entry point flash_attention_launch: launches on the given stream,
 // does not synchronise, allocates nothing, returns cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,69 +108,132 @@ __device__ __forceinline__ int visible_tiles(const Args& a, int q0) {
 
 // ---------------------------------------------------------------- bf16 --
 
-constexpr int kBQ = 64;     // query rows per block
-constexpr int kBKV = 64;    // kv rows per tile
-constexpr int kWarps = 4;   // 16 query rows per warp
-constexpr int kThreads = 32 * kWarps;
-constexpr int kStages = 2;  // K/V ring
+constexpr int kBQ = 128;        // query rows per block, 64 per consumer
+constexpr int kBKV = 64;        // kv rows per tile (S is m64n64)
+constexpr int kStages = 3;      // K/V ring
+constexpr int kConsumers = 2;   // consumer warpgroups
+constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 produces
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
+// The head dim in the column parts a TMA box and a wgmma swizzle atom
+// hold: kN0 leading parts of kW0 = min(HD, 64) columns, whose rows are
+// 2 kW0 bytes (a 128-byte swizzle at 64 columns, 64 at 32, 32 at 16), and
+// for HD = 80 a tail part of 16 columns (32-byte swizzle). A tile of R
+// rows keeps part p at byte R * 2 * col(p), rows of 2 * width(p) bytes.
 template <int HD>
-struct Bf16Smem {
-  static constexpr int kLd = HD + 8;        // bf16 elements per row
-  static constexpr int kTile = kBKV * kLd;  // elements of one K or V tile
-  static constexpr int kQ = 0;              // element offsets
-  static constexpr int kK = kQ + kBQ * kLd;           // + stage * kTile
-  static constexpr int kV = kK + kStages * kTile;     // + stage * kTile
-  static constexpr int kBytes = 2 * (kV + kStages * kTile);
+struct Parts {
+  static constexpr int kW0 = HD < 64 ? HD : 64;
+  static constexpr int kN0 = HD / kW0;
+  static constexpr int kTail = HD - kN0 * kW0;
+  static constexpr int kCount = kN0 + (kTail ? 1 : 0);
+  static_assert(kTail == 0 || kTail == 16, "head dim not covered");
+  __host__ __device__ static constexpr int width(int p) {
+    return p < kN0 ? kW0 : kTail;
+  }
+  __host__ __device__ static constexpr int col(int p) { return p * kW0; }
 };
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+// shared memory (bytes from a 1024-aligned base): Q, the K and V rings,
+// then the barriers (full and empty per stage, and Q's)
+template <int HD>
+struct Smem {
+  static constexpr int kTile = kBKV * HD * 2;   // one K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kBQ * HD * 2;  // + stage * kTile
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kFull = kV + kStages * kTile;
+  static constexpr int kEmpty = kFull + 8 * kStages;
+  static constexpr int kQFull = kEmpty + 8 * kStages;
+  static constexpr int kBytes = kQFull + 8 + 1024;  // + alignment slack
+};
+
+// one tensor map per part width: [0] for the leading parts, [1] for the
+// tail (HD = 80)
+struct Maps {
+  CUtensorMap q[2], k[2], v[2];
+};
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared memory, asynchronously; zeros if !valid
-// (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-// d += a b for one m16n8k16 tile, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// wait for the phase of parity `parity` to complete; a wait that never
+// ends traps (a launch failure) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n > (1u << 22)) __trap();
+  }
+}
+
+// a box of the (hd, H, S, B) view into shared memory at dst, completing on
+// bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int h, int s,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(h), "r"(s), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma matrix descriptor: start address, leading and stride byte offsets
+// (16-byte units) and the swizzle of rows of `row_bytes` (128, 64 or 32)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving uses of wgmma registers across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // two floats rounded to bf16, lo in the low half (the lower column)
@@ -164,178 +242,382 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// rows [s0, s0 + ROWS) of head h of batch b of a (B, S, H, HD) tensor into
-// shared memory at dst (row stride LD elements) by cp.async; zeros past
-// row S - 1
-template <int HD, int ROWS, int LD>
-__device__ __forceinline__ void copy_tile(uint32_t dst,
-                                          const __nv_bfloat16* src, int b,
-                                          int s0, int S, int H, int h) {
-  constexpr int kPerRow = HD / 8;  // 16-byte chunks
-  static_assert(ROWS * kPerRow % kThreads == 0, "whole rounds of copies");
+// S (+)= A B^T for one m64n64k16 step, A and B K-major in shared memory
+// (descriptors); scale_d 0 overwrites S
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A B for one m64n16k16 step, A (four bf16x2 registers) from
+// registers, B MN-major in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A B for one m64n32k16 step, A (four bf16x2 registers) from
+// registers, B MN-major in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A B for one m64n64k16 step, A (four bf16x2 registers) from
+// registers, B MN-major in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A B for one m64n128k16 step, A (four bf16x2 registers) from
+// registers, B MN-major in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+// O += P V for P's k16 step kk (pa), V (MN-major, its rows are kv) from
+// the tile at v_s: the leading parts as one wgmma of kN0 * kW0 columns,
+// the part stride as its leading byte offset; the tail as one of 16
+template <int HD>
+__device__ __forceinline__ void pv_step(float (&o)[HD / 2],
+                                        const uint32_t (&pa)[4], uint32_t v_s,
+                                        int kk) {
+  using P = Parts<HD>;
+  constexpr int rb = 2 * P::kW0;
+  wgmma_rs<P::kN0 * P::kW0>(
+      o, pa, make_desc(v_s + 16 * kk * rb, kBKV * rb, 8 * rb, rb));
+  if constexpr (P::kTail > 0)
+    wgmma_rs<16>(o + P::kN0 * P::kW0 / 2, pa,
+                 make_desc(v_s + kBKV * 2 * P::col(P::kN0) + 16 * kk * 32, 16,
+                           8 * 32, 32));
+}
+
+// all of P's k16 steps for tile v_s
+template <int HD>
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
+                                        const uint32_t (&pa)[kBKV / 16][4],
+                                        uint32_t v_s) {
 #pragma unroll
-  for (int n = 0; n < ROWS * kPerRow / kThreads; ++n) {
-    const int i = threadIdx.x + n * kThreads;
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    const int s = s0 + r;
-    const bool ok = s < S;
-    const __nv_bfloat16* p =
-        src + ((static_cast<long long>(b) * S + (ok ? s : 0)) * H + h) * HD +
-        c;
-    cp_async16(dst + 2 * (r * LD + c), p, ok);
+  for (int kk = 0; kk < kBKV / 16; ++kk) pv_step<HD>(o, pa[kk], v_s, kk);
+}
+
+// S = Q K^T for consumer c's 64 rows of the Q tile at q_s: k16 steps over
+// the head dim, part by part; a k16 step inside a swizzled row advances the
+// start address by 32 bytes
+template <int HD>
+__device__ __forceinline__ void qk_tile(float (&s)[kBKV / 2], uint32_t q_s,
+                                        int c, uint32_t k_s) {
+  using P = Parts<HD>;
+#pragma unroll
+  for (int p = 0; p < P::kCount; ++p) {
+    const int rb = 2 * P::width(p);
+    const uint32_t q_p = q_s + kBQ * 2 * P::col(p) + 64 * c * rb;
+    const uint32_t k_p = k_s + kBKV * 2 * P::col(p);
+#pragma unroll
+    for (int st = 0; st < P::width(p) / 16; ++st)
+      wgmma_ss_n64(s, make_desc(q_p + 32 * st, 16, 8 * rb, rb),
+                   make_desc(k_p + 32 * st, 16, 8 * rb, rb), p + st);
   }
 }
 
+// 2^x, flushing results below 2^-126 to zero (a probability that small
+// adds nothing at float32 precision)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The consumers take turns to issue their products (named barriers 1 and
+// 2, 256 threads each), so that one's softmax runs beside the other's
+// products on the tensor cores
+__device__ __forceinline__ void turn_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + c) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - c) : "memory");
+}
+
+// Online softmax of a tile's scores for the lane's two rows (bit 1 of i
+// picks the row): scores past Skv and, causally, past the row masked;
+// updates the running max m (raw score units) and the lane's partial sums
+// l, leaves p in s and the factor O is to be rescaled by in corr. Every
+// row sees kv position 0 in tile 0, so m is finite from the first tile on
+// and a masked score of -inf gives p = 0.
+__device__ __forceinline__ void online_softmax(float (&s)[kBKV / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2],
+                                               const Args& a, int kv0,
+                                               int q_lo, int row0, int t4,
+                                               float cl) {
+  if (kv0 + kBKV > a.Skv || (a.causal && kv0 + kBKV - 1 > q_lo)) {
+#pragma unroll
+    for (int i = 0; i < kBKV / 2; ++i) {
+      const int kv_pos = kv0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const int q_pos = row0 + 8 * ((i >> 1) & 1);
+      if (kv_pos >= a.Skv || (a.causal && kv_pos > q_pos)) s[i] = neg_inf();
+    }
+  }
+  float mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = m[r];
+#pragma unroll
+    for (int j = 0; j < kBKV / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    corr[r] = exp2_ftz((m[r] - mx) * cl);
+    m[r] = mx;
+    mc[r] = mx * cl;
+  }
+#pragma unroll
+  for (int i = 0; i < kBKV / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = exp2_ftz(fmaf(s[i], cl, -mc[r]));
+    sum[r] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+}
+
+// P to bf16 A fragments: k16 step kk is S's n8 blocks 2kk and 2kk + 1
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBKV / 16][4],
+                                       const float (&s)[kBKV / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= corr[(i >> 1) & 1];
+}
+
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16(Args a) {
-  using L = Bf16Smem<HD>;
-  constexpr int kLd = L::kLd;
-  constexpr int kSteps = HD / 16;   // k16 steps of QK^T
-  constexpr int kN8 = HD / 8;       // n8 tiles of O
-  constexpr int kS8 = kBKV / 8;     // n8 tiles of S
-  extern __shared__ __align__(128) unsigned char smem[];
-  auto* sm = reinterpret_cast<__nv_bfloat16*>(smem);
-  const uint32_t base = smem_u32(sm);
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ Maps maps, Args a) {
+  using P = Parts<HD>;
+  using L = Smem<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t bar_full = base + L::kFull, bar_empty = base + L::kEmpty;
+  const uint32_t bar_q = base + L::kQFull;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // long tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
-  const float c = a.scale * kLog2e;
-  const auto* q = static_cast<const __nv_bfloat16*>(a.q);
-  const auto* k = static_cast<const __nv_bfloat16*>(a.k);
-  const auto* v = static_cast<const __nv_bfloat16*>(a.v);
-
-  // ldmatrix.x4 row addresses: lane l gives row l % 8 of matrix l / 8.
-  // A-like (Q, and V through .trans): matrices (rows 0-7, 8-15) x (cols
-  // 0-7, 8-15), rows first. K: (n8 tile j, j + 1) x (k 0-7, 8-15), k first.
-  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
-  const int k_row = (lane & 7) + 8 * (lane >> 4), k_col = 8 * ((lane >> 3) & 1);
-
   const int n_tiles = visible_tiles<kBQ, kBKV>(a, q0);
-  copy_tile<HD, kBQ, kLd>(base + 2 * L::kQ, q, b, q0, a.Sq, a.Hq, h);
-  copy_tile<HD, kBKV, kLd>(base + 2 * L::kK, k, b, 0, a.Skv, a.Hkv, hk);
-  copy_tile<HD, kBKV, kLd>(base + 2 * L::kV, v, b, 0, a.Skv, a.Hkv, hk);
-  cp_async_commit();
+  // warpgroup index, warp-uniform to the compiler (setmaxnreg needs it)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) >> 7, 0);
 
-  uint32_t qf[kSteps][4];  // Q's A fragments, loaded at the first tile
-  float o[kN8][4];
-#pragma unroll
-  for (int j = 0; j < kN8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  // running max (raw score units) and this lane's partial row sums. Every
-  // row sees kv position 0 in tile 0, so m is finite from the first tile
-  // on and a masked score of -inf gives p = 0.
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
-
-  for (int tt = 0; tt < n_tiles; ++tt) {
-    cp_async_wait_all();  // this thread's copies of tile tt have landed
-    __syncthreads();      // everyone's have, and tile tt - 1 is consumed
-    if (tt + 1 < n_tiles) {  // tile tt + 1 loads while tile tt computes
-      const int nxt = (tt + 1) % kStages;
-      copy_tile<HD, kBKV, kLd>(base + 2 * (L::kK + nxt * L::kTile), k, b,
-                               (tt + 1) * kBKV, a.Skv, a.Hkv, hk);
-      copy_tile<HD, kBKV, kLd>(base + 2 * (L::kV + nxt * L::kTile), v, b,
-                               (tt + 1) * kBKV, a.Skv, a.Hkv, hk);
-      cp_async_commit();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);                 // the producer
+      mbar_init(bar_empty + 8 * st, 4 * kConsumers);   // each consumer warp
     }
-    if (tt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        ldmatrix_x4(qf[kk], base + 2 * (L::kQ + (warp * 16 + a_row) * kLd +
-                                         16 * kk + a_col));
-    }
-    const int stage = tt % kStages;  // the ring stage tile tt arrived in
-    const uint32_t ks = base + 2 * (L::kK + stage * L::kTile);
-    const uint32_t vs = base + 2 * (L::kV + stage * L::kTile);
-    const int kv0 = tt * kBKV;
+    mbar_init(bar_q, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T, 16 rows x 64 columns per warp, in registers
-    float s[kS8][4];
+  if (wg == 0) {
+    // producer: one thread keeps the ring full by TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, kBQ * HD * 2);
 #pragma unroll
-    for (int j = 0; j < kS8; ++j)
+      for (int p = 0; p < P::kCount; ++p)
+        tma_load(base + L::kQ + kBQ * 2 * P::col(p),
+                 &maps.q[p < P::kN0 ? 0 : 1], bar_q, P::col(p), h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % kStages;
+        if (t >= kStages)   // the consumers released the stage's last tile
+          mbar_wait(bar_empty + 8 * stage, (t / kStages - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * stage, 2 * L::kTile);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kS8; j += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, ks + 2 * ((8 * j + k_row) * kLd + 16 * kk + k_col));
-        mma_bf16(s[j], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[j + 1], qf[kk], kb[2], kb[3]);
-      }
-    }
-
-    // mask the ragged edge and, on the diagonal tiles, the causal half
-    if (kv0 + kBKV > a.Skv || (a.causal && kv0 + kBKV - 1 > q0)) {
-#pragma unroll
-      for (int j = 0; j < kS8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kv_pos = kv0 + 8 * j + 2 * t4 + (e & 1);
-          const int q_pos = row0 + 8 * (e >> 1);
-          if (kv_pos >= a.Skv || (a.causal && kv_pos > q_pos))
-            s[j][e] = neg_inf();
+        for (int p = 0; p < P::kCount; ++p) {
+          const int m = p < P::kN0 ? 0 : 1;
+          const uint32_t off = stage * L::kTile + kBKV * 2 * P::col(p);
+          tma_load(base + L::kK + off, &maps.k[m], bar_full + 8 * stage,
+                   P::col(p), hk, t * kBKV, b);
+          tma_load(base + L::kV + off, &maps.v[m], bar_full + 8 * stage,
+                   P::col(p), hk, t * kBKV, b);
         }
-    }
-
-    // online softmax of the lane's two rows (e >> 1 picks the row)
-    float mc[2], corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = m[r];
-#pragma unroll
-      for (int j = 0; j < kS8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      corr[r] = exp2f((m[r] - mx) * c);
-      m[r] = mx;
-      mc[r] = mx * c;
-    }
-#pragma unroll
-    for (int j = 0; j < kS8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(fmaf(s[j][e], c, -mc[e >> 1]));
-        sum[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
-#pragma unroll
-    for (int j = 0; j < kN8; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-
-    // O += P V: P's k16 step kk is S's n8 tiles 2kk and 2kk + 1
-#pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < kN8; j += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vs + 2 * ((16 * kk + a_row) * kLd + 8 * j +
-                                        a_col));
-        mma_bf16(o[j], pa, vb[0], vb[1]);
-        mma_bf16(o[j + 1], pa, vb[2], vb[3]);
       }
     }
+    return;
   }
 
-  // out = O / max(l, 1e-30): the quad's partial sums first; then the
-  // warp's 16 rows through its own rows of the Q tile (read by this warp
-  // only, at the first tile) for 16-byte coalesced stores
+  // consumer c: query rows [64c, 64c + 64) of the block, 16 per warp
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q_lo = q0 + 64 * c;
+  const int row0 = q_lo + 16 * ((threadIdx.x >> 5) & 3) + g;  // and row0 + 8
+  const float cl = a.scale * kLog2e;
+  const uint32_t q_s = base + L::kQ;
+  auto k_tile = [&](int st) { return base + L::kK + st * L::kTile; };
+  auto v_tile = [&](int st) { return base + L::kV + st * L::kTile; };
+  auto release = [&](int st) {          // this warp is done with stage st
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+  };
+
+  float o[HD / 2];       // n8 block j of O: o[4j .. 4j + 3]
+  float s[kBKV / 2];     // n8 block j of S: s[4j .. 4j + 3]
+  uint32_t pa[kBKV / 16][4];   // P(t - 1) as bf16 A fragments
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  if (c == 1) turn_pass(c);   // consumer 0 takes the first turn
+
+  // tile 0: S(0) and its softmax
+  mbar_wait(bar_q, 0);
+  mbar_wait(bar_full, 0);
+  turn_wait(c);
+  wgmma_fence();
+  qk_tile<HD>(s, q_s, c, k_tile(0));
+  wgmma_commit();
+  turn_pass(c);
+  wgmma_wait0();
+  fence_regs(s);
+  online_softmax(s, m, l, corr, a, 0, q_lo, row0, t4, cl);
+  pack_p(pa, s);
+
+  // tile t: S(t) and P(t-1) V(t-1) in flight together; the softmax of
+  // S(t) runs while P V still does
+  for (int t = 1; t < n_tiles; ++t) {
+    const int stage = t % kStages;  // the ring stage tile t arrives in
+    const int prev = (t - 1) % kStages;
+    mbar_wait(bar_full + 8 * stage, (t / kStages) & 1);
+    const int buf = stage;  // the ring stage S(t) reads
+    turn_wait(c);
+    wgmma_fence();
+    qk_tile<HD>(s, q_s, c, k_tile(buf));
+    wgmma_commit();
+    rescale(o, corr);        // to the running max of tile t - 1
+    fence_regs(o);
+    wgmma_fence();
+    pv_tile<HD>(o, pa, v_tile(prev));  // O += P(t-1) V(t-1)
+    wgmma_commit();
+    turn_pass(c);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_regs(s);
+    online_softmax(s, m, l, corr, a, t * kBKV, q_lo, row0, t4, cl);
+    wgmma_wait0();
+    fence_regs(o);
+    release(prev);           // K(t-1) and V(t-1) consumed
+    pack_p(pa, s);
+  }
+
+  // the last tile's P V
+  const int last = (n_tiles - 1) % kStages;
+  turn_wait(c);
+  rescale(o, corr);
+  fence_regs(o);
+  wgmma_fence();
+  pv_tile<HD>(o, pa, v_tile(last));
+  wgmma_commit();
+  if (c == 0) turn_pass(c);   // every pass is waited for
+  wgmma_wait0();
+  fence_regs(o);
+  release(last);
+
+  // out = O / max(l, 1e-30), the quad's partial sums first
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -343,27 +625,94 @@ __global__ void __launch_bounds__(kThreads)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  auto* stage_o = sm + L::kQ + warp * 16 * kLd;
-#pragma unroll
-  for (int j = 0; j < kN8; ++j) {
-    const int col = 8 * j + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(stage_o + g * kLd + col) =
-        __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(stage_o + (g + 8) * kLd + col) =
-        __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
-  }
-  __syncwarp();
   auto* out = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
-  for (int n = 0; n < 16 * kN8 / 32; ++n) {
-    const int i = lane + 32 * n;
-    const int r = i / kN8, col = 8 * (i % kN8);
-    const int q_pos = q0 + warp * 16 + r;
-    if (q_pos < a.Sq)
-      *reinterpret_cast<uint4*>(
-          out + ((static_cast<long long>(b) * a.Sq + q_pos) * a.Hq + h) * HD +
-          col) = *reinterpret_cast<const uint4*>(stage_o + r * kLd + col);
+  for (int r = 0; r < 2; ++r) {
+    const int q_pos = row0 + 8 * r;
+    if (q_pos < a.Sq) {
+      __nv_bfloat16* dst =
+          out + ((static_cast<long long>(b) * a.Sq + q_pos) * a.Hq + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r],
+                                  o[4 * j + 2 * r + 1] * inv[r]);
+    }
   }
+}
+
+// ---------------------------------------------------------- tensor maps --
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, looked up through the runtime so
+// that the library links no driver library; null if the driver has none
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the (hd, H, S, B) view of a contiguous (B, S, H, hd) bf16 tensor, in
+// boxes of `width` columns by `rows` rows of one head, swizzled as wide as
+// a box row (zeros outside the tensor)
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd, int H,
+            int S, int B, int width, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * hd * H, 2ull * hd * H * S};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(width), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      width == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : width == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  using P = Parts<HD>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  Maps maps;
+  for (int m = 0; m < (P::kTail ? 2 : 1); ++m) {
+    const int width = m == 0 ? P::kW0 : P::kTail;
+    if (!encode(fn, &maps.q[m], a.q, HD, a.Hq, a.Sq, a.B, width, kBQ) ||
+        !encode(fn, &maps.k[m], a.k, HD, a.Hkv, a.Skv, a.B, width, kBKV) ||
+        !encode(fn, &maps.v[m], a.v, HD, a.Hkv, a.Skv, a.B, width, kBKV))
+      return cudaErrorInvalidValue;
+  }
+  if (!P::kTail) maps.q[1] = maps.k[1] = maps.v[1] = maps.q[0];
+  const int smem = Smem<HD>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(a.Sq, kBQ), a.Hq, a.B);
+  flash_fwd_bf16<HD><<<grid, kThreads, smem, stream>>>(maps, a);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- f32 --
@@ -502,25 +851,21 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int bq, int threads, int smem_bytes,
-                   const Args& a, cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  const int smem = F32Smem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(a.Sq, bq), a.Hq, a.B);
-  kernel<<<grid, threads, smem_bytes, stream>>>(a);
+  const dim3 grid(cdiv(a.Sq, kF32BQ), a.Hq, a.B);
+  flash_fwd_f32<HD><<<grid, kF32Threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_hd(const Args& a, int dtype, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch(flash_fwd_f32<HD>, kF32BQ, kF32Threads, F32Smem<HD>::kBytes,
-                  a, stream);
-  if (dtype == 1)
-    return launch(flash_fwd_bf16<HD>, kBQ, kThreads, Bf16Smem<HD>::kBytes, a,
-                  stream);
+  if (dtype == 0) return launch_f32<HD>(a, stream);
+  if (dtype == 1) return launch_bf16<HD>(a, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -102,9 +102,11 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
         scale = scale.clone()
     y = torch.empty_like(x)
     lib = _library()
+    # the raw handle of the current stream, as PyTorch's own generated code
+    # reads it: no Stream object per call (a decode step makes 57 calls)
     rc = lib.rmsnorm_launch(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
                             x.numel() // d, d, eps, DTYPES[x.dtype], vec,
-                            torch.cuda.current_stream(x.device).cuda_stream)
+                            torch._C._cuda_getCurrentRawStream(x.device.index))
     if rc != 0:
         raise RuntimeError("rmsnorm kernel launch failed: "
                            + lib.rmsnorm_error_string(rc).decode())
