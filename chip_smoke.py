@@ -213,23 +213,25 @@ def nvidia_smi_line() -> str:
 
 
 # card cycles per microsecond of torch.cuda._sleep, at the H100's 1.98 GHz
-# boost clock (a lower clock only lengthens the spin)
+# boost clock (a lower clock only lengthens the spin), and the host time a
+# timed call may take to enqueue (the wrappers take 20-30 us)
 SLEEP_CYCLES_PER_US = 1980
+HOST_US_PER_CALL = 60
 
 
-def cuda_ms(fn, reps: int, warm: int = 1, host_us: float = 60.0) -> float:
+def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     """Mean milliseconds of ``fn()`` on the current stream (CUDA events).
-    The card spins first for ``reps * host_us`` microseconds, so the host
-    can enqueue every rep before the first runs: a call that is shorter on
-    the card than on the host is timed at the card's rate, not the
-    host's."""
+    The card spins first for ``HOST_US_PER_CALL`` microseconds per rep, so
+    the host can enqueue every rep before the first runs: a call that is
+    shorter on the card than on the host is timed at the card's rate, not
+    the host's."""
     import torch
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(reps * host_us * SLEEP_CYCLES_PER_US))
+    torch.cuda._sleep(reps * HOST_US_PER_CALL * SLEEP_CYCLES_PER_US)
     start.record()
     for _ in range(reps):
         fn()
@@ -522,8 +524,24 @@ def rmsnorm_decode_split(x, scale, calls: int = 200) -> dict:
                  if "rmsnorm_kernel" in name]
         if spans:
             device_us = sum(us for us, _ in spans) / sum(c for _, c in spans)
+
+    def stream_in_device_scope():        # the wrapper's lookup before
+        with torch.cuda.device(x.device):
+            return torch.cuda.current_stream().cuda_stream
+
+    lookups = {"device_scope": stream_in_device_scope,
+               "current_stream": lambda: torch.cuda.current_stream(
+                   x.device).cuda_stream,
+               "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+                   x.device.index)}
+    lookup_us = {}
+    for name, fn in lookups.items():
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        lookup_us[name] = 1e6 * (time.perf_counter() - t0) / calls
     return dict(host_us_per_call=host_us, device_us_per_call=device_us,
-                calls=calls)
+                stream_lookup_us=lookup_us, calls=calls)
 
 
 def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:

@@ -25,7 +25,7 @@
 //   Block: 128 query rows of one (batch, head), three warpgroups. Warpgroup
 //   0 produces: it gives up registers (setmaxnreg.dec 24) and one thread
 //   issues every copy by TMA (cp.async.bulk.tensor): Q once, then K and V
-//   tiles of 64 kv rows into a ring of kStages = 3 stages, each with a
+//   tiles of 128 kv rows into a ring of kStages = 3 stages, each with a
 //   full mbarrier (the copies' bytes) and an empty one (one arrival per
 //   consumer warp). Warpgroups 1 and 2 consume (setmaxnreg.inc 240), 64
 //   query rows each.
@@ -38,7 +38,7 @@
 //   all of hd 32 or 16 (64- and 32-byte swizzle), and at hd 80 a 64-column
 //   part plus a 16-column one (32-byte swizzle). Rows past Sq or Skv come
 //   as zeros.
-//   S = Q K^T: wgmma.m64n64k16 with Q and K read from shared memory
+//   S = Q K^T: wgmma.m64n128k16 with Q and K read from shared memory
 //   through matrix descriptors (K-major, the swizzle the boxes were written
 //   with; a k16 step inside a row advances the start address by 32 bytes).
 //   O += P V: wgmma with P from registers as the A operand (the S
@@ -50,17 +50,19 @@
 //   softmax of S(t) runs while P V is in flight; the two consumers take
 //   turns to issue (named barriers), so one's softmax runs beside the
 //   other's products.
-//   Registers and shared memory: ptxas gives the kernel 168 registers a
-//   thread and allocates the consumers' code within them (a 128-row kv
-//   tile, S 64 + O 64 + P 32 live at once, spilled 200 bytes); at 64 kv
-//   rows S takes 32, O hd / 2 and P 16, without spills (phase 2 of
-//   chip_smoke.py prints the report). Shared memory at hd 128: Q 32 KB and
-//   three stages of K and V of 16 KB each, 128 KB and 1 KB of alignment:
-//   one block of 12 warps per SM, whose latency the ring and the schedule
-//   hide instead of more blocks.
+//   Registers and shared memory: the kernel starts at 168 registers a
+//   thread (three warps on each of the SM's four register-file quarters);
+//   the consumers' setmaxnreg.inc 240 lets ptxas give their code more (it
+//   reaches about 184: S 64 + O hd / 2 + P 32 live at once, no spills;
+//   phase 2 of chip_smoke.py prints the report). The mbarrier wait has no
+//   trap on a timeout: with one, ptxas held the consumers to about 175
+//   registers, spilled 200 bytes and waited on every wgmma. Shared memory
+//   at hd 128: Q 32 KB and three stages of K and V of 32 KB each, 224 KB
+//   and 1 KB of alignment: one block of 12 warps per SM, whose latency the
+//   ring and the schedule hide instead of more blocks.
 //   What it does about the causes that held the earlier designs back: K/V
-//   copies are asynchronous and run ahead of the products by up to three
-//   tiles; S, P and the rescale factors never touch shared memory; the
+//   copies are asynchronous and a tile ahead of the products (three
+//   stages: V(t-1) for P V, K(t) for S, tile t + 1 in flight); S, P and the rescale factors never touch shared memory; the
 //   products run on wgmma instead of mma.sync, Q is read by the tensor
 //   cores from shared memory and never staged through registers; P's
 //   rounding to bf16 is the one rounding the plain version does not make.
@@ -109,7 +111,7 @@ __device__ __forceinline__ int visible_tiles(const Args& a, int q0) {
 // ---------------------------------------------------------------- bf16 --
 
 constexpr int kBQ = 128;        // query rows per block, 64 per consumer
-constexpr int kBKV = 64;        // kv rows per tile (S is m64n64)
+constexpr int kBKV = 128;       // kv rows per tile (S is m64n128)
 constexpr int kStages = 3;      // K/V ring
 constexpr int kConsumers = 2;   // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 produces
@@ -178,11 +180,11 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
                : "memory");
 }
 
-// wait for the phase of parity `parity` to complete; a wait that never
-// ends traps (a launch failure) instead of hanging the card
+// wait for the phase of parity `parity` to complete (no timeout: a trap
+// on this path costs the consumers their registers, see the note above)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   uint32_t done = 0;
-  for (uint32_t n = 0; !done; ++n) {
+  while (!done)
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -190,8 +192,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-    if (n > (1u << 22)) __trap();
-  }
 }
 
 // a box of the (hd, H, S, B) view into shared memory at dst, completing on
@@ -242,17 +242,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// S (+)= A B^T for one m64n64k16 step, A and B K-major in shared memory
+// S (+)= A B^T for one m64n128k16 step, A and B K-major in shared memory
 // (descriptors); scale_d 0 overwrites S
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -261,7 +264,15 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -404,8 +415,8 @@ __device__ __forceinline__ void qk_tile(float (&s)[kBKV / 2], uint32_t q_s,
     const uint32_t k_p = k_s + kBKV * 2 * P::col(p);
 #pragma unroll
     for (int st = 0; st < P::width(p) / 16; ++st)
-      wgmma_ss_n64(s, make_desc(q_p + 32 * st, 16, 8 * rb, rb),
-                   make_desc(k_p + 32 * st, 16, 8 * rb, rb), p + st);
+      wgmma_ss_n128(s, make_desc(q_p + 32 * st, 16, 8 * rb, rb),
+                    make_desc(k_p + 32 * st, 16, 8 * rb, rb), p + st);
   }
 }
 
@@ -501,7 +512,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hkv);
   const int n_tiles = visible_tiles<kBQ, kBKV>(a, q0);
-  // warpgroup index, warp-uniform to the compiler (setmaxnreg needs it)
+  // warpgroup index, warp-uniform to the compiler: each role's branch and
+  // its setmaxnreg are taken by whole warpgroups
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) >> 7, 0);
 
   if (threadIdx.x == 0) {
