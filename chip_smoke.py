@@ -1319,10 +1319,10 @@ def main() -> int:
             lambda job: build.load(*job), variants.values())))
         fault_libs = {f: job.result() for f, job in faults.items()}
     build_s = time.perf_counter() - t0
+    ptxas = {kname: ptxas_report(b.ptxas_log) for kname, b in built.items()}
     for kname, b in built.items():
         emit("build", kernel=kname, seconds=build_s, nvcc_seconds=b.seconds,
-             library=str(b.path.relative_to(ROOT)),
-             ptxas=ptxas_report(b.ptxas_log))
+             library=str(b.path.relative_to(ROOT)), ptxas=ptxas[kname])
 
     # ---- 3. kernel vs plain version on the card ----
     dev = torch.device("cuda")
@@ -1632,7 +1632,6 @@ def main() -> int:
         raise AssertionError("card and CPU training disagree on (30, 5, 0)")
 
     # ---- 8-11. serving: kernels, prefill and serve paths, card vs CPU ----
-    ptxas = {kname: ptxas_report(b.ptxas_log) for kname, b in built.items()}
     serving = serving_kernels(dev, fault_libs, ptxas)
     serve_launches = serving_paths(dev)
     serve_card_vs_cpu(dev)
