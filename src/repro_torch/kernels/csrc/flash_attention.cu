@@ -24,15 +24,15 @@
 // bfloat16 (the serving path): warp-specialised wgmma with a TMA ring.
 //   Block: 128 query rows of one (batch, head), three warpgroups. Warpgroup
 //   0 produces: it gives up registers (setmaxnreg.dec 24) and one thread
-//   issues every copy by TMA (cp.async.bulk.tensor): Q once, then K and V
+//   starts every copy by TMA (cp.async.bulk.tensor): Q once, then K and V
 //   tiles of 128 kv rows into a ring of kStages = 3 stages, each with a
 //   full mbarrier (the copies' bytes) and an empty one (one arrival per
 //   consumer warp). Warpgroups 1 and 2 consume (setmaxnreg.inc 240), 64
 //   query rows each.
 //   Tensor maps over the (hd, H, S, B) view of q, k and v are built on the
 //   host per launch with cuTensorMapEncodeTiled, which the runtime hands
-//   over (cudaGetDriverEntryPointByVersion), so the library links no driver
-//   library; they are __grid_constant__ parameters. A box is a column part
+//   over (cudaGetDriverEntryPointByVersion), so the library does not link
+//   libcuda; they are __grid_constant__ parameters. A box is a column part
 //   of the head dim: 64 columns (128-byte rows, 128-byte swizzle; two
 //   boxes at hd 128, whose 256-byte rows are wider than the swizzle span),
 //   all of hd 32 or 16 (64- and 32-byte swizzle), and at hd 80 a 64-column
@@ -46,9 +46,9 @@
 //   the A layout of one k16 step) and V as B from shared memory, MN-major
 //   (transposed), N = hd: one m64n128k16 over both 64-column parts at hd
 //   128 (the part stride is the leading byte offset), n64 + n16 at hd 80.
-//   Schedule: S(t) and P(t-1) V(t-1) are issued together and the online
+//   Schedule: S(t) and P(t-1) V(t-1) are started together and the online
 //   softmax of S(t) runs while P V is in flight; the two consumers take
-//   turns to issue (named barriers), so one's softmax runs beside the
+//   turns to start them (named barriers), so one's softmax runs beside the
 //   other's products.
 //   Registers and shared memory: the kernel starts at 168 registers a
 //   thread (three warps on each of the SM's four register-file quarters);
@@ -76,7 +76,7 @@
 // Plain C entry point flash_attention_launch: launches on the given stream,
 // does not synchronise, allocates nothing, returns cudaGetLastError().
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver library is linked
+#include <cuda.h>  // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -428,7 +428,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The consumers take turns to issue their products (named barriers 1 and
+// The consumers take turns to start their products (named barriers 1 and
 // 2, 256 threads each), so that one's softmax runs beside the other's
 // products on the tensor cores
 __device__ __forceinline__ void turn_wait(int c) {
@@ -662,8 +662,8 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, looked up through the runtime so
-// that the library links no driver library; null if the driver has none
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime so that
+// the library does not link libcuda; null if the installed one has none
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {

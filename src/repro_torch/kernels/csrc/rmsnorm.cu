@@ -10,7 +10,7 @@
 // y at the card's memory rate (0.020 ms for 16,384 rows of 1024 bfloat16).
 // Design: one warp per row, eight rows per block. Lane l owns the row's
 // V-wide vectors l, l + 32, ... (V from the wrapper: 16-byte loads when d
-// allows). It issues the loads of its first K vectors together, before it
+// allows). It starts the loads of its first K vectors together, before it
 // uses any of them, and keeps them in registers, so the row is read from
 // device memory once: K is the smallest of 4, 8, 16, 24 that holds the
 // row (4 at d = 1024 in bf16, 16 at qwen2-7b's 3584, 24 at qwen3-32b's
