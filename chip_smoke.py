@@ -19,18 +19,27 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 3. ``kernel``: each kernel against its plain PyTorch version on the same
    card tensors, at the main path's shapes and at ragged ones, with the
    stated tolerance; kernel and plain times (CUDA events), the operation
-   and byte counts, the bound they give and the kernel's share of it.
+   and byte counts, the bound they give and the kernel's share of it. The
+   golden-section lines (the main path's (1001, 1000) batch; fully active
+   (8, 1000) and (1001, 1000) batches, a block per group; 64 groups at 20%
+   active; 64 groups half at 5% and half at 30%, both of the kernel's
+   paths in one call; the ragged (5, 37) batch under every profile) assert
+   the pin and report ``groups_not_bitwise``, the groups on each of the
+   kernel's paths and, off the main batch, the kernel's time.
 3b. ``design``: the golden-section kernel built with ``cbrtf`` instead of
    the double cube root, at the main shape: its time, and how many groups
-   leave the pin against the plain version (reported, not asserted).
+   leave the pin and how many differ in any bit from the plain version
+   (reported, not asserted).
 4. ``main_path``: ``make_scenario(1000, 20)`` and the dense transfer-only
    association engine to a stable point on the card, with the kernel's
-   launch count read around exactly this run.
+   launch count read around exactly this run; ms per move and the share
+   of it that the two launches' kernel time makes.
 3c. ``kernel`` (hier_aggregate, run after phase 4, whose assignment sets
    its edge shape): the eq. (8)/(14) kernel against its plain version at
    the cloud shape (1000 clients of the MLP), at the largest edge group of
-   phase 4's assignment, and at ragged and bfloat16 shapes; kernel, plain
-   and ``torch.mv`` times, bytes, bound and the kernel's share of it.
+   phase 4's assignment, and at ragged and bfloat16 shapes, with its
+   client-axis ``splits``; kernel, plain and ``torch.mv`` times at the
+   cloud and edge shapes, bytes, bound and the kernel's share of it.
 5. ``card_vs_cpu``: the engine on the card and on the CPU (plain version)
    land on the same stable point for ``make_scenario(60, 5)``.
 6. ``train_path``: HFEL training (Algorithm 1) on the card from phase 4's
@@ -54,7 +63,10 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    Then ``fault``: copies of the flash kernel with a planted fault (one kv
    tile left out; O rounded to bfloat16 after each k16 step of P V; S
    reading K from the next ring stage, a stale or not-yet-landed tile) at
-   the layer shape, each of which the flash tolerance must reject.
+   the layer shape, each of which the flash tolerance must reject. Every
+   flash launch of phases 8 and 12 is waited for against a host-side
+   deadline (``CARD_DEADLINE_S``): a launch that never finishes prints the
+   phase's failing line and ends the run non-zero.
 9. ``prefill_path``: ``Model.logits`` of full-size qwen3-0.6b (28 layers,
    random weights from seed 0, bfloat16 serving copy, the flash kernel) on
    4 x 4096 tokens; seconds and tokens/s per forward, the launch counts
@@ -109,6 +121,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -204,6 +217,34 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
+# host-side deadline on a flash launch of phases 8 and 12: the kernel's
+# mbarrier wait has no timeout, so a TMA copy that never lands would spin
+# until an outside limit ends the run; a whole timed run of 20 launches
+# takes well under a second
+CARD_DEADLINE_S = 120.0
+
+
+def await_card(phase: str, what: str,
+               deadline_s: float = CARD_DEADLINE_S) -> None:
+    """Wait for the work enqueued so far on the current stream by polling
+    a CUDA event (``event.query()``) against a host-side deadline. On
+    expiry print the phase's failing line and end the process at once with
+    a non-zero code (``os._exit``: a stream that never drains would block
+    a normal exit)."""
+    import torch
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.perf_counter()
+    while not done.query():
+        if time.perf_counter() - t0 > deadline_s:
+            emit(phase, ok=False, error=f"{what}: the card has not finished "
+                 f"after {deadline_s} s")
+            sys.stdout.flush()
+            os._exit(1)
+        time.sleep(1e-3)
+    torch.cuda.synchronize()
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -219,30 +260,39 @@ SLEEP_CYCLES_PER_US = 1980
 HOST_US_PER_CALL = 60
 
 
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
+def cuda_ms(fn, reps: int, warm: int = 1, guard: str | None = None) -> float:
     """Mean milliseconds of ``fn()`` on the current stream (CUDA events).
     The card spins first for ``HOST_US_PER_CALL`` microseconds per rep, so
     the host can enqueue every rep before the first runs: a call that is
     shorter on the card than on the host is timed at the card's rate, not
-    the host's."""
+    the host's. With ``guard`` (the launches' name), every wait goes
+    through :func:`await_card` under the ``kernel`` phase."""
     import torch
+
+    def wait():
+        if guard is None:
+            torch.cuda.synchronize()
+        else:
+            await_card("kernel", guard)
+
     for _ in range(warm):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    wait()
     torch.cuda._sleep(reps * HOST_US_PER_CALL * SLEEP_CYCLES_PER_US)
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
-    torch.cuda.synchronize()
+    wait()
     return start.elapsed_time(stop) / reps
 
 
 def ptxas_report(log: str) -> dict:
     """Registers and spills per kernel instantiation, from nvcc -Xptxas -v
-    (golden_section<NT, IT>: threads per block, slots per thread;
+    (golden_section: its two kernels, ``warp_per_group`` and
+    ``block_per_group``;
     hier_aggregate<T, V>: element type, elements per thread; rmsnorm<T,
     V, K>: element type, elements per load, vectors per lane held in
     registers; flash_fwd_<type><HD>: input type, head dim;
@@ -251,23 +301,37 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            t = re.search(r"ILi(\d+)ELi(\d+)E", entry.group(1))
+            mangled = entry.group(1)
             v = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?",
-                          entry.group(1))
-            f = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)E", entry.group(1))
-            sc = re.search(r"ssd_scan_kernelI(f|13__nv_bfloat16)E",
-                           entry.group(1))
-            name = (f"NT={t.group(1)},IT={t.group(2)}" if t else
-                    f"T={'f32' if v.group(1) == 'f' else 'bf16'},"
+                          mangled)
+            f = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)E", mangled)
+            sc = re.search(r"ssd_scan_kernelI(f|13__nv_bfloat16)E", mangled)
+            name = ("warp_per_group" if "golden_section_kernel" in mangled
+                    else "block_per_group"
+                    if "golden_section_wide_kernel" in mangled
+                    else f"T={'f32' if v.group(1) == 'f' else 'bf16'},"
                     f"V={v.group(2)}"
                     + (f",K={v.group(3)}" if v.group(3) else "") if v else
                     f"{f.group(1)},HD={f.group(2)}" if f else
                     f"T={'f32' if sc.group(1) == 'f' else 'bf16'}" if sc else
-                    entry.group(1))
+                    mangled)
             out[name] = []
         elif name and re.search(r"registers|spill", line):
             out[name].append(line.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
+
+
+def groups_not_bitwise(got, want) -> int:
+    """Groups whose f, beta, cost or deadline differ from the plain
+    version's in any bit."""
+    import torch
+
+    def differ(x, y):
+        d = x.view(torch.int32) != y.view(torch.int32)
+        return d.any(-1) if d.dim() == 2 else d
+
+    return int(torch.stack([differ(x, y) for x, y in zip(got, want)]).any(0)
+               .sum())
 
 
 def golden_section_work(mask, n_golden: int, n_inner: int, n_bracket: int):
@@ -299,12 +363,12 @@ def l2_flush(dev):
     return lambda: buf.sum()
 
 
-def cuda_ms_cold(fn, reps: int, flush) -> float:
+def cuda_ms_cold(fn, reps: int, flush, guard: str | None = None) -> float:
     """Mean milliseconds of ``fn()`` alone, with ``flush`` (see
     :func:`l2_flush`) run before each launch outside the timed span. A spin
     of the card (0.1 ms) after the flush keeps the card busy while the host
     enqueues ``fn``, so the span holds the kernel and not the host's
-    latency in reaching it."""
+    latency in reaching it. ``guard`` as in :func:`cuda_ms`."""
     import torch
     fn()
     total = 0.0
@@ -316,7 +380,10 @@ def cuda_ms_cold(fn, reps: int, flush) -> float:
         start.record()
         fn()
         stop.record()
-        torch.cuda.synchronize()
+        if guard is None:
+            torch.cuda.synchronize()
+        else:
+            await_card("kernel", guard)
         total += start.elapsed_time(stop)
     return total / reps
 
@@ -619,8 +686,9 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
         q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
         k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
         v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
+        guard = f"flash_attention {case}"
         got = flash_attention.flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
+        await_card("kernel", guard)
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                        causal=causal)
         tname = str(dtype).removeprefix("torch.")
@@ -637,7 +705,7 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
         if case == "layer":
             for fault, lib in fault_libs.items():
                 bad = flash_attention.launch(q, k, v, causal, lib)
-                torch.cuda.synchronize()
+                await_card("fault", f"flash_attention fault {fault}")
                 f_measures, caught = flash_error(bad, want, want_abs,
                                                  tname)
                 caught = not caught
@@ -653,9 +721,9 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
                                          q.element_size())
             b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
             k_ms = cuda_ms(lambda: flash_attention.flash_attention(
-                q, k, v, causal=causal), reps=20)
+                q, k, v, causal=causal), reps=20, guard=guard)
             k_cold = cuda_ms_cold(lambda: flash_attention.flash_attention(
-                q, k, v, causal=causal), 10, flush)
+                q, k, v, causal=causal), 10, flush, guard=guard)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             try:
                 def library():
@@ -989,8 +1057,9 @@ def ssm_kernels(dev, ptxas: dict) -> dict:
                      zamba.resolved_head_dim)
     q, k, v = (torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(bf16)
                for _ in range(3))
+    guard = "flash_attention zamba2_layer"
     got = flash_attention.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
+    await_card("kernel", guard)
     want = ref.flash_attention_ref(q.float(), k.float(), v.float())
     want_abs = ref.flash_attention_ref(q.float(), k.float(), v.float().abs())
     measures, ok = flash_error(got, want, want_abs, "bfloat16")
@@ -1004,12 +1073,14 @@ def ssm_kernels(dev, ptxas: dict) -> dict:
                              "its plain version")
     ops, nbytes = attention_work(b, sq, sq, hq, hq, hd, True, 2)
     b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
-    k_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=20)
+    k_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=20,
+                   guard=guard)
     flush = l2_flush(dev)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fields.update(
         ms=k_ms, ms_cold_l2=cuda_ms_cold(
-            lambda: flash_attention.flash_attention(q, k, v), 10, flush),
+            lambda: flash_attention.flash_attention(q, k, v), 10, flush,
+            guard=guard),
         plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
                                   reps=3),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -1343,6 +1414,7 @@ def main() -> int:
     torch.cuda.synchronize()
     want = ref.golden_section_ref(*main_in, **iters)
     err = check_pin(got, want, main_in[5], main_in[6], masks)
+    err["groups_not_bitwise"] = groups_not_bitwise(got, want)
     k_ms = cuda_ms(lambda: golden_section.golden_section_solve(
         *main_in, **iters), reps=20)
     p_ms = cuda_ms(lambda: ref.golden_section_ref(*main_in, **iters),
@@ -1352,8 +1424,10 @@ def main() -> int:
     emit("kernel", kernel="golden_section", shape=list(masks.shape),
          profile="default", ms=k_ms, plain_ms=p_ms, operations=ops,
          bytes=nbytes, active_slots=active,
-         active_share=active / masks.numel(), bound_ms=b_ms, bound_by=b_by,
-         bound_share=b_ms / k_ms, library_ms=None, **err)
+         active_share=active / masks.numel(),
+         paths=ref.golden_section_paths(masks), bound_ms=b_ms, bound_by=b_by,
+         bound_share=b_ms / k_ms, library_ms=None,
+         ptxas=ptxas["golden_section"], **err)
     main_kernel = dict(max_abs_err=err["max_abs_err_cost"], ms=k_ms,
                        plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
 
@@ -1367,8 +1441,41 @@ def main() -> int:
     emit("design", kernel="golden_section", variant="cbrtf",
          shape=list(masks.shape), profile="default", ms=v_ms,
          ms_double_cbrt=k_ms, groups_outside_pin=int(v_out.size),
+         groups_not_bitwise=groups_not_bitwise(got, want),
+         ptxas=ptxas["golden_section_cbrtf"],
          max_rel_err_cost=float(((got[2] - want[2]).abs()
                                  / want[2].abs().clamp_min(1e-30)).max()))
+
+    # off the main path's batch: fully active groups (a block of 512
+    # threads each), 8 and 1001 of them; 64 groups of 20% active (one warp
+    # each, 7 steps a lane); 64 groups, half 5% and half 30% active (both
+    # kernels in one call)
+    gen_m = torch.Generator(device=dev).manual_seed(5)
+
+    def share(g_, p_):
+        return torch.rand(g_, n, generator=gen_m, device=dev) < p_
+
+    mixed = share(64, 0.3)
+    mixed[::2] = share(32, 0.05)
+    for case, m_, reps in (
+            ("fully_active", torch.ones(8, n, dtype=torch.bool,
+                                        device=dev), 5),
+            ("fully_active", torch.ones(n + 1, n, dtype=torch.bool,
+                                        device=dev), 2),
+            ("share_20", share(64, 0.2), 5), ("mixed", mixed, 5)):
+        x_in = [x[:m_.shape[0]].contiguous() for x in main_in[:7]] + [m_]
+        got = golden_section.golden_section_solve(*x_in, **iters)
+        torch.cuda.synchronize()
+        want = ref.golden_section_ref(*x_in, **iters)
+        err = check_pin(got, want, x_in[5], x_in[6], m_)
+        emit("kernel", kernel="golden_section", case=case,
+             shape=list(m_.shape), profile="default",
+             paths=ref.golden_section_paths(m_),
+             active_share=float(m_.float().mean()),
+             ms=cuda_ms(lambda: golden_section.golden_section_solve(
+                 *x_in, **iters), reps=reps),
+             groups_not_bitwise=groups_not_bitwise(got, want), **err)
+    del got, want, x_in
 
     # ragged: G=5, R=37, group 0 a singleton and group 1 empty
     g, r = 5, 37
@@ -1391,8 +1498,9 @@ def main() -> int:
         err = check_pin(got, want, rag_in[5], rag_in[6], rmask)
         if got[2][1].item() != 0.0:
             raise AssertionError("empty group must cost 0")
-        emit("kernel", kernel="golden_section", shape=[g, r],
-             profile=profile, **err)
+        emit("kernel", kernel="golden_section", case="ragged", shape=[g, r],
+             profile=profile, paths=ref.golden_section_paths(rmask),
+             groups_not_bitwise=groups_not_bitwise(got, want), **err)
 
     # ---- 4. the main path on the card ----
     golden_section.LAUNCHES = 0
@@ -1407,11 +1515,13 @@ def main() -> int:
     moves = res.n_adjustments
     k = main_sc.n_servers
     trace = np.asarray(res.cost_trace)
+    ms_per_move = 1e3 * eng.last_timing["moves_s"] / max(moves, 1)
     emit("main_path", n_devices=n, n_servers=k, moves=moves,
          first_cost=float(trace[0]), last_cost=float(trace[-1]),
          total_cost=res.total_cost, true_cost=res.true_cost,
          init_s=eng.last_timing["init_s"],
-         ms_per_move=(1e3 * eng.last_timing["moves_s"] / max(moves, 1)),
+         ms_per_move=ms_per_move, kernel_ms_per_move=2 * main_kernel["ms"],
+         kernel_share_of_move=2 * main_kernel["ms"] / ms_per_move,
          total_s=total_s,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches, launches_expected=k + 2 * moves + 1)
@@ -1448,8 +1558,10 @@ def main() -> int:
         tname = str(dtype).removeprefix("torch.")
         tol = AGG_TOL[tname]
         err = (got.float() - want.float()).abs()
+        splits, rows = ref.agg_splits(c_, p_)
         fields = dict(kernel="hier_aggregate", case=case, shape=[c_, p_],
                       dtype=tname, vector_width=hier_aggregate.vector_width(u),
+                      splits=splits, rows_per_split=rows,
                       tolerance=tol, bitwise=bool(torch.equal(got, want)),
                       max_abs_err=float(err.max()))
         if not (torch.isfinite(got.float()).all()
@@ -1473,7 +1585,8 @@ def main() -> int:
                 library_max_abs_err=float((torch.mv(ut, wn) - want)
                                           .abs().max()),
                 bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
-                bound_share=b_ms / k_ms)
+                bound_share=b_ms / k_ms, ptxas=ptxas["hier_aggregate"].get(
+                    f"T=f32,V={hier_aggregate.vector_width(u)}"))
             agg[case] = fields
         emit("kernel", **fields)
     del u, w, got, want, err

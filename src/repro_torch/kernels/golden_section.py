@@ -2,11 +2,13 @@
 
 The kernel (``csrc/golden_section.cu``) replaces
 ``repro/kernels/golden_section.py::_golden_section_kernel``, the Pallas TPU
-kernel. Its bound on the H100 is float32 ALU work (cbrt, divides), not
-bytes: each input is read once and each output written once, while every
-slot runs some 650 fixed-point steps. One thread block per group keeps the
-whole iteration on-chip, in registers, with only block reductions between
-steps.
+kernel. Its bound on the H100 is float32 ALU work (cbrt, divides) and its
+dependent chain, not bytes: each input is read once and each output written
+once, while every active slot runs some 650 fixed-point steps. One warp
+per group packs the group's active slots onto its lanes and keeps the
+whole iteration in registers, with only warp shuffles between steps; a
+group too wide for one warp gets a block of its own (``ref.GS_*`` is the
+dispatch table).
 
 A CPU tensor goes to the plain version, :func:`repro_torch.kernels.ref.
 golden_section_ref`. A CUDA tensor launches the kernel or raises; nothing
@@ -24,7 +26,7 @@ from repro_torch.kernels import build, ref
 LAUNCHES = 0
 MAX_R = ref.MAX_R      # widest group the kernel takes
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _library(*defines: str) -> ctypes.CDLL:
@@ -97,7 +99,8 @@ def launch(ins, *, n_golden: int, n_inner: int, n_bracket: int,
     cost, deadline)``."""
     a = ins[0]
     g, r = a.shape
-    nt, it = ref.kernel_layout(r)       # raises above the widest group
+    if r > MAX_R:
+        raise ValueError(f"group width {r} exceeds the kernel's {MAX_R}")
     f = torch.empty_like(a)
     beta = torch.empty_like(a)
     cost = torch.empty(g, dtype=a.dtype, device=a.device)
@@ -107,7 +110,7 @@ def launch(ins, *, n_golden: int, n_inner: int, n_bracket: int,
         stream = torch.cuda.current_stream().cuda_stream
     rc = lib.golden_section_launch(
         *(x.data_ptr() for x in (*ins, f, beta, cost, deadline)),
-        g, r, nt, it, n_golden, n_inner, n_bracket, stream)
+        g, r, n_golden, n_inner, n_bracket, stream)
     if rc != 0:
         raise RuntimeError("golden_section kernel launch failed: "
                            + lib.golden_section_error_string(rc).decode())

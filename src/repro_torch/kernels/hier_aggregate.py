@@ -4,8 +4,10 @@ kernel.
 The kernel (``csrc/hier_aggregate.cu``) replaces
 ``repro/kernels/hier_aggregate.py::_agg_kernel``, the Pallas TPU kernel.
 Its bound on the H100 is bytes: it reads the ``(C, P)`` stack once and
-writes ``(P,)``. Each thread streams all C rows of a few consecutive
-columns with vector loads, so every row read is coalesced.
+writes ``(P,)``. Each thread streams the rows of a few consecutive columns
+with vector loads, so every row read is coalesced; the rows of a column
+tile are split over the blocks of a thread block cluster
+(``ref.agg_splits``), whose partial sums meet in shared memory.
 
 A CPU tensor goes to the plain version, :func:`repro_torch.kernels.ref.
 hier_aggregate_ref`. A CUDA tensor launches the kernel or raises; nothing
@@ -28,6 +30,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VEC_WIDTHS = {torch.float32: (4, 2, 1), torch.bfloat16: (8, 4, 2, 1)}
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p]
 
@@ -88,7 +91,8 @@ def hier_aggregate(updates: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
     rc = lib.hier_aggregate_launch(
         updates.data_ptr(), weights.data_ptr(), out.data_ptr(), c, p,
-        DTYPES[updates.dtype], vector_width(updates), stream)
+        DTYPES[updates.dtype], vector_width(updates), *ref.agg_splits(c, p),
+        stream)
     if rc != 0:
         raise RuntimeError("hier_aggregate kernel launch failed: "
                            + lib.hier_aggregate_error_string(rc).decode())

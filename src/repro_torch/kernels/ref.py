@@ -32,21 +32,35 @@ GOLDEN = 0.6180339887498949
 EPS = 1e-12
 
 
-# Thread layout of the CUDA kernel: a group of width R runs on NT threads
-# holding IT slots each (slot r = thread + i * NT), the first (R limit, NT,
-# IT) row that fits. The wrapper passes it to the kernel; block_sum follows
-# it. csrc/golden_section.cu instantiates exactly these (NT, IT) pairs.
-KERNEL_LAYOUTS = ((64, 64, 1), (256, 256, 1), (512, 256, 2), (1024, 256, 4),
-                  (2048, 512, 4), (4096, 512, 8))
-MAX_R = KERNEL_LAYOUTS[-1][0]
+# The golden-section kernel's dispatch table (csrc/golden_section.cu: kWarps,
+# kRegSteps, kWideThreads, kMaxR and its GS_SOLVE instantiations; a CPU test
+# checks that both agree). The threads of a group pack its active slots, the
+# j-th in row order on thread j % L at step j // L. A group of at most
+# 32 * max(GS_REG_STEPS) active slots is solved by one warp (L = 32,
+# GS_WARPS groups a block), a wider one by a block of L = GS_WIDE_THREADS
+# threads; a thread holding s steps runs the first instantiation of
+# GS_REG_STEPS that holds s. block_sum follows the same choice, made from
+# each row's active count alone.
+GS_WARPS = 4
+GS_REG_STEPS = (1, 2, 3, 4, 6, 8)
+GS_WIDE_THREADS = 512
+MAX_R = GS_WIDE_THREADS * max(GS_REG_STEPS)
 
 
-def kernel_layout(r: int) -> tuple[int, int]:
-    """(NT, IT) the kernel uses for groups of width ``r``."""
-    for limit, nt, it in KERNEL_LAYOUTS:
-        if r <= limit:
-            return nt, it
-    raise ValueError(f"group width {r} exceeds the kernel's {MAX_R}")
+def gs_lanes(n_active: torch.Tensor) -> torch.Tensor:
+    """Threads (L) the kernel gives each group, from its active count."""
+    return torch.where(n_active > 32 * max(GS_REG_STEPS), GS_WIDE_THREADS, 32)
+
+
+def golden_section_paths(mask: torch.Tensor) -> dict[str, int]:
+    """How many of the ``(G, R)`` mask's groups the kernel solves on each
+    path: ``empty`` (no active slot, no arithmetic), ``warp`` and
+    ``block``."""
+    n = mask.sum(-1)
+    wide = gs_lanes(n) > 32
+    return {"empty": int((n == 0).sum()),
+            "warp": int(((n > 0) & ~wide).sum()),
+            "block": int(wide.sum())}
 
 
 def cbrt(x: torch.Tensor) -> torch.Tensor:
@@ -56,36 +70,73 @@ def cbrt(x: torch.Tensor) -> torch.Tensor:
     return torch.pow(x.double(), 1.0 / 3.0).to(x.dtype)
 
 
-def block_sum(x: torch.Tensor,
-              layout: tuple[int, int] | None = None) -> torch.Tensor:
-    """Sum over the last axis of ``(G, R)`` in a kernel's order, so the
-    plain version and the kernel round alike. ``layout`` is the kernel's
-    (threads, slots per thread), slot r on thread r % threads; by default
-    the golden-section kernel's :func:`kernel_layout`. Each thread adds its
-    slots in turn; each warp's xor-shuffle reduction leaves lane 0 the
-    halving tree of its 32 lanes (lane l adds lane l + w at width w); one
-    warp then reduces the warp partials the same way (its lanes past the
-    warp count hold exact zeros, so that is the halving tree of the
-    partials). Returns ``(G, 1)``."""
-    g, r = x.shape
-    nt, it = layout or kernel_layout(r)
-    slots = torch.nn.functional.pad(x, (0, nt * it - r)).view(g, it, nt)
-    part = slots[:, 0]
-    for i in range(1, it):
-        part = part + slots[:, i]
-    for rows, width in ((g * nt // 32, 32), (g, nt // 32)):
-        part = part.reshape(rows, width)
-        while width > 1:
-            width //= 2
-            part = part[:, :width] + part[:, width:]
+def halving_tree(part: torch.Tensor) -> torch.Tensor:
+    """Sum ``(M, W)`` over its last axis, W a power of two, as a warp's xor
+    shuffles do: lane l adds lane l + w at width w = W/2, W/4, ..., 1.
+    Returns ``(M, 1)``."""
+    width = part.shape[-1]
+    while width > 1:
+        width //= 2
+        part = part[:, :width] + part[:, width:]
     return part
+
+
+def lane_sum(x: torch.Tensor, mask: torch.Tensor, lanes: int) -> torch.Tensor:
+    """Sum of ``x`` over the active slots of each row of ``(G, R)`` as
+    ``lanes`` threads sum it: the j-th active slot in row order goes to
+    thread j % lanes at step j // lanes (a rank taken with ``cumsum`` and a
+    scatter), each thread adds its steps in turn, each warp takes the
+    halving tree of its 32 lanes, then the halving tree of the warp
+    partials. Masked slots take no part, whatever ``x`` holds there.
+    Returns ``(G, 1)``."""
+    g, r = x.shape
+    steps = -(-r // lanes)
+    # active slot -> its rank; masked ones -> a spare column, dropped
+    slot = torch.where(mask, mask.cumsum(-1) - 1, lanes * steps)
+    packed = x.new_zeros(g, lanes * steps + 1).scatter_(
+        1, slot, torch.where(mask, x, x.new_zeros(())))
+    packed = packed[:, :-1].reshape(g, steps, lanes)
+    part = packed[:, 0]
+    for i in range(1, steps):
+        part = part + packed[:, i]
+    part = halving_tree(part.reshape(g * lanes // 32, 32))
+    return halving_tree(part.reshape(g, lanes // 32))
+
+
+def block_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x`` over the active slots of each row of ``(G, R)``, in the
+    golden-section kernel's order: :func:`lane_sum` over the threads
+    :func:`gs_lanes` gives the row. Returns ``(G, 1)``."""
+    out = lane_sum(x, mask, 32)
+    if x.shape[1] > 32 * max(GS_REG_STEPS):    # a row may be wide
+        wide = gs_lanes(mask.sum(-1, keepdim=True)) > 32
+        out = torch.where(wide, lane_sum(x, mask, GS_WIDE_THREADS), out)
+    return out
+
+
+def thread_block_sum(x: torch.Tensor, threads: int) -> torch.Tensor:
+    """Sum over the last axis of ``(G, C)`` as a block of ``threads``
+    threads sums it in the aggregation kernel: thread t adds x[t],
+    x[t + threads], ... in turn; each warp's halving tree; then one warp's
+    halving tree over the warp partials (its lanes past the warp count hold
+    exact zeros, so that is the halving tree of the partials). Returns
+    ``(G, 1)``."""
+    g, c = x.shape
+    per = -(-c // threads)
+    slots = torch.nn.functional.pad(x, (0, threads * per - c)).view(
+        g, per, threads)
+    part = slots[:, 0]
+    for i in range(1, per):
+        part = part + slots[:, i]
+    part = halving_tree(part.reshape(g * threads // 32, 32))
+    return halving_tree(part.reshape(g, threads // 32))
 
 
 def beta_norm(score, mask):
     """Normalize positive scores to sum to 1 over the active set."""
     zero = score.new_zeros(())
     score = torch.where(mask, score, zero)
-    tot = torch.clamp_min(block_sum(score), EPS)
+    tot = torch.clamp_min(block_sum(score, mask), EPS)
     return torch.where(mask, score / tot, zero)
 
 
@@ -104,7 +155,7 @@ def deadline_bracket(d, e, mask, f_min, f_max, n_bracket: int):
     sum_n d_n / (t - e_n / f_x) <= 1, bisected with every device at f_max
     (lower bound) and at f_min (upper bound)."""
     zero = d.new_zeros(())
-    d_sum = block_sum(torch.where(mask, d, zero))
+    d_sum = block_sum(d, mask)
 
     def bound_hi(fx):
         e_fx = e / fx
@@ -115,7 +166,7 @@ def deadline_bracket(d, e, mask, f_min, f_max, n_bracket: int):
             slack = mid - e_fx
             bb = torch.where(mask, d / torch.clamp_min(slack, EPS), zero)
             bb = torch.where(mask & (slack <= 0), bb.new_full((), 1e6), bb)
-            ok = block_sum(bb) <= 1.0
+            ok = block_sum(bb, mask) <= 1.0
             lo, hi = torch.where(ok, lo, mid), torch.where(ok, mid, hi)
         return hi
 
@@ -129,7 +180,7 @@ def objective(a, b, d, e, w, mask, f, safe_beta):
     per_sum = a / safe_beta + b * torch.square(f)
     per_max = d / safe_beta + e / f
     worst = torch.where(mask, per_max, zero).amax(-1, keepdim=True)
-    return block_sum(torch.where(mask, per_sum, zero)) + w * worst, worst
+    return block_sum(per_sum, mask) + w * worst, worst
 
 
 def finalize(a, b, d, e, w, mask, f_min, f_max, f, beta):
@@ -190,8 +241,29 @@ def golden_section_ref(a, b, d, e, w, f_min, f_max, mask, *,
 
 
 # Threads per block of csrc/hier_aggregate.cu; its weight sum follows
-# block_sum with the layout (AGG_THREADS, ceil(C / AGG_THREADS)).
+# thread_block_sum with these threads. The client axis is split over the
+# blocks of a thread block cluster, at most AGG_MAX_SPLITS (the portable
+# cluster size), enough for AGG_BLOCKS blocks (4 on each of the H100's 132
+# SMs), each split at least AGG_MIN_ROWS rows: below that the cluster costs
+# more than it gains (PERF.md, PR 16).
 AGG_THREADS = 256
+AGG_MAX_SPLITS = 8
+AGG_BLOCKS = 4 * 132
+AGG_MIN_ROWS = 40
+
+
+def agg_splits(c: int, p: int) -> tuple[int, int]:
+    """``(splits, rows)`` of the aggregation kernel for ``(C, P)``: the
+    blocks that share a tile of columns and the rows each streams, split q
+    taking rows ``[q * rows, min(C, (q + 1) * rows))``, none empty, and
+    more than one split only where each gets ``AGG_MIN_ROWS`` rows. Tiles
+    are counted at two columns a thread, whatever the vector width, so the
+    rule rests on the shape alone."""
+    tiles = -(-p // (2 * AGG_THREADS))
+    want = max(1, min(AGG_MAX_SPLITS, c // AGG_MIN_ROWS,
+                      -(-AGG_BLOCKS // tiles)))
+    rows = -(-c // want)
+    return -(-c // rows), rows
 
 
 def hier_aggregate_ref(updates: torch.Tensor,
@@ -200,18 +272,29 @@ def hier_aggregate_ref(updates: torch.Tensor,
 
     ``updates`` (C, P), ``weights`` (C,); returns (P,) in ``updates``'
     dtype. The weights are normalised by ``max(sum, 1e-30)`` in float32,
-    the sum taken in the kernel's reduction order, and the products are
-    accumulated in float32 row by row, c = 0 to C - 1, as each kernel thread
-    does: with ``-fmad=false`` the two agree bit for bit."""
-    c = updates.shape[0]
+    the sum taken in the kernel's order (:func:`thread_block_sum`). The
+    products are accumulated in float32 in the kernel's order: the rows are
+    cut into the splits of :func:`agg_splits`, each split sums its rows in
+    turn from 0, then the split sums are added in split order. With
+    ``-fmad=false`` the two agree bit for bit."""
+    c, p = updates.shape
     w = weights.to(torch.float32)
-    total = block_sum(w[None], (AGG_THREADS, -(-c // AGG_THREADS)))[0, 0]
+    total = thread_block_sum(w[None], AGG_THREADS)[0, 0]
     w = w / torch.clamp_min(total, 1e-30)
-    u = updates.to(torch.float32)
-    acc = torch.zeros_like(u[0])
-    for i in range(c):
-        acc = acc + w[i] * u[i]
-    return acc.to(updates.dtype)
+    splits, rows = agg_splits(c, p)
+    # pad to splits * rows rows of zero weight: adding their +0 products
+    # leaves a sum unchanged
+    pad = splits * rows - c
+    u = torch.nn.functional.pad(updates.to(torch.float32), (0, 0, 0, pad))
+    w = torch.nn.functional.pad(w, (0, pad))
+    u, w = u.view(splits, rows, p), w.view(splits, rows, 1)
+    acc = torch.zeros_like(u[:, 0])
+    for i in range(rows):
+        acc = acc + w[:, i] * u[:, i]
+    out = acc[0]
+    for q in range(1, splits):
+        out = out + acc[q]
+    return out.to(updates.dtype)
 
 
 # Warps (rows) per block of csrc/rmsnorm.cu; one warp normalises one row,

@@ -4,9 +4,11 @@ The port's scenario is built from the JAX scenario's fields
 (``repro_torch.convert``), then both packages descend from the nearest
 initial assignment with ``exchange_samples=0`` at the default profile: the
 same assignment and move count, costs at the solver pin (rtol 2e-4), and a
-monotone cost trace. The port runs on the CPU (the kernel's plain
-version); ``chip_smoke.py`` repeats the comparison with the kernel on the
-card.
+monotone cost trace. Beyond those dense default fixtures, one
+parametrised test covers inactive devices, the screening profiles, a
+random start and a sparse-reach ``make_large_scenario``. The port runs on
+the CPU (the kernel's plain version, which sums in the kernel's order);
+``chip_smoke.py`` repeats the comparison with the kernel on the card.
 """
 
 import dataclasses
@@ -65,6 +67,54 @@ def test_same_stable_point(pair):
     assert got.true_delay == pytest.approx(want.true_delay, rel=2e-4)
     np.testing.assert_allclose(got.server_cost, want.server_cost, rtol=2e-4)
     np.testing.assert_allclose(got.cost_trace, want.cost_trace, rtol=2e-4)
+
+
+def _with_inactive(n, k, seed, off):
+    js = jsc.make_scenario(n, k, seed=seed)
+    active = np.ones(n, dtype=bool)
+    active[list(off)] = False
+    return dataclasses.replace(js, active=active)
+
+
+def _random_start(js):
+    return jaf.FastAssociationEngine(js, compact=False,
+                                     seed=3).initial_assignment("random")
+
+
+# name -> (JAX scenario, engine options, explicit start or None)
+CASES = {
+    "inactive_3_of_20": lambda: (_with_inactive(20, 5, 0, (3, 9, 14)), {},
+                                 None),
+    "profile_screen": lambda: (jsc.make_scenario(20, 5, seed=1),
+                               {"profile": "screen"}, None),
+    "profile_coarse": lambda: (jsc.make_scenario(20, 5, seed=1),
+                               {"profile": "coarse"}, None),
+    "random_start": lambda: (lambda js: (js, {}, _random_start(js)))(
+        jsc.make_scenario(20, 5, seed=2)),
+    "large_sparse_reach": lambda: (jsc.make_large_scenario(40, 6, seed=0),
+                                   {}, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_same_stable_point_beyond_the_dense_default(case):
+    """Port against JAX (dense, transfer-only) off the default fixtures:
+    the same assignment and move count, true cost at rtol 2e-4."""
+    js, opts, start = CASES[case]()
+    if case == "large_sparse_reach":
+        assert not js.avail.all()            # reach really is sparse
+    if start is not None:
+        assert not np.array_equal(start, jaf.FastAssociationEngine(
+            js, compact=False).initial_assignment("nearest"))
+    want = jaf.FastAssociationEngine(js, compact=False, **opts).run(
+        "nearest", exchange_samples=0, assignment=start)
+    got = taf.FastAssociationEngine(port_scenario(js), device="cpu",
+                                    **opts).run(
+        "nearest", exchange_samples=0, assignment=start)
+    assert np.array_equal(want.assignment, got.assignment)
+    assert want.n_adjustments == got.n_adjustments > 0
+    assert got.true_cost == pytest.approx(want.true_cost, rel=2e-4)
+    assert got.total_cost == pytest.approx(want.total_cost, rel=2e-4)
 
 
 def test_cost_trace_monotone(pair):

@@ -198,20 +198,100 @@ def test_wrapper_checks_its_inputs():
 
 
 def test_kernel_instantiates_every_layout():
-    """The CUDA source's launch<NT, IT> dispatch lists exactly the layouts of
-    ``ref.KERNEL_LAYOUTS``, which the wrapper passes and ``block_sum``
-    follows; each layout holds its widths in whole warps."""
+    """The CUDA source's dispatch table (groups per block, steps per lane
+    a thread holds, threads of a wide group, widest group) and its
+    instantiations per steps a thread are the ones ``ref``
+    reads, and the wrapper's width limit is the kernel's."""
     src = (Path(tref.__file__).parent / "csrc" / "golden_section.cu"
            ).read_text()
-    found = re.findall(
-        r"nt == (\d+) && it == (\d+)\) err = launch<(\d+), (\d+)>", src)
-    assert found and all(f[:2] == f[2:] for f in found)
-    assert ([(int(nt), int(it)) for nt, it, _, _ in found]
-            == [(nt, it) for _, nt, it in tref.KERNEL_LAYOUTS])
-    limits = [limit for limit, _, _ in tref.KERNEL_LAYOUTS]
-    assert limits == sorted(limits) and limits[-1] == tgs.MAX_R
-    for limit, nt, it in tref.KERNEL_LAYOUTS:
-        assert nt % 32 == 0 and limit <= nt * it
+    table = {name: int(v) for name, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert table == {"kWarps": tref.GS_WARPS,
+                     "kRegSteps": max(tref.GS_REG_STEPS),
+                     "kWideThreads": tref.GS_WIDE_THREADS,
+                     "kMaxR": tref.MAX_R}
+    assert tref.MAX_R == tref.GS_WIDE_THREADS * max(tref.GS_REG_STEPS)
+    found = re.findall(r"if \(steps <= (\d+)\) GS_SOLVE\((\d+)\);", src)
+    last = re.search(r"else GS_SOLVE\((\d+)\);", src)
+    steps = [int(b) for a, b in found] + [int(last.group(1))]
+    assert all(a == b for a, b in found)
+    assert tuple(steps) == tref.GS_REG_STEPS
+    assert list(steps) == sorted(set(steps))
+    assert tgs.MAX_R == tref.MAX_R
+
+
+def emulate_lanes(x, mask):
+    """The kernel's sum of one row, thread by thread in float32: L = 32
+    threads (one warp) for up to 256 active slots, else 512; the j-th
+    active slot in row order is added to thread j % L's sum at its step
+    j // L; then each warp's lane l adds lane l + w at w = 16, 8, 4, 2, 1,
+    and the same over the warp partials."""
+    vals = x[mask]
+    lanes = 32 if vals.size <= 256 else 512
+    sums = [np.float32(0)] * lanes
+    for j, v in enumerate(vals):
+        sums[j % lanes] = np.float32(sums[j % lanes] + v)
+
+    def tree(part):
+        while len(part) > 1:
+            h = len(part) // 2
+            part = [np.float32(part[i] + part[i + h]) for i in range(h)]
+        return part[0]
+
+    return tree([tree(sums[k:k + 32]) for k in range(0, lanes, 32)])
+
+
+@pytest.mark.parametrize("active", [0, 1, 31, 32, 33, 130, 256, 257, 300,
+                                    1000])
+def test_block_sum_follows_the_kernels_lanes(active):
+    """``block_sum`` against a scalar emulation of the kernel's threads,
+    bit for bit, on rows of 1000 slots with the given number active (up to
+    256 one warp, above that a block of 512; 1000 is a fully active row);
+    what masked slots hold does not matter."""
+    rng = np.random.default_rng(active)
+    x = rng.lognormal(0.0, 3.0, size=(3, 1000)).astype(np.float32)
+    mask = np.zeros((3, 1000), dtype=bool)
+    for row in range(3):
+        mask[row, rng.choice(1000, active, replace=False)] = True
+    if active > 256:                 # one narrow row beside the wide ones
+        mask[2, :] = False
+        mask[2, :40] = True
+    got = tref.block_sum(torch.tensor(x), torch.tensor(mask))
+    assert got.shape == (3, 1)
+    want = [emulate_lanes(x[row], mask[row]) for row in range(3)]
+    assert got[:, 0].numpy().tobytes() == np.asarray(want, np.float32
+                                                     ).tobytes()
+    x[~mask] = np.nan
+    assert torch.equal(tref.block_sum(torch.tensor(x), torch.tensor(mask)),
+                       got)
+
+
+def test_paths_follow_the_active_count():
+    wide = 32 * max(tref.GS_REG_STEPS)
+    mask = torch.zeros(4, tref.MAX_R, dtype=torch.bool)
+    mask[1, :1] = True
+    mask[2, :wide] = True
+    mask[3, :wide + 1] = True
+    assert tref.golden_section_paths(mask) == {
+        "empty": 1, "warp": 2, "block": 1}
+    assert tref.gs_lanes(mask.sum(-1)).tolist() == [32, 32, 32,
+                                                     tref.GS_WIDE_THREADS]
+
+
+def main_path_inputs(n, device):
+    """The main path's first batch at width ``n``: the group of server 0 at
+    the nearest start of ``make_scenario(n, 20)``, and its n toggles."""
+    from repro_torch.core.edge_association import (GroupSolver,
+                                                   initial_assignment)
+    sc = tsc.make_scenario(n, 20, seed=0, device=device)
+    start = initial_assignment(sc, sc.eff_avail, np.random.default_rng(0))
+    base = torch.as_tensor(start == 0, device=device)[None]
+    masks = torch.cat([base, base ^ torch.eye(n, dtype=torch.bool,
+                                              device=device)])
+    c = GroupSolver(sc, device=device).consts.rows(
+        torch.zeros(n + 1, dtype=torch.int64, device=device))
+    return [x.contiguous() for x in (c.a, c.b, c.d, c.e, c.w, c.f_min,
+                                     c.f_max)] + [masks]
 
 
 @pytest.mark.gpu
@@ -238,3 +318,23 @@ def test_kernel_matches_plain_version_on_card(profile):
               for _ in range(4)), torch.ones(1, device="cuda"),
             *(torch.ones(1, tgs.MAX_R + 1, device="cuda") for _ in range(2)),
             torch.ones(1, tgs.MAX_R + 1, dtype=torch.bool, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_kernel_is_bitwise_the_plain_version_on_card():
+    """At the main path's (1001, 1000) batch (``base ^ eye`` masks) and at
+    a fully active (8, 1000) batch, which runs a block per group: every
+    output of every group bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    iters = tra.SCREEN_PROFILES["default"]
+    main = main_path_inputs(1000, "cuda")
+    full = [x[:8] for x in main[:7]] + [torch.ones(8, 1000, dtype=torch.bool,
+                                                   device="cuda")]
+    assert tref.golden_section_paths(full[7])["block"] == 8
+    for ins in (main, full):
+        got = tgs.golden_section_solve(*ins, **iters)
+        torch.cuda.synchronize()
+        want = tref.golden_section_ref(*ins, **iters)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)

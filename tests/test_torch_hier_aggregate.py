@@ -89,7 +89,7 @@ def test_plain_version_sums_many_weights_in_the_kernels_order():
     got = tref.hier_aggregate_ref(torch.tensor(u), torch.tensor(w))
     want = (w.astype(np.float64) / w.astype(np.float64).sum()) @ u
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
-    total = tref.block_sum(torch.tensor(w)[None], (tref.AGG_THREADS, 3))
+    total = tref.thread_block_sum(torch.tensor(w)[None], tref.AGG_THREADS)
     assert abs(total.item() - w.astype(np.float64).sum()) < 1e-3
 
 
@@ -187,6 +187,71 @@ def test_kernel_instantiates_every_vector_width():
         for v in widths]
     threads = re.search(r"constexpr int kThreads = (\d+);", src)
     assert int(threads.group(1)) == tref.AGG_THREADS
+    splits = re.search(r"constexpr int kMaxSplits = (\d+);", src)
+    assert int(splits.group(1)) == tref.AGG_MAX_SPLITS <= 8
+
+
+def test_splits_follow_the_shape():
+    """``agg_splits``: about ``AGG_BLOCKS`` blocks, at most
+    ``AGG_MAX_SPLITS`` splits and never more than C, none empty, and one
+    split for a small C."""
+    assert tref.agg_splits(1000, 101_770) == (3, 334)   # the cloud mean
+    assert tref.agg_splits(131, 101_770) == (3, 44)     # an edge group
+    assert tref.agg_splits(70, 101_770) == (1, 70)
+    assert tref.agg_splits(1, 17) == (1, 1)
+    assert tref.agg_splits(37, 4099) == (1, 37)
+    assert tref.agg_splits(400, 4099) == (8, 50)
+    for c in (1, 2, 5, 9, 131, 1000, 4097):
+        for p in (1, 17, 4099, 101_770, 10**7):
+            splits, rows = tref.agg_splits(c, p)
+            assert 1 <= splits <= min(c, tref.AGG_MAX_SPLITS)
+            assert (splits - 1) * rows < c <= splits * rows
+            assert splits == 1 or rows >= tref.AGG_MIN_ROWS
+
+
+def emulate_splits(u, w):
+    """The kernel in float32, written out: the weight sum in thread order
+    (thread t adds w[t], w[t + 256], ..., then each warp's halving tree and
+    one over the warp partials), each split's rows added in turn to a sum
+    that starts at 0, then the split sums added in split order. Vectorised
+    over the columns only, whose sums are independent."""
+    c, p = u.shape
+    t = tref.AGG_THREADS
+    threads = [np.float32(0)] * t
+    for i, x in enumerate(w):
+        threads[i % t] = np.float32(threads[i % t] + x)
+
+    def tree(vals):
+        while len(vals) > 1:
+            h = len(vals) // 2
+            vals = [np.float32(vals[i] + vals[i + h]) for i in range(h)]
+        return vals[0]
+
+    warps = [tree(threads[k:k + 32]) for k in range(0, t, 32)]
+    total = np.maximum(tree(warps + [np.float32(0)] * (32 - len(warps))),
+                       np.float32(1e-30))
+    wn = (w / total).astype(np.float32)
+    splits, rows = tref.agg_splits(c, p)
+    parts = []
+    for q in range(splits):
+        acc = np.zeros(p, np.float32)
+        for i in range(q * rows, min(c, (q + 1) * rows)):
+            acc = acc + wn[i] * u[i]
+        parts.append(acc)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+@pytest.mark.parametrize("c,p", [(1, 33), (131, 40), (1000, 2000)])
+def test_plain_version_follows_the_kernels_splits(c, p):
+    """``hier_aggregate_ref`` against the written-out kernel, bit for bit,
+    at C = 1 (one split), 131 and 1000 (eight splits)."""
+    u, w = inputs(c, p, c)
+    got = tref.hier_aggregate_ref(torch.tensor(u), torch.tensor(w))
+    want = emulate_splits(u, w)
+    assert got.numpy().tobytes() == want.tobytes()
 
 
 @pytest.mark.gpu
@@ -195,7 +260,8 @@ def test_kernel_matches_plain_version_on_card():
     bit for bit in float32, 2e-2 in bfloat16; one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for c, p, _ in SHAPES + [(37, 4099, 0), (300, 1030, 0), (2500, 8, 0)]:
+    for c, p, _ in SHAPES + [(37, 4099, 0), (300, 1030, 0), (2500, 8, 0),
+                             (1000, 101_770, 0), (131, 101_770, 0)]:
         u, w = (torch.tensor(x, device="cuda") for x in inputs(c, p, c))
         before = tha.LAUNCHES
         got = tha.hier_aggregate(u, w)
