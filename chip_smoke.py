@@ -34,6 +34,18 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    association engine to a stable point on the card, with the kernel's
    launch count read around exactly this run; ms per move and the share
    of it that the two launches' kernel time makes.
+4b. ``exchange_path``: Algorithm 3 complete, as ``evaluate_scheme("hfel")``
+   runs it: ``make_scenario(1000, 20)`` from a random start with 64
+   sampled exchanges a stuck round (the engine's defaults, its threefry
+   stream), to a stable point on the card: moves, transfers, exchanges
+   applied and exchange rounds tried, seconds, cache-init seconds, ms per
+   move and per exchange round, costs, the kernel's launches (asserted: K
+   at init, 2 per applied move, 1 per exchange round, 1 at finalize) and a
+   monotone trace (asserted). Then ``exchange_from_stuck``: exchanges from
+   phase 4's transfer-only stable point, how many apply and how far the
+   cost falls; and a golden-section ``kernel`` line at an exchange round's
+   batch, (128, 1000), bit-equal to the plain version (asserted), with its
+   time and bound.
 3c. ``kernel`` (hier_aggregate, run after phase 4, whose assignment sets
    its edge shape): the eq. (8)/(14) kernel against its plain version at
    the cloud shape (1000 clients of the MLP), at the largest edge group of
@@ -42,6 +54,23 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    cloud and edge shapes, bytes, bound and the kernel's share of it.
 5. ``card_vs_cpu``: the engine on the card and on the CPU (plain version)
    land on the same stable point for ``make_scenario(60, 5)``.
+5b. ``exchange_card_vs_cpu``: ``make_scenario(60, 5)`` from the nearest
+   start with exchanges, card and CPU: the same stable point, moves and
+   exchanges applied (at least one).
+5c. ``solvers_card_vs_cpu``: each plain-solver scheme kind on one (8, 30)
+   batch, card against CPU: bitwise or not, the largest cost difference
+   (asserted within the pin; ``solve_paper`` within 2.5e-2, the JAX
+   solver's own spread), and how often the card's ``exp``, ``log`` and
+   ``sqrt`` round otherwise than the CPU's.
+   ``schemes``: the paper's seven §V.A schemes (``evaluate_scheme``) on
+   the card at the Fig. 3 points (N = 15, 30, 60 at K = 5) and the Fig. 4
+   point K = 15 at N = 60, seed 0, as ``benchmarks/paper_cost.py`` runs
+   them (but comm_opt at (60, 15), ``SCHEME_SKIP``: it alone takes 2.5
+   minutes): each scheme's total cost over uniform's, true cost, seconds,
+   moves and launches; HFEL at most 1.001 x random and x uniform
+   (asserted). ``schemes_card_vs_cpu``: the seven at (20, 5, 4) and (12,
+   3, 5) on the card and the CPU: the same assignment and moves, costs
+   within 2e-4 (asserted).
 6. ``train_path``: HFEL training (Algorithm 1) on the card from phase 4's
    stable assignment: MNIST-sized data over the 1000 devices, the MLP,
    L = 10 and I = 5, 3 HFEL rounds then 3 FedAvg rounds from the same
@@ -113,8 +142,10 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    positions (two chunks), card vs CPU: logits and decode within 1e-4,
    greedy tokens identical.
 
-Then a ``kernels`` line, the raw ``nvidia-smi`` line, and as the last line
-``{"ok": true, "device": {...}}``.
+Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
+with each path's and the HFEL scheme runs' beside them), the raw
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -1339,6 +1370,299 @@ def ssm_serve_path(dev) -> dict:
             "rmsnorm": at_prefill[1] + decode[1] + f32_launches[1]}
 
 
+# the paper's §V.A comparison (benchmarks/paper_cost.py): Fig. 3 varies N
+# at K = 5, Fig. 4 varies K at N = 60, seed 0; every scheme's total cost is
+# read over uniform's. HFEL must beat random and uniform within the bound
+# of tests/test_edge_association.py:56-57.
+SCHEMES = ("hfel", "comp_opt", "greedy", "random", "comm_opt", "uniform",
+           "proportional")
+SCHEME_POINTS = ((15, 5), (30, 5), (60, 5), (60, 15))
+# comm_opt is launch-bound (its nested bisection is some 40k small kernels
+# a batched solve, 1.5 s a move on the card): at (60, 15) it alone took
+# 157.7 s, so that one run is left out (PERF.md, PR 17; ROADMAP queue 2)
+SCHEME_SKIP = {(60, 15): ("comm_opt",)}
+SCHEME_CHECK_POINTS = ((20, 5, 4), (12, 3, 5))    # card vs CPU, (N, K, seed)
+HFEL_BOUND = 1.001
+
+
+def exchange_path(dev, main_sc, stuck) -> dict:
+    """Phase 4b: Algorithm 3 with sampled exchanges, what
+    ``evaluate_scheme("hfel")`` runs: the engine at its defaults (64
+    exchanges a stuck round, seed 0) from a random start on the card, with
+    the kernel's launches read around exactly this run and asserted against
+    the loop's count (K at init, 2 per applied move, 1 per exchange round,
+    1 at finalize) and a monotone trace asserted. Then exchanges from phase
+    4's transfer-only stable point ``stuck``. Returns the launches, the
+    result and its counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core.assoc_fast import FastAssociationEngine
+    from repro_torch.kernels import golden_section
+    k, n = main_sc.n_servers, main_sc.n_devices
+    golden_section.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = FastAssociationEngine(main_sc, device=dev)
+    res = eng.run("random")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = golden_section.LAUNCHES
+    counts, timing = eng.last_counts, eng.last_timing
+    moves = res.n_adjustments
+    expected = k + 2 * moves + counts["exchange_rounds"] + 1
+    trace = np.asarray(res.cost_trace)
+    monotone = bool(np.all(np.diff(trace) <= 0)
+                    and trace.shape == (moves + 1,))
+    emit("exchange_path", n_devices=n, n_servers=k, init="random",
+         exchange_samples=64, moves=moves, **counts,
+         first_cost=float(trace[0]), total_cost=res.total_cost,
+         true_cost=res.true_cost, seconds=total_s, init_s=timing["init_s"],
+         moves_s=timing["moves_s"],
+         exchange_pricing_s=timing["exchange_pricing_s"],
+         ms_per_move=1e3 * timing["moves_s"] / max(moves, 1),
+         ms_per_exchange_round=1e3 * timing["exchange_pricing_s"]
+         / max(counts["exchange_rounds"], 1),
+         monotone=monotone, launches=launches, launches_expected=expected)
+    if launches != expected:
+        raise AssertionError(f"{launches} launches, expected K + 2*moves + "
+                             f"exchange rounds + 1 = {expected}")
+    if not monotone:
+        raise AssertionError("exchange-path cost trace is not monotone")
+    if not (np.isfinite([res.total_cost, res.true_cost]).all()
+            and np.isfinite(res.f).all() and np.isfinite(res.beta).all()
+            and abs(res.total_cost - trace[-1]) <= PIN_RTOL * trace[-1]):
+        raise AssertionError("exchange-path result is not finite or "
+                             "consistent")
+
+    t0 = time.perf_counter()
+    eng2 = FastAssociationEngine(main_sc, device=dev)
+    res2 = eng2.run(assignment=stuck.assignment)
+    torch.cuda.synchronize()
+    emit("exchange_from_stuck", start="phase 4's transfer-only stable point",
+         moves=res2.n_adjustments, **eng2.last_counts,
+         total_cost_before=stuck.total_cost, total_cost_after=res2.total_cost,
+         cost_fall=stuck.total_cost - res2.total_cost,
+         true_cost_before=stuck.true_cost, true_cost_after=res2.true_cost,
+         seconds=time.perf_counter() - t0)
+    if not res2.total_cost <= stuck.total_cost * (1 + PIN_RTOL):
+        raise AssertionError("exchanges from the stable point raised its "
+                             "cost")
+    return dict(launches=launches, res=res, counts=counts)
+
+
+def exchange_batch_kernel(dev, main_sc, assignment, iters: dict,
+                          ptxas: str) -> dict:
+    """The golden-section kernel at an exchange round's batch: 64 pairs
+    drawn as the engine draws them (first round of seed 0) on ``assignment``
+    (phase 4's stable point), both swapped groups of each, (128, N). Bit
+    for bit its plain version (asserted), with its time, plain time and
+    bound."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.assoc_fast import _dense_member
+    from repro_torch.core.edge_association import GroupSolver
+    from repro_torch.kernels import golden_section, ref
+    n = main_sc.n_devices
+    member = torch.as_tensor(_dense_member(assignment, main_sc.active_mask,
+                                           main_sc.n_servers), device=dev)
+    _, sub = prng.split(prng.PRNGKey(0))
+    pairs = prng.randint(sub, (64, 2), 0, n).to(dev)
+    dn, dm = pairs[:, 0], pairs[:, 1]
+    a_t = torch.as_tensor(assignment, device=dev)
+    si, sj = a_t[dn], a_t[dm]
+    idx = torch.arange(n, device=dev)
+    hot_n, hot_m = idx[None] == dn[:, None], idx[None] == dm[:, None]
+    masks = torch.cat([member[si] ^ hot_n ^ hot_m,
+                       member[sj] ^ hot_m ^ hot_n]).contiguous()
+    c = GroupSolver(main_sc, device=dev).consts.rows(torch.cat([si, sj]))
+    ins = [x.contiguous() for x in (c.a, c.b, c.d, c.e, c.w, c.f_min,
+                                    c.f_max)] + [masks]
+    got = golden_section.golden_section_solve(*ins, **iters)
+    torch.cuda.synchronize()
+    want = ref.golden_section_ref(*ins, **iters)
+    err = check_pin(got, want, ins[5], ins[6], masks)
+    err["groups_not_bitwise"] = groups_not_bitwise(got, want)
+    ms = cuda_ms(lambda: golden_section.golden_section_solve(*ins, **iters),
+                 reps=20)
+    plain = cuda_ms(lambda: ref.golden_section_ref(*ins, **iters), reps=1,
+                    warm=0)
+    ops, nbytes, active = golden_section_work(masks, **iters)
+    b_ms, b_by = bound_ms(ops, nbytes)
+    fields = dict(shape=list(masks.shape), ms=ms, plain_ms=plain,
+                  active_share=active / masks.numel(),
+                  paths=ref.golden_section_paths(masks), bound_ms=b_ms,
+                  bound_by=b_by, bound_share=b_ms / ms, **err)
+    emit("kernel", kernel="golden_section", case="exchange_batch",
+         profile="default", operations=ops, bytes=nbytes, ptxas=ptxas,
+         **fields)
+    if err["groups_not_bitwise"]:
+        raise AssertionError("golden_section differs from its plain version "
+                             "at the exchange batch")
+    return fields
+
+
+def exchange_card_vs_cpu(dev) -> None:
+    """``make_scenario(60, 5, 0)`` with exchanges from the nearest start on
+    the card and on the CPU: the same stable point, moves and exchanges."""
+    import numpy as np
+    from repro_torch.core.assoc_fast import FastAssociationEngine
+    from repro_torch.core.scenario import make_scenario
+    sc60 = make_scenario(60, 5, seed=0, device="cpu")
+    out = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        eng = FastAssociationEngine(sc60, device=where)
+        out[where] = (eng.run("nearest"), eng.last_counts,
+                      time.perf_counter() - t0)
+    (card, c_counts, card_s), (cpu, p_counts, cpu_s) = out[dev], out["cpu"]
+    same = (np.array_equal(card.assignment, cpu.assignment)
+            and card.n_adjustments == cpu.n_adjustments
+            and c_counts == p_counts
+            and math.isclose(card.total_cost, cpu.total_cost,
+                             rel_tol=PIN_RTOL))
+    emit("exchange_card_vs_cpu", fixture=[60, 5, 0], init="nearest",
+         counts_card=c_counts, counts_cpu=p_counts,
+         total_cost_card=card.total_cost, total_cost_cpu=cpu.total_cost,
+         same=bool(same), card_s=card_s, cpu_s=cpu_s)
+    if not same or c_counts["exchanges"] < 1:
+        raise AssertionError("card and CPU disagree with exchanges on "
+                             "(60, 5, 0), or none applied")
+
+
+# solve_paper's bound across devices: the JAX solver's own jit-vs-eager
+# spread (tests/test_torch_ra_solvers.py's PAPER_RTOL)
+PAPER_RTOL = 2.5e-2
+
+
+def solvers_card_vs_cpu(dev) -> None:
+    """Each plain-solver scheme kind on one batch of 8 groups of
+    ``make_scenario(30, 5, 1)`` (one empty), card against CPU: whether
+    each output is the CPU's bit for bit, and the largest relative cost
+    difference (asserted within the pin, ``solve_paper`` within
+    ``PAPER_RTOL``); and the share of 2^20 float32 inputs on which the
+    card's ``exp``, ``log`` and ``sqrt`` round otherwise than the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.edge_association import GroupSolver
+    from repro_torch.core.scenario import make_scenario
+    sc = make_scenario(30, 5, seed=1, device="cpu")
+    rng = np.random.default_rng(0)
+    masks = rng.uniform(size=(8, 30)) < 0.4
+    masks[0] = False
+    sids = np.arange(8) % 5
+    kinds = {}
+    for kind in ("comp_only", "comm_only", "uniform", "proportional",
+                 "optimal", "paper"):
+        out, secs = {}, {}
+        for where in (dev, "cpu"):
+            t0 = time.perf_counter()
+            sol = GroupSolver(sc, kind, device=where).solve_batch(sids, masks)
+            out[where] = [x.cpu() for x in (sol.f, sol.beta, sol.cost,
+                                            sol.deadline)]
+            secs[str(where)] = time.perf_counter() - t0
+        card, cpu = out[dev], out["cpu"]
+        rel = float(((card[2] - cpu[2]).abs()
+                     / cpu[2].abs().clamp_min(1e-30)).max())
+        kinds[kind] = dict(bitwise=[bool(torch.equal(a, b))
+                                    for a, b in zip(card, cpu)],
+                           max_rel_diff_cost=rel, seconds=secs)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.rand(1 << 20, generator=gen) * 60 - 30
+    pos = torch.rand(1 << 20, generator=gen) * 1e6 + 1e-3
+    rounding = {name: float((fn(inp.to(dev)).cpu().view(torch.int32)
+                             != fn(inp).view(torch.int32)).float().mean())
+                for name, fn, inp in (("exp", torch.exp, x),
+                                      ("log", torch.log, pos),
+                                      ("sqrt", torch.sqrt, pos))}
+    emit("solvers_card_vs_cpu", batch=[8, 30], **kinds,
+         share_rounding_otherwise=rounding)
+    bad = [k for k, v in kinds.items()
+           if v["max_rel_diff_cost"] > (PAPER_RTOL if k == "paper"
+                                        else PIN_RTOL)]
+    if bad:
+        raise AssertionError(f"card and CPU solvers disagree: {bad}")
+
+
+def schemes(dev) -> dict:
+    """The §V.A schemes on the card at the Fig. 3/4 points: each scheme's
+    total cost over uniform's, its true cost, seconds, moves and the
+    kernel's launches; HFEL asserted at or below ``HFEL_BOUND`` x random
+    and x uniform. Then every scheme at ``SCHEME_CHECK_POINTS`` on the card
+    and on the CPU: the same assignment, costs within the pin. Returns the
+    points' rows and the launches of the HFEL runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core.edge_association import evaluate_scheme
+    from repro_torch.core.scenario import make_scenario
+    from repro_torch.kernels import golden_section
+    points, hfel_launches = [], 0
+    for n, k in SCHEME_POINTS:
+        sc = make_scenario(n, k, seed=0, device=dev)
+        rows = {}
+        for scheme in SCHEMES:
+            if scheme in SCHEME_SKIP.get((n, k), ()):
+                continue
+            before = golden_section.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = evaluate_scheme(sc, scheme, seed=0, device=dev)
+            torch.cuda.synchronize()
+            rows[scheme] = dict(total_cost=r.total_cost,
+                                true_cost=r.true_cost,
+                                s=time.perf_counter() - t0,
+                                moves=r.n_adjustments,
+                                launches=golden_section.LAUNCHES - before)
+            if scheme == "hfel":
+                hfel_launches += rows[scheme]["launches"]
+        base = rows["uniform"]["total_cost"]
+        for row in rows.values():
+            row["ratio"] = row["total_cost"] / base
+            row["s_per_move"] = row["s"] / max(row["moves"], 1)
+        emit("schemes", n_devices=n, n_servers=k, seed=0,
+             left_out=list(SCHEME_SKIP.get((n, k), ())), **rows)
+        points.append(dict(n=n, k=k, rows=rows))
+        hfel = rows["hfel"]["total_cost"]
+        for other in ("random", "uniform"):
+            if not hfel <= HFEL_BOUND * rows[other]["total_cost"]:
+                raise AssertionError(f"hfel {hfel} above {HFEL_BOUND} x "
+                                     f"{other} at N={n}, K={k}")
+        if not all(np.isfinite([x["total_cost"], x["true_cost"]]).all()
+                   for x in rows.values()):
+            raise AssertionError(f"a scheme's cost is not finite at N={n}, "
+                                 f"K={k}")
+    for n, k, seed in SCHEME_CHECK_POINTS:
+        sc = make_scenario(n, k, seed=seed, device="cpu")
+        diffs, secs = {}, {}
+        for scheme in SCHEMES:
+            got = {}
+            for where in ("card", "cpu"):
+                t0 = time.perf_counter()
+                got[where] = evaluate_scheme(
+                    sc, scheme, seed=0,
+                    device=dev if where == "card" else "cpu")
+                secs[f"{scheme}_{where}"] = time.perf_counter() - t0
+            card, cpu = got["card"], got["cpu"]
+            diffs[scheme] = dict(
+                same_assignment=bool(np.array_equal(card.assignment,
+                                                    cpu.assignment)),
+                moves=[card.n_adjustments, cpu.n_adjustments],
+                rel_diff_total=abs(card.total_cost - cpu.total_cost)
+                / cpu.total_cost,
+                rel_diff_true=abs(card.true_cost - cpu.true_cost)
+                / cpu.true_cost,
+                bitwise_total=card.total_cost == cpu.total_cost)
+        emit("schemes_card_vs_cpu", fixture=[n, k, seed], seconds=secs,
+             **diffs)
+        bad = [s for s, d in diffs.items()
+               if not (d["same_assignment"] and d["moves"][0] == d["moves"][1]
+                       and d["rel_diff_total"] <= PIN_RTOL
+                       and d["rel_diff_true"] <= PIN_RTOL)]
+        if bad:
+            raise AssertionError(f"card and CPU disagree on {bad} at "
+                                 f"{(n, k, seed)}")
+    return dict(points=points, hfel_launches=hfel_launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1536,6 +1860,12 @@ def main() -> int:
             and abs(res.total_cost - trace[-1]) <= 2e-4 * trace[-1]):
         raise AssertionError("main-path result is not finite or consistent")
 
+    # ---- 4b. exchanges: the random start that evaluate_scheme("hfel")
+    # runs, exchanges from phase 4's stable point, the exchange batch ----
+    ex = exchange_path(dev, main_sc, res)
+    ex_kernel = exchange_batch_kernel(dev, main_sc, res.assignment, iters,
+                                      ptxas["golden_section"])
+
     # ---- 3c. hier_aggregate vs its plain version; the edge shape is the
     # largest group of phase 4's stable assignment ----
     group_sizes = np.bincount(res.assignment, minlength=k)
@@ -1611,6 +1941,11 @@ def main() -> int:
          card_s=card_s, cpu_s=cpu_s)
     if not same:
         raise AssertionError("card and CPU engines disagree on (60, 5, 0)")
+
+    # ---- 5b. exchanges card vs CPU; 5c. the §V.A schemes ----
+    exchange_card_vs_cpu(dev)
+    solvers_card_vs_cpu(dev)
+    scheme_runs = schemes(dev)
 
     # ---- 6. HFEL training on the card from phase 4's stable assignment ----
     n_local, n_edge = CONFIG.local_iters, CONFIG.edge_iters
@@ -1767,8 +2102,14 @@ def main() -> int:
         dict(name="golden_section", route="cuda",
              source="src/repro_torch/kernels/csrc/golden_section.cu",
              replaces="src/repro/kernels/golden_section.py:169",
-             launches=launches, library_ms=None, shape=list(masks.shape),
-             **main_kernel),
+             launches=launches + ex["launches"],
+             launches_by_path={"main_path": launches,
+                               "exchange_path": ex["launches"],
+                               "schemes_hfel": scheme_runs["hfel_launches"]},
+             library_ms=None, shape=list(masks.shape), **main_kernel,
+             exchange_batch={key: ex_kernel[key] for key in (
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "groups_not_bitwise")}),
         dict(name="hier_aggregate", route="cuda",
              source="src/repro_torch/kernels/csrc/hier_aggregate.cu",
              replaces="src/repro/kernels/hier_aggregate.py:35",

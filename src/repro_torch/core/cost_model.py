@@ -1,4 +1,4 @@
-"""HFEL cost model — paper eqs. (1)-(17), in PyTorch.
+"""HFEL cost model — paper eqs. (1)-(18), in PyTorch.
 
 Port of ``repro.core.cost_model``. Parameters are frozen dataclasses of
 float32 tensors (on one device) instead of JAX pytrees; every function is
@@ -111,6 +111,35 @@ def comm_time(dev: DeviceParams, beta, bandwidth, noise) -> torch.Tensor:
 def comm_energy(dev: DeviceParams, beta, bandwidth, noise) -> torch.Tensor:
     """e^com_{i:n} — eq. (7)."""
     return comm_time(dev, beta, bandwidth, noise) * dev.tx_power
+
+
+# ---------------------------------------------------------------------------
+# Edge-level aggregation overheads, eqs. (10)-(11)
+# ---------------------------------------------------------------------------
+
+def edge_energy(dev: DeviceParams, mask, f, beta, bandwidth, noise,
+                lp: LearningParams) -> torch.Tensor:
+    """E^edge_{S_i} — eq. (10); ``mask`` selects S_i out of all devices
+    (masked sum over the last axis)."""
+    per_dev = comm_energy(dev, beta, bandwidth, noise) + comp_energy(dev, f, lp)
+    return lp.edge_iters * torch.where(mask, per_dev,
+                                       per_dev.new_zeros(())).sum(-1)
+
+
+def edge_delay(dev: DeviceParams, mask, f, beta, bandwidth, noise,
+               lp: LearningParams) -> torch.Tensor:
+    """T^edge_{S_i} — eq. (11): I * max_n (t^com + t^cmp)."""
+    per_dev = comm_time(dev, beta, bandwidth, noise) + comp_time(dev, f, lp)
+    return lp.edge_iters * torch.where(mask, per_dev,
+                                       per_dev.new_zeros(())).amax(-1)
+
+
+def edge_cost(dev: DeviceParams, mask, f, beta, bandwidth, noise,
+              lp: LearningParams) -> torch.Tensor:
+    """C_i = lambda_e E^edge + lambda_t T^edge — the objective of (18)."""
+    e = edge_energy(dev, mask, f, beta, bandwidth, noise, lp)
+    t = edge_delay(dev, mask, f, beta, bandwidth, noise, lp)
+    return lp.lambda_e * e + lp.lambda_t * t
 
 
 # ---------------------------------------------------------------------------

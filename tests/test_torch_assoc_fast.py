@@ -1,4 +1,4 @@
-"""Port parity: the dense, transfer-only association engine.
+"""Port parity: the dense association engine.
 
 The port's scenario is built from the JAX scenario's fields
 (``repro_torch.convert``), then both packages descend from the nearest
@@ -6,9 +6,12 @@ initial assignment with ``exchange_samples=0`` at the default profile: the
 same assignment and move count, costs at the solver pin (rtol 2e-4), and a
 monotone cost trace. Beyond those dense default fixtures, one
 parametrised test covers inactive devices, the screening profiles, a
-random start and a sparse-reach ``make_large_scenario``. The port runs on
-the CPU (the kernel's plain version, which sums in the kernel's order);
-``chip_smoke.py`` repeats the comparison with the kernel on the card.
+random start and a sparse-reach ``make_large_scenario``. With the default
+of 64 sampled exchanges (the same threefry stream as JAX's), and with
+``run_tiered``, the port lands on JAX's stable point too, on fixtures
+where JAX applies exchanges. The port runs on the CPU (the kernel's plain
+version, which sums in the kernel's order); ``chip_smoke.py`` repeats the
+comparison with the kernel on the card.
 """
 
 import dataclasses
@@ -151,27 +154,94 @@ def test_explicit_assignment_and_finalize_off():
 
 
 def test_engine_raises_for_what_is_not_ported():
+    """Compact and bucketed spaces, the sharded sweep and
+    ``rerun_incremental`` still raise, naming their ROADMAP items; every
+    scheme kind and the default of 64 exchanges now run."""
     ts = port_scenario(jsc.make_scenario(8, 2, seed=0))
     eng = taf.FastAssociationEngine(ts, device="cpu")
-    with pytest.raises(NotImplementedError, match="6\\(d\\)"):
-        eng.run("nearest")                  # the default of 64 exchanges
-    with pytest.raises(NotImplementedError, match="6\\(d\\)"):
-        eng.run("nearest", exchange_samples=8)
     for compact in (True, "bucketed"):
         with pytest.raises(NotImplementedError, match="6\\(b\\)"):
             taf.FastAssociationEngine(ts, compact=compact, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="6, last"):
         taf.FastAssociationEngine(ts, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.run_tiered("nearest")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="6\\(e\\)"):
         eng.rerun_incremental(ts, None)
-    for kind in ("optimal", "paper", "comp_only", "comm_only", "uniform",
-                 "proportional"):
-        with pytest.raises(NotImplementedError):
-            taf.FastAssociationEngine(ts, kind=kind, device="cpu")
     with pytest.raises(ValueError):
         taf.FastAssociationEngine(ts, permission="nash", device="cpu")
+    with pytest.raises(ValueError):
+        taf.FastAssociationEngine(ts, kind="nash", device="cpu")
+    assert taf.DEFAULT_EXCHANGE_SAMPLES == 64
+    assert eng.run("nearest").n_adjustments >= 0
+
+
+EXCHANGE_FIXTURES = FIXTURES + [(14, 4, 1)]
+
+
+@pytest.mark.parametrize("fix", EXCHANGE_FIXTURES,
+                         ids=lambda f: "n%d_k%d_s%d" % f)
+def test_exchanges_land_on_jax_stable_point(fix):
+    """The default run (64 sampled exchanges, random start) against JAX's:
+    the same stable point and move count, costs at rtol 2e-4. On each of
+    these fixtures JAX applies at least one exchange: its run ends below
+    its transfer-only run from the same start, with more moves."""
+    n, k, seed = fix
+    js = jsc.make_scenario(n, k, seed=seed)
+    want = jaf.FastAssociationEngine(js, seed=seed, compact=False).run(
+        "random")
+    transfers_only = jaf.FastAssociationEngine(js, seed=seed,
+                                               compact=False).run(
+        "random", exchange_samples=0)
+    assert want.n_adjustments > transfers_only.n_adjustments
+    assert want.total_cost < transfers_only.total_cost
+    eng = taf.FastAssociationEngine(port_scenario(js), seed=seed,
+                                    device="cpu")
+    got = eng.run("random")
+    assert np.array_equal(want.assignment, got.assignment)
+    assert want.n_adjustments == got.n_adjustments
+    counts = eng.last_counts
+    assert counts["exchanges"] >= 1
+    assert counts["exchanges"] + counts["transfers"] == got.n_adjustments
+    assert counts["exchange_rounds"] == counts["exchanges"] + 1
+    assert got.total_cost == pytest.approx(want.total_cost, rel=2e-4)
+    assert got.true_cost == pytest.approx(want.true_cost, rel=2e-4)
+    np.testing.assert_allclose(got.cost_trace, want.cost_trace, rtol=2e-4)
+    assert np.all(np.diff(got.cost_trace) <= 0)
+
+
+def test_exchanges_from_a_transfer_only_stable_point():
+    """Exchanges escape the stable point of a transfer-only descent: from
+    that assignment both engines apply the same exchanges, and a pareto
+    run matches too."""
+    js = jsc.make_scenario(20, 5, seed=0)
+    ts = port_scenario(js)
+    stuck = jaf.FastAssociationEngine(js, compact=False).run(
+        "nearest", exchange_samples=0).assignment
+    for perm in ("utilitarian", "pareto"):
+        want = jaf.FastAssociationEngine(js, compact=False, seed=3,
+                                         permission=perm).run(
+            assignment=stuck)
+        got = taf.FastAssociationEngine(ts, seed=3, permission=perm,
+                                        device="cpu").run(assignment=stuck)
+        assert np.array_equal(want.assignment, got.assignment), perm
+        assert want.n_adjustments == got.n_adjustments, perm
+        assert got.total_cost == pytest.approx(want.total_cost, rel=2e-4)
+
+
+@pytest.mark.parametrize("plan", ["two_tier", "three_tier"])
+def test_run_tiered_matches(plan):
+    """``run_tiered``: each tier keyed by ``fold_in(PRNGKey(seed), i)``,
+    the same assignment and moves per tier as JAX."""
+    js = jsc.make_scenario(20, 5, seed=1)
+    jeng = jaf.FastAssociationEngine(js, seed=1, compact=False)
+    want = jeng.run_tiered("random", tiers=plan)
+    eng = taf.FastAssociationEngine(port_scenario(js), seed=1, device="cpu")
+    got = eng.run_tiered("random", tiers=plan)
+    assert np.array_equal(want.assignment, got.assignment)
+    assert eng.last_tier_moves == jeng.last_tier_moves
+    assert want.n_adjustments == got.n_adjustments == sum(eng.last_tier_moves)
+    assert got.total_cost == pytest.approx(want.total_cost, rel=2e-4)
+    with pytest.raises(ValueError):
+        eng.run_tiered(tiers=plan, tier_rel_tols=(1e-5,))
 
 
 def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):

@@ -93,3 +93,36 @@ def test_learning_params_match():
         assert tcm.LearningParams(**kw).edge_iters == \
             jcm.LearningParams(**kw).edge_iters
     assert jax.config.jax_enable_x64 is False
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_edge_energy_delay_cost_match(seed):
+    """Eqs. (10)-(11) and C_i: one server's group, one masked sum or max
+    each, at rtol 1e-6; a batch of every server's group at once too."""
+    js, ts = _pair(seed=seed)
+    rng = np.random.default_rng(seed + 20)
+    f = rng.uniform(1e9, 1e10, 24).astype(np.float32)
+    beta = rng.uniform(0.01, 0.3, 24).astype(np.float32)
+    assignment = rng.integers(0, js.n_servers, 24)
+    names = ("edge_energy", "edge_delay", "edge_cost")
+    for i in range(js.n_servers):
+        mask = assignment == i
+        args = (jnp.asarray(mask), jnp.asarray(f), jnp.asarray(beta),
+                js.srv.bandwidth[i], js.srv.noise[i], js.lp)
+        targs = (torch.as_tensor(mask), torch.as_tensor(f),
+                 torch.as_tensor(beta), ts.srv.bandwidth[i],
+                 ts.srv.noise[i], ts.lp)
+        for name in names:
+            _close(getattr(tcm, name)(ts.dev, *targs),
+                   getattr(jcm, name)(js.dev, *args))
+    masks = torch.as_tensor(assignment[None, :] == np.arange(4)[:, None])
+    for name in names:
+        batch = getattr(tcm, name)(ts.dev, masks, torch.as_tensor(f),
+                                   torch.as_tensor(beta),
+                                   ts.srv.bandwidth[:, None],
+                                   ts.srv.noise[:, None], ts.lp)
+        want = [getattr(jcm, name)(js.dev, jnp.asarray(assignment == i),
+                                   jnp.asarray(f), jnp.asarray(beta),
+                                   js.srv.bandwidth[i], js.srv.noise[i],
+                                   js.lp) for i in range(4)]
+        _close(batch, np.asarray(want))
