@@ -142,17 +142,49 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    positions (two chunks), card vs CPU: logits and decode within 1e-4,
    greedy tokens identical.
 
+16. ``compact_path``: ``make_large_scenario(1000, 20)``, the ``fast`` kind
+   at the coarse profile, nearest start, transfers only, to a stable point
+   in the dense, flat and bucketed spaces: the same assignment, moves and
+   cost bits in all three, K + 2 moves launches each (asserted); ms per
+   move, init seconds, R_max, the bucket widths and padded fractions.
+17. ``scale_path``: ``make_large_scenario(50_000, 500, spread_m=60)``,
+   coarse, rel_tol 1e-2, bucketed, on one card: the cold descent (stable
+   within 8000 moves, asserted; seconds, ms per move, the kernel's share
+   of a move from a replayed 1-in-50 sample of its launches, peak memory),
+   a churn tick and ``rerun_incremental`` (seconds, host preparation,
+   stale rows), and a cold rebuild from the same repaired assignment,
+   bit-identical to the warm result (asserted). Then golden-section
+   ``kernel`` lines at the widest bucket's refresh batch and at a flat
+   exchange batch, bit-equal to the plain version (asserted), and
+   ``scale_warm_profile``: a second warm tick under ``cProfile``, the
+   functions that take the most host time.
+18. ``live_path``: the live loop (``run_live``, ``LiveHFELRunner``) on
+   ``make_large_scenario(250, 10)`` with 250 clients, 8 rounds, re-solve
+   every 2, for the three policies: warm and cold swaps identical, both
+   cheaper than static (asserted); then hier_aggregate ``kernel`` lines at
+   its masked stacks (parked clients at weight 0; an edge of all-zero
+   weights, which averages to 0), bit-equal (asserted); then
+   ``live_admission``: a capacitated warm run (2000 devices, cap_slack
+   1.1, 2 rounds), every placement within its cap (asserted).
+19. ``live_scale``: one incremental-warm live run at N = 50k / K = 500
+   with 128 clients, 2 rounds and 64 exchanges: seconds, moves, costs.
+20. ``compact_card_vs_cpu``: the bucketed engine with exchanges and one
+   ``rerun_incremental``, and ``run_live`` at N = 40 / K = 4 with verify
+   on, card against CPU: the same assignments (asserted).
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
-with each path's and the HFEL scheme runs' beside them), the raw
-``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
-{...}}``.
+with each path's, phases 16-19's and the HFEL scheme runs' beside them),
+the raw ``nvidia-smi`` line, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
+import cProfile
 import json
 import math
 import os
+import pstats
 import re
 import subprocess
 import sys
@@ -1663,6 +1695,553 @@ def schemes(dev) -> dict:
     return dict(points=points, hfel_launches=hfel_launches)
 
 
+# ---- phases 16-20: association at scale and under churn, the live loop ----
+
+SCALE_N, SCALE_K, SCALE_SPREAD = 50_000, 500, 60.0
+SCALE_MOVES = 8000
+SCALE_PERTURB = dict(seed=1, drift_m=60.0, move_frac=0.01, depart_frac=0.005)
+LIVE_SCALE_CHURN = dict(drift_m=60.0, move_frac=0.01, flip_frac=0.005,
+                        depart_frac=0.005, arrive_frac=0.1)
+REPLAY_EVERY = 50        # 1 in 50 golden-section launches replayed for time
+
+
+def bits(x) -> list:
+    """The int32 bits of a float32 array (for bit-for-bit comparisons)."""
+    import numpy as np
+    return np.asarray(x, np.float32).view(np.int32).tolist()
+
+
+class LaunchSampler:
+    """Wraps ``ops.golden_section_solve`` while active: keeps the inputs of
+    one launch in ``every`` so that their kernel time can be replayed and
+    timed afterwards (:meth:`kernel_ms`), without timing the run itself."""
+
+    def __init__(self, every: int):
+        self.every, self.calls, self.seen = every, [], 0
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._orig = ops.golden_section_solve
+
+        def wrapped(*args, **kwargs):
+            if self.seen % self.every == 0:
+                self.calls.append((args, kwargs))
+            self.seen += 1
+            return self._orig(*args, **kwargs)
+
+        ops.golden_section_solve = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.golden_section_solve = self._orig
+
+    def kernel_ms(self) -> float:
+        """Mean kernel milliseconds of the sampled launches (CUDA events)."""
+        from repro_torch.kernels import golden_section
+        times = [cuda_ms(lambda a=a, kw=kw: golden_section.launch(a, **kw),
+                         reps=3) for a, kw in self.calls]
+        self.calls = []
+        return sum(times) / max(len(times), 1)
+
+
+def compact_path(dev) -> dict:
+    """Phase 16: ``make_large_scenario(1000, 20)``, ``fast`` kind at the
+    coarse profile, nearest start, transfers only, to a stable point in the
+    dense, flat and bucketed spaces: the same assignment, moves and cost
+    bits in all three (asserted), K + 2 moves launches each (asserted);
+    moves, init seconds, ms per move, R_max, bucket widths, padded
+    fractions. Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.assoc_fast import FastAssociationEngine
+    from repro_torch.core.scenario import make_large_scenario, reach_index_map
+    from repro_torch.kernels import golden_section
+    sc = make_large_scenario(1000, 20, seed=0, device=dev)
+    k = sc.n_servers
+    flat = reach_index_map(sc.avail)
+    rbk = reach_index_map(sc.avail, bucketed=True)
+    spaces, launches = {}, 0
+    for compact in (False, True, "bucketed"):
+        golden_section.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = FastAssociationEngine(sc, profile="coarse", compact=compact,
+                                    device=dev)
+        a = eng.run("nearest", exchange_samples=0, finalize=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = golden_section.LAUNCHES
+        launches += got
+        moves = eng.last_moves
+        spaces[str(compact)] = dict(
+            assignment=a, moves=moves, seconds=seconds,
+            init_s=eng.last_timing["init_s"],
+            ms_per_move=1e3 * eng.last_timing["moves_s"] / max(moves, 1),
+            launches=got, launches_expected=k + 2 * moves,
+            cur_bits=bits(eng.last_state["cur_cost"]),
+            total_cost=eng.evaluate_assignment(a),
+            widths=[bd.width for bd in eng._buckets])
+    ref = spaces["False"]
+    same = {c: bool(np.array_equal(s["assignment"], ref["assignment"])
+                    and s["moves"] == ref["moves"]
+                    and s["cur_bits"] == ref["cur_bits"]
+                    and bits([s["total_cost"]]) == bits([ref["total_cost"]]))
+            for c, s in spaces.items()}
+    emit("compact_path", n_devices=sc.n_devices, n_servers=k,
+         profile="coarse", r_max=flat.r_max,
+         padded_fraction_flat=flat.padded_fraction,
+         padded_fraction_bucketed=rbk.padded_fraction,
+         bucket_widths=[b.width for b in rbk.buckets],
+         same_as_dense=same,
+         **{c: {key: v for key, v in s.items()
+                if key not in ("assignment", "cur_bits")}
+            for c, s in spaces.items()})
+    for c, s in spaces.items():
+        if s["launches"] != s["launches_expected"]:
+            raise AssertionError(f"compact={c}: {s['launches']} launches, "
+                                 f"expected K + 2*moves")
+    if not all(same.values()) or ref["moves"] <= 0:
+        raise AssertionError(f"the sweep spaces disagree: {same}")
+    return dict(launches=launches)
+
+
+def kernel_inputs(bucket, rows, masks) -> list:
+    """The golden-section kernel's inputs for ``masks`` at ``rows`` of
+    ``bucket`` (an engine's ``_Bucket``), as the engine's batched solve
+    passes them."""
+    c = bucket.consts.rows(rows)
+    return [x.contiguous() for x in (c.a, c.b, c.d, c.e, c.w, c.f_min,
+                                     c.f_max)] + [masks.contiguous()]
+
+
+def gs_kernel_line(case: str, ins, iters: dict, profile: str) -> dict:
+    """The golden-section kernel against its plain version on ``ins``:
+    bit-equal (asserted), its time, the plain time and the bound."""
+    import torch
+    from repro_torch.kernels import golden_section, ref
+    masks = ins[-1]
+    got = golden_section.golden_section_solve(*ins, **iters)
+    torch.cuda.synchronize()
+    want = ref.golden_section_ref(*ins, **iters)
+    err = check_pin(got, want, ins[5], ins[6], masks)
+    err["groups_not_bitwise"] = groups_not_bitwise(got, want)
+    ms = cuda_ms(lambda: golden_section.golden_section_solve(*ins, **iters),
+                 reps=20)
+    plain = cuda_ms(lambda: ref.golden_section_ref(*ins, **iters), reps=1,
+                    warm=0)
+    ops_, nbytes, active = golden_section_work(masks, **iters)
+    b_ms, b_by = bound_ms(ops_, nbytes)
+    fields = dict(shape=list(masks.shape), ms=ms, plain_ms=plain,
+                  max_abs_err=err["max_abs_err_cost"],
+                  active_share=active / masks.numel(),
+                  paths=ref.golden_section_paths(masks), bound_ms=b_ms,
+                  bound_by=b_by, bound_share=b_ms / ms, library_ms=None,
+                  groups_not_bitwise=err["groups_not_bitwise"])
+    emit("kernel", kernel="golden_section", case=case, profile=profile,
+         operations=ops_, bytes=nbytes, **err,
+         **{k: v for k, v in fields.items() if k not in err})
+    if err["groups_not_bitwise"]:
+        raise AssertionError(f"golden_section differs from its plain "
+                             f"version at the {case} batch")
+    return fields
+
+
+def scale_path(dev) -> dict:
+    """Phase 17: ``make_large_scenario(50_000, 500, spread_m=60)``, coarse
+    profile, rel_tol 1e-2, bucketed space, on one card. Cold: nearest
+    start, transfers only, at most 8000 moves (stability asserted);
+    seconds, moves, init seconds, ms per move, the kernel's share of a move
+    (1 in 50 launches replayed) and peak memory. Warm: one churn tick and
+    ``rerun_incremental``; seconds, moves, stale rows. Cold rebuild: a
+    fresh engine descends from the same repaired assignment, bit-identical
+    to the warm result (asserted). Then the golden-section kernel at the
+    widest bucket's refresh batch and at a flat exchange batch, bit-equal
+    to its plain version (asserted)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core import resource_allocation as ra
+    from repro_torch.core.assoc_fast import FastAssociationEngine
+    from repro_torch.core.scenario import (make_large_scenario,
+                                           perturb_scenario)
+    from repro_torch.kernels import golden_section
+    opts = dict(profile="coarse", rel_tol=1e-2, compact="bucketed",
+                device=dev)
+    t0 = time.perf_counter()
+    sc = make_large_scenario(SCALE_N, SCALE_K, seed=0, spread_m=SCALE_SPREAD,
+                             device=dev)
+    scenario_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    golden_section.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = FastAssociationEngine(sc, **opts)
+    build_s = time.perf_counter() - t0
+    with LaunchSampler(REPLAY_EVERY) as sampler:
+        eng.run("nearest", max_moves=SCALE_MOVES, exchange_samples=0,
+                finalize=False)
+        torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = golden_section.LAUNCHES
+    moves, timing = eng.last_moves, eng.last_timing
+    peak = torch.cuda.max_memory_allocated()
+    kernel_ms = sampler.kernel_ms()
+    ms_move = 1e3 * timing["moves_s"] / max(moves, 1)
+    rbk = eng.reach_buckets
+    cold = dict(seconds=cold_s, engine_build_s=build_s, moves=moves,
+                stable=moves < SCALE_MOVES, init_s=timing["init_s"],
+                ms_per_move=ms_move, kernel_ms_per_launch=kernel_ms,
+                kernel_share_of_move=2 * kernel_ms / ms_move,
+                launches=launches,
+                launches_expected=sc.n_servers + 2 * moves,
+                max_memory_allocated=peak)
+    emit("scale_path", phase_part="cold", n_devices=SCALE_N,
+         n_servers=SCALE_K, spread_m=SCALE_SPREAD, scenario_s=scenario_s,
+         r_max=eng.reach.r_max, padded_fraction_flat=eng.reach.padded_fraction,
+         padded_fraction_bucketed=rbk.padded_fraction,
+         bucket_widths=[b.width for b in rbk.buckets],
+         bucket_servers=[int(b.servers.size) for b in rbk.buckets], **cold)
+    if launches != sc.n_servers + 2 * moves:
+        raise AssertionError(f"{launches} launches, expected K + 2*moves")
+    if not cold["stable"]:
+        raise AssertionError(f"the N={SCALE_N} cold descent hit its cap of "
+                             f"{SCALE_MOVES} moves before stability")
+
+    sc2, delta = perturb_scenario(sc, **SCALE_PERTURB)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm_a = eng.rerun_incremental(sc2, delta, max_moves=SCALE_MOVES,
+                                   exchange_samples=0, finalize=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm = dict(seconds=warm_s, moves=eng.last_moves,
+                stale_rows=eng.last_counts["init_rows"],
+                prepare_s=eng.last_timing["prepare_s"],
+                init_s=eng.last_timing["init_s"],
+                delta_stale_servers=int(delta.stale_servers.sum()),
+                moved=int(delta.moved.sum()),
+                departed=int(delta.departed.sum()))
+    t0 = time.perf_counter()
+    rebuilt = FastAssociationEngine(sc2, **opts)
+    cold_a = rebuilt.run(assignment=eng.last_repaired_assignment,
+                         max_moves=SCALE_MOVES, exchange_samples=0,
+                         finalize=False)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    same = bool(np.array_equal(warm_a, cold_a))
+    emit("scale_path", phase_part="warm", perturb=SCALE_PERTURB, **warm,
+         cold_rebuild_s=rebuild_s, cold_rebuild_moves=rebuilt.last_moves,
+         warm_equals_cold_rebuild=same,
+         warm_speedup=rebuild_s / max(warm_s, 1e-9))
+    if not same:
+        raise AssertionError("warm rerun differs from the cold rebuild at "
+                             f"N={SCALE_N}")
+
+    # the kernel at this slice's shapes, the engine's own batches at the
+    # warm stable point: the widest bucket's fullest row's refresh, and a
+    # first exchange round's 64 pairs (drawn as the engine draws them)
+    iters = ra.SCREEN_PROFILES["coarse"]
+    member = torch.as_tensor(eng.last_state["member"], device=dev)
+    wide = max(eng._buckets, key=lambda bd: bd.width)
+    server = int(wide.servers[wide.exists.sum(1).argmax()])
+    b, rows, masks = eng._refresh_groups(member, server)
+    refresh = gs_kernel_line("bucket_refresh",
+                             kernel_inputs(eng._buckets[b], rows, masks),
+                             iters, "coarse")
+    _, sub = prng.split(prng.PRNGKey(eng.seed))
+    pairs = prng.randint(sub, (64, 2), 0, sc2.n_devices).to(dev)
+    rows, masks, _ = eng._exchange_groups(
+        member, torch.as_tensor(warm_a, device=dev), pairs)
+    exch = gs_kernel_line("flat_exchange_batch",
+                          kernel_inputs(eng._ex_bucket, rows, masks), iters,
+                          "coarse")
+
+    # where a warm rerun's host time goes: a second tick under cProfile
+    # (its seconds include the profiler's own cost)
+    sc3, delta3 = perturb_scenario(sc2, **{**SCALE_PERTURB, "seed": 2})
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    eng.rerun_incremental(sc3, delta3, max_moves=SCALE_MOVES,
+                          exchange_samples=0, finalize=False)
+    torch.cuda.synchronize()
+    prof.disable()
+    profiled_s = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:10]
+    emit("scale_warm_profile", seconds_profiled=profiled_s,
+         moves=eng.last_moves, stale_rows=eng.last_counts["init_rows"],
+         prepare_s=eng.last_timing["prepare_s"],
+         init_s=eng.last_timing["init_s"],
+         by_own_time=[dict(function=f"{Path(f).name}:{line}:{name}",
+                           calls=v[1], own_s=v[2], cumulative_s=v[3])
+                      for (f, line, name), v in top])
+    return dict(launches=launches, cold=cold, warm=warm,
+                bucket_refresh=refresh, flat_exchange_batch=exch)
+
+
+class HookedRunner:
+    """A live runner as ``train_federated``'s round policy that keeps the
+    trainer and checks, after every round, that the admitted view's loads
+    are within the caps."""
+
+    def __init__(self, runner):
+        self.runner, self.trainer, self.max_over = runner, None, 0
+
+    def begin_round(self, trainer, r):
+        import numpy as np
+        self.trainer = trainer
+        out = self.runner.begin_round(trainer, r)
+        sc = self.runner.sc
+        if sc.capacity is not None:
+            load = np.bincount(self.runner.assignment[sc.active_mask],
+                               minlength=sc.n_servers)
+            self.max_over = max(self.max_over,
+                                int((load - sc.capacity).max()))
+        return out
+
+
+def hier_aggregate_masked(dev, trainer, assignment, n_servers) -> dict:
+    """The hier_aggregate kernel at the live loop's masked stacks, from
+    ``trainer`` after its last round: the cloud stack with the parked
+    clients at weight 0, and the largest edge group with every weight 0
+    (an edge whose clients have all departed). Bit-equal to the plain
+    version (asserted); an all-zero edge averages to 0 (asserted). Times,
+    bound and ``torch.mv``'s time."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import hier_aggregate, ref
+    w = trainer._weights()
+    parked = int((~trainer.client_mask).sum())
+    edge = int(np.argmax(np.bincount(assignment, minlength=n_servers)))
+    rows = torch.as_tensor(np.flatnonzero(assignment == edge), device=dev)
+    out = {}
+    for case, u, wt, n_parked in (
+            ("masked_cloud", trainer.flat, w, parked),
+            ("zero_weight_edge", trainer.flat.index_select(0, rows),
+             torch.zeros(rows.numel(), device=dev), int(rows.numel()))):
+        got = hier_aggregate.hier_aggregate(u, wt)
+        torch.cuda.synchronize()
+        want = ref.hier_aggregate_ref(u, wt)
+        c_, p_ = u.shape
+        nbytes = (c_ + 1) * p_ * 4 + c_ * 4
+        b_ms, b_by = bound_ms(2 * c_ * p_ + c_, nbytes)
+        wn = wt / wt.sum().clamp_min(1e-30)
+        fields = dict(
+            kernel="hier_aggregate", case=case, shape=[c_, p_],
+            parked=n_parked, bitwise=bool(torch.equal(got, want)),
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(lambda: hier_aggregate.hier_aggregate(u, wt), reps=50),
+            plain_ms=cuda_ms(lambda: ref.hier_aggregate_ref(u, wt), reps=3),
+            library_ms=cuda_ms(lambda: torch.mv(u.t(), wn), reps=50),
+            library="torch.mv(u.T, w_normalised)", bytes=nbytes,
+            bound_ms=b_ms, bound_by=b_by)
+        emit("kernel", **fields)
+        out[case] = fields
+        if not fields["bitwise"]:
+            raise AssertionError(f"hier_aggregate {case} differs from its "
+                                 "plain version")
+        if case == "zero_weight_edge" and float(got.abs().max()) != 0.0:
+            raise AssertionError("an all-zero-weight edge must average to 0")
+    if parked == 0:
+        raise AssertionError("the live run parked no client")
+    return out
+
+
+def live_path(dev) -> dict:
+    """Phase 18: the live HFEL policy run of the JAX live benchmark on the
+    card: ``make_large_scenario(250, 10)`` and 250 MNIST-like clients, 8
+    rounds, re-solve every 2, ``DEFAULT_CHURN``, L = I = 2, lr 0.05, for
+    the three policies (``run_live``; the warm one through
+    ``LiveHFELRunner`` as ``train_federated``'s round policy, to keep its
+    trainer): warm and cold swap assignments identical and cumulative
+    costs within 1e-6, both cheaper than static (asserted); seconds per
+    policy. The hier_aggregate kernel at the warm run's masked stacks
+    (:func:`hier_aggregate_masked`). Then one capacitated incremental-warm
+    run on ``make_large_scenario(2000, 20, spread_m=60, cap_slack=1.1)``, 2
+    rounds: admitted, queued, rejected, every placement within its cap
+    (asserted). Returns the launches of both kernels and the masked-stack
+    line."""
+    import numpy as np
+    import torch
+    from repro_torch.core.scenario import make_large_scenario
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fl import (DEFAULT_CHURN, LiveHFELRunner, run_live,
+                                train_federated)
+    from repro_torch.kernels import golden_section, hier_aggregate
+    sc = make_large_scenario(250, 10, seed=0, device=dev)
+    ds = make_mnist_like(250, samples_total=3000, seed=0)
+    opts = dict(resolve_every=2, churn=DEFAULT_CHURN, seed=0,
+                profile="coarse", rel_tol=1e-3)
+    train = dict(local_iters=2, edge_iters=2, lr=0.05, eval_every=8)
+    golden_section.LAUNCHES = hier_aggregate.LAUNCHES = 0
+    hists, rows, hooked = {}, {}, None
+    for policy in ("static", "periodic-cold", "incremental-warm"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if policy == "incremental-warm":
+            hooked = HookedRunner(LiveHFELRunner(
+                sc, ds.n_clients, policy=policy, device=dev, **opts))
+            train_hist = train_federated(
+                ds, method="hfel", n_servers=sc.n_servers, rounds=8,
+                model="mlr", seed=0, round_hook=hooked, device=dev, **train)
+            h = hooked.runner.history
+            h.train = train_hist
+        else:
+            h = run_live(sc, ds, policy=policy, rounds=8, device=dev,
+                         **opts, **train)
+        torch.cuda.synchronize()
+        hists[policy] = h
+        rows[policy] = dict(total_s=time.perf_counter() - t0,
+                            assoc_s=h.assoc_seconds_total,
+                            assoc_seconds=h.assoc_seconds,
+                            cumulative_cost=h.cumulative_cost,
+                            moves=[int(m) for m in h.moves],
+                            swap_rounds=h.swap_rounds,
+                            n_active=h.n_active,
+                            final_test_acc=h.train.test_acc[-1])
+    warm, cold = hists["incremental-warm"], hists["periodic-cold"]
+    static = hists["static"]
+    same = (warm.swap_rounds == cold.swap_rounds
+            and all(np.array_equal(a, b) for a, b in
+                    zip(warm.swap_assignments, cold.swap_assignments)))
+    rel = (abs(warm.cumulative_cost - cold.cumulative_cost)
+           / cold.cumulative_cost)
+    launches = dict(golden_section=golden_section.LAUNCHES,
+                    hier_aggregate=hier_aggregate.LAUNCHES)
+    emit("live_path", n_devices=250, n_servers=10, rounds=8,
+         resolve_every=2, churn=DEFAULT_CHURN, warm_equals_cold=bool(same),
+         cumulative_cost_rel_gap=rel, launches=launches, **rows)
+    if not (same and rel <= 1e-6):
+        raise AssertionError("warm and cold live policies disagree")
+    for h in (warm, cold):
+        if not h.cumulative_cost <= static.cumulative_cost * (1 + 1e-9):
+            raise AssertionError(f"{h.policy} is not cheaper than static")
+    if not all(np.isfinite(h.system_cost).all() for h in hists.values()):
+        raise AssertionError("a live round's cost is not finite")
+    runner = hooked.runner
+    masked = hier_aggregate_masked(
+        dev, hooked.trainer, runner.bridge.client_assignment(
+            runner.assignment), sc.n_servers)
+
+    golden_section.LAUNCHES = hier_aggregate.LAUNCHES = 0
+    scc = make_large_scenario(2000, 20, seed=0, spread_m=60.0, cap_slack=1.1,
+                              device=dev)
+    dsc = make_mnist_like(128, samples_total=2000, seed=0)
+    runner = LiveHFELRunner(scc, dsc.n_clients, policy="incremental-warm",
+                            churn=DEFAULT_CHURN, seed=0, device=dev)
+    hooked = HookedRunner(runner)
+    t0 = time.perf_counter()
+    train_federated(dsc, method="hfel", n_servers=scc.n_servers,
+                    local_iters=1, edge_iters=1, rounds=2, lr=0.05,
+                    eval_every=2, round_hook=hooked, device=dev)
+    torch.cuda.synchronize()
+    h = runner.history
+    emit("live_admission", n_devices=2000, n_servers=20, cap_slack=1.1,
+         rounds=2, seconds=time.perf_counter() - t0,
+         assoc_s=h.assoc_seconds_total, moves=h.moves,
+         n_active=h.n_active, n_admitted=h.n_admitted, n_queued=h.n_queued,
+         n_rejected=h.n_rejected, system_cost=h.system_cost,
+         max_load_over_cap=hooked.max_over)
+    if hooked.max_over > 0:
+        raise AssertionError("a live placement exceeds its server's cap")
+    launches = {k_: launches[k_] + v for k_, v in (
+        ("golden_section", golden_section.LAUNCHES),
+        ("hier_aggregate", hier_aggregate.LAUNCHES))}
+    return dict(launches=launches, masked=masked["masked_cloud"],
+                zero_edge=masked["zero_weight_edge"])
+
+
+def live_scale(dev) -> dict:
+    """Phase 19: one incremental-warm live run at N = 50k / K = 500 on one
+    card (128 clients, 2 rounds, 64 exchanges, at most 8000 moves, L = I =
+    1): seconds, association seconds, moves and per-round cost. Returns
+    the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.scenario import make_large_scenario
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fl import run_live
+    from repro_torch.kernels import golden_section, hier_aggregate
+    sc = make_large_scenario(SCALE_N, SCALE_K, seed=0, spread_m=SCALE_SPREAD,
+                             device=dev)
+    ds = make_mnist_like(128, samples_total=2000, seed=0)
+    golden_section.LAUNCHES = hier_aggregate.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = run_live(sc, ds, policy="incremental-warm", rounds=2,
+                 resolve_every=1, churn=LIVE_SCALE_CHURN, seed=0,
+                 local_iters=1, edge_iters=1, eval_every=2,
+                 profile="coarse", rel_tol=1e-2, compact="bucketed",
+                 exchange_samples=64, max_moves=SCALE_MOVES, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(golden_section=golden_section.LAUNCHES,
+                    hier_aggregate=hier_aggregate.LAUNCHES)
+    emit("live_scale", n_devices=SCALE_N, n_servers=SCALE_K, clients=128,
+         rounds=2, churn=LIVE_SCALE_CHURN, total_s=total_s,
+         assoc_s=h.assoc_seconds_total, assoc_seconds=h.assoc_seconds,
+         moves=h.moves, stable=[m < SCALE_MOVES for m in h.moves],
+         system_cost=h.system_cost, n_active=h.n_active,
+         n_arrived=h.n_arrived, n_departed=h.n_departed,
+         test_acc=h.train.test_acc, launches=launches)
+    # a round at its move cap is a finding (``stable`` above), not a fault
+    if not (np.isfinite(h.system_cost).all() and len(h.moves) == 2):
+        raise AssertionError("live_scale rounds are not finite")
+    return dict(launches=launches)
+
+
+def compact_card_vs_cpu(dev) -> None:
+    """Phase 20: the bucketed engine with 64 exchanges on
+    ``make_scenario(16, 4, seed=1, reach_m=300)``, then ``rerun_incremental``
+    after one churn tick, on the card and on the CPU: the same assignments
+    (asserted). ``run_live`` at N = 40 / K = 4, 2 rounds, verify on, card
+    and CPU: the same swap assignments (asserted)."""
+    import numpy as np
+    from repro_torch.core.assoc_fast import FastAssociationEngine
+    from repro_torch.core.scenario import (make_large_scenario,
+                                           make_scenario, perturb_scenario)
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fl import DEFAULT_CHURN, run_live
+    sc = make_scenario(16, 4, seed=1, reach_m=300.0, device="cpu")
+    sc2, delta = perturb_scenario(sc, seed=5, drift_m=80.0, move_frac=0.2,
+                                  flip_frac=0.1, depart_frac=0.15)
+    out = {}
+    for where in (dev, "cpu"):
+        eng = FastAssociationEngine(sc, compact="bucketed", device=where)
+        first = eng.run("nearest", finalize=False)
+        counts = dict(eng.last_counts)
+        second = eng.rerun_incremental(sc2, delta, verify=True,
+                                       finalize=False)
+        out[str(where)] = (first, second, counts, eng.last_moves)
+    card, cpu = out[str(dev)], out["cpu"]
+    same_engine = (np.array_equal(card[0], cpu[0])
+                   and np.array_equal(card[1], cpu[1])
+                   and card[2] == cpu[2] and card[3] == cpu[3])
+    sc40 = make_large_scenario(40, 4, seed=0, device="cpu")
+    ds40 = make_mnist_like(40, samples_total=800, seed=0)
+    lives = {where: run_live(sc40, ds40, policy="incremental-warm",
+                             rounds=2, resolve_every=1, churn=DEFAULT_CHURN,
+                             seed=0, local_iters=1, edge_iters=1,
+                             profile="coarse", rel_tol=1e-3, verify=True,
+                             device=where)
+             for where in (dev, "cpu")}
+    hc, hp = lives[dev], lives["cpu"]
+    same_live = (hc.swap_rounds == hp.swap_rounds
+                 and all(np.array_equal(a, b) for a, b in
+                         zip(hc.swap_assignments, hp.swap_assignments)))
+    emit("compact_card_vs_cpu", fixture=[16, 4, 1], compact="bucketed",
+         counts_card=card[2], counts_cpu=cpu[2],
+         warm_moves=[card[3], cpu[3]], same_engine=bool(same_engine),
+         live_fixture=[40, 4, 0], live_swaps=hc.swap_rounds,
+         live_cost_card=hc.system_cost, live_cost_cpu=hp.system_cost,
+         same_live=bool(same_live))
+    if not (same_engine and same_live):
+        raise AssertionError("card and CPU disagree in a compact space or "
+                             "in the live loop")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2079,6 +2658,13 @@ def main() -> int:
     if not (params_close and acc_gap <= one_sample + 1e-9):
         raise AssertionError("card and CPU training disagree on (30, 5, 0)")
 
+    # ---- 16-20. association at scale and under churn, the live loop ----
+    compact_run = compact_path(dev)
+    scale = scale_path(dev)
+    live = live_path(dev)
+    live_big = live_scale(dev)
+    compact_card_vs_cpu(dev)
+
     # ---- 8-11. serving: kernels, prefill and serve paths, card vs CPU ----
     serving = serving_kernels(dev, fault_libs, ptxas)
     serve_launches = serving_paths(dev)
@@ -2105,18 +2691,38 @@ def main() -> int:
              launches=launches + ex["launches"],
              launches_by_path={"main_path": launches,
                                "exchange_path": ex["launches"],
-                               "schemes_hfel": scheme_runs["hfel_launches"]},
+                               "schemes_hfel": scheme_runs["hfel_launches"],
+                               "compact_path": compact_run["launches"],
+                               "scale_path_cold": scale["launches"],
+                               "live_path":
+                                   live["launches"]["golden_section"],
+                               "live_scale":
+                                   live_big["launches"]["golden_section"]},
              library_ms=None, shape=list(masks.shape), **main_kernel,
              exchange_batch={key: ex_kernel[key] for key in (
                  "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "groups_not_bitwise")}),
+                 "groups_not_bitwise")},
+             **{case: {key: scale[case][key] for key in (
+                 "shape", "ms", "plain_ms", "max_abs_err", "bound_ms",
+                 "bound_by", "groups_not_bitwise")}
+                for case in ("bucket_refresh", "flat_exchange_batch")}),
         dict(name="hier_aggregate", route="cuda",
              source="src/repro_torch/kernels/csrc/hier_aggregate.cu",
              replaces="src/repro/kernels/hier_aggregate.py:35",
-             launches=train_launches, max_abs_err=cloud["max_abs_err"],
+             launches=train_launches,
+             launches_by_path={"train_path": train_launches,
+                               "live_path":
+                                   live["launches"]["hier_aggregate"],
+                               "live_scale":
+                                   live_big["launches"]["hier_aggregate"]},
+             max_abs_err=cloud["max_abs_err"],
              ms=cloud["ms"], plain_ms=cloud["plain_ms"],
              bound_ms=cloud["bound_ms"], bound_by=cloud["bound_by"],
-             library_ms=cloud["library_ms"], shape=cloud["shape"]),
+             library_ms=cloud["library_ms"], shape=cloud["shape"],
+             **{case: {key: live[case][key] for key in (
+                 "shape", "parked", "ms", "plain_ms", "max_abs_err",
+                 "bound_ms", "bound_by", "library_ms", "bitwise")}
+                for case in ("masked", "zero_edge")}),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:39",

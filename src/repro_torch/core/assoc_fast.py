@@ -1,48 +1,70 @@
-"""Edge association to a stable point: the dense device-resident engine.
+"""Edge association to a stable point: the device-resident engine.
 
-Port of ``repro.core.assoc_fast.FastAssociationEngine`` for the dense sweep
-space (``compact=False``), with Algorithm 3's transfers and sampled
-exchanges. State is a dense ``(K, N)`` boolean membership mask plus a
-toggle-cost cache::
+Port of ``repro.core.assoc_fast.FastAssociationEngine``, with Algorithm 3's
+transfers and sampled exchanges, in every sweep space of the reference.
+State is a dense ``(K, N)`` boolean membership mask plus, per *bucket* of
+servers, a toggle-cost cache of shape ``(K_b, R_b)``::
 
-    toggle[k, n] = group cost of  member[k] XOR {n}
-    cur[k]       = group cost of  member[k]
+    toggle_b[row, r] = group cost of  member[server] XOR {device at slot r}
+    cur[server]      = group cost of  member[server]
 
 XOR adds a device when it is absent and removes it when present, so the
 cache holds both halves of every transfer and the delta of moving device n
 from its server s to server k is pure arithmetic::
 
-    delta = (toggle[s, n] - cur[s]) + (toggle[k, n] - cur[k])
+    delta = (toggle[s at n's slot] - cur[s]) + (toggle[k at n's slot] - cur[k])
 
-Each round scans every candidate from the cache with no solve, picks the
-best permitted move with the reference's explicit device-major tie-break
-key (smallest ``n*K + k`` among equal deltas), applies it, and re-solves
-the two touched servers' rows: ``N + 1`` groups of width ``N`` each, one
-launch of the golden-section kernel per row for the ``fast`` kind.
+The sweep spaces are configurations of one loop, differing only in their
+slot maps (:class:`_Bucket`):
+
+* dense (``compact=False``): one bucket whose maps are the identity, every
+  slot a device, availability gating candidacy only;
+* flat compact (``compact=True``): one bucket from
+  :func:`repro_torch.core.scenario.reach_index_map`, every server padded to
+  the widest reach count R;
+* bucketed (``compact="bucketed"``): servers grouped by binary reach count,
+  each bucket compacted at its own width R_b;
+* ``"auto"`` (the default, as in the reference): dense when some server
+  reaches every device, else flat, or bucketed when the flat map wastes
+  more than :data:`BUCKETED_AUTO_THRESHOLD` of its slots on padding.
+
+Each round scans every candidate from the cache with no solve and picks
+the best permitted move with the reference's explicit device-major
+tie-break key (smallest ``n*K + k`` among equal deltas). The per-bucket
+caches are views of one flat buffer, so the scan is one pass over all of
+them: since every (server, device) pair has its own key, the global
+minimum of (delta, key) is the reference's fold of the per-bucket argmins.
+Padded slots hold garbage costs and are never candidates. A move re-solves
+the two touched servers' rows: ``R_b + 1`` groups of width ``R_b`` each,
+one launch of the golden-section kernel per row for the ``fast`` kind.
 
 A round with no permitted transfer tries sampled exchanges (Definition 5):
-it splits the PRNG key (:mod:`repro_torch.core.prng`, the JAX engine's
-threefry stream bit for bit; a transfer round leaves the key alone), draws
-``exchange_samples`` device pairs, prices both swapped groups of every
-pair in one batch of ``2 * exchange_samples`` groups (one kernel launch)
-and applies the first best permitted swap, then refreshes both servers'
-rows. The descent stops on a round where neither applies. The JAX engine
-runs this loop as one ``lax.while_loop``; here it is a Python loop with
-one host sync per round (fusing it is later work).
+it splits the PRNG key (:mod:`repro_torch.core.prng`, the reference's
+threefry stream bit for bit), draws ``exchange_samples`` device pairs over
+N, prices both swapped groups of every pair in one shared flat ``(K,
+R_max)`` slot space (the single bucket of the dense and flat spaces) in one
+batch of ``2 * exchange_samples`` groups (one launch), and applies the
+first best permitted swap. Swapped masks are XORs of one-hot slot
+encodings; an out-of-reach slot encodes as the all-zero row. The descent
+stops on a round where neither applies. The reference runs this loop as
+one ``lax.while_loop``; here it is a Python loop with one host sync per
+round.
 
 :meth:`FastAssociationEngine.run_tiered` runs the loop once per profile of
-a ``TIER_PLANS`` plan, each tier warm-started from the last's assignment
-with the key ``fold_in(PRNGKey(seed), tier)``.
+a ``TIER_PLANS`` plan. :meth:`FastAssociationEngine.rerun_incremental`
+re-converges after churn from the previous stable point: it patches the
+reach maps, repairs the assignment (:func:`repair_assignment`) and re-solves
+only the cache rows the delta or the repair made stale.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP queue 1): the
-compact and bucketed slot spaces (item 6(b)), ``rerun_incremental`` (6(e))
-and the sharded sweep (6, last).
+Not ported, and raising ``NotImplementedError``: the sharded sweep
+(``shards=p``, ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import math
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -50,17 +72,29 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core import resource_allocation as ra
-from repro_torch.core.cost_model import cloud_delay, cloud_energy
+from repro_torch.core.cost_model import RAConstants, cloud_delay, cloud_energy
 from repro_torch.core.edge_association import (AssociationResult, GroupSolver,
+                                               NoFeasibleServerError,
                                                _gather_f_beta,
                                                _true_cost_terms,
-                                               initial_assignment)
-from repro_torch.core.scenario import Scenario
+                                               greedy_admission,
+                                               initial_assignment,
+                                               nearest_feasible, parked_slots,
+                                               solve_groups)
+from repro_torch.core.scenario import (ReachBuckets, ReachIndex, Scenario,
+                                       ScenarioDelta, reach_index_map,
+                                       update_reach_buckets,
+                                       update_reach_index)
+from repro_torch.kernels.golden_section import MAX_R
 
 #: The engine-wide sampled-exchange budget (Definition 5 escape moves per
 #: stuck round), as in the JAX engine; pass ``exchange_samples=0`` for a
 #: deterministic transfer-only sweep.
 DEFAULT_EXCHANGE_SAMPLES = 64
+
+#: ``compact="auto"`` takes the bucketed space when the flat map wastes
+#: more than this fraction of its slots on padding (the reference's value).
+BUCKETED_AUTO_THRESHOLD = 0.25
 
 _I64_BIG = torch.iinfo(torch.int64).max
 
@@ -70,9 +104,29 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
+@dataclass(frozen=True)
+class _Bucket:
+    """One slot-width bucket of the sweep: its servers' slot maps and every
+    RA constant gathered into its ``(K_b, R_b)`` slot space."""
+
+    servers: torch.Tensor    # (K_b,) global server ids
+    idx: torch.Tensor        # (K_b, R_b) device per slot
+    exists: torch.Tensor     # (K_b, R_b) slot holds a real device
+    ok: torch.Tensor         # (K_b, R_b) slot is a legal transfer target
+    consts: RAConstants      # (K_b, R_b) leaves, w (K_b,)
+    random_f: torch.Tensor | None   # (K_b, R_b), fixed-f kinds only
+    inv_dist: torch.Tensor | None   # (K_b, R_b), proportional only
+    eye: torch.Tensor        # (R_b, R_b) single-slot toggles
+
+    @property
+    def width(self) -> int:
+        return int(self.idx.shape[1])
+
+
 def _dense_member(assignment: np.ndarray, active: np.ndarray,
                   n_servers: int) -> np.ndarray:
-    """Dense (K, N) membership of an assignment, gated by the active mask."""
+    """Dense (K, N) membership of an assignment, gated by the active mask:
+    inactive devices keep a parked slot but belong to no group."""
     member = np.zeros((n_servers, assignment.shape[0]), dtype=bool)
     act = np.asarray(active, dtype=bool)
     member[np.asarray(assignment)[act], np.flatnonzero(act)] = True
@@ -84,7 +138,9 @@ def assignment_true_cost(sc: Scenario, assignment: np.ndarray, *,
                          kind: str = "fast", seed: int = 0, device=None
                          ) -> tuple[float, float, float]:
     """Eqs. (15)-(17) ``(energy, delay, cost)`` of an explicit assignment at
-    reference RA accuracy, gated by the scenario's active mask."""
+    reference RA accuracy, gated by the scenario's active mask. A prebuilt
+    ``solver`` is viewed at the default profile (its constants stay valid
+    across churn, but for the ``proportional`` kind's distances)."""
     if solver is None:
         solver = GroupSolver(sc, kind, seed=seed, profile="default",
                              device=device)
@@ -102,35 +158,76 @@ def assignment_true_cost(sc: Scenario, assignment: np.ndarray, *,
     return _true_cost_terms(sc, active, assignment, f, beta)
 
 
+def repair_assignment(sc_new: Scenario, prev_assign: np.ndarray,
+                      old_active: np.ndarray
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray]:
+    """Repair a previous stable assignment onto a churned scenario, the one
+    rule set of the warm path and of any cold re-solve compared with it.
+
+    Departures park at their nearest raw-reachable server; active devices
+    whose server is no longer effectively reachable move to their nearest
+    effectively-reachable one (raising :class:`NoFeasibleServerError` when
+    there is none); everyone else keeps their slot. Under capacities the
+    displaced devices and all arrivals are re-admitted greedily in device
+    order (:func:`greedy_admission`). Returns ``(assignment, departed,
+    arrived, displaced)``."""
+    prev_assign = np.asarray(prev_assign)
+    n = sc_new.n_devices
+    dist = np.asarray(sc_new.dist)
+    eff = np.asarray(sc_new.eff_avail)
+    active = sc_new.active_mask
+    old_active = np.asarray(old_active, dtype=bool)
+    cap = sc_new.capacity
+    departed = old_active & ~active
+    arrived = active & ~old_active
+    ok_now = eff[prev_assign, np.arange(n)]
+    displaced = active & ~ok_now
+    assign = prev_assign.copy()
+    assign[departed] = parked_slots(sc_new)[departed]
+    if cap is None:
+        assign[displaced] = nearest_feasible(dist, eff,
+                                             need=displaced)[displaced]
+        return assign, departed, arrived, displaced
+    readmit = displaced | arrived
+    keep = active & ~readmit
+    load = np.bincount(assign[keep], minlength=sc_new.n_servers)
+    todo = np.flatnonzero(readmit)
+    placed = greedy_admission(dist, eff, load, cap, todo)
+    if (placed < 0).any():
+        raise NoFeasibleServerError(todo[placed < 0], "no admitting server")
+    assign[todo] = placed
+    return assign, departed, arrived, displaced
+
+
 class FastAssociationEngine:
     """Steepest permitted transfer per round, and the best of a batch of
     sampled exchanges when no transfer is permitted, to a stable point,
     with the reference's permission rules, tolerances, tie-breaking and
-    PRNG stream. ``kind`` is any §V.A scheme kind of :class:`GroupSolver`.
+    PRNG stream, in the sweep space ``compact`` selects (module docstring).
+    ``kind`` is any §V.A scheme kind of :class:`GroupSolver`.
 
     ``device=None`` means CUDA and raises without a card; pass
-    ``device="cpu"`` for the plain PyTorch path. ``last_timing`` holds the
-    seconds of the last sweep's cache init, of its moves (every round after
-    the init) and, within them, of pricing its exchange rounds (draw,
-    batch solve, pick); ``last_counts`` its transfers, exchanges and
-    exchange rounds.
+    ``device="cpu"`` for the plain PyTorch path. A ``fast``-kind bucket (or
+    exchange space) wider than the kernel's ``MAX_R`` slots raises
+    ``ValueError``. ``last_timing`` holds the seconds of the last sweep's
+    cache init, of its moves (every round after the init) and, within
+    them, of pricing its exchange rounds (and, after
+    :meth:`rerun_incremental`, of its host preparation: maps, repair,
+    cache alignment); ``last_counts`` its transfers, exchanges, exchange
+    rounds and the cache rows its init solved.
+    ``last_state`` dumps the last sweep's membership and caches.
     """
 
     def __init__(self, sc: Scenario, *, kind: str = "fast",
                  permission: str = "utilitarian", min_residual_group: int = 2,
                  seed: int = 0, rel_tol: float = 1e-5,
-                 profile: str = "default", compact: bool | str = False,
+                 profile: str = "default", compact: bool | str = "auto",
                  shards: int | None = None, device=None):
         if permission not in ("utilitarian", "pareto"):
             raise ValueError(f"unknown permission {permission!r}")
-        if compact not in (False, "auto"):
-            raise _not_ported(f"compact={compact!r}", "6(b)")
-        if (compact == "auto"
-                and int(sc.eff_avail.sum(axis=1).max()) < sc.n_devices):
-            # the reference's "auto" stays dense only when a server
-            # reaches every device
-            raise _not_ported("compact='auto' on a sparse-reach scenario "
-                              "(it resolves to a compact space)", "6(b)")
+        if compact not in (True, False, "auto", "bucketed"):
+            raise ValueError(f"unknown compact={compact!r}")
         if shards is not None:
             raise _not_ported("the sharded sweep (shards=p)", "6, last")
         self.device = resolve_device(device)
@@ -153,15 +250,122 @@ class FastAssociationEngine:
         self._cap = torch.as_tensor(
             np.full(sc.n_servers, sc.n_devices, np.int64)
             if self.cap is None else self.cap, device=self.device)
-        self._ok = torch.as_tensor(self.avail, device=self.device)
         self.cloud_const = (sc.lp.lambda_e * cloud_energy(sc.srv)
                             + sc.lp.lambda_t * cloud_delay(sc.srv)
                             ).to(self.device)
         self.seed = seed
+        self.reach: ReachIndex | None = None
+        self.reach_buckets: ReachBuckets | None = None
+        try:
+            self.reach = reach_index_map(np.asarray(sc.avail),
+                                         active=self._active)
+        except ValueError:
+            if compact in (True, "bucketed"):
+                raise
+        if compact == "auto":
+            if self.reach is None or self.reach.r_max >= sc.n_devices:
+                compact = False
+            else:
+                compact = ("bucketed" if self.reach.padded_fraction
+                           > BUCKETED_AUTO_THRESHOLD else True)
+        self.compact = "bucketed" if compact == "bucketed" else bool(compact)
+        if self.compact == "bucketed":
+            self.reach_buckets = reach_index_map(
+                np.asarray(sc.avail), bucketed=True, active=self._active)
+        self._rebuild_space()
         self.last_moves: int | None = None
         self.last_tier_moves: list[int] | None = None
         self.last_timing: dict[str, float] | None = None
         self.last_counts: dict[str, int] | None = None
+        self.last_state: dict | None = None
+        self._warm_cache: dict | None = None
+        self.last_repaired_assignment: np.ndarray | None = None
+
+    # -- the slot space -------------------------------------------------------
+
+    def _rebuild_space(self) -> None:
+        """(Re)derive the buckets, the shared exchange bucket and the slot
+        locators from ``reach``/``reach_buckets``/``avail``; the toggle
+        cache, which :meth:`rerun_incremental` keeps, is not touched."""
+        k, n = self.sc.n_servers, self.sc.n_devices
+        servers = np.arange(k, dtype=np.int32)
+        ex_raw = None
+        if self.compact == "bucketed":
+            rbk = self.reach_buckets
+            raw = [(b.servers, b.idx, b.valid, b.valid) for b in rbk.buckets]
+            slot_of, bucket_of, row_of = rbk.slot, rbk.bucket_of, rbk.row_of
+            # exchanges hit arbitrary server pairs: they are priced in one
+            # flat (K, R_max) space with the buckets' slot numbering
+            ex_raw = (servers, self.reach.idx, self.reach.valid,
+                      self.reach.valid)
+        elif self.compact:
+            r = self.reach
+            raw = [(servers, r.idx, r.valid, r.valid)]
+            slot_of, bucket_of, row_of = r.slot, np.zeros(k, np.int32), servers
+        else:
+            # identity maps: every slot exists (an out-of-reach member is
+            # still priced), availability gates candidacy only
+            ident = np.broadcast_to(np.arange(n, dtype=np.int32), (k, n))
+            raw = [(servers, ident, np.ones((k, n), bool), self.avail)]
+            slot_of, bucket_of, row_of = ident, np.zeros(k, np.int32), servers
+        if self.kind == "fast":
+            for _, idx, _, _ in raw + ([ex_raw] if ex_raw else []):
+                if idx.shape[1] > MAX_R:
+                    raise ValueError(
+                        f"slot width {idx.shape[1]} exceeds the "
+                        f"golden-section kernel's {MAX_R}: a compact space "
+                        f"(compact=True or 'bucketed') keeps groups at "
+                        f"their reach counts")
+        dev = self.device
+        self._buckets = tuple(self._gather_bucket(*r) for r in raw)
+        self._ex_bucket = (self._gather_bucket(*ex_raw) if ex_raw
+                           else self._buckets[0])
+        self._slot_of = torch.as_tensor(np.ascontiguousarray(slot_of),
+                                        dtype=torch.int32, device=dev)
+        self._bucket_of = np.asarray(bucket_of, np.int64)
+        self._row_of = np.asarray(row_of, np.int64)
+        # every bucket's cache is a view of one flat buffer; these are the
+        # flat buffer's per-slot device, server, target flag and key
+        sizes = [bd.idx.numel() for bd in self._buckets]
+        self._offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
+        widths = np.array([bd.width for bd in self._buckets], np.int64)
+        self._flat_dev = torch.cat([bd.idx.reshape(-1)
+                                    for bd in self._buckets])
+        self._flat_srv = torch.cat([
+            bd.servers[:, None].expand(bd.idx.shape).reshape(-1)
+            for bd in self._buckets])
+        self._flat_ok = torch.cat([bd.ok.reshape(-1) for bd in self._buckets])
+        self._flat_order = self._flat_dev * k + self._flat_srv
+        self._row_base = torch.as_tensor(
+            self._offsets[self._bucket_of] + self._row_of
+            * widths[self._bucket_of], dtype=torch.int64, device=dev)
+        self._row_width = torch.as_tensor(widths[self._bucket_of],
+                                          device=dev)
+
+    def _gather_bucket(self, servers, idx, exists, ok) -> _Bucket:
+        """Gather every per-device RA quantity into this bucket's (K_b,
+        R_b) slot space; per-server (1-D) leaves gather by server id."""
+        dev = self.device
+        srv = torch.as_tensor(np.asarray(servers), dtype=torch.int64,
+                              device=dev)
+        ridx = torch.as_tensor(np.ascontiguousarray(idx), dtype=torch.int64,
+                               device=dev)
+        rows = srv[:, None]
+        s = self.solver
+        consts = RAConstants(**{
+            name: (v[srv] if v.dim() == 1 else v[rows, ridx])
+            for name, v in vars(s.consts).items()})
+        fixed_f = self.kind in ("comm_only", "uniform", "proportional")
+        return _Bucket(
+            servers=srv, idx=ridx,
+            exists=torch.as_tensor(np.asarray(exists), device=dev),
+            ok=torch.as_tensor(np.asarray(ok), device=dev), consts=consts,
+            random_f=s.random_f[ridx] if fixed_f else None,
+            inv_dist=(s.inv_dist[rows, ridx] if self.kind == "proportional"
+                      else None),
+            eye=torch.eye(ridx.shape[1], dtype=torch.bool, device=dev))
+
+    # -- public surface -------------------------------------------------------
 
     def initial_assignment(self, init: str = "nearest") -> np.ndarray:
         return initial_assignment(self.sc, self.avail, self.rng, init)
@@ -179,6 +383,14 @@ class FastAssociationEngine:
         cloud = self.cloud_const.cpu().numpy()
         return float(np.sum(sols.cost.cpu().numpy()
                             + np.where(member.any(axis=1), cloud, 0.0)))
+
+    @property
+    def stable_assignment(self) -> np.ndarray | None:
+        """The last sweep's stable assignment (parked slots included), or
+        ``None`` before the first run."""
+        if self._warm_cache is None:
+            return None
+        return self._warm_cache["assignment"].copy()
 
     def run(self, init: str = "nearest", *, max_moves: int = 10_000,
             exchange_samples: int = DEFAULT_EXCHANGE_SAMPLES,
@@ -233,16 +445,149 @@ class FastAssociationEngine:
         self.last_tier_moves = tier_moves
         return self._finalize(assignment, member, total_moves, trace)
 
-    def rerun_incremental(self, *args, **kwargs):
-        raise _not_ported("rerun_incremental", "6(e)")
+    def rerun_incremental(self, sc_new: Scenario, delta: ScenarioDelta, *,
+                          max_moves: int = 10_000,
+                          exchange_samples: int = DEFAULT_EXCHANGE_SAMPLES,
+                          verify: bool = False, finalize: bool = True):
+        """Re-converge on ``sc_new`` (a churn step of the engine's scenario,
+        ``delta`` from :func:`perturb_scenario` or :func:`diff_scenarios`)
+        from the previous stable point, keeping the toggle cache.
+
+        The reach maps are patched (only overflowing buckets rebuild), the
+        previous stable assignment is repaired (:func:`repair_assignment`),
+        and the sweep restarts from the previous cache: only the rows of
+        stale servers are re-solved (the delta's, the repair's departures,
+        displaced devices and arrivals, every row of a rebuilt bucket, and
+        every row of a dense ``proportional`` engine when devices moved).
+        It runs at the profile of the last sweep. Chained deltas work: each
+        call refreshes the cache for the next.
+
+        ``verify=True`` builds a cold engine on ``sc_new``, descends it from
+        the same repaired assignment and raises unless the two stable
+        points are identical. ``finalize=False`` returns just the (N,)
+        stable assignment.
+        """
+        if self._warm_cache is None:
+            raise RuntimeError(
+                "rerun_incremental needs a prior run()/run_tiered() on this "
+                "engine to warm-start from")
+        t0 = time.perf_counter()
+        cache = self._warm_cache
+        profile = cache["profile"]
+        prev_assign = cache["assignment"]
+        old_active = self._active
+        n, k = self.sc.n_devices, self.sc.n_servers
+        if sc_new.n_devices != n or sc_new.n_servers != k:
+            raise ValueError("rerun_incremental requires fixed (N, K); "
+                             "churn uses the active mask, not resizing")
+        new_cap = sc_new.capacity
+        if ((self.cap is None) != (new_cap is None)
+                or (self.cap is not None
+                    and not np.array_equal(self.cap, new_cap))):
+            raise ValueError(
+                "rerun_incremental requires churn-invariant max_devices; "
+                "rebuild the engine to change capacities")
+
+        # ---- swap the scenario and patch the slot maps ----
+        self.sc = sc_new
+        self._active = sc_new.active_mask.copy()
+        self.avail = np.asarray(sc_new.eff_avail)
+        if delta.moved.any():
+            # distance-derived solver buffers (only "proportional" reads
+            # them; the RA constants are delta-invariant)
+            inv = 1.0 / np.maximum(np.asarray(sc_new.dist), 1.0)
+            self.solver.inv_dist = torch.as_tensor(inv.astype(np.float32),
+                                                   device=self.device)
+            self._eval_solver = self.solver.with_profile("default")
+        raw = np.asarray(sc_new.avail)
+        stale = np.asarray(delta.stale_servers, dtype=bool).copy()
+        carry: list = [0] * len(self._buckets)
+        if self.compact:
+            # the flat map backs the flat sweep and the bucketed space's
+            # exchange slots; a dense engine never reads it again
+            self.reach, flat_rebuilt = update_reach_index(
+                self.reach, raw, active=self._active,
+                changed_servers=delta.stale_servers)
+        else:
+            self.reach = None
+        if self.compact == "bucketed":
+            self.reach_buckets, carry = update_reach_buckets(
+                self.reach_buckets, raw, active=self._active,
+                changed_servers=delta.stale_servers)
+        elif self.compact:
+            carry = [None] if flat_rebuilt else [0]
+        elif self.kind == "proportional" and delta.moved.any():
+            # dense rows span every device, so a moved device's distance
+            # can change any row's cached cost
+            stale[:] = True
+        self._rebuild_space()
+
+        # ---- repair the previous stable assignment on the host ----
+        assign, departed, arrived, displaced = repair_assignment(
+            sc_new, prev_assign, old_active)
+        stale[prev_assign[departed]] = True
+        stale[prev_assign[displaced & old_active]] = True
+        stale[assign[displaced]] = True
+        stale[assign[arrived]] = True
+
+        # ---- align cached rows to the (possibly patched) layout ----
+        toggles_warm = []
+        for b, bd in enumerate(self._buckets):
+            src = carry[b] if b < len(carry) else None
+            if (src is None
+                    or tuple(cache["toggles"][src].shape) != tuple(
+                        bd.idx.shape)):
+                toggles_warm.append(None)
+                stale[bd.servers.cpu().numpy()] = True
+            else:
+                toggles_warm.append(cache["toggles"][src])
+        warm = (cache["cur"], toggles_warm, stale)
+
+        self.last_repaired_assignment = assign.copy()
+        prepare_s = time.perf_counter() - t0
+        assignment, member, moves, trace = self._sweep(
+            assign, profile, max_moves, exchange_samples,
+            prng.PRNGKey(self.seed), warm=warm)
+        self.last_timing["prepare_s"] = prepare_s
+        if verify:
+            cold = FastAssociationEngine(
+                sc_new, kind=self.kind, permission=self.permission,
+                min_residual_group=self.min_residual, seed=self.seed,
+                rel_tol=self.rel_tol, profile=profile, compact=self.compact,
+                device=self.device)
+            ref = cold.run(assignment=self.last_repaired_assignment,
+                           max_moves=max_moves,
+                           exchange_samples=exchange_samples, finalize=False)
+            if not np.array_equal(assignment, ref):
+                raise AssertionError(
+                    "incremental warm start diverged from the cold rebuild: "
+                    f"{int((assignment != ref).sum())} device placements "
+                    "differ")
+        if not finalize:
+            return assignment.copy()
+        return self._finalize(assignment, member, moves, trace)
+
+    # -- the sweep ------------------------------------------------------------
 
     def _sweep(self, assignment: np.ndarray, profile: str, max_moves: int,
                exchange_samples: int, key: torch.Tensor,
-               rel_tol: float | None = None):
+               rel_tol: float | None = None, warm=None):
         """One profile's adjustment loop; returns (assignment, dense member,
-        n_moves, trace)."""
+        n_moves, trace), fills ``last_state`` and keeps the stable point's
+        cache for :meth:`rerun_incremental`."""
         assignment = np.asarray(assignment, dtype=np.int64)
-        k = self.sc.n_servers
+        n, k = self.sc.n_devices, self.sc.n_servers
+        if self.compact:
+            # an out-of-reach placement has no slot in a compact space: the
+            # device would vanish from its group and its removal toggle
+            # would be read from another device's slot
+            unreachable = self._active & ~self.avail[assignment, np.arange(n)]
+            if unreachable.any():
+                bad = np.flatnonzero(unreachable)[:8]
+                raise ValueError(
+                    "compact sweep requires every device assigned within "
+                    f"reach; devices {bad.tolist()} are not (e.g. device "
+                    f"{bad[0]} -> server {assignment[bad[0]]})")
         if self.cap is not None:
             # transfers are cap-gated and exchanges cap-neutral, so a sweep
             # keeps an assignment feasible only if it starts feasible
@@ -256,95 +601,173 @@ class FastAssociationEngine:
         member = torch.as_tensor(self._member_of(assignment),
                                  device=self.device)
         assign = assignment.copy()
-        moves, trace = self._descend(
-            member, assign, self.solver.with_profile(profile), max_moves,
-            exchange_samples, key,
-            self.rel_tol if rel_tol is None else rel_tol)
+        cur, toggles, moves, trace = self._descend(
+            member, assign, profile, max_moves, exchange_samples, key,
+            self.rel_tol if rel_tol is None else rel_tol, warm)
         self.last_moves = moves
-        return assign, member.cpu().numpy(), moves, trace
+        member_np = member.cpu().numpy()
+        per_bucket = [toggles[self._offsets[b]:self._offsets[b + 1]].view(
+            bd.idx.shape) for b, bd in enumerate(self._buckets)]
+        self.last_state = {"member": member_np,
+                           "cur_cost": cur.cpu().numpy()}
+        if self.compact == "bucketed":
+            self.last_state.update(
+                toggle_cost_buckets=[t.cpu().numpy() for t in per_bucket],
+                reach_buckets=self.reach_buckets)
+        elif self.compact:
+            r = self.reach
+            self.last_state.update(
+                member_compact=member_np[np.arange(k)[:, None], r.idx]
+                & r.valid,
+                toggle_cost_compact=per_bucket[0].cpu().numpy(), reach=r)
+        else:
+            self.last_state.update(toggle_cost=per_bucket[0].cpu().numpy())
+        self._warm_cache = {"assignment": assign.copy(), "cur": cur.clone(),
+                            "toggles": [t.clone() for t in per_bucket],
+                            "profile": profile}
+        return assign, member_np, moves, trace
+
+    def _refresh_groups(self, member: torch.Tensor, s: int):
+        """Server s's refresh batch in its bucket: ``(bucket index, bucket
+        rows (R_b + 1,), masks (R_b + 1, R_b))``, its current group and
+        its R_b single-slot toggles."""
+        b, row = int(self._bucket_of[s]), int(self._row_of[s])
+        bd = self._buckets[b]
+        base = (member[s, bd.idx[row]] & bd.exists[row])[None]
+        rows = torch.full((bd.width + 1,), row, device=member.device)
+        return b, rows, torch.cat([base, base ^ bd.eye])
+
+    def _exchange_groups(self, member: torch.Tensor, assign_t: torch.Tensor,
+                         pairs: torch.Tensor):
+        """The exchange batch of sampled device pairs ``pairs`` (S, 2) in
+        the exchange space: ``(rows (2S,), masks (2S, R_max), okay (S,))``,
+        both swapped groups of every pair (rows are server ids) and which
+        pairs are distinct, on distinct servers and within reach."""
+        ex, slot_of = self._ex_bucket, self._slot_of
+        r_ex = ex.width
+        dn, dm = pairs[:, 0], pairs[:, 1]
+        si, sj = assign_t[dn], assign_t[dm]
+
+        def slot(srv, dv):
+            return slot_of[srv, dv].long()
+
+        def can_join(srv, dv):
+            sl = slot(srv, dv)
+            return (sl < r_ex) & ex.ok[srv, sl.clamp(max=r_ex - 1)]
+
+        def onehot(srv, dv):
+            # an out-of-reach slot encodes as the all-zero row
+            return (torch.arange(r_ex, device=member.device)[None, :]
+                    == slot(srv, dv)[:, None])
+
+        def base(rows):
+            return (member[ex.servers[rows][:, None], ex.idx[rows]]
+                    & ex.exists[rows])
+
+        okay = ((dn != dm) & (si != sj)
+                & can_join(sj, dn) & can_join(si, dm))
+        masks = torch.cat([base(si) ^ onehot(si, dn) ^ onehot(si, dm),
+                           base(sj) ^ onehot(sj, dm) ^ onehot(sj, dn)])
+        return torch.cat([si, sj]), masks, okay
 
     def _descend(self, member: torch.Tensor, assign: np.ndarray,
-                 solver: GroupSolver, max_moves: int, exchange_samples: int,
-                 key: torch.Tensor, rel_tol: float):
+                 profile: str, max_moves: int, exchange_samples: int,
+                 key: torch.Tensor, rel_tol: float, warm):
         """The adjustment loop (``_run_device_impl`` of the reference,
-        dense bucket, single device). Updates ``member`` and ``assign`` in
-        place; returns (n_moves, trace) and sets ``last_timing`` and
-        ``last_counts``."""
+        single device). Updates ``member`` and ``assign`` in place; returns
+        (cur, flat toggle cache, n_moves, trace) and sets ``last_timing``
+        and ``last_counts``."""
         k, n = member.shape
         dev = self.device
-        servers = torch.arange(k, device=dev)
+        buckets = self._buckets
         idx_n = torch.arange(n, device=dev)
-        eye = torch.eye(n, dtype=torch.bool, device=dev)
-        # device-major tie-break key: the smallest n*K + k among equal deltas
-        order = idx_n[None, :] * k + servers[:, None]
         big = torch.tensor(_I64_BIG, device=dev)
         inf = torch.tensor(math.inf, device=dev)
         assign_t = torch.as_tensor(assign, device=dev)
+        slot_of = self._slot_of
+        f_dev, f_srv, f_ok = self._flat_dev, self._flat_srv, self._flat_ok
+        f_order = self._flat_order
         pareto = self.permission == "pareto"
+        kind = self.kind
 
         def harmless(new, old):
             return new <= old + rel_tol * torch.clamp_min(old, 1e-9)
 
-        def group_costs(sids: torch.Tensor, masks: torch.Tensor, cloud):
-            """Group costs plus the cloud constant ``cloud`` (per group, or
-            one server's) of each non-empty one."""
-            sol = solver.solve_batch(sids, masks)
-            return sol.cost + torch.where(masks.any(-1), cloud, 0.0)
+        def bucket_costs(bd: _Bucket, rows: torch.Tensor, masks):
+            """Group costs of ``masks`` (M, R_b) at bucket rows ``rows``,
+            plus each non-empty group's cloud constant: one batched solve
+            (one kernel launch for the ``fast`` kind)."""
+            sol = solve_groups(
+                kind, bd.consts.rows(rows), masks,
+                random_f=None if bd.random_f is None else bd.random_f[rows],
+                inv_dist=None if bd.inv_dist is None else bd.inv_dist[rows],
+                profile=profile)
+            return sol.cost + torch.where(
+                masks.any(-1), self.cloud_const[bd.servers[rows]], 0.0)
 
         t0 = time.perf_counter()
         cur = torch.zeros(k, device=dev)
-        toggles = torch.empty(k, n, device=dev)
+        toggles = torch.empty(int(self._offsets[-1]), device=dev)
+        views = [toggles[self._offsets[b]:self._offsets[b + 1]].view(
+            bd.idx.shape) for b, bd in enumerate(buckets)]
 
         def refresh(s: int) -> None:
-            """Re-solve server s's group and its N single-slot toggles."""
-            base = member[s][None]
-            costs = group_costs(torch.full((n + 1,), s, device=dev),
-                                torch.cat([base, base ^ eye]),
-                                self.cloud_const[s])
+            """Re-solve server s's row of its bucket: R_b + 1 groups, one
+            batch."""
+            b, rows, masks = self._refresh_groups(member, s)
+            costs = bucket_costs(buckets[b], rows, masks)
             cur[s] = costs[0]
-            toggles[s] = costs[1:]
+            views[b][int(self._row_of[s])] = costs[1:]
 
-        for s in range(k):
-            refresh(s)
+        if warm is None:
+            solve_rows = np.arange(k)
+        else:
+            cur_prev, toggles_prev, stale = warm
+            cur.copy_(cur_prev)
+            for view, prev in zip(views, toggles_prev):
+                if prev is not None:
+                    view.copy_(prev)
+            solve_rows = np.flatnonzero(stale)
+        for s in solve_rows:
+            refresh(int(s))
         trace = [cur.sum()]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)     # so init_s times the init
         t1 = time.perf_counter()
 
         def best_transfer():
-            """Scan every transfer candidate from the cache, no solves:
-            (delta, flat index) of the best permitted one."""
+            """Scan every transfer candidate of every bucket from the
+            cache, no solves: (delta, device, destination) of the best
+            permitted one."""
             cur_src = cur[assign_t]                              # (n,)
-            minus = toggles[assign_t, idx_n]                     # (n,)
+            # each device's removal toggle, in its server's bucket row
+            # (clamped: a parked device has no slot and is no candidate)
+            sl = torch.minimum(slot_of[assign_t, idx_n].long(),
+                               self._row_width[assign_t] - 1)
+            minus = toggles[self._row_base[assign_t] + sl]       # (n,)
             gsize = member.sum(1)                                # (k,)
-            cur_b = cur[:, None]
-            delta = (minus - cur_src)[None, :] + toggles - cur_b
-            scale = torch.clamp_min(cur_b + cur_src[None, :], 1e-9)
-            valid = (self._ok & (assign_t[None, :] != servers[:, None])
-                     & (gsize[assign_t] > self.min_residual)[None, :]
-                     & (gsize < self._cap)[:, None])
+            cur_b = cur[f_srv]
+            src = assign_t[f_dev]
+            delta = (minus - cur_src)[f_dev] + toggles - cur_b
+            scale = torch.clamp_min(cur_b + cur_src[f_dev], 1e-9)
+            valid = (f_ok & (src != f_srv) & (gsize[src] > self.min_residual)
+                     & (gsize[f_srv] < self._cap[f_srv]))
             permitted = valid & (delta < -rel_tol * scale)
             if pareto:
                 permitted &= (harmless(toggles, cur_b)
-                              & harmless(minus, cur_src)[None, :])
+                              & harmless(minus, cur_src)[f_dev])
             masked = torch.where(permitted, delta, inf)
             best = masked.min()
-            return best, torch.where(masked == best, order, big).argmin()
+            p = torch.where(masked == best, f_order, big).argmin()
+            return best, f_dev[p], f_srv[p]
 
         def best_exchange(pairs: torch.Tensor):
-            """Price both swapped groups of every sampled pair in one
-            batch: (delta, sample index) of the first best permitted one."""
-            dn, dm = pairs[:, 0], pairs[:, 1]
-            si, sj = assign_t[dn], assign_t[dm]
-            okay = ((dn != dm) & (si != sj)
-                    & self._ok[sj, dn] & self._ok[si, dm])
-            hot_n = idx_n[None, :] == dn[:, None]
-            hot_m = idx_n[None, :] == dm[:, None]
-            sids = torch.cat([si, sj])
-            costs = group_costs(sids,
-                                torch.cat([member[si] ^ hot_n ^ hot_m,
-                                           member[sj] ^ hot_m ^ hot_n]),
-                                self.cloud_const[sids])
+            """Price both swapped groups of every sampled pair in one batch
+            in the exchange space: (delta, sample index) of the first best
+            permitted one."""
+            rows, masks, okay = self._exchange_groups(member, assign_t, pairs)
+            costs = bucket_costs(self._ex_bucket, rows, masks)
+            si, sj = rows[:exchange_samples], rows[exchange_samples:]
             ci, cj = costs[:exchange_samples], costs[exchange_samples:]
             old = cur[si] + cur[sj]
             delta = ci + cj - old
@@ -364,10 +787,11 @@ class FastAssociationEngine:
         moves = transfers = exchanges = exchange_rounds = 0
         exchange_s = 0.0
         while moves < max_moves:
-            best, p = best_transfer()
-            best_v, p_v = torch.stack([best.double(), p.double()]).tolist()
+            best, t_dev, t_dst = best_transfer()
+            best_v, t_dev, t_dst = torch.stack(
+                [best.double(), t_dev.double(), t_dst.double()]).tolist()
             if math.isfinite(best_v):
-                t_dst, t_dev = divmod(int(p_v), n)
+                t_dev, t_dst = int(t_dev), int(t_dst)
                 t_src = int(assign[t_dev])
                 move(t_dev, t_src, t_dst)
                 transfers += 1
@@ -399,8 +823,9 @@ class FastAssociationEngine:
                             "moves_s": time.perf_counter() - t1,
                             "exchange_pricing_s": exchange_s}
         self.last_counts = {"transfers": transfers, "exchanges": exchanges,
-                            "exchange_rounds": exchange_rounds}
-        return moves, trace
+                            "exchange_rounds": exchange_rounds,
+                            "init_rows": int(len(solve_rows))}
+        return cur, toggles, moves, trace
 
     def _finalize(self, assignment, member, moves, trace) -> AssociationResult:
         k = self.sc.n_servers

@@ -149,10 +149,13 @@ class GroupSolver:
     def solve_batch(self, server_ids, masks) -> ra.RASolution:
         """Solve C candidate groups at once: ``server_ids`` (C,), ``masks``
         (C, N), as tensors or arrays. The ``fast`` kind is one kernel
-        launch on the card."""
+        launch on the card, on each group's members packed into the
+        leading slots (:meth:`_solve_packed`)."""
         server_ids = torch.as_tensor(server_ids, dtype=torch.int64,
                                      device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
+        if self.kind == "fast":
+            return self._solve_packed(server_ids, masks)
         fixed_f = self.kind in ("comm_only", "uniform", "proportional")
         return solve_groups(
             self.kind, self.consts.rows(server_ids), masks,
@@ -160,6 +163,35 @@ class GroupSolver:
             inv_dist=(self.inv_dist[server_ids]
                       if self.kind == "proportional" else None),
             profile=self.profile)
+
+    def _solve_packed(self, server_ids, masks) -> ra.RASolution:
+        """The ``fast`` kind on ``(C, N)`` masks, solved at the width of the
+        largest group: each group's members, in device order, fill the
+        leading slots of its row. The kernel and its plain version sum a
+        group's active slots in row order whatever the width, so the result
+        is the full-width solve's bit for bit, and a group of N devices no
+        longer needs a kernel N slots wide. Masked slots come back as the
+        full-width solve gives them: f at f_min, beta 0."""
+        c, n = masks.shape
+        rows, cols = masks.nonzero(as_tuple=True)      # row-major order
+        width = max(int(masks.sum(1).max()) if c else 0, 1)
+        slot = masks.cumsum(1)[rows, cols] - 1
+        idx = torch.zeros(c, width, dtype=torch.int64, device=self.device)
+        idx[rows, slot] = cols
+        packed = torch.zeros(c, width, dtype=torch.bool, device=self.device)
+        packed[rows, slot] = True
+        sids = server_ids[:, None]
+        consts = RAConstants(**{
+            k: (v[server_ids] if k == "w" else v[sids, idx])
+            for k, v in vars(self.consts).items()})
+        sol = ra.solve_fixed_point_batched(consts, packed,
+                                           **ra.SCREEN_PROFILES[self.profile])
+        f = self.consts.f_min[server_ids].clone()
+        f[rows, cols] = sol.f[rows, slot]
+        beta = torch.zeros_like(f)
+        beta[rows, cols] = sol.beta[rows, slot]
+        return ra.RASolution(f=f, beta=beta, cost=sol.cost,
+                             deadline=sol.deadline)
 
 
 # ---------------------------------------------------------------------------
@@ -599,9 +631,9 @@ def evaluate_scheme(sc: Scenario, scheme: str, *, seed: int = 0,
     (:meth:`AssociationEngine.run_batched`) or ``"loop"`` (the faithful
     :meth:`AssociationEngine.run`); ``batched=False`` is an alias of
     ``"loop"``. ``tiers`` (a ``TIER_PLANS`` plan or profile tuple) runs the
-    fast engine's :meth:`run_tiered`. ``compact`` is the fast engine's:
-    ``False``, or ``"auto"`` on a scenario where it resolves to the dense
-    space. ``device``: ``None`` = CUDA, raising without a card.
+    fast engine's :meth:`run_tiered`. ``compact`` is the fast engine's
+    sweep space (``False``, ``True``, ``"bucketed"`` or ``"auto"``).
+    ``device``: ``None`` = CUDA, raising without a card.
     """
     kind = SCHEMES[scheme]
     if scheme in ("random", "greedy"):

@@ -111,8 +111,8 @@ def test_same_stable_point_beyond_the_dense_default(case):
             js, compact=False).initial_assignment("nearest"))
     want = jaf.FastAssociationEngine(js, compact=False, **opts).run(
         "nearest", exchange_samples=0, assignment=start)
-    got = taf.FastAssociationEngine(port_scenario(js), device="cpu",
-                                    **opts).run(
+    got = taf.FastAssociationEngine(port_scenario(js), compact=False,
+                                    device="cpu", **opts).run(
         "nearest", exchange_samples=0, assignment=start)
     assert np.array_equal(want.assignment, got.assignment)
     assert want.n_adjustments == got.n_adjustments > 0
@@ -154,18 +154,22 @@ def test_explicit_assignment_and_finalize_off():
 
 
 def test_engine_raises_for_what_is_not_ported():
-    """Compact and bucketed spaces, the sharded sweep and
-    ``rerun_incremental`` still raise, naming their ROADMAP items; every
-    scheme kind and the default of 64 exchanges now run."""
+    """Only the sharded sweep still raises, naming its ROADMAP item; the
+    compact and bucketed spaces build, ``rerun_incremental`` asks for a
+    prior run, and every scheme kind and the default of 64 exchanges
+    run."""
     ts = port_scenario(jsc.make_scenario(8, 2, seed=0))
     eng = taf.FastAssociationEngine(ts, device="cpu")
+    assert eng.compact is False               # "auto" on a dense scenario
     for compact in (True, "bucketed"):
-        with pytest.raises(NotImplementedError, match="6\\(b\\)"):
-            taf.FastAssociationEngine(ts, compact=compact, device="cpu")
+        assert taf.FastAssociationEngine(ts, compact=compact,
+                                         device="cpu").compact == compact
     with pytest.raises(NotImplementedError, match="6, last"):
         taf.FastAssociationEngine(ts, shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="6\\(e\\)"):
+    with pytest.raises(RuntimeError, match="prior run"):
         eng.rerun_incremental(ts, None)
+    with pytest.raises(ValueError):
+        taf.FastAssociationEngine(ts, compact="flat", device="cpu")
     with pytest.raises(ValueError):
         taf.FastAssociationEngine(ts, permission="nash", device="cpu")
     with pytest.raises(ValueError):

@@ -158,8 +158,7 @@ def test_evaluate_scheme_matches(scheme):
 
 def test_evaluate_scheme_engines_and_tiers():
     """``engine="batched"``, ``"loop"`` (and ``batched=False``) and
-    ``tiers`` land where JAX's do; compact spaces that are not ported
-    raise naming their ROADMAP item."""
+    ``tiers`` land where JAX's do."""
     js = jsc.make_scenario(12, 3, seed=5)
     ts = port_scenario(js)
     for opts in ({"engine": "batched"}, {"batched": False},
@@ -172,12 +171,22 @@ def test_evaluate_scheme_engines_and_tiers():
     with pytest.raises(ValueError):
         tea.evaluate_scheme(ts, "hfel", engine="loop", tiers="two_tier",
                             device="cpu")
-    for compact in (True, "bucketed"):
-        with pytest.raises(NotImplementedError, match="6\\(b\\)"):
-            tea.evaluate_scheme(ts, "hfel", compact=compact, device="cpu")
-    sparse = port_scenario(jsc.make_scenario(16, 4, seed=2, reach_m=250.0))
-    with pytest.raises(NotImplementedError, match="6\\(b\\)"):
-        tea.evaluate_scheme(sparse, "hfel", device="cpu")
+
+
+@pytest.mark.parametrize("compact", [True, "bucketed", "auto"])
+def test_evaluate_scheme_in_compact_spaces(compact):
+    """The fast engine of ``evaluate_scheme("hfel")`` (random start, 64
+    exchanges) in the flat and bucketed spaces, and under ``"auto"`` on a
+    sparse-reach scenario, lands where JAX's does."""
+    js = jsc.make_scenario(16, 4, seed=2, reach_m=250.0)
+    want = jea.evaluate_scheme(js, "hfel", seed=1, profile="coarse",
+                               compact=compact)
+    got = tea.evaluate_scheme(port_scenario(js), "hfel", seed=1,
+                              profile="coarse", compact=compact,
+                              device="cpu")
+    assert np.array_equal(want.assignment, got.assignment)
+    assert want.n_adjustments == got.n_adjustments
+    assert got.total_cost == pytest.approx(want.total_cost, rel=RTOL)
 
 
 def test_hfel_beats_nonassociated_schemes():

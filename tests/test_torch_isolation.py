@@ -40,6 +40,7 @@ def test_port_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.core.assoc_fast, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.fl.training, "
             "repro_torch.data, repro_torch.core.hierarchy, "
+            "repro_torch.fl.live, "
             "repro_torch.configs, repro_torch.models, "
             "repro_torch.launch.serve, repro_torch.launch.steps; "
             "assert 'jax' not in sys.modules, 'jax was imported'; "
