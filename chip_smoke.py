@@ -172,10 +172,39 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``rerun_incremental``, and ``run_live`` at N = 40 / K = 4 with verify
    on, card against CPU: the same assignments (asserted).
 
+21. LM training: first ``backward``, each kernel's backward function
+   (flash's float32 recompute, rmsnorm's closed form, the scan's reverse
+   recurrence; plain PyTorch, the same code as on the CPU) at the train
+   shapes, with its ms and bound, and card against CPU on the same inputs
+   (flash in bf16 under ``FLASH_TOL``, the others in float32 at 1e-5);
+   then ``train_card_vs_cpu``: reduced qwen3-0.6b and mamba2-1.3b in
+   float32, the loss, gradients, one ``sync`` and one ``hierarchical``
+   step, card against CPU at 1e-4 (parameter entries with a gradient
+   within that of zero to lr: AdamW's first step), and the cloud sync
+   under TopK and Int8 on identical inputs at 1e-6.
+22. ``train_lm_sync`` and ``train_lm_hierarchical``: full-width
+   qwen3-0.6b (28 layers, bf16 activations, float32 params and AdamW
+   state) at sequence 4096, random weights from seed 0, tokens from one
+   ``TokenPipeline`` draw: ``sync`` at batch 4 for 3 steps, then
+   ``hierarchical`` with 2 pods x 2 sequences, a cloud sync every 2 steps
+   under ``TopKCompressor(0.01)``, 4 steps. Each line: s a step split into
+   forward, backward and optimizer (CUDA events at the step's marks), the
+   cloud syncs' seconds, tokens/s, peak memory (asserted under 75 GB), the
+   loss at every step (asserted finite), the launches of flash, rmsnorm
+   and the scan and their backward calls (asserted), the mfu (model FLOPs
+   over step time x the bf16 dense peak), and ``profile``: one more step
+   under ``torch.profiler``, device time and share of the step of each
+   backward function, idle share, top kernels.
+23. ``checkpoint``: the hierarchical train state through
+   ``CheckpointManager`` and back, every leaf bit-identical (asserted).
+24. ``train_ssm_sync``: mamba2-1.3b at full width with its depth cut to 8
+   of 48 layers, batch 2 x 2048, 2 ``sync`` steps, the same fields.
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
-with each path's, phases 16-19's and the HFEL scheme runs' beside them),
-the raw ``nvidia-smi`` line, and as the last line ``{"ok": true,
-"device": {...}}``.
+with each path's, phases 16-19's and the HFEL scheme runs' beside them;
+rmsnorm, flash and the scan add their train paths' launches and a
+``backward`` entry), the raw ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2242,6 +2271,564 @@ def compact_card_vs_cpu(dev) -> None:
                              "in the live loop")
 
 
+# ---------------------------------------------------------------------------
+# 21-24. LM training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH, TRAIN_SEQ = "qwen3-0.6b", 4096       # train_4k's sequence
+TRAIN_SYNC_BATCH, TRAIN_SYNC_STEPS = 4, 3        # train_4k's 256, cut to 4
+TRAIN_PODS, TRAIN_PER_POD, TRAIN_HIER_STEPS = 2, 2, 4
+TRAIN_EDGE_PERIOD, TRAIN_TOPK = 2, 0.01          # two cloud syncs
+TRAIN_PEAK_LIMIT = 75e9   # bytes; past it the batch is halved (PERF.md)
+SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "mamba2-1.3b", 8   # depth 8 of 48
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 2048, 2
+# each backward function's profiler range (``record_function`` label)
+BWD_LABELS = {"flash_attention": "flash_attention_bwd",
+              "rmsnorm": "rmsnorm_bwd",
+              "ssd_state_scan": "ssd_state_scan_bwd"}
+# card vs CPU of the train step (reduced float32 models): the loss,
+# gradients and moments at 1e-4 (atol 1e-4 x the leaf's largest value, the
+# CPU tests' bound for JAX parity); parameters after AdamW's first step the
+# same, but entries whose gradient is within that bound of zero move by
+# lr * g / (|g| + 1e-8) of either sign and are held to lr; the cloud sync
+# on identical inputs at 1e-6. Each backward function on its own: the
+# norm and the scan in float32 at 1e-5, flash in bf16 under FLASH_TOL.
+TRAIN_TOL, SYNC_TOL, GRAD_TOL_F32 = 1e-4, 1e-6, 1e-5
+
+
+class StepClock:
+    """The ``clock`` of a train step: a CUDA event at each mark; after a
+    synchronize, ``split()`` gives the milliseconds from each mark to the
+    next, summed by the earlier mark's label."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, label: str) -> None:
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((label, ev))
+
+    def split(self) -> dict:
+        out = {}
+        for (label, a), (_, b) in zip(self.marks, self.marks[1:]):
+            out[label] = out.get(label, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 x params x tokens (forward and
+    backward of every matrix product; the tied table's read-out included),
+    plus causal attention's QK^T and PV over the visible pairs, three
+    times over (forward, and the backward's four products at twice the
+    forward's cost)."""
+    tokens = batch * seq
+    attn_layers = (cfg.n_layers if cfg.family == "dense" else
+                   cfg.n_layers // cfg.hybrid_attn_period
+                   if cfg.hybrid_attn_period else 0)
+    pairs = seq * (seq + 1) // 2
+    attn = 3 * 2 * 2 * pairs * cfg.resolved_head_dim * cfg.n_heads * batch
+    return 6.0 * n_params * tokens + attn * attn_layers
+
+
+def profile_train(phase: str, fn) -> dict | None:
+    """``fn()`` (one train step) under ``torch.profiler``: wall and device
+    time, idle share, each backward function's device time (its
+    ``record_function`` range, the kernels it launched included) and its
+    share of the step, and the top kernels. None when the profiler fails
+    (reported on the phase's line)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except (RuntimeError, AttributeError) as exc:
+        emit(phase, error=repr(exc))
+        return None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    except BaseException:
+        try:
+            prof.stop()
+        except (RuntimeError, AttributeError):
+            pass
+        raise
+    try:
+        prof.stop()
+        kernels, bwd = [], {}
+        labels = set(BWD_LABELS.values())
+        for e in prof.key_averages():
+            if e.key in labels:
+                if "CPU" in str(e.device_type):
+                    bwd[e.key] = dict(device_ms=e.device_time_total / 1e3,
+                                      host_ms=e.cpu_time_total / 1e3,
+                                      calls=e.count)
+            elif "CUDA" in str(e.device_type):
+                kernels.append((e.key, e.self_device_time_total, e.count))
+    except (RuntimeError, AttributeError) as exc:
+        emit(phase, error=repr(exc))
+        return None
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3
+    kernels.sort(key=lambda x: -x[1])
+    for v in bwd.values():
+        v["share_of_step"] = v["device_ms"] / wall_ms
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms, backward=bwd,
+                top=[dict(name=name[:80], ms=us / 1e3, count=cnt)
+                     for name, us, cnt in kernels[:10]])
+
+
+def train_run(dev, model, tokens, *, phase: str, mode: str, batch: int,
+              steps: int, compressor=None, edge_period: int = 0):
+    """``steps`` train steps of ``model`` (random float32 params, seed 0)
+    in ``mode`` on the rows of ``tokens``, then one more under the
+    profiler. Emits the phase's line: s a step split into forward,
+    backward, optimizer and cloud sync; tokens/s; peak memory; the loss at
+    every step (asserted finite); the kernels' launches and the backward
+    functions' calls (asserted); each backward's share of the profiled
+    step; the mfu. Returns (line fields, the train state)."""
+    import torch
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec
+    from repro_torch.utils import tree_size
+
+    cfg = model.cfg
+    seq = tokens.shape[1] - 1
+    shape = ShapeSpec(f"train_{seq}", seq, batch, "train")
+    bundle = make_train_step(model, shape, mode=mode, n_pods=TRAIN_PODS,
+                             compressor=compressor, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = tree_size(params)
+    params, opt, step = bundle.init_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = [tokens[i * batch:(i + 1) * batch].to(dev)
+               for i in range(steps + 1)]
+    mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+            "ssd_state_scan": ssd_scan}
+    for mod in mods.values():
+        mod.LAUNCHES = mod.BACKWARD_CALLS = 0
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for k in range(steps):
+        clock = StepClock()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, step, loss = bundle.step_fn(
+            params, opt, step, {"tokens": batches[k]}, clock=clock)
+        torch.cuda.synchronize()
+        row = dict(step=k, loss=float(loss),
+                   s=time.perf_counter() - t0,
+                   split_ms=clock.split())
+        if mode == "hierarchical" and (k + 1) % edge_period == 0:
+            t0 = time.perf_counter()
+            params, opt = bundle.cloud_sync_fn(params, opt)
+            torch.cuda.synchronize()
+            row["cloud_sync_s"] = time.perf_counter() - t0
+        rows.append(row)
+    peak = torch.cuda.max_memory_allocated()
+    launched = {name: (mod.LAUNCHES, mod.BACKWARD_CALLS)
+                for name, mod in mods.items()}
+    forwards = steps * bundle.n_pods
+    per_fwd = {"flash_attention": cfg.n_layers if cfg.family == "dense"
+               else 0,
+               "rmsnorm": 2 * cfg.n_layers + 1,
+               "ssd_state_scan": 0 if cfg.family == "dense"
+               else cfg.n_layers}
+    expected = {name: (forwards * n, forwards * n)
+                for name, n in per_fwd.items()}
+    prof = profile_train(phase + "_profile", lambda: bundle.step_fn(
+        params, opt, step.clone(), {"tokens": batches[steps]}))
+    warm = rows[1:] or rows
+    step_s = sum(r["s"] for r in warm) / len(warm)
+    syncs = [r["cloud_sync_s"] for r in rows if "cloud_sync_s" in r]
+    flops = train_flops(cfg, n_params, batch, seq)
+    fields = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_params=n_params, mode=mode, batch=batch, seq=seq,
+        pods=bundle.n_pods, dtype=cfg.dtype, param_dtype="float32",
+        compressor=None if compressor is None else repr(compressor),
+        edge_period=edge_period or None, init_s=init_s, steps=rows,
+        s_per_step_warm=step_s, s_first_step=rows[0]["s"],
+        split_ms_warm={key: sum(r["split_ms"].get(key, 0.0) for r in warm)
+                       / len(warm)
+                       for key in ("forward", "backward", "optimizer")},
+        cloud_sync_s=syncs, tokens_per_s=batch * seq / step_s,
+        max_memory_allocated=peak, peak_limit=TRAIN_PEAK_LIMIT,
+        launches={name: dict(kernel=v[0], backward=v[1],
+                             expected=list(expected[name]))
+                  for name, v in launched.items()},
+        model_flops_per_step=flops, peak_bf16_flops=PEAK_BF16_FLOPS,
+        mfu=flops / (step_s * PEAK_BF16_FLOPS), profile=prof)
+    emit(phase, **fields)
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{phase}: a loss is not finite: {losses}")
+    if launched != expected:
+        raise AssertionError(f"{phase}: launches {launched}, expected "
+                             f"{expected}")
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"{phase}: peak memory {peak} passes "
+                             f"{TRAIN_PEAK_LIMIT}")
+    return fields, (params, opt, step)
+
+
+def train_tokens(cfg, rows: int, seq: int):
+    """``rows`` sequences from one ``TokenPipeline`` draw (seed 0): its
+    cost is one pass over the sequence whatever the rows."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    t0 = time.perf_counter()
+    out = torch.as_tensor(next(TokenPipeline(cfg.vocab_size, seq, rows,
+                                             seed=0)))
+    return out, time.perf_counter() - t0
+
+
+def train_lm_path(dev) -> dict:
+    """Phases 22 and 23: full-width qwen3-0.6b (bf16 activations, float32
+    params and AdamW state) at sequence 4096: ``sync`` at batch 4 for 3
+    steps, then ``hierarchical`` with 2 pods x 2 sequences, a cloud sync
+    every 2 steps under ``TopKCompressor(0.01)``, 4 steps; then the
+    hierarchical train state through ``CheckpointManager`` and back, bit
+    for bit. Returns the launches of the kernels and backwards."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import TopKCompressor
+    from repro_torch.models import build_model
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    need = max(TRAIN_SYNC_STEPS, TRAIN_HIER_STEPS) + 1
+    tokens, data_s = train_tokens(
+        cfg, need * max(TRAIN_SYNC_BATCH, TRAIN_PODS * TRAIN_PER_POD),
+        TRAIN_SEQ)
+    launches = {}
+    sync, _ = train_run(dev, model, tokens, phase="train_lm_sync",
+                        mode="sync", batch=TRAIN_SYNC_BATCH,
+                        steps=TRAIN_SYNC_STEPS)
+    torch.cuda.empty_cache()
+    hier, state = train_run(dev, model, tokens, phase="train_lm_hierarchical",
+                            mode="hierarchical",
+                            batch=TRAIN_PODS * TRAIN_PER_POD,
+                            steps=TRAIN_HIER_STEPS,
+                            compressor=TopKCompressor(TRAIN_TOPK),
+                            edge_period=TRAIN_EDGE_PERIOD)
+    emit("train_lm_data", rows=tokens.shape[0], seq=TRAIN_SEQ,
+         pipeline_s=data_s)
+    checkpoint_phase(state)
+    del state
+    torch.cuda.empty_cache()
+    for name in sync["launches"]:
+        launches[name] = {key: sync["launches"][name][key]
+                          + hier["launches"][name][key]
+                          for key in ("kernel", "backward")}
+    return dict(launches=launches, sync=sync, hierarchical=hier)
+
+
+def checkpoint_phase(state) -> None:
+    """Phase 23: the hierarchical train state (pod-stacked params, AdamW
+    moments, step) saved through ``CheckpointManager`` (async, keep 2),
+    restored into its own tree and held bit for bit; seconds, bytes and
+    shards."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.utils import tree_leaves
+    params, opt, step = state
+    tree = {"params": params, "opt": opt, "step": step}
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        mgr = CheckpointManager(d, keep=2)
+        t0 = time.perf_counter()
+        mgr.save(int(step), tree, extras={"mode": "hierarchical"})
+        snapshot_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_step, got, extras = mgr.restore(tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        shards = len([f for f in os.listdir(os.path.join(
+            d, f"step_{int(step):010d}")) if f.startswith("shard_")])
+    same = [bool(torch.equal(a, b)) and a.dtype == b.dtype
+            and a.device == b.device
+            for a, b in zip(tree_leaves(got), tree_leaves(tree))]
+    emit("checkpoint", leaves=len(same), bytes=nbytes, disk_free=free,
+         shards=shards, step=got_step, extras=extras,
+         snapshot_s=snapshot_s, save_s=save_s, restore_s=restore_s,
+         bit_identical=all(same))
+    if not (all(same) and got_step == int(step)
+            and len(same) == len(tree_leaves(tree))):
+        raise AssertionError("checkpoint: the restored state differs")
+
+
+def train_ssm_path(dev) -> dict:
+    """Phase 24: mamba2-1.3b at full width (d_model 2048), depth cut to 8
+    of 48 layers, batch 2 x 2048, 2 ``sync`` steps: the scan kernel and
+    the gated norm with their backwards. Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(SSM_TRAIN_ARCH),
+                              n_layers=SSM_TRAIN_LAYERS)
+    model = build_model(cfg)
+    tokens, data_s = train_tokens(cfg, (SSM_TRAIN_STEPS + 1)
+                                  * SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
+    run, _ = train_run(dev, model, tokens, phase="train_ssm_sync",
+                       mode="sync", batch=SSM_TRAIN_BATCH,
+                       steps=SSM_TRAIN_STEPS)
+    emit("train_ssm_data", rows=tokens.shape[0], seq=SSM_TRAIN_SEQ,
+         pipeline_s=data_s)
+    torch.cuda.empty_cache()
+    return dict(launches={name: {key: v[key] for key in ("kernel",
+                                                         "backward")}
+                          for name, v in run["launches"].items()},
+                sync=run)
+
+
+def grad_close(got, want, rtol: float) -> tuple[float, bool]:
+    """Largest |got - want| and whether every entry is within rtol x
+    (|want| elementwise + the leaf's largest |want|)."""
+    import torch
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    err = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()
+              and (err <= rtol * (want.abs() + want.abs().max())).all())
+    return float(err.max()), ok
+
+
+def step_close(got, want, grads, lr: float) -> tuple[float, bool]:
+    """Parameters after AdamW's first step against a reference: entries
+    whose gradient ``grads`` is within ``TRAIN_TOL`` of zero (relative to
+    the leaf's largest) to lr, the rest as ``grad_close`` at
+    ``TRAIN_TOL``. For pod-stacked leaves the gradient is per pod."""
+    import torch
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    g = grads.detach().float().cpu().abs()
+    tiny = g <= TRAIN_TOL * g.max()
+    err = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()
+              and (err[tiny] <= lr * (1 + 1e-6)).all()
+              and (err[~tiny] <= TRAIN_TOL * (want.abs()[~tiny]
+                                              + want.abs().max())).all())
+    return float(err.max()), ok
+
+
+def backward_kernels(dev) -> dict:
+    """Phase 21: each backward function at the train shape on the card
+    (ms, and the bound of the same work), and card against CPU on the same
+    inputs (flash in bf16 under ``FLASH_TOL``, the norm and the scan in
+    float32 at ``GRAD_TOL_F32``). Returns per kernel: route, ms, bound,
+    max error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm, ssd_scan
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    # flash: the qwen3 train layer, and a (1, 1024) slice for the CPU check
+    b, s, hq, hkv, hd = TRAIN_SYNC_BATCH, TRAIN_SEQ, 16, 8, 128
+    q, g = (randn(b, s, hq, hd, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (randn(b, s, hkv, hd, dtype=torch.bfloat16) for _ in range(2))
+    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, g), reps=3)
+    pairs = s * (s + 1) // 2
+    ops = 2 * 5 * b * hq * hd * pairs          # S, dV, dP, dQ, dK
+    nbytes = 2 * b * s * hd * (3 * hq + 4 * hkv)   # q, g, dq; k, v, dk, dv
+    bound, by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
+    small = [x[:1, :1024].contiguous() for x in (q, k, v, g)]
+    got = fa.flash_attention_bwd(*small)
+    want = fa.flash_attention_bwd(*(x.cpu() for x in small))
+    errs, ok = {}, True
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        e, passed = flash_error(a.cpu(), w.float(), torch.zeros_like(
+            w.float()), "bfloat16")
+        errs[name] = e["max_abs_err"]
+        ok = ok and passed
+    out["flash_attention"] = dict(
+        route="plain PyTorch (float32 recompute; XLA autodiff's "
+        "counterpart)", shape=[b, s, hq, hkv, hd], dtype="bfloat16",
+        ms=ms, plain_full_square=True, bound_ms=bound, bound_by=by,
+        max_abs_err=max(errs.values()), errors=errs,
+        check_shape=[1, 1024, hq, hkv, hd], tolerance=FLASH_TOL["bfloat16"],
+        within=ok)
+    del q, k, v, g, small, got, want
+
+    # rmsnorm: the train path's rows (B x S of d_model), bf16
+    x = randn(b * s, 1024, dtype=torch.bfloat16)
+    gy = randn(b * s, 1024, dtype=torch.bfloat16)
+    scale = 1 + 0.1 * randn(1024)
+    ms = cuda_ms(lambda: rmsnorm.rmsnorm_bwd(x, scale, gy), reps=20)
+    bound, by = bound_ms(10 * x.numel(), 3 * x.numel() * 2 + 2 * 4096)
+    xf, gf = x[:4096].float(), gy[:4096].float()
+    got = rmsnorm.rmsnorm_bwd(xf, scale, gf)
+    want = rmsnorm.rmsnorm_bwd(xf.cpu(), scale.cpu(), gf.cpu())
+    pairs_ok = [grad_close(a, w, GRAD_TOL_F32) for a, w in zip(got, want)]
+    out["rmsnorm"] = dict(
+        route="plain PyTorch (closed form; XLA autodiff's counterpart)",
+        shape=list(x.shape), dtype="bfloat16", ms=ms, bound_ms=bound,
+        bound_by=by, max_abs_err=max(e for e, _ in pairs_ok),
+        check_shape=[4096, 1024], tolerance=GRAD_TOL_F32,
+        within=all(p for _, p in pairs_ok))
+    del x, gy, xf, gf, got, want
+
+    # the scan: mamba2-1.3b's train shape (8 chunks of 256)
+    nc, sb, h, n, p = SSM_TRAIN_SEQ // 256, SSM_TRAIN_BATCH, 64, 128, 64
+    states = randn(nc, sb, h, n, p)
+    decay = torch.rand(nc, sb, h, generator=gen, device=dev) * 0.7 + 0.3
+    ent, _ = ssd_scan.ssd_state_scan(states, decay)
+    g_ent, g_fin = randn(nc, sb, h, n, p), randn(sb, h, n, p)
+    ms = cuda_ms(lambda: ssd_scan.ssd_state_scan_bwd(decay, ent, g_ent,
+                                                     g_fin), reps=20)
+    bound, by = bound_ms(4 * states.numel(),
+                         4 * (3 * states.numel() + 2 * sb * h * n * p))
+    got = ssd_scan.ssd_state_scan_bwd(decay, ent, g_ent, g_fin)
+    want = ssd_scan.ssd_state_scan_bwd(decay.cpu(), ent.cpu(), g_ent.cpu(),
+                                       g_fin.cpu())
+    pairs_ok = [grad_close(a, w, GRAD_TOL_F32) for a, w in zip(got, want)]
+    out["ssd_state_scan"] = dict(
+        route="plain PyTorch (reverse recurrence; XLA autodiff's "
+        "counterpart)", shape=[nc, sb, h, n, p], dtype="float32", ms=ms,
+        bound_ms=bound, bound_by=by, max_abs_err=max(e for e, _ in pairs_ok),
+        tolerance=GRAD_TOL_F32, within=all(p_ for _, p_ in pairs_ok))
+    for name, line in out.items():
+        emit("backward", kernel=name, **line)
+        if not line["within"]:
+            raise AssertionError(f"{name} backward: card and CPU disagree")
+    return out
+
+
+def train_card_vs_cpu(dev) -> None:
+    """Phase 21: reduced qwen3-0.6b and mamba2-1.3b in float32 from the
+    same params, card (kernels) against CPU (plain versions): the loss and
+    gradients, one ``sync`` step, one ``hierarchical`` step, and its cloud
+    sync under TopK and under Int8 on identical inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Int8Compressor, TopKCompressor
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    lr = 1e-2
+    shape = ShapeSpec("train_check", 64, 4, "train")   # 2 chunks of 32
+    for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH):
+        cfg = get_config(arch).reduced(dtype="float32")
+        model = build_model(cfg)
+        cpu_params = model.init(torch.Generator().manual_seed(3))
+        toks = torch.tensor(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (4, 65)))
+        res, errs, ok = {}, {}, True
+        for where in ("card", "cpu"):
+            on = dev if where == "card" else torch.device("cpu")
+            params = tree_map(lambda p: p.to(on), cpu_params)
+            batch = {"tokens": toks.to(on)}
+            def grads_of(rows):
+                leaves = [p.detach().requires_grad_()
+                          for p in tree_leaves(params)]
+                loss = model.loss(tree_unflatten(params, leaves),
+                                  {"tokens": rows})
+                return loss, torch.autograd.grad(loss, leaves)
+
+            loss, grads = grads_of(batch["tokens"])
+            pod_grads = [torch.stack(gs) for gs in zip(
+                *(grads_of(batch["tokens"][2 * p:2 * p + 2])[1]
+                  for p in range(2)))]
+            bundle = make_train_step(model, shape, mode="sync", lr=lr,
+                                     device=on)
+            p1, o1, s1 = bundle.init_state(tree_map(torch.clone, params))
+            p1, o1, _, l1 = bundle.step_fn(p1, o1, s1, batch)
+            hb = make_train_step(model, shape, mode="hierarchical", lr=lr,
+                                 n_pods=2, device=on)
+            p2, o2, s2 = hb.init_state(params)
+            p2, o2, _, l2 = hb.step_fn(p2, o2, s2, batch)
+            res[where] = dict(loss=float(loss.detach()), grads=grads,
+                              pod_grads=pod_grads, p1=p1, o1=o1,
+                              l1=float(l1), p2=p2, o2=o2, l2=float(l2))
+        card, cpu = res["card"], res["cpu"]
+        errs["loss"] = max(abs(card[k] - cpu[k]) for k in ("loss", "l1",
+                                                            "l2"))
+        ok = all(math.isclose(card[k], cpu[k], rel_tol=TRAIN_TOL)
+                 for k in ("loss", "l1", "l2"))
+        checks = (("grads", card["grads"], cpu["grads"], None),
+                  ("sync_params", tree_leaves(card["p1"]),
+                   tree_leaves(cpu["p1"]), cpu["grads"]),
+                  ("sync_moments", tree_leaves(card["o1"]),
+                   tree_leaves(cpu["o1"]), None),
+                  ("hier_params", tree_leaves(card["p2"]),
+                   tree_leaves(cpu["p2"]), cpu["pod_grads"]),
+                  ("hier_moments", tree_leaves(card["o2"]),
+                   tree_leaves(cpu["o2"]), None))
+        for name, gots, wants, step_grads in checks:
+            if step_grads is None:
+                pairs = [grad_close(a, w, TRAIN_TOL)
+                         for a, w in zip(gots, wants)]
+            else:
+                pairs = [step_close(a, w, g, lr)
+                         for a, w, g in zip(gots, wants, step_grads)]
+            errs[name] = max(e for e, _ in pairs)
+            ok = ok and all(p for _, p in pairs)
+        # the cloud sync on identical inputs: the card's state after the
+        # hierarchical step, synced on the card and on the CPU
+        for cname, comp in (("topk", TopKCompressor(TRAIN_TOPK)),
+                            ("int8", Int8Compressor())):
+            sync_fn = make_train_step(model, shape, mode="hierarchical",
+                                      n_pods=2, compressor=comp,
+                                      device=dev).cloud_sync_fn
+            a = sync_fn(tree_map(torch.clone, card["p2"]),
+                        tree_map(torch.clone, card["o2"]))
+            w = sync_fn(tree_map(lambda t: t.cpu(), card["p2"]),
+                        tree_map(lambda t: t.cpu(), card["o2"]))
+            pairs = [grad_close(x, y, SYNC_TOL) for x, y in
+                     zip(tree_leaves(a), tree_leaves(w))]
+            errs[f"cloud_sync_{cname}"] = max(e for e, _ in pairs)
+            ok = ok and all(p for _, p in pairs)
+        emit("train_card_vs_cpu", arch=cfg.name + " (reduced)",
+             dtype="float32", lr=lr, tolerance=dict(
+                 train=TRAIN_TOL, cloud_sync=SYNC_TOL,
+                 tiny_gradient_entries="lr"),
+             max_abs_err=errs, loss_card=card["loss"], loss_cpu=cpu["loss"],
+             within=ok)
+        if not ok:
+            raise AssertionError(f"train_card_vs_cpu: {cfg.name} card and "
+                                 "CPU disagree")
+
+
+def train_entry(kernel: str, bwd: dict, train_lm: dict,
+                train_ssm: dict) -> dict:
+    """A kernel's launches on the train paths and its ``backward`` entry
+    for the ``kernels`` line: route, ms at the train shape and error
+    against the CPU (``bwd``), calls on the train paths and share of each
+    profiled step."""
+    lm, sm = (run["launches"][kernel] for run in (train_lm, train_ssm))
+    share = {}
+    for label, run in (("train_lm_sync", train_lm["sync"]),
+                       ("train_lm_hierarchical", train_lm["hierarchical"]),
+                       ("train_ssm", train_ssm["sync"])):
+        b = (run["profile"] or {}).get("backward", {}).get(
+            BWD_LABELS[kernel])
+        share[label] = None if b is None else b["share_of_step"]
+    return dict(kernel=lm["kernel"] + sm["kernel"],
+                by_path={"train_lm": lm["kernel"], "train_ssm": sm["kernel"]},
+                backward=dict(bwd[kernel], calls={
+                    "train_lm": lm["backward"], "train_ssm": sm["backward"]},
+                    share_of_step=share))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2681,6 +3268,17 @@ def main() -> int:
     def launched(kernel):
         return sum(run.get(kernel, 0) for run in ssm_launches)
 
+    # ---- 21-24. LM training: gradients through the kernels ----
+    bwd = backward_kernels(dev)
+    train_card_vs_cpu(dev)
+    train_lm = train_lm_path(dev)
+    train_ssm = train_ssm_path(dev)
+
+    no_train = {"train_lm": 0, "train_ssm": 0}
+    t_rms, t_fla, t_scan = (train_entry(k, bwd, train_lm, train_ssm)
+                            for k in ("rmsnorm", "flash_attention",
+                                      "ssd_state_scan"))
+
     cloud = agg["cloud"]
     rms, fla = serving["rmsnorm"], serving["flash_attention"]
     scan, fla80 = ssm["ssd_state_scan"], ssm["flash_attention_hd80"]
@@ -2697,8 +3295,9 @@ def main() -> int:
                                "live_path":
                                    live["launches"]["golden_section"],
                                "live_scale":
-                                   live_big["launches"]["golden_section"]},
-             library_ms=None, shape=list(masks.shape), **main_kernel,
+                                   live_big["launches"]["golden_section"],
+                               **no_train},
+             backward=None, library_ms=None, shape=list(masks.shape), **main_kernel,
              exchange_batch={key: ex_kernel[key] for key in (
                  "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                  "groups_not_bitwise")},
@@ -2714,8 +3313,9 @@ def main() -> int:
                                "live_path":
                                    live["launches"]["hier_aggregate"],
                                "live_scale":
-                                   live_big["launches"]["hier_aggregate"]},
-             max_abs_err=cloud["max_abs_err"],
+                                   live_big["launches"]["hier_aggregate"],
+                               **no_train},
+             backward=None, max_abs_err=cloud["max_abs_err"],
              ms=cloud["ms"], plain_ms=cloud["plain_ms"],
              bound_ms=cloud["bound_ms"], bound_by=cloud["bound_by"],
              library_ms=cloud["library_ms"], shape=cloud["shape"],
@@ -2726,7 +3326,12 @@ def main() -> int:
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:39",
-             launches=serve_launches["rmsnorm"] + launched("rmsnorm"),
+             launches=serve_launches["rmsnorm"] + launched("rmsnorm")
+             + t_rms["kernel"],
+             launches_by_path={"serving": serve_launches["rmsnorm"],
+                               "ssm_serving": launched("rmsnorm"),
+                               **t_rms["by_path"]},
+             backward=t_rms["backward"],
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
              ms_cold_l2=rms["ms_cold_l2"],
              plain_ms=rms["plain_ms"], bound_ms=rms["bound_ms"],
@@ -2736,7 +3341,11 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:103",
              launches=serve_launches["flash_attention"]
-             + launched("flash_attention"),
+             + launched("flash_attention") + t_fla["kernel"],
+             launches_by_path={"serving": serve_launches["flash_attention"],
+                               "ssm_serving": launched("flash_attention"),
+                               **t_fla["by_path"]},
+             backward=t_fla["backward"],
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
              ms_cold_l2=fla["ms_cold_l2"], tflops=fla["tflops"],
              plain_ms=fla["plain_ms"], bound_ms=fla["bound_ms"],
@@ -2748,7 +3357,10 @@ def main() -> int:
         dict(name="ssd_state_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:47",
-             launches=launched("ssd_state_scan"),
+             launches=launched("ssd_state_scan") + t_scan["kernel"],
+             launches_by_path={"ssm_serving": launched("ssd_state_scan"),
+                               **t_scan["by_path"]},
+             backward=t_scan["backward"],
              max_abs_err=scan["max_abs_err"], ms=scan["ms"],
              plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
              bound_by=scan["bound_by"], library_ms=None,

@@ -1,0 +1,5 @@
+from repro_torch.checkpoint.checkpoint import (CheckpointManager,
+                                               load_checkpoint,
+                                               save_checkpoint)
+
+__all__ = ["CheckpointManager", "load_checkpoint", "save_checkpoint"]

@@ -19,6 +19,7 @@ from repro_torch import DTYPE, resolve_device
 from repro_torch.core.cost_model import (DeviceParams, LearningParams,
                                          RAConstants, ServerParams)
 from repro_torch.core.scenario import Scenario
+from repro_torch.utils import tree_map
 
 
 def _tensors(cls, fields: Mapping, device: torch.device):
@@ -71,6 +72,24 @@ def fl_params_from_numpy(params: Mapping, n_clients: int,
             for name, value in params.items()}
 
 
+def tree_from_numpy(tree, device=None):
+    """A tree of tensors from nested mappings (and tuples) of numpy arrays,
+    leaf for leaf, each keeping its dtype: LM params, the AdamW state
+    ``{"m": ..., "v": ...}`` of ``repro.optim.adamw``, and pod-stacked
+    trees of the hierarchical train step (a leading pod axis on every
+    leaf) all carry across this way."""
+    dev = resolve_device(device)
+
+    def build(node):
+        if isinstance(node, Mapping):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return torch.tensor(np.asarray(node), device=dev)
+
+    return build(tree)
+
+
 def lm_params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
     """LM params from the JAX package's ``lm_init`` params as nested
     mappings of numpy arrays, leaf for leaf (``blocks`` stacked along the
@@ -79,12 +98,6 @@ def lm_params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
     :func:`repro_torch.models.transformer.cast_params`: matrices in
     ``dtype``, norm scales and biases float32, the same numbers."""
     from repro_torch.models.transformer import cast_params
-    dev = resolve_device(device)
-
-    def build(node):
-        if isinstance(node, Mapping):
-            return {k: build(v) for k, v in node.items()}
-        return torch.tensor(np.asarray(node, np.float32), device=dev)
-
-    params = build(tree)
+    params = tree_map(lambda t: t.to(torch.float32),
+                      tree_from_numpy(tree, device))
     return params if dtype is None else cast_params(params, dtype)

@@ -1,6 +1,6 @@
 """Core HFEL path of the port: cost model, scenario generation and churn,
 resource allocation, edge association and hierarchical aggregation (the
-names ``repro.core`` exports; update compression is not ported yet)."""
+names ``repro.core`` exports) and update compression."""
 
 from repro_torch.core.cost_model import (DeviceParams, LearningParams,
                                          RAConstants, ServerParams,
@@ -29,6 +29,7 @@ from repro_torch.core.assoc_fast import (FastAssociationEngine,
 from repro_torch.core.hierarchy import (SyncLevel, SyncSchedule,
                                         cloud_aggregate, edge_aggregate,
                                         hierarchical_sync, psum_mean)
+from repro_torch.core.compression import Int8Compressor, TopKCompressor
 
 __all__ = [
     "DeviceParams", "LearningParams", "RAConstants", "ServerParams",
@@ -44,4 +45,5 @@ __all__ = [
     "parked_slots", "repair_assignment", "solve_group",
     "SyncLevel", "SyncSchedule", "cloud_aggregate", "edge_aggregate",
     "hierarchical_sync", "psum_mean",
+    "Int8Compressor", "TopKCompressor",
 ]

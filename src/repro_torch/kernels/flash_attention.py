@@ -17,6 +17,14 @@ signature, and the kernel's tiles are its own choice.
 A CPU tensor goes to the plain version, :func:`repro_torch.kernels.ref.
 flash_attention_ref`. A CUDA tensor launches the kernel or raises; nothing
 falls back. ``LAUNCHES`` counts kernel launches, and only those.
+
+Gradients go through :class:`FlashAttentionFn` on both devices: its
+forward is :func:`flash_attention` (the kernel on the card), its backward
+:func:`flash_attention_bwd`, which recomputes attention in float32 in
+plain PyTorch and takes its VJP, as the JAX package's custom VJP
+(``repro/kernels/ops.py::_fa_bwd``) recomputes through its reference. It
+is the same code on the CPU and the card. ``BACKWARD_CALLS`` counts its
+backward calls.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+BACKWARD_CALLS = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's template instantiations
@@ -113,3 +122,69 @@ def launch(q, k, v, causal: bool, lib: ctypes.CDLL) -> torch.Tensor:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, *, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of attention (the function of :func:`ref.
+    flash_attention_ref`) at ``(q, k, v)`` for the output cotangent ``g``,
+    recomputed in float32: S = (q hd^-0.5) k^T under the top-left causal
+    mask, P = softmax(S), dV = P^T g, dP = g V^T, dS = P (dP - rowsum(P
+    dP)), dq = dS k hd^-0.5, dk = dS^T (q hd^-0.5). One batch element at a
+    time, so the transient score-sized tensors (P, dP/dS and one product)
+    are those of one sequence. Returns (dq, dk, dv) in the inputs' dtype.
+    """
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    grp = hq // hkv
+    scale = hd ** -0.5
+    f32 = torch.float32
+    mask = (torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
+            if causal else None)
+
+    def heads(x):          # (S, Hkv * G, hd) -> (Hkv, G * S, hd)
+        return (x.to(f32).reshape(sq, hkv, grp, hd).permute(1, 2, 0, 3)
+                .reshape(hkv, grp * sq, hd))
+
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for i in range(b):
+        qi = heads(q[i]) * scale
+        gi = heads(g[i])
+        ki = k[i].to(f32).transpose(0, 1)                  # (Hkv, Skv, hd)
+        vi = v[i].to(f32).transpose(0, 1)
+        s = qi @ ki.transpose(1, 2)                        # (Hkv, G*Sq, Skv)
+        if causal:
+            s.view(hkv, grp, sq, skv).masked_fill_(~mask, -1e30)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[i] = (p.transpose(1, 2) @ gi).transpose(0, 1).to(v.dtype)
+        ds = gi @ vi.transpose(1, 2)                       # dP
+        ds.sub_(torch.sum(p * ds, dim=-1, keepdim=True)).mul_(p)
+        del p
+        dq[i] = ((ds @ ki) * scale).reshape(hkv, grp, sq, hd).permute(
+            2, 0, 1, 3).reshape(sq, hq, hd).to(q.dtype)
+        dk[i] = (ds.transpose(1, 2) @ qi).transpose(0, 1).to(k.dtype)
+        del ds
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
+    backward; q, k and v are saved, no score-sized residual."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_kv):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal, block_q=block_q,
+                               block_kv=block_kv)
+
+    @staticmethod
+    def backward(ctx, g):
+        global BACKWARD_CALLS
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, g, causal=ctx.causal)
+        BACKWARD_CALLS += 1
+        return dq, dk, dv, None, None, None

@@ -4,6 +4,12 @@
 Dispatch is by the tensors' device, inside each wrapper: CPU tensors take
 the plain PyTorch version, CUDA tensors launch the hand-written kernel or
 raise.
+
+``flash_attention``, ``rmsnorm`` and ``ssd_state_scan`` are differentiable:
+when an input needs a gradient the call goes through the kernel's
+``torch.autograd.Function``, whose forward is the same dispatch and whose
+backward is one plain PyTorch function on both devices. Without a
+gradient the call goes to the dispatch directly.
 """
 
 from __future__ import annotations
@@ -11,28 +17,46 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd_scan as _ssd_scan
 from repro_torch.kernels.golden_section import golden_section_solve
 from repro_torch.kernels.hier_aggregate import hier_aggregate
-from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.ssd_scan import ssd_state_scan
 from repro_torch.utils import tree_leaves, tree_unflatten
 
 __all__ = ["flash_attention", "golden_section_solve", "hier_aggregate",
            "hier_aggregate_tree", "rmsnorm", "ssd_state_scan"]
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
                     block_kv: int = 512):
-    """Flash attention forward, with the JAX package's signature. Forward
-    only: the backward (a reference-recompute ``torch.autograd.Function``,
-    as the JAX package's custom VJP) comes with the training slice, so a
-    call that would need a gradient raises."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: ROADMAP queue 1 item "
-            "10(g), training")
+    """Flash attention with the JAX package's signature, differentiable
+    (:class:`flash_attention.FlashAttentionFn`)."""
+    if _needs_grad(q, k, v):
+        return _flash.FlashAttentionFn.apply(q, k, v, causal, block_q,
+                                             block_kv)
     return _flash.flash_attention(q, k, v, causal=causal, block_q=block_q,
                                   block_kv=block_kv)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    """RMSNorm over the last axis, differentiable
+    (:class:`rmsnorm.RMSNormFn`)."""
+    if _needs_grad(x, scale):
+        return _rmsnorm.RMSNormFn.apply(x, scale, eps)
+    return _rmsnorm.rmsnorm(x, scale, eps=eps)
+
+
+def ssd_state_scan(states, decay, initial_state=None):
+    """The SSD inter-chunk recurrence, differentiable
+    (:class:`ssd_scan.SSDStateScanFn`)."""
+    if _needs_grad(states, decay, initial_state):
+        return _ssd_scan.SSDStateScanFn.apply(states, decay, initial_state)
+    return _ssd_scan.ssd_state_scan(states, decay, initial_state)
 
 
 def hier_aggregate_tree(trees: list, weights):

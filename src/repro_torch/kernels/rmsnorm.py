@@ -14,6 +14,13 @@ this kernel (57 launches per qwen3-0.6b forward or decode step).
 A CPU tensor goes to the plain version, :func:`repro_torch.kernels.ref.
 rmsnorm_ref`. A CUDA tensor launches the kernel or raises; nothing falls
 back. ``LAUNCHES`` counts kernel launches, and only those.
+
+Gradients go through :class:`RMSNormFn` on both devices: its forward is
+:func:`rmsnorm` (the kernel on the card), its backward the closed form of
+:func:`rmsnorm_bwd` in plain PyTorch, the same code on the CPU and the
+card (the JAX package differentiates its plain ``apply_norm`` with XLA).
+:func:`repro_torch.kernels.ops.rmsnorm` takes the Function whenever an
+input needs a gradient. ``BACKWARD_CALLS`` counts its backward calls.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+BACKWARD_CALLS = 0
 
 # dtype code of the C entry point, and the vector widths (elements per
 # load) the kernel is instantiated for, widest first
@@ -112,3 +120,39 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
                            + lib.rmsnorm_error_string(rc).decode())
     LAUNCHES += 1
     return y
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of :func:`rmsnorm` at ``(x, scale)`` for the output
+    cotangent ``g``, in float32: with ``r = rsqrt(mean(x^2) + eps)`` and
+    ``gs = g * scale``, ``dx = r * (gs - x * r^2 * mean(gs * x))`` (cast
+    to x's dtype) and ``dscale = sum over rows of g * x * r`` (in scale's
+    dtype)."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).to(torch.float32)
+    gf = g.reshape(-1, d).to(torch.float32)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    gs = gf * scale.to(torch.float32)
+    dx = r * (gs - xf * (r * r) * torch.mean(gs * xf, dim=-1, keepdim=True))
+    dscale = torch.sum(gf * xf * r, dim=0)
+    return dx.to(x.dtype).reshape(x.shape), dscale.to(scale.dtype)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """:func:`rmsnorm` with :func:`rmsnorm_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        global BACKWARD_CALLS
+        x, scale = ctx.saved_tensors
+        with torch.profiler.record_function("rmsnorm_bwd"):
+            dx, dscale = rmsnorm_bwd(x, scale, g, eps=ctx.eps)
+        BACKWARD_CALLS += 1
+        return dx, dscale, None

@@ -14,6 +14,14 @@ prefill runs this kernel (48 launches per mamba2-1.3b forward).
 A CPU tensor goes to the plain version, :func:`repro_torch.kernels.ref.
 ssd_state_scan_ref`. A CUDA tensor launches the kernel or raises; nothing
 falls back. ``LAUNCHES`` counts kernel launches, and only those.
+
+Gradients go through :class:`SSDStateScanFn` on both devices: its forward
+is :func:`ssd_state_scan` (the kernel on the card), its backward the
+reverse recurrence of :func:`ssd_state_scan_bwd` in plain PyTorch, the
+same code on the CPU and the card (the JAX package's gradient comes from
+XLA's autodiff of its ``lax.scan``).
+:func:`repro_torch.kernels.ops.ssd_state_scan` takes the Function whenever
+an input needs a gradient. ``BACKWARD_CALLS`` counts its backward calls.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+BACKWARD_CALLS = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # dtype code of states
 
@@ -102,3 +111,51 @@ def ssd_state_scan(states: torch.Tensor, decay: torch.Tensor,
                            + lib.ssd_scan_error_string(rc).decode())
     LAUNCHES += 1
     return entering, final
+
+
+def ssd_state_scan_bwd(decay: torch.Tensor, entering: torch.Tensor,
+                       g_entering: torch.Tensor, g_final: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The VJP of :func:`ssd_state_scan` for the cotangents ``g_entering``
+    (NC, B, H, N, P) and ``g_final`` (B, H, N, P), given ``decay`` and the
+    forward's ``entering`` states. The reverse recurrence with a float32
+    carry G: G starts at g_final; for c = NC - 1 down to 0, g_states[c] =
+    G, g_decay[c] = sum over (N, P) of G * entering[c], G = g_entering[c]
+    + decay[c] * G; g_initial is G at the end. Returns (g_states, g_decay,
+    g_initial) in float32."""
+    f32 = torch.float32
+    dec = decay.to(f32)
+    carry = g_final.to(f32)
+    g_states = torch.empty(entering.shape, dtype=f32, device=entering.device)
+    g_decay = torch.empty(dec.shape, dtype=f32, device=dec.device)
+    for c in range(entering.shape[0] - 1, -1, -1):
+        g_states[c] = carry
+        g_decay[c] = torch.sum(carry * entering[c].to(f32), dim=(-2, -1))
+        carry = g_entering[c].to(f32) + dec[c][..., None, None] * carry
+    return g_states, g_decay, carry
+
+
+class SSDStateScanFn(torch.autograd.Function):
+    """:func:`ssd_state_scan` with :func:`ssd_state_scan_bwd` as its
+    backward. The entering states it saves are the forward's output, exact
+    for float32 states (the model's case)."""
+
+    @staticmethod
+    def forward(ctx, states, decay, initial_state):
+        entering, final = ssd_state_scan(states, decay, initial_state)
+        ctx.save_for_backward(decay, entering)
+        ctx.dtypes = (states.dtype, decay.dtype,
+                      None if initial_state is None else initial_state.dtype)
+        return entering, final
+
+    @staticmethod
+    def backward(ctx, g_entering, g_final):
+        global BACKWARD_CALLS
+        decay, entering = ctx.saved_tensors
+        with torch.profiler.record_function("ssd_state_scan_bwd"):
+            g_states, g_decay, g_init = ssd_state_scan_bwd(
+                decay, entering, g_entering, g_final)
+        BACKWARD_CALLS += 1
+        s_dt, d_dt, i_dt = ctx.dtypes
+        return (g_states.to(s_dt), g_decay.to(d_dt),
+                None if i_dt is None else g_init.to(i_dt))

@@ -3,7 +3,9 @@ the cached decode path, GQA / qk-norm / QKV-bias variants. Port of
 ``repro.models.attention``.
 
 All shapes are (batch, seq, heads, head_dim); softmax statistics in
-float32. Forward only: the training slice brings the backward. MLA and
+float32. The full-sequence path is differentiable: its scores go through
+:func:`ops.flash_attention`, whose backward recomputes attention in
+float32 (``kernels/flash_attention.py``). MLA and
 cross-attention (``cross_kv``) come with their families (ROADMAP queue 1
 items 10(c) and 10(e)).
 """

@@ -139,3 +139,72 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+# bytes of the float32 logits one chunk of rows of the cross entropy holds
+CE_CHUNK_BYTES = 1 << 28
+
+
+def _ce_chunks(rows: int, vocab: int):
+    step = max(1, CE_CHUNK_BYTES // (4 * vocab))
+    return [(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
+class CrossEntropyFn(torch.autograd.Function):
+    """Per-row ``logsumexp(logits) - logits[label]`` in float32, with the
+    VJP that autograd of that formula gives (``g * exp(x - logsumexp)``,
+    minus ``g`` at the label, cast to the logits' dtype), computed a chunk
+    of rows at a time. It saves the logits as they are and the row
+    statistics: autograd of the formula would hold the whole float32 copy
+    of the logits (10 GB for 4 x 4096 tokens at vocab 151,936) and build
+    two more of that size in its backward; XLA fuses them away in the JAX
+    package."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        vocab = logits.shape[-1]
+        flat = logits.reshape(-1, vocab)
+        idx = labels.reshape(-1, 1).long()
+        logz = torch.empty(flat.shape[0], dtype=torch.float32,
+                           device=logits.device)
+        for lo, hi in _ce_chunks(flat.shape[0], vocab):
+            logz[lo:hi] = torch.logsumexp(flat[lo:hi].to(torch.float32),
+                                          dim=-1)
+        gold = torch.gather(flat, -1, idx)[:, 0].to(torch.float32)
+        ctx.save_for_backward(logits, idx, logz)
+        return (logz - gold).reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, logz = ctx.saved_tensors
+        vocab = logits.shape[-1]
+        flat = logits.reshape(-1, vocab)
+        g = g.reshape(-1, 1).to(torch.float32)
+        grad = torch.empty_like(flat)
+        for lo, hi in _ce_chunks(flat.shape[0], vocab):
+            part = torch.exp(flat[lo:hi].to(torch.float32)
+                             - logz[lo:hi, None]) * g[lo:hi]
+            part.scatter_add_(-1, idx[lo:hi], -g[lo:hi])
+            grad[lo:hi] = part.to(grad.dtype)
+        return grad.reshape(logits.shape), None
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE in float32. logits (..., V), labels (...) int.
+
+    The per-token losses come from :class:`CrossEntropyFn` (float32
+    logsumexp, the gold logit read with ``torch.gather``), then the mean,
+    or the masked mean ``sum(nll * mask) / max(sum(mask), 1)``. The JAX
+    package selects the gold logit with an iota-compare and masked sum,
+    for vocab-sharded logits; on one card the two are bit-equal (one
+    non-zero plus zeros is exact), and the gather's backward needs no
+    (..., V) one-hot."""
+    nll = CrossEntropyFn.apply(logits, labels)
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,5 +1,5 @@
-"""Model facade: a uniform init / logits / decode interface, plus the
-(arch x shape) grid's shape specs. Port of ``repro.models.model``; the
+"""Model facade: a uniform init / loss / logits / decode interface, plus
+the (arch x shape) grid's shape specs. Port of ``repro.models.model``; the
 dense, SSM and hybrid families so far.
 """
 
@@ -39,7 +39,7 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> bool:
 
 
 class Model:
-    """Family-dispatched facade used by the serving launcher."""
+    """Family-dispatched facade used by the train and serve launchers."""
 
     def __init__(self, cfg: ModelConfig):
         transformer.require_ported(cfg)
@@ -61,8 +61,8 @@ class Model:
     # -- training -----------------------------------------------------------
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            "Model.loss: ROADMAP queue 1 item 10(g), training")
+        """Scalar training loss of ``batch`` (``tokens`` (B, S+1))."""
+        return transformer.lm_loss(params, self.cfg, batch)
 
     def logits(self, params, batch):
         out, _ = transformer.lm_forward(
@@ -82,6 +82,16 @@ class Model:
 
     def decode_step(self, params, cache, tokens):
         return transformer.lm_decode_step(params, self.cfg, cache, tokens)
+
+
+    # -- shapes -------------------------------------------------------------
+
+    def batch_specs(self, shape: ShapeSpec, *,
+                    batch_override: int | None = None) -> dict:
+        """The training batch of ``shape`` as (shape, dtype) pairs: tokens
+        (B, seq_len + 1) int32."""
+        b = batch_override or shape.global_batch
+        return {"tokens": ((b, shape.seq_len + 1), torch.int32)}
 
 
 def build_model(cfg: ModelConfig) -> Model:

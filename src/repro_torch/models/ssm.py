@@ -99,12 +99,13 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int, initial_state=None):
     # masked decay attention. Mask BEFORE the exp: the masked (future)
     # entries have rel > 0 and exp(rel) overflows to inf
     causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    # (out of place from the exp on, so autograd can differentiate it)
     att = (seg[..., :, None] - seg[..., None, :]).masked_fill_(~causal, _NEG)
     att = att.exp_()                                       # (B, NC, H, Q, T)
     scores = cm @ bm.transpose(-1, -2)                     # (B, NC, G, Q, T)
     # scores * decay * dt, head h reading group h // hg
-    att.view(bsz, nc, g, hg, chunk, chunk).mul_(scores[:, :, :, None])
-    att.mul_(dtc[..., None, :])
+    att = (att.view(bsz, nc, g, hg, chunk, chunk) * scores[:, :, :, None]
+           ).view(bsz, nc, h, chunk, chunk) * dtc[..., None, :]
     y = att @ xc                                           # (B, NC, H, Q, P)
     del att, scores
     w_state = torch.exp(seg[..., -1:] - seg) * dtc         # (B, NC, H, Q)

@@ -14,9 +14,9 @@ import torch
 
 from repro_torch.models.attention import (attention, attention_decode,
                                           attention_init, init_kv_cache)
-from repro_torch.models.layers import (apply_norm, dense, dense_init, embed,
-                                       embedding_init, mlp, mlp_init,
-                                       norm_init, unembed)
+from repro_torch.models.layers import (apply_norm, cross_entropy, dense,
+                                       dense_init, embed, embedding_init,
+                                       mlp, mlp_init, norm_init, unembed)
 from repro_torch.models.ssm import (init_ssm_cache, ssm_apply, ssm_decode,
                                     ssm_init)
 from repro_torch.utils import tree_map
@@ -181,6 +181,18 @@ def lm_forward(params, cfg, tokens, *, prefix_embeds=None):
     x = embed(params["embed"], tokens).to(activation_dtype(cfg))
     x, aux = _run_stack(params, cfg, x)
     return _read_out(params, cfg, x), aux
+
+
+def lm_loss(params, cfg, batch):
+    """batch: {tokens (B, S+1)[, loss_mask (B, S)]} -> scalar loss: the
+    mean next-token cross entropy plus ``0.01 * aux`` (aux is zero for the
+    ported families)."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = lm_forward(params, cfg, inputs,
+                             prefix_embeds=batch.get("prefix_embeds"))
+    loss = cross_entropy(logits, labels, batch.get("loss_mask"))
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

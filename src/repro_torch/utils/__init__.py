@@ -3,6 +3,7 @@ from repro_torch.utils.trees import (
     tree_cast,
     tree_global_norm,
     tree_leaves,
+    tree_leaves_with_path,
     tree_map,
     tree_scale,
     tree_size,
@@ -17,6 +18,7 @@ __all__ = [
     "tree_cast",
     "tree_global_norm",
     "tree_leaves",
+    "tree_leaves_with_path",
     "tree_map",
     "tree_scale",
     "tree_size",

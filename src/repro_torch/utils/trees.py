@@ -20,6 +20,19 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree, prefix: tuple = ()) -> list:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order; a path is the
+    tuple of dict keys and sequence indices from the root, as
+    ``jax.tree_util.tree_flatten_with_path`` gives them."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in tree_leaves_with_path(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, t in enumerate(tree)
+                for pair in tree_leaves_with_path(t, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 def tree_unflatten(like, leaves):
     """A tree of ``like``'s structure holding ``leaves`` (in
     :func:`tree_leaves` order)."""

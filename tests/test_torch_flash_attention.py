@@ -148,13 +148,18 @@ def test_causal_mask_is_aligned_top_left(sq, skv):
 
 
 def test_ops_is_forward_only():
+    """Without a gradient ``ops.flash_attention`` is the forward alone (the
+    plain version on the CPU); an input that needs a gradient takes the
+    differentiable Function, whose backward ``test_torch_train_grads.py``
+    holds to JAX's."""
     q, k, v = (torch.tensor(x) for x in inputs(1, 8, 8, 2, 2, 16, 0))
     before = tfa.LAUNCHES
     with torch.no_grad():
-        tops.flash_attention(q.requires_grad_(), k, v)
+        assert tops.flash_attention(q.requires_grad_(), k, v).grad_fn is None
     assert tfa.LAUNCHES == before          # the plain version on the CPU
-    with pytest.raises(NotImplementedError, match="10\\(g\\)"):
-        tops.flash_attention(q, k, v)
+    out = tops.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out, tref.flash_attention_ref(q, k, v))
 
 
 def test_wrapper_checks_its_inputs():

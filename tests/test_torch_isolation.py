@@ -42,7 +42,10 @@ def test_port_import_leaves_jax_unloaded():
             "repro_torch.data, repro_torch.core.hierarchy, "
             "repro_torch.fl.live, "
             "repro_torch.configs, repro_torch.models, "
-            "repro_torch.launch.serve, repro_torch.launch.steps; "
+            "repro_torch.launch.serve, repro_torch.launch.steps, "
+            "repro_torch.launch.train, repro_torch.optim, "
+            "repro_torch.checkpoint, repro_torch.runtime, "
+            "repro_torch.core.compression, repro_torch.data.tokens; "
             "assert 'jax' not in sys.modules, 'jax was imported'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro was imported'")
