@@ -175,7 +175,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 21. LM training: first ``backward``, each kernel's backward function
    (flash's float32 recompute, rmsnorm's closed form, the scan's reverse
    recurrence; plain PyTorch, the same code as on the CPU) at the train
-   shapes, with its ms and bound, and card against CPU on the same inputs
+   shapes, with its ms and bound, the library call's backward at the same
+   shape (``scaled_dot_product_attention``'s and ``rms_norm``'s autograd
+   backward; the scan has none), and card against CPU on the same inputs
    (flash in bf16 under ``FLASH_TOL``, the others in float32 at 1e-5);
    then ``train_card_vs_cpu``: reduced qwen3-0.6b and mamba2-1.3b in
    float32, the loss, gradients, one ``sync`` and one ``hierarchical``
@@ -200,10 +202,40 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 24. ``train_ssm_sync``: mamba2-1.3b at full width with its depth cut to 8
    of 48 layers, batch 2 x 2048, 2 ``sync`` steps, the same fields.
 
+25. MoE + MLA serving, deepseek-v2-lite-16b. (a) ``kernel``: flash at
+   head dim 192 (MLA's prefill: q, k of 128 + 64 columns, v padded to 192)
+   against its plain version at the layer shape (B=4, S=4096, 16 heads,
+   bf16, causal) under ``FLASH_TOL``, the three planted faults rejected
+   there, and in float32 at ragged shapes; warm and L2-cold times, the
+   bound (v at 192 and at its useful 128 columns), SDPA's time, registers
+   and spills (asserted spill-free); rmsnorm at d_model 2048 in bf16 (8
+   held vectors, the instantiation this path runs) bit for bit against
+   its plain version at the prefill's 16,384 rows and the decode step's
+   8, timed. (b) ``moe_prefill_path``: the full
+   model (27 layers, 64 experts top-6 + 2 shared, random weights from
+   seed 0) built as the bf16 serving copy a layer at a time (init seconds
+   and peak), ``Model.logits`` on 4 x 4096 tokens: s per forward,
+   tokens/s, launches (27 flash and 55 rmsnorm per forward, asserted),
+   peak memory (asserted under 75 GB); ``moe_layer``: one MoE layer at the
+   prefill shape under ``set_sync_debug_mode("error")`` (no host sync);
+   ``moe_prefill_profile``: device time of flash, GEMMs, the MoE dispatch
+   and the rest, idle share. (c) ``moe_serve_path``: 8 requests of a
+   64-token prompt and 32 greedy tokens through ``serve_shape``: ms per
+   step, launches (0 flash, 55 rmsnorm a step, asserted), the MLA cache's
+   bytes (asserted equal to ``cache_bytes``), the bf16 decode-vs-prefill
+   gap and the positions whose top-k routing differs between the two
+   paths (reported); ``moe_serve_profile``. (d) ``moe_card_vs_cpu``:
+   reduced deepseek (MLA at 16 + 8 columns, padded to the kernel's 32) and
+   kimi-k2 in float32, card vs CPU within 1e-4, greedy tokens identical.
+   (e) ``moe_decode_vs_prefill``: the full width cut to 4 layers (1 dense
+   + 3 MoE), float32, capacity factor 64: decode within 2e-3 of the
+   prefill (asserted), the routing differences reported.
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
 with each path's, phases 16-19's and the HFEL scheme runs' beside them;
 rmsnorm, flash and the scan add their train paths' launches and a
-``backward`` entry), the raw ``nvidia-smi`` line, and as the last line
+``backward`` entry; rmsnorm and flash phase 25's launches, rmsnorm a
+``d2048`` entry and flash an ``hd192`` entry), the raw ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -703,6 +735,54 @@ def rmsnorm_decode_split(x, scale, calls: int = 200) -> dict:
                 stream_lookup_us=lookup_us, calls=calls)
 
 
+def rmsnorm_case(gen, case: str, rows: int, d: int, dtype, flush,
+                 ptxas: dict, timed: bool):
+    """The rmsnorm kernel on random (rows, d) ``dtype`` input against its
+    plain version, bit for bit (raises otherwise); ``timed`` adds warm and
+    L2-cold times, the plain version's and ``F.rms_norm``'s, the bound and
+    the instantiation's ptxas report. Returns (fields, x, scale)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref, rmsnorm
+    dev = gen.device
+    x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    got = rmsnorm.rmsnorm(x, scale)
+    torch.cuda.synchronize()
+    vec = rmsnorm.vector_width(d, dtype)
+    want = ref.rmsnorm_ref(x, scale, vec=vec)
+    err = float((got.float() - want.float()).abs().max())
+    fields = dict(kernel="rmsnorm", case=case, shape=[rows, d],
+                  dtype=str(dtype).removeprefix("torch."), vector_width=vec,
+                  held_vectors=rmsnorm.held_vectors(d, vec),
+                  tolerance="bitwise", max_abs_err=err)
+    if not (torch.equal(got, want) and torch.isfinite(got.float()).all()):
+        emit("kernel", **fields)
+        raise AssertionError(f"rmsnorm {case} {rows}x{d} disagrees with its "
+                             "plain version")
+    if timed:
+        nbytes = 2 * rows * d * x.element_size() + d * 4
+        b_ms, b_by = bound_ms(4 * rows * d, nbytes)
+        k_ms = cuda_ms(lambda: rmsnorm.rmsnorm(x, scale), reps=100)
+        w = scale.to(dtype)
+        lib = getattr(F, "rms_norm", None)      # torch 2.4 and later
+        fields.update(
+            ms=k_ms, ms_cold_l2=cuda_ms_cold(
+                lambda: rmsnorm.rmsnorm(x, scale), 50, flush),
+            plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(x, scale, vec=vec),
+                             reps=5),
+            library_ms=None if lib is None else cuda_ms(
+                lambda: lib(x, (d,), w, 1e-6), reps=100),
+            library_ms_cold_l2=None if lib is None else cuda_ms_cold(
+                lambda: lib(x, (d,), w, 1e-6), 50, flush),
+            library="torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)",
+            bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+            bound_share=b_ms / k_ms,
+            ptxas=ptxas.get(f"T={'f32' if dtype == torch.float32 else 'bf16'}"
+                            f",V={vec},K={fields['held_vectors']}"))
+    return fields, x, scale
+
+
 def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
     """Phase 8: rmsnorm and flash_attention against their plain versions
     at the serving path's shapes and at ragged ones, with warm and
@@ -725,45 +805,12 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
                                  ("ragged", 3, 3584, f32),
                                  ("ragged", 7, 1030, bf16),
                                  ("prefill_f32", 4096, 1024, f32)):
-        x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
-        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        got = rmsnorm.rmsnorm(x, scale)
-        torch.cuda.synchronize()
-        want = ref.rmsnorm_ref(x, scale, vec=rmsnorm.vector_width(d, dtype))
-        err = float((got.float() - want.float()).abs().max())
-        fields = dict(kernel="rmsnorm", case=case, shape=[rows, d],
-                      dtype=str(dtype).removeprefix("torch."),
-                      vector_width=rmsnorm.vector_width(d, dtype),
-                      tolerance="bitwise", max_abs_err=err)
-        if not (torch.equal(got, want) and torch.isfinite(got.float()).all()):
-            emit("kernel", **fields)
-            raise AssertionError(f"rmsnorm {case} {rows}x{d} disagrees with "
-                                 "its plain version")
+        fields, x, scale = rmsnorm_case(gen, case, rows, d, dtype, flush,
+                                        ptxas["rmsnorm"],
+                                        timed=case in ("prefill", "decode"))
+        if case == "decode":    # host-bound: the wrapper's cost apart
+            fields.update(rmsnorm_decode_split(x, scale))
         if case in ("prefill", "decode"):
-            nbytes = 2 * rows * d * x.element_size() + d * 4
-            b_ms, b_by = bound_ms(4 * rows * d, nbytes)
-            k_ms = cuda_ms(lambda: rmsnorm.rmsnorm(x, scale), reps=100)
-            w = scale.to(dtype)
-            lib = getattr(F, "rms_norm", None)      # torch 2.4 and later
-            vec = rmsnorm.vector_width(d, dtype)
-            fields.update(
-                ms=k_ms, ms_cold_l2=cuda_ms_cold(
-                    lambda: rmsnorm.rmsnorm(x, scale), 50, flush),
-                plain_ms=cuda_ms(lambda: ref.rmsnorm_ref(
-                    x, scale, vec=vec), reps=5),
-                library_ms=None if lib is None else cuda_ms(
-                    lambda: lib(x, (d,), w, 1e-6), reps=100),
-                library_ms_cold_l2=None if lib is None else cuda_ms_cold(
-                    lambda: lib(x, (d,), w, 1e-6), 50, flush),
-                library="torch.nn.functional.rms_norm(x, (d,), scale, 1e-6)",
-                bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
-                bound_share=b_ms / k_ms,
-                held_vectors=rmsnorm.held_vectors(d, vec),
-                ptxas=ptxas["rmsnorm"].get(
-                    f"T={'f32' if dtype == f32 else 'bf16'},V={vec},"
-                    f"K={rmsnorm.held_vectors(d, vec)}"))
-            if case == "decode":    # host-bound: the wrapper's cost apart
-                fields.update(rmsnorm_decode_split(x, scale))
             main.setdefault("rmsnorm", fields)
         emit("kernel", **fields)
 
@@ -848,22 +895,30 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
 def profile_forward(model, params, batch,
                     phase: str = "prefill_profile") -> None:
     """One more forward under ``torch.profiler``: device time of the flash,
-    ssd_scan and rmsnorm kernels, the GEMMs (float32 ones apart) and the
-    rest, and the device's idle share of the forward (profiler on)."""
+    ssd_scan and rmsnorm kernels, the GEMMs (float32 ones apart), for a
+    MoE model its dispatch (top-k, sort, search, scatter and gather
+    kernels), and the rest, and the device's idle share of the forward
+    (profiler on)."""
     gemm = re.compile(r"gemm|cutlass|xmma|nvjet|cublas|sm90_", re.I)
     f32_gemm = re.compile(r"sgemm|f32f32|fp32|tf32", re.I)
+    dispatch = re.compile(r"sort|radix|searchsorted|topk|index|scatter|"
+                          r"gather", re.I)
     run = profiled(phase, lambda: model.logits(params, batch))
     if run is None:
         return
     wall_s, rows = run
     split = {"flash_attention": 0.0, "ssd_state_scan": 0.0, "gemm": 0.0,
              "gemm_f32": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    if model.cfg.moe is not None:
+        split["moe_dispatch"] = 0.0
     for name, us, _ in rows:
         key = ("flash_attention" if "flash_fwd" in name else
                "ssd_state_scan" if "ssd_scan_kernel" in name else
                "rmsnorm" if "rmsnorm_kernel" in name else
                ("gemm_f32" if f32_gemm.search(name) else "gemm")
-               if gemm.search(name) else "other")
+               if gemm.search(name) else
+               "moe_dispatch" if "moe_dispatch" in split
+               and dispatch.search(name) else "other")
         split[key] += us / 1e3
     busy_ms = sum(split.values())
     rows.sort(key=lambda x: -x[1])
@@ -922,8 +977,8 @@ def serving_paths(dev) -> dict:
     cfg = get_config("qwen3-0.6b")
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    params = model.serving_params(params)    # the copy the server keeps
+    # the copy the server keeps, built a layer at a time
+    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(params))
@@ -1031,8 +1086,8 @@ def serving_paths(dev) -> dict:
 
 def serve_card_vs_cpu(dev, arch: str = "qwen3-0.6b", n_tokens: int = 33,
                       phase: str = "serve_card_vs_cpu") -> None:
-    """Phase 11 (and 15): reduced ``arch`` in float32, the same params on
-    the card (kernels) and the CPU (plain versions): logits of
+    """Phase 11 (and 15, 25d): reduced ``arch`` in float32, the same params
+    on the card (kernels) and the CPU (plain versions): logits of
     ``n_tokens - 1`` positions, 8 prompt and 8 decode steps."""
     import numpy as np
     import torch
@@ -1240,8 +1295,8 @@ def ssm_prefill_path(dev, arch: str) -> dict:
     cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.serving_params(                 # random, seed 0, bf16
-        model.init(torch.Generator(device=dev).manual_seed(0)))
+    params = model.init_serving(                   # random, seed 0, bf16
+        torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in tree_leaves(params))
@@ -2625,12 +2680,26 @@ def step_close(got, want, grads, lr: float) -> tuple[float, bool]:
     return float(err.max()), ok
 
 
+def library_bwd_ms(fn, inputs, g, reps: int) -> float:
+    """Milliseconds of the backward alone of one PyTorch call ``fn(*inputs)``
+    (its autograd graph built once, then ``torch.autograd.grad`` with the
+    graph retained, ``reps`` times)."""
+    import torch
+    leaves = [x.detach().requires_grad_(True) for x in inputs]
+    with torch.enable_grad():
+        out = fn(*leaves)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                               retain_graph=True), reps=reps)
+
+
 def backward_kernels(dev) -> dict:
     """Phase 21: each backward function at the train shape on the card
-    (ms, and the bound of the same work), and card against CPU on the same
-    inputs (flash in bf16 under ``FLASH_TOL``, the norm and the scan in
-    float32 at ``GRAD_TOL_F32``). Returns per kernel: route, ms, bound,
-    max error."""
+    (ms, and the bound of the same work), the library call's backward at
+    the same shape where one PyTorch call computes the function
+    (``scaled_dot_product_attention``, ``rms_norm``), and card against CPU
+    on the same inputs (flash in bf16 under ``FLASH_TOL``, the norm and the
+    scan in float32 at ``GRAD_TOL_F32``). Returns per kernel: route, ms,
+    bound, library ms, max error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm, ssd_scan
@@ -2645,6 +2714,10 @@ def backward_kernels(dev) -> dict:
     q, g = (randn(b, s, hq, hd, dtype=torch.bfloat16) for _ in range(2))
     k, v = (randn(b, s, hkv, hd, dtype=torch.bfloat16) for _ in range(2))
     ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, g), reps=3)
+    lib_ms = library_bwd_ms(
+        lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, is_causal=True, enable_gqa=True),
+        [x.transpose(1, 2) for x in (q, k, v)], g.transpose(1, 2), reps=10)
     pairs = s * (s + 1) // 2
     ops = 2 * 5 * b * hq * hd * pairs          # S, dV, dP, dQ, dK
     nbytes = 2 * b * s * hd * (3 * hq + 4 * hkv)   # q, g, dq; k, v, dk, dv
@@ -2662,6 +2735,8 @@ def backward_kernels(dev) -> dict:
         route="plain PyTorch (float32 recompute; XLA autodiff's "
         "counterpart)", shape=[b, s, hq, hkv, hd], dtype="bfloat16",
         ms=ms, plain_full_square=True, bound_ms=bound, bound_by=by,
+        library_ms=lib_ms, library="scaled_dot_product_attention(is_causal="
+        "True, enable_gqa=True), its autograd backward",
         max_abs_err=max(errs.values()), errors=errs,
         check_shape=[1, 1024, hq, hkv, hd], tolerance=FLASH_TOL["bfloat16"],
         within=ok)
@@ -2672,6 +2747,9 @@ def backward_kernels(dev) -> dict:
     gy = randn(b * s, 1024, dtype=torch.bfloat16)
     scale = 1 + 0.1 * randn(1024)
     ms = cuda_ms(lambda: rmsnorm.rmsnorm_bwd(x, scale, gy), reps=20)
+    lib_ms = library_bwd_ms(
+        lambda x_, w_: torch.nn.functional.rms_norm(x_, (1024,), w_, 1e-6),
+        [x, scale.to(x.dtype)], gy, reps=20)
     bound, by = bound_ms(10 * x.numel(), 3 * x.numel() * 2 + 2 * 4096)
     xf, gf = x[:4096].float(), gy[:4096].float()
     got = rmsnorm.rmsnorm_bwd(xf, scale, gf)
@@ -2680,7 +2758,9 @@ def backward_kernels(dev) -> dict:
     out["rmsnorm"] = dict(
         route="plain PyTorch (closed form; XLA autodiff's counterpart)",
         shape=list(x.shape), dtype="bfloat16", ms=ms, bound_ms=bound,
-        bound_by=by, max_abs_err=max(e for e, _ in pairs_ok),
+        bound_by=by, library_ms=lib_ms,
+        library="rms_norm(x, (d,), scale, 1e-6), its autograd backward",
+        max_abs_err=max(e for e, _ in pairs_ok),
         check_shape=[4096, 1024], tolerance=GRAD_TOL_F32,
         within=all(p for _, p in pairs_ok))
     del x, gy, xf, gf, got, want
@@ -2702,7 +2782,8 @@ def backward_kernels(dev) -> dict:
     out["ssd_state_scan"] = dict(
         route="plain PyTorch (reverse recurrence; XLA autodiff's "
         "counterpart)", shape=[nc, sb, h, n, p], dtype="float32", ms=ms,
-        bound_ms=bound, bound_by=by, max_abs_err=max(e for e, _ in pairs_ok),
+        bound_ms=bound, bound_by=by, library_ms=None,
+        max_abs_err=max(e for e, _ in pairs_ok),
         tolerance=GRAD_TOL_F32, within=all(p_ for _, p_ in pairs_ok))
     for name, line in out.items():
         emit("backward", kernel=name, **line)
@@ -2806,6 +2887,392 @@ def train_card_vs_cpu(dev) -> None:
         if not ok:
             raise AssertionError(f"train_card_vs_cpu: {cfg.name} card and "
                                  "CPU disagree")
+
+
+# ---------------------------------------------------------------------------
+# 25. MoE + MLA serving: deepseek-v2-lite-16b on the card
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 8, 64, 32
+# phase 25e: full width at depth 4 (the dense layer and 3 MoE layers) in
+# float32, a capacity factor of 64 (no pair drops, as tests/test_models.py
+# sets it), decode against prefill at tests/test_models.py's 2e-3
+MOE_F32_LAYERS, MOE_F32_REQUESTS, MOE_F32_PROMPT = 4, 4, 48
+MOE_GAP_F32 = 2e-3
+MOE_PEAK_LIMIT = 75e9     # bytes, the acceptance bound on the card's 80 GB
+
+
+def spill_free(report: str | None) -> bool:
+    return bool(report) and "0 bytes spill stores, 0 bytes spill loads" \
+        in report
+
+
+def mla_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
+    """Phase 25a: the flash kernel at head dim 192 (MLA's prefill, q and k
+    of 128 + 64 columns, v padded to 192) against its plain version: at
+    deepseek-v2-lite's layer (B=4, S=4096, 16 heads, bf16, causal) under
+    ``FLASH_TOL`` with the three planted faults rejected there too, and in
+    float32 at ragged shapes. The layer's line: warm and L2-cold times, the
+    bound (v at 192 columns, and at its useful 128), its share, TFLOP/s,
+    SDPA's time at the same shape, registers and spills of both
+    instantiations (asserted spill-free). Returns the layer's fields."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    gen = torch.Generator(device=dev).manual_seed(25)
+    bf16, f32 = torch.bfloat16, torch.float32
+    flush = l2_flush(dev)
+    reports = {t: ptxas.get(f"{t},HD=192") for t in ("bf16", "f32")}
+    main = None
+    for case, b, sq, skv, hq, hkv, dtype, causal in (
+            ("layer", PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 16, 16, bf16,
+             True),
+            ("ragged", 2, 333, 333, 4, 2, f32, True),
+            ("top_left", 1, 70, 130, 4, 4, f32, True),
+            ("full", 1, 200, 170, 4, 4, f32, False),
+            ("ragged", 2, 333, 333, 4, 2, bf16, True)):
+        hd = 192
+        q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
+        guard = f"flash_attention hd192 {case}"
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        await_card("kernel", guard)
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal)
+        tname = str(dtype).removeprefix("torch.")
+        want_abs = None if dtype == f32 else ref.flash_attention_ref(
+            q.float(), k.float(), v.float().abs(), causal=causal)
+        measures, ok = flash_error(got, want, want_abs, tname)
+        fields = dict(kernel="flash_attention", case=f"hd192_{case}",
+                      shape=[b, sq, skv, hq, hkv, hd], dtype=tname,
+                      causal=causal, **measures)
+        if not ok:
+            emit("kernel", **fields)
+            raise AssertionError(f"flash_attention hd 192 {case} disagrees "
+                                 "with its plain version")
+        if case == "layer":
+            for fault, lib in fault_libs.items():
+                bad = flash_attention.launch(q, k, v, causal, lib)
+                await_card("fault", f"flash_attention hd192 fault {fault}")
+                f_measures, passed = flash_error(bad, want, want_abs, tname)
+                emit("fault", kernel="flash_attention", fault=fault,
+                     case="hd192_layer", caught=not passed, **f_measures)
+                if passed:
+                    raise AssertionError(f"the tolerance lets the planted "
+                                         f"fault {fault} pass at hd 192")
+                del bad
+            ops, nbytes = attention_work(b, sq, skv, hq, hkv, hd, causal, 2)
+            # the useful work: P V over v's 128 columns, not the padding
+            ops_v128 = ops * (192 + 128) // (2 * 192)
+            b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
+            b128_ms, _ = bound_ms(ops_v128, nbytes, PEAK_BF16_FLOPS)
+            k_ms = cuda_ms(lambda: flash_attention.flash_attention(
+                q, k, v, causal=causal), reps=20, guard=guard)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            fields.update(
+                ms=k_ms, ms_cold_l2=cuda_ms_cold(
+                    lambda: flash_attention.flash_attention(
+                        q, k, v, causal=causal), 10, flush, guard=guard),
+                plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, causal=causal), reps=3),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), reps=20),
+                library="torch.nn.functional.scaled_dot_product_attention"
+                "(is_causal=True)", operations=ops, bytes=nbytes,
+                peak_flops=PEAK_BF16_FLOPS, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / k_ms, bound_ms_v128=b128_ms,
+                bound_share_v128=b128_ms / k_ms,
+                tflops=ops / (k_ms * 1e-3) / 1e12, ptxas=reports["bf16"],
+                ptxas_f32=reports["f32"])
+            main = fields
+        del want, want_abs
+        emit("kernel", **fields)
+    if not all(spill_free(r) for r in reports.values()):
+        raise AssertionError(f"flash at hd 192 spills: {reports}")
+    return main
+
+
+def moe_rmsnorm(dev, ptxas: dict) -> dict:
+    """Phase 25a: the rmsnorm kernel at deepseek-v2-lite's d_model 2048 in
+    bf16 (the instantiation of 8 held vectors that its path runs), bit for
+    bit against its plain version at the prefill's rows and the decode
+    step's, each timed. Returns {case: fields} for the kernels line."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(26)
+    flush = l2_flush(dev)
+    out = {}
+    for case, rows in (("moe_prefill", PREFILL_BATCH * PREFILL_SEQ),
+                       ("moe_decode", MOE_SERVE_REQUESTS)):
+        fields, _, _ = rmsnorm_case(gen, case, rows, 2048, torch.bfloat16,
+                                    flush, ptxas, timed=True)
+        emit("kernel", **fields)
+        out[case] = fields
+    return out
+
+
+class RoutingRecorder:
+    """Wraps ``moe.route`` while in use: for every MoE layer call it records
+    the top-k expert ids of each token that the router gave ``moe_apply``,
+    in call order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = moe.route
+
+        def recording(params, cfg, tokens):
+            probs, gate, ids = self.real(params, cfg, tokens)
+            self.calls.append(ids)
+            return probs, gate, ids
+
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.real
+
+
+def routing_gap(cfg, prefill_calls, decode_calls, b: int, p: int) -> dict:
+    """How the top-k routing of the prefill (one call per MoE layer over
+    ``b`` x ``p``(+1) tokens) and of the prompt's decode steps (one call per
+    layer and step over ``b`` tokens) differ: (layer, request, position)
+    triples whose expert sets differ, positions with any such layer, and
+    the pairs each path drops at its capacity (``moe.dispatch``)."""
+    import torch
+    from repro_torch.models import moe
+    n_moe = len(prefill_calls)
+    pre = torch.stack([c.reshape(b, -1, c.shape[-1])[:, :p]
+                       for c in prefill_calls])            # (L, B, P, k)
+    dec = torch.stack([torch.stack(decode_calls[t * n_moe:(t + 1) * n_moe])
+                       for t in range(p)], 2)              # (L, B, P, k)
+    differ = (pre.sort(-1)[0] != dec.sort(-1)[0]).any(-1)  # (L, B, P)
+    pre_tokens = prefill_calls[0].shape[0]
+    dropped_pre = sum(int((~moe.dispatch(c, moe.capacity(cfg, pre_tokens))[1])
+                          .sum()) for c in prefill_calls)
+    dropped_dec = sum(int((~moe.dispatch(c, moe.capacity(cfg, b))[1]).sum())
+                      for c in decode_calls[:n_moe * p])
+    return dict(moe_layers=n_moe, positions=b * p,
+                layer_positions_differing=int(differ.sum()),
+                positions_differing=int(differ.any(0).sum()),
+                pairs_dropped_prefill=dropped_pre,
+                pairs_dropped_decode=dropped_dec,
+                capacity_prefill=moe.capacity(cfg, pre_tokens),
+                capacity_decode=moe.capacity(cfg, b))
+
+
+def moe_prefill_path(dev):
+    """Phase 25b: full-width deepseek-v2-lite-16b (27 layers: one dense, 26
+    MoE; MLA in all), random weights from seed 0 built as the bf16 serving
+    copy a layer at a time: init seconds and peak, then ``Model.logits`` on
+    4 x 4096 tokens ``PREFILL_REPS`` times: s per forward, tokens/s, the
+    launches (27 flash at head dim 192 and 55 rmsnorm per forward,
+    asserted), peak memory (asserted under ``MOE_PEAK_LIMIT``), one MoE
+    layer at the prefill shape under ``set_sync_debug_mode("error")`` (no
+    host synchronisation, asserted), and a profiled forward. Returns
+    (model, params, launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.models import build_model, moe
+    from repro_torch.utils import tree_leaves, tree_map
+
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in tree_leaves(params))
+    per_fwd = (cfg.n_layers, 2 * cfg.n_layers + 1)    # flash, rmsnorm
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ + 1)), device=dev)
+    batch = {"tokens": toks}
+    with torch.inference_mode():
+        model.logits(params, batch)                  # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+        times, logits = [], None
+        for _ in range(PREFILL_REPS):
+            del logits
+            t0 = time.perf_counter()
+            logits = model.logits(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launched = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        ok = (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ,
+                                      cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()))
+        expected = tuple(PREFILL_REPS * n for n in per_fwd)
+        tokens = PREFILL_BATCH * PREFILL_SEQ
+        emit("moe_prefill_path", arch=cfg.name, n_layers=cfg.n_layers,
+             n_dense_layers=cfg.moe.n_dense_layers, n_params=n_params,
+             param_bytes=param_bytes, init_s=init_s,
+             init_peak_bytes=init_peak, batch=PREFILL_BATCH,
+             seq=PREFILL_SEQ, dtype=cfg.dtype,
+             capacity=moe.capacity(cfg, tokens), s_per_forward=times,
+             mean_s=sum(times) / len(times), tokens_per_s=tokens / min(times),
+             launches_flash=launched[0], launches_rmsnorm=launched[1],
+             launches_expected=list(expected), max_memory_allocated=peak,
+             peak_limit=MOE_PEAK_LIMIT,
+             logits_std=float(logits[0, :64].float().std()), finite=ok)
+        if launched != expected:
+            raise AssertionError(f"{cfg.name} prefill launches {launched}, "
+                                 f"expected {PREFILL_REPS} x {per_fwd}")
+        if not ok:
+            raise AssertionError(f"{cfg.name} prefill logits are not finite "
+                                 "or of the wrong shape")
+        if max(peak, init_peak) > MOE_PEAK_LIMIT:
+            raise AssertionError(f"{cfg.name}: peak memory {peak} passes "
+                                 f"{MOE_PEAK_LIMIT}")
+        del logits
+        layer = tree_map(lambda t: t[0], params["blocks"]["ffn"])
+        x = torch.randn(PREFILL_BATCH, PREFILL_SEQ, cfg.d_model, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1)
+                        ).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe.moe_apply(layer, cfg, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        moe_ms = cuda_ms(lambda: moe.moe_apply(layer, cfg, x), reps=5)
+        emit("moe_layer", arch=cfg.name, shape=list(x.shape),
+             host_syncs=0, ms=moe_ms, aux=float(aux),
+             finite=bool(torch.isfinite(y).all()))
+        del x, y, layer
+        profile_forward(model, params, batch, phase="moe_prefill_profile")
+    return model, params, {"flash_attention": launched[0],
+                           "rmsnorm": launched[1]}
+
+
+def moe_serve_path(dev, model, params) -> dict:
+    """Phase 25c: the server answers ``MOE_SERVE_REQUESTS`` requests of a
+    ``MOE_SERVE_PROMPT``-token prompt and ``MOE_SERVE_NEW`` greedy tokens
+    with deepseek-v2-lite's bf16 serving copy (``serve_shape``): ms per
+    step, tokens/s, the MLA cache's bytes (asserted equal to
+    ``cache_bytes``), launches per step (no flash, 55 rmsnorm; asserted);
+    the bf16 gap between decode and prefill logits and how the two paths'
+    top-k routing differs (reported, not asserted); a profiled step.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.launch.serve import cache_bytes, serve, serve_shape
+    from repro_torch.models import ShapeSpec
+    from repro_torch.utils import tree_leaves
+
+    cfg = model.cfg
+    b, p, new = MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW
+    prompts = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, p)), dtype=torch.int32, device=dev)
+    shape = ShapeSpec("moe_serve_smoke", seq_len=p + new, global_batch=b,
+                      kind="decode")
+    flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    res = serve_shape(cfg, shape, new, device=dev, params=params,
+                      prompts=prompts, keep_prompt_logits=True)
+    steps = res.prompt_steps + res.decode_steps
+    launched = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+    per_step = 2 * cfg.n_layers + 1
+    cache = model.decode_init(params, {"tokens": prompts}, p + new,
+                              dtype=torch.bfloat16)
+    built = sum(t.nbytes for t in tree_leaves(cache) if t.is_floating_point())
+    need = cache_bytes(cfg, b, p + new, torch.bfloat16)
+    del cache
+    pad = torch.zeros(b, 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode(), RoutingRecorder() as pre_rec:
+        prefill = model.logits(params, {"tokens": torch.cat([prompts, pad],
+                                                            1)})
+    with RoutingRecorder() as dec_rec:
+        serve(model, params, prompts, 1)
+    routing = routing_gap(cfg, pre_rec.calls, dec_rec.calls, b, p)
+    pre, dec = prefill.float(), res.prompt_logits.float()
+    gap = (dec - pre).abs()
+    within = bool((gap <= SERVE_GAP_ATOL + SERVE_GAP_RTOL * pre.abs()).all())
+    emit("moe_serve_path", arch=cfg.name, requests=b, prompt=p,
+         new_tokens=new, cache_len=shape.seq_len, cache_bytes=built,
+         cache_bytes_expected=need, prompt_steps=res.prompt_steps,
+         prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+         decode_steps=res.decode_steps,
+         decode_ms_per_step=res.ms_per_decode_step,
+         decode_tokens_per_s=b / (res.ms_per_decode_step / 1e3),
+         tokens_per_s=res.tokens_per_s, launches_flash=launched[0],
+         rmsnorm_per_step=launched[1] / steps,
+         max_gap=float(gap.max()), mean_gap=float(gap.mean()),
+         max_abs_prefill_logit=float(pre.abs().max()),
+         gap_bound_reported=[SERVE_GAP_ATOL, SERVE_GAP_RTOL],
+         gap_within_reported=within, routing=routing,
+         first_token_equal=int((res.tokens[:, 0] == pre[:, -1].argmax(-1))
+                               .sum()),
+         tokens=res.tokens[:2, :8].tolist())
+    if launched != (0, per_step * steps):
+        raise AssertionError(f"{cfg.name} serve launches {launched}, "
+                             f"expected (0, {per_step} x {steps})")
+    if built != need:
+        raise AssertionError(f"{cfg.name} cache of {built} B, cache_bytes "
+                             f"says {need}")
+    if not (torch.isfinite(dec).all()
+            and tuple(res.tokens.shape) == (b, new)):
+        raise AssertionError(f"{cfg.name} decode logits are not finite")
+    profile_decode(model, params, prompts, p + new,
+                   phase="moe_serve_profile")
+    return {"flash_attention": launched[0], "rmsnorm": launched[1]}
+
+
+def moe_decode_vs_prefill_f32(dev) -> None:
+    """Phase 25e: full-width deepseek-v2-lite cut to ``MOE_F32_LAYERS``
+    layers, float32, a capacity factor of 64: decode logits over the
+    prompt against ``Model.logits``, asserted within ``MOE_GAP_F32``, with
+    the routing differences between the two (reported)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(
+        full, n_layers=MOE_F32_LAYERS, dtype="float32",
+        moe=dataclasses.replace(full.moe, capacity_factor=64.0))
+    model = build_model(cfg)
+    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
+    b, p = MOE_F32_REQUESTS, MOE_F32_PROMPT
+    prompts = torch.tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (b, p)), dtype=torch.int32, device=dev)
+    pad = torch.zeros(b, 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode(), RoutingRecorder() as pre_rec:
+        prefill = model.logits(params, {"tokens": torch.cat([prompts, pad],
+                                                            1)})
+    with RoutingRecorder() as dec_rec:
+        res = serve(model, params, prompts, 1, keep_prompt_logits=True)
+    routing = routing_gap(cfg, pre_rec.calls, dec_rec.calls, b, p)
+    gap = (res.prompt_logits - prefill).abs()
+    within = bool((gap <= MOE_GAP_F32 + MOE_GAP_F32 * prefill.abs()).all())
+    emit("moe_decode_vs_prefill", arch=cfg.name, n_layers=cfg.n_layers,
+         dtype=cfg.dtype, capacity_factor=64.0, requests=b, prompt=p,
+         bound=[MOE_GAP_F32, MOE_GAP_F32], within=within,
+         max_gap=float(gap.max()), mean_gap=float(gap.mean()),
+         max_abs_prefill_logit=float(prefill.abs().max()), routing=routing,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not (within and torch.isfinite(res.prompt_logits).all()):
+        raise AssertionError(f"{cfg.name} float32 decode leaves "
+                             f"{MOE_GAP_F32} of the prefill")
 
 
 def train_entry(kernel: str, bwd: dict, train_lm: dict,
@@ -3274,6 +3741,20 @@ def main() -> int:
     train_lm = train_lm_path(dev)
     train_ssm = train_ssm_path(dev)
 
+    # ---- 25. MoE + MLA serving: deepseek-v2-lite-16b ----
+    torch.cuda.empty_cache()
+    fla192 = mla_kernels(dev, fault_libs, ptxas["flash_attention"])
+    rms2048 = moe_rmsnorm(dev, ptxas["rmsnorm"])
+    moe_model, moe_params, moe_prefill = moe_prefill_path(dev)
+    moe_serve = moe_serve_path(dev, moe_model, moe_params)
+    del moe_model, moe_params
+    torch.cuda.empty_cache()
+    serve_card_vs_cpu(dev, MOE_ARCH, phase="moe_card_vs_cpu")
+    serve_card_vs_cpu(dev, "kimi-k2-1t-a32b", phase="moe_card_vs_cpu")
+    moe_decode_vs_prefill_f32(dev)
+    moe_launches = {k: moe_prefill[k] + moe_serve[k]
+                    for k in ("flash_attention", "rmsnorm")}
+
     no_train = {"train_lm": 0, "train_ssm": 0}
     t_rms, t_fla, t_scan = (train_entry(k, bwd, train_lm, train_ssm)
                             for k in ("rmsnorm", "flash_attention",
@@ -3327,24 +3808,32 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:39",
              launches=serve_launches["rmsnorm"] + launched("rmsnorm")
-             + t_rms["kernel"],
+             + t_rms["kernel"] + moe_launches["rmsnorm"],
              launches_by_path={"serving": serve_launches["rmsnorm"],
                                "ssm_serving": launched("rmsnorm"),
-                               **t_rms["by_path"]},
+                               **t_rms["by_path"],
+                               "moe_serving": moe_launches["rmsnorm"]},
              backward=t_rms["backward"],
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
              ms_cold_l2=rms["ms_cold_l2"],
              plain_ms=rms["plain_ms"], bound_ms=rms["bound_ms"],
              bound_by=rms["bound_by"], library_ms=rms["library_ms"],
-             shape=rms["shape"], ptxas=rms["ptxas"]),
+             shape=rms["shape"], ptxas=rms["ptxas"],
+             d2048={case: {key: f[key] for key in (
+                 "shape", "held_vectors", "max_abs_err", "ms", "ms_cold_l2",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms", "ptxas")}
+                 for case, f in rms2048.items()}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:103",
              launches=serve_launches["flash_attention"]
-             + launched("flash_attention") + t_fla["kernel"],
+             + launched("flash_attention") + t_fla["kernel"]
+             + moe_launches["flash_attention"],
              launches_by_path={"serving": serve_launches["flash_attention"],
                                "ssm_serving": launched("flash_attention"),
-                               **t_fla["by_path"]},
+                               **t_fla["by_path"],
+                               "moe_serving":
+                                   moe_launches["flash_attention"]},
              backward=t_fla["backward"],
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
              ms_cold_l2=fla["ms_cold_l2"], tflops=fla["tflops"],
@@ -3353,7 +3842,11 @@ def main() -> int:
              shape=fla["shape"], ptxas=fla["ptxas"],
              hd80={key: fla80[key] for key in (
                  "shape", "max_abs_err", "ms", "ms_cold_l2", "plain_ms",
-                 "bound_ms", "bound_by", "library_ms", "tflops")}),
+                 "bound_ms", "bound_by", "library_ms", "tflops")},
+             hd192={key: fla192[key] for key in (
+                 "shape", "max_abs_err", "ms", "ms_cold_l2", "plain_ms",
+                 "bound_ms", "bound_by", "bound_ms_v128", "library_ms",
+                 "tflops", "ptxas", "ptxas_f32")}),
         dict(name="ssd_state_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:47",

@@ -2,10 +2,11 @@
 architecture registry (port of ``repro.configs``).
 
 ``get_config(name)`` accepts either the registry id (``qwen3-0.6b``) or the
-module name (``qwen3_0p6b``). The dense, SSM (mamba2) and hybrid (zamba2)
-configurations are here as data; the other families' modules come with
-their layers, and asking for one of them raises ``NotImplementedError``
-naming its ROADMAP item.
+module name (``qwen3_0p6b``). The dense, MoE (kimi-k2; deepseek-v2-lite
+with MLA), SSM (mamba2) and hybrid (zamba2) configurations are here as
+data; the encoder-decoder and VLM modules come with their layers, and
+asking for one of them raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -34,8 +35,6 @@ ARCH_IDS = tuple(_MODULES)
 # architectures whose family the port does not run yet -> that family
 NOT_PORTED = {
     "whisper-large-v3": "encdec",
-    "kimi-k2-1t-a32b": "moe",
-    "deepseek-v2-lite-16b": "mla",
     "internvl2-1b": "vlm",
 }
 

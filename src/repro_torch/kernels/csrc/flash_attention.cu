@@ -25,27 +25,29 @@
 //   Block: 128 query rows of one (batch, head), three warpgroups. Warpgroup
 //   0 produces: it gives up registers (setmaxnreg.dec 24) and one thread
 //   starts every copy by TMA (cp.async.bulk.tensor): Q once, then K and V
-//   tiles of 128 kv rows into a ring of kStages = 3 stages, each with a
-//   full mbarrier (the copies' bytes) and an empty one (one arrival per
-//   consumer warp). Warpgroups 1 and 2 consume (setmaxnreg.inc 240), 64
-//   query rows each.
+//   tiles of 128 kv rows (64 above hd 128) into a ring of kStages = 3
+//   stages, each with a full mbarrier (the copies' bytes) and an empty one
+//   (one arrival per consumer warp). Warpgroups 1 and 2 consume
+//   (setmaxnreg.inc 240), 64 query rows each.
 //   Tensor maps over the (hd, H, S, B) view of q, k and v are built on the
 //   host per launch with cuTensorMapEncodeTiled, which the runtime hands
 //   over (cudaGetDriverEntryPointByVersion), so the library does not link
 //   libcuda; they are __grid_constant__ parameters. A box is a column part
 //   of the head dim: 64 columns (128-byte rows, 128-byte swizzle; two
 //   boxes at hd 128, whose 256-byte rows are wider than the swizzle span),
-//   all of hd 32 or 16 (64- and 32-byte swizzle), and at hd 80 a 64-column
-//   part plus a 16-column one (32-byte swizzle). Rows past Sq or Skv come
-//   as zeros.
-//   S = Q K^T: wgmma.m64n128k16 with Q and K read from shared memory
-//   through matrix descriptors (K-major, the swizzle the boxes were written
-//   with; a k16 step inside a row advances the start address by 32 bytes).
+//   all of hd 32 or 16 (64- and 32-byte swizzle), at hd 80 a 64-column
+//   part plus a 16-column one (32-byte swizzle), and three 64-column parts
+//   at hd 192. Rows past Sq or Skv come as zeros.
+//   S = Q K^T: wgmma.m64n128k16 (m64n64k16 above hd 128) with Q and K
+//   read from shared memory through matrix descriptors (K-major, the
+//   swizzle the boxes were written with; a k16 step inside a row advances
+//   the start address by 32 bytes).
 //   O += P V: wgmma with P from registers as the A operand (the S
 //   accumulator packed to bf16: the accumulator layout of two n8 blocks is
 //   the A layout of one k16 step) and V as B from shared memory, MN-major
 //   (transposed), N = hd: one m64n128k16 over both 64-column parts at hd
-//   128 (the part stride is the leading byte offset), n64 + n16 at hd 80.
+//   128 (the part stride is the leading byte offset), n64 + n16 at hd 80,
+//   one m64n192k16 over three parts at hd 192.
 //   Schedule: S(t) and P(t-1) V(t-1) are started together and the online
 //   softmax of S(t) runs while P V is in flight; the two consumers take
 //   turns to start them (named barriers), so one's softmax runs beside the
@@ -59,7 +61,9 @@
 //   registers, spilled 200 bytes and waited on every wgmma. Shared memory
 //   at hd 128: Q 32 KB and three stages of K and V of 32 KB each, 224 KB
 //   and 1 KB of alignment: one block of 12 warps per SM, whose latency the
-//   ring and the schedule hide instead of more blocks.
+//   ring and the schedule hide instead of more blocks. Above hd 128 the kv
+//   tile is 64 rows (kv_rows; S is m64n64k16): at hd 192, Q 48 KB and
+//   three stages of K and V of 24 KB each, 192 KB.
 //   What it does about the causes that held the earlier designs back: K/V
 //   copies are asynchronous and a tile ahead of the products (three
 //   stages: V(t-1) for P V, K(t) for S, tile t + 1 in flight); S, P and the rescale factors never touch shared memory; the
@@ -72,6 +76,8 @@
 //
 // float32 (the card-vs-CPU checks): the same walk on the CUDA cores, a
 //   thread pair per row, through shared memory, so no TF32 rounding enters.
+//   Shared memory is Q, K and V tiles of 64 rows of hd + 4 floats and P:
+//   164 KB at hd 192.
 //
 // Plain C entry point flash_attention_launch: launches on the given stream,
 // does not synchronise, allocates nothing, returns cudaGetLastError().
@@ -111,7 +117,15 @@ __device__ __forceinline__ int visible_tiles(const Args& a, int q0) {
 // ---------------------------------------------------------------- bf16 --
 
 constexpr int kBQ = 128;        // query rows per block, 64 per consumer
-constexpr int kBKV = 128;       // kv rows per tile (S is m64n128)
+// kv rows per tile: 128 (S is m64n128), but 64 above head dim 128 (S is
+// m64n64): three stages of 128-row K and V tiles at hd 192 would need 288
+// KB beside Q's 48, over the 227 KB a block may have; 64-row tiles need
+// 144 KB, and keep the consumers' live registers (S 32 + O 96 + P 16) below
+// hd 128's (64 + 64 + 32)
+template <int HD>
+__host__ __device__ constexpr int kv_rows() {
+  return HD > 128 ? 64 : 128;
+}
 constexpr int kStages = 3;      // K/V ring
 constexpr int kConsumers = 2;   // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);  // warpgroup 0 produces
@@ -139,7 +153,7 @@ struct Parts {
 // then the barriers (full and empty per stage, and Q's)
 template <int HD>
 struct Smem {
-  static constexpr int kTile = kBKV * HD * 2;   // one K or V tile
+  static constexpr int kTile = kv_rows<HD>() * HD * 2;   // one K or V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kBQ * HD * 2;  // + stage * kTile
   static constexpr int kV = kK + kStages * kTile;
@@ -276,6 +290,37 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// S (+)= A B^T for one m64n64k16 step, A and B K-major in shared memory
+// (descriptors); scale_d 0 overwrites S
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
 // D += A B for one m64n16k16 step, A (four bf16x2 registers) from
 // registers, B MN-major in shared memory (descriptor)
 __device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t (&a)[4],
@@ -366,13 +411,59 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D += A B for one m64n192k16 step, A (four bf16x2 registers) from
+// registers, B MN-major in shared memory (descriptor)
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
                                          uint64_t db) {
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n192(d, a, db);
 }
 
 // O += P V for P's k16 step kk (pa), V (MN-major, its rows are kv) from
@@ -383,6 +474,7 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
                                         const uint32_t (&pa)[4], uint32_t v_s,
                                         int kk) {
   using P = Parts<HD>;
+  constexpr int kBKV = kv_rows<HD>();
   constexpr int rb = 2 * P::kW0;
   wgmma_rs<P::kN0 * P::kW0>(
       o, pa, make_desc(v_s + 16 * kk * rb, kBKV * rb, 8 * rb, rb));
@@ -392,22 +484,24 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
                            8 * 32, 32));
 }
 
-// all of P's k16 steps for tile v_s
-template <int HD>
+// all of P's k16 steps (KK = the tile's rows / 16) for tile v_s
+template <int HD, int KK>
 __device__ __forceinline__ void pv_tile(float (&o)[HD / 2],
-                                        const uint32_t (&pa)[kBKV / 16][4],
+                                        const uint32_t (&pa)[KK][4],
                                         uint32_t v_s) {
+  static_assert(KK == kv_rows<HD>() / 16, "P is not one kv tile");
 #pragma unroll
-  for (int kk = 0; kk < kBKV / 16; ++kk) pv_step<HD>(o, pa[kk], v_s, kk);
+  for (int kk = 0; kk < KK; ++kk) pv_step<HD>(o, pa[kk], v_s, kk);
 }
 
 // S = Q K^T for consumer c's 64 rows of the Q tile at q_s: k16 steps over
 // the head dim, part by part; a k16 step inside a swizzled row advances the
 // start address by 32 bytes
 template <int HD>
-__device__ __forceinline__ void qk_tile(float (&s)[kBKV / 2], uint32_t q_s,
-                                        int c, uint32_t k_s) {
+__device__ __forceinline__ void qk_tile(float (&s)[kv_rows<HD>() / 2],
+                                        uint32_t q_s, int c, uint32_t k_s) {
   using P = Parts<HD>;
+  constexpr int kBKV = kv_rows<HD>();
 #pragma unroll
   for (int p = 0; p < P::kCount; ++p) {
     const int rb = 2 * P::width(p);
@@ -415,8 +509,8 @@ __device__ __forceinline__ void qk_tile(float (&s)[kBKV / 2], uint32_t q_s,
     const uint32_t k_p = k_s + kBKV * 2 * P::col(p);
 #pragma unroll
     for (int st = 0; st < P::width(p) / 16; ++st)
-      wgmma_ss_n128(s, make_desc(q_p + 32 * st, 16, 8 * rb, rb),
-                    make_desc(k_p + 32 * st, 16, 8 * rb, rb), p + st);
+      wgmma_ss<kBKV>(s, make_desc(q_p + 32 * st, 16, 8 * rb, rb),
+                     make_desc(k_p + 32 * st, 16, 8 * rb, rb), p + st);
   }
 }
 
@@ -445,12 +539,14 @@ __device__ __forceinline__ void turn_pass(int c) {
 // l, leaves p in s and the factor O is to be rescaled by in corr. Every
 // row sees kv position 0 in tile 0, so m is finite from the first tile on
 // and a masked score of -inf gives p = 0.
-__device__ __forceinline__ void online_softmax(float (&s)[kBKV / 2],
-                                               float (&m)[2], float (&l)[2],
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N], float (&m)[2],
+                                               float (&l)[2],
                                                float (&corr)[2],
                                                const Args& a, int kv0,
                                                int q_lo, int row0, int t4,
                                                float cl) {
+  constexpr int kBKV = 2 * N;   // the tile's kv rows
   if (kv0 + kBKV > a.Skv || (a.causal && kv0 + kBKV - 1 > q_lo)) {
 #pragma unroll
     for (int i = 0; i < kBKV / 2; ++i) {
@@ -483,10 +579,11 @@ __device__ __forceinline__ void online_softmax(float (&s)[kBKV / 2],
 }
 
 // P to bf16 A fragments: k16 step kk is S's n8 blocks 2kk and 2kk + 1
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBKV / 16][4],
-                                       const float (&s)[kBKV / 2]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 8][4],
+                                       const float (&s)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < kBKV / 16; ++kk)
+  for (int kk = 0; kk < N / 8; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
@@ -503,6 +600,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16(const __grid_constant__ Maps maps, Args a) {
   using P = Parts<HD>;
   using L = Smem<HD>;
+  constexpr int kBKV = kv_rows<HD>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bar_full = base + L::kFull, bar_empty = base + L::kEmpty;
@@ -707,6 +805,7 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd, int H,
 template <int HD>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   using P = Parts<HD>;
+  constexpr int kBKV = kv_rows<HD>();
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   Maps maps;
@@ -887,7 +986,9 @@ cudaError_t launch_hd(const Args& a, int dtype, cudaStream_t stream) {
 // (B, Skv, Hkv, hd), o like q, all contiguous and 16-byte aligned;
 // Hq % Hkv == 0. The head dims below are exactly
 // flash_attention.HEAD_DIMS; a CPU test checks it. Each is a multiple of
-// 16 (whole k16 steps, 16-byte row copies); 80 is zamba2's shared block.
+// 16 (whole k16 steps, 16-byte row copies); 80 is zamba2's shared block,
+// 192 MLA's prefill (deepseek-v2-lite: 128 + 64 columns of q and k, v
+// padded to 192).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int hd,
@@ -904,6 +1005,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   else if (hd == 64) err = launch_hd<64>(a, dtype, s);
   else if (hd == 80) err = launch_hd<80>(a, dtype, s);
   else if (hd == 128) err = launch_hd<128>(a, dtype, s);
+  else if (hd == 192) err = launch_hd<192>(a, dtype, s);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -39,7 +39,7 @@ LAUNCHES = 0
 BACKWARD_CALLS = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128)   # the kernel's template instantiations
+HEAD_DIMS = (16, 32, 64, 80, 128, 192)   # the kernel's instantiations
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
@@ -87,14 +87,15 @@ def _check(q, k, v, block_q, block_kv):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 512,
-                    block_kv: int = 512) -> torch.Tensor:
+                    block_kv: int = 512, scale: float | None = None
+                    ) -> torch.Tensor:
     """q (B, Sq, Hq, hd), k and v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd) in
-    q's dtype; scores scaled by hd ** -0.5, float32 softmax statistics and
-    accumulation."""
+    q's dtype; scores scaled by ``scale`` (default hd ** -0.5), float32
+    softmax statistics and accumulation."""
     global LAUNCHES
     _check(q, k, v, block_q, block_kv)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -103,12 +104,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "q, k, v")
     if max(q.shape[0], q.shape[2]) > 65535:
         raise ValueError("batch and heads must each be at most 65535")
-    out = launch(q, k, v, causal, _library())
+    out = launch(q, k, v, causal, _library(), scale)
     LAUNCHES += 1
     return out
 
 
-def launch(q, k, v, causal: bool, lib: ctypes.CDLL) -> torch.Tensor:
+def launch(q, k, v, causal: bool, lib: ctypes.CDLL,
+           scale: float | None = None) -> torch.Tensor:
     """Launch ``lib``'s kernel (see :func:`bind`) on checked contiguous
     CUDA inputs on the current stream, without counting it."""
     b, sq, hq, hd = q.shape
@@ -116,7 +118,7 @@ def launch(q, k, v, causal: bool, lib: ctypes.CDLL) -> torch.Tensor:
     out = torch.empty_like(q)
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        hq, hkv, hd, hd ** -0.5, int(causal), DTYPES[q.dtype],
+        hq, hkv, hd, hd ** -0.5 if scale is None else scale, int(causal), DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
@@ -125,20 +127,22 @@ def launch(q, k, v, causal: bool, lib: ctypes.CDLL) -> torch.Tensor:
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        g: torch.Tensor, *, causal: bool = True
+                        g: torch.Tensor, *, causal: bool = True,
+                        scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The VJP of attention (the function of :func:`ref.
     flash_attention_ref`) at ``(q, k, v)`` for the output cotangent ``g``,
-    recomputed in float32: S = (q hd^-0.5) k^T under the top-left causal
-    mask, P = softmax(S), dV = P^T g, dP = g V^T, dS = P (dP - rowsum(P
-    dP)), dq = dS k hd^-0.5, dk = dS^T (q hd^-0.5). One batch element at a
-    time, so the transient score-sized tensors (P, dP/dS and one product)
-    are those of one sequence. Returns (dq, dk, dv) in the inputs' dtype.
+    recomputed in float32 with c = ``scale`` (default hd^-0.5): S = (q c)
+    k^T under the top-left causal mask, P = softmax(S), dV = P^T g, dP = g
+    V^T, dS = P (dP - rowsum(P dP)), dq = dS k c, dk = dS^T (q c). One
+    batch element at a time, so the transient score-sized tensors (P, dP/dS
+    and one product) are those of one sequence. Returns (dq, dk, dv) in
+    the inputs' dtype.
     """
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     grp = hq // hkv
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     f32 = torch.float32
     mask = (torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
             if causal else None)
@@ -174,17 +178,19 @@ class FlashAttentionFn(torch.autograd.Function):
     backward; q, k and v are saved, no score-sized residual."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_kv):
+    def forward(ctx, q, k, v, causal, block_q, block_kv, scale=None):
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
+        ctx.scale = scale
         return flash_attention(q, k, v, causal=causal, block_q=block_q,
-                               block_kv=block_kv)
+                               block_kv=block_kv, scale=scale)
 
     @staticmethod
     def backward(ctx, g):
         global BACKWARD_CALLS
         q, k, v = ctx.saved_tensors
         with torch.profiler.record_function("flash_attention_bwd"):
-            dq, dk, dv = flash_attention_bwd(q, k, v, g, causal=ctx.causal)
+            dq, dk, dv = flash_attention_bwd(q, k, v, g, causal=ctx.causal,
+                                             scale=ctx.scale)
         BACKWARD_CALLS += 1
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None

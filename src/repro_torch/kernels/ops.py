@@ -33,14 +33,15 @@ def _needs_grad(*tensors) -> bool:
 
 
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
-                    block_kv: int = 512):
-    """Flash attention with the JAX package's signature, differentiable
+                    block_kv: int = 512, scale: float | None = None):
+    """Flash attention with the JAX package's signature and an optional
+    score ``scale`` (default hd ** -0.5), differentiable
     (:class:`flash_attention.FlashAttentionFn`)."""
     if _needs_grad(q, k, v):
         return _flash.FlashAttentionFn.apply(q, k, v, causal, block_q,
-                                             block_kv)
+                                             block_kv, scale)
     return _flash.flash_attention(q, k, v, causal=causal, block_q=block_q,
-                                  block_kv=block_kv)
+                                  block_kv=block_kv, scale=scale)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):

@@ -336,17 +336,19 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
     """Attention computed whole. q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd)
     with Hq % Hkv == 0 (q head h reads kv head h // (Hq // Hkv)); scores
-    scaled by hd ** -0.5; float32 throughout, output in q's dtype. The causal mask keeps kv_pos <= q_pos,
+    scaled by ``scale`` (default hd ** -0.5); float32 throughout, output in q's dtype. The causal mask keeps kv_pos <= q_pos,
     aligned top-left as the Pallas kernel aligns it; the JAX reference
     aligns it bottom-right (``tril(k=skv - sq)``), which is the same only
     when Sq == Skv."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qr = q.reshape(b, sq, hkv, g, hd).to(torch.float32) * hd ** -0.5
+    qr = (q.reshape(b, sq, hkv, g, hd).to(torch.float32)
+          * (hd ** -0.5 if scale is None else scale))
     s = torch.einsum("bqhgd,bkhd->bhgqk", qr, k.to(torch.float32))
     if causal:
         mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()

@@ -5,9 +5,12 @@ ROADMAP queue 1 item 10(h)).
     python -m repro_torch.launch.serve --arch qwen3-0.6b --new-tokens 32 \\
         --reduced --device cpu
 
-``--arch`` takes a dense, SSM (``mamba2-1.3b``) or hybrid
-(``zamba2-2.7b``) architecture. Without ``--device`` it runs on the card. Params are a random
-initialisation from a seed; no weights are downloaded.
+``--arch`` takes a dense, MoE (``deepseek-v2-lite-16b``, with MLA;
+``kimi-k2-1t-a32b``, reduced only on one card), SSM (``mamba2-1.3b``) or
+hybrid (``zamba2-2.7b``) architecture. Without ``--device`` it runs on the
+card. Params are a random initialisation from a seed, built as the
+serving copy a layer at a time (:meth:`Model.init_serving`); no weights
+are downloaded.
 """
 
 from __future__ import annotations
@@ -96,12 +99,18 @@ def serve(model: Model, params, prompts: torch.Tensor, new_tokens: int, *,
 
 def cache_bytes(cfg, batch: int, max_len: int, dtype: torch.dtype) -> int:
     """Device bytes of the decode cache's float tensors, by family: dense
-    k and v of every layer in ``dtype``; an SSM layer's state (B, H, N, P)
-    and conv buffer (B, K - 1, conv_dim) in float32, whatever ``dtype``
-    and ``max_len``; zamba2 both, with one k/v cache per application of
-    the shared block. The int32 lengths and positions (4 bytes per request
-    and layer) are not counted."""
+    k and v of every layer in ``dtype``; an MLA layer's latent and rope key
+    (kv_lora_rank + qk_rope_head_dim columns) in ``dtype``, the leading
+    dense layers' too; an SSM layer's state (B, H, N, P) and conv buffer
+    (B, K - 1, conv_dim) in float32, whatever ``dtype`` and ``max_len``;
+    zamba2 both, with one k/v cache per application of the shared block.
+    The int32 lengths and positions (4 bytes per request and layer) are not
+    counted."""
     item = torch.empty((), dtype=dtype).element_size()
+    if cfg.mla is not None:
+        m = cfg.mla
+        return (cfg.n_layers * batch * max_len
+                * (m.kv_lora_rank + m.qk_rope_head_dim) * item)
     kv = 2 * batch * max_len * cfg.n_kv_heads * cfg.resolved_head_dim * item
     if cfg.family not in SSM_FAMILIES:
         return cfg.n_layers * kv
@@ -120,7 +129,8 @@ def serve_shape(cfg, shape: ShapeSpec, new_tokens: int, *, device=None,
                 keep_prompt_logits: bool = False) -> ServeResult:
     """The launcher's body: serve ``shape.global_batch`` requests with a
     cache of ``shape.seq_len`` positions. ``params`` default to a random
-    init from seed 0 kept as the serving copy; ``prompts`` default to one
+    init from seed 0 built as the serving copy (:meth:`Model.init_serving`,
+    which never holds the float32 params); ``prompts`` default to one
     token 0 per request, as the JAX launcher starts."""
     dev = resolve_device(device)
     model = build_model(cfg)
@@ -133,7 +143,7 @@ def serve_shape(cfg, shape: ShapeSpec, new_tokens: int, *, device=None,
             "--reduced or a smaller shape")
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(0)
-        params = model.serving_params(model.init(gen))
+        params = model.init_serving(gen)
     if prompts is None:
         prompts = torch.zeros(shape.global_batch, 1, dtype=torch.int32,
                               device=dev)

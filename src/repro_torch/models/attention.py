@@ -1,20 +1,21 @@
 """Attention: the full-sequence forward through the flash-attention kernel,
-the cached decode path, GQA / qk-norm / QKV-bias variants. Port of
-``repro.models.attention``.
+the cached decode path, GQA / qk-norm / QKV-bias variants, and DeepSeek's
+Multi-head Latent Attention (MLA). Port of ``repro.models.attention``.
 
 All shapes are (batch, seq, heads, head_dim); softmax statistics in
-float32. The full-sequence path is differentiable: its scores go through
-:func:`ops.flash_attention`, whose backward recomputes attention in
-float32 (``kernels/flash_attention.py``). MLA and
-cross-attention (``cross_kv``) come with their families (ROADMAP queue 1
-items 10(c) and 10(e)).
+float32. The full-sequence paths are differentiable: their scores go
+through :func:`ops.flash_attention`, whose backward recomputes attention
+in float32 (``kernels/flash_attention.py``). Cross-attention
+(``cross_kv``) comes with its family (ROADMAP queue 1 item 10(e)).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        rms_norm_heads)
 
@@ -113,5 +114,127 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+        "length": torch.zeros(batch, dtype=torch.int32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek Multi-head Latent Attention (MLA)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": dense_init(gen, d, h * qk_dim),
+        "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_norm": torch.ones(m.kv_lora_rank, device=gen.device),
+        "wkv_b": dense_init(gen, m.kv_lora_rank,
+                            h * (m.qk_nope_head_dim + m.v_head_dim)),
+        "wo": dense_init(gen, h * m.v_head_dim, d),
+    }
+
+
+def _mla_qkv(params, cfg, x, positions):
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    q = dense(params["wq"], x).reshape(b, s, h, qk_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
+                                     m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = dense(params["wkv_a"], x)
+    c_kv, k_rope = torch.split(kv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                               dim=-1)
+    c_kv = rms_norm_heads(c_kv[..., None, :],
+                          params["kv_norm"])[..., 0, :]      # (B, S, r)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                      # (B, S, 1, rope)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_attention(params, cfg, x):
+    """Prefill MLA at positions 0..S-1: the latent expanded to per-head K
+    and V, q and k of ``qk_nope + qk_rope`` columns. q, k and v are padded
+    with zeros to the kernel's next head dim (``HEAD_DIMS``; 192 for
+    deepseek-v2-lite, so only v is padded there) so one flash call (the
+    kernel on the card) serves all three, scaled by MLA's ``(nope + rope)
+    ** -0.5``; the output is sliced back to ``v_head_dim``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
+
+    kv = dense(params["wkv_b"], c_kv).reshape(
+        b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = torch.split(kv, [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k_rope_h = k_rope.expand(b, s, h, m.qk_rope_head_dim)
+
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    hd = min(d for d in HEAD_DIMS if d >= max(qk_dim, m.v_head_dim))
+    q_full = F.pad(torch.cat([q_nope, q_rope], dim=-1), (0, hd - qk_dim))
+    k_full = F.pad(torch.cat([k_nope, k_rope_h], dim=-1), (0, hd - qk_dim))
+    v_pad = F.pad(v, (0, hd - m.v_head_dim))
+    out = ops.flash_attention(q_full, k_full, v_pad, causal=True,
+                              scale=qk_dim ** -0.5)
+    out = out[..., :m.v_head_dim]
+    return dense(params["wo"], out.reshape(b, s, -1))
+
+
+def mla_decode(params, cfg, x, cache):
+    """Absorbed-matmul MLA decode: the cache stores only (c_kv, k_rope),
+    the architecture's KV compression; wkv_b's K half is absorbed into the
+    query and its V half applied after the softmax, in float32 as in the
+    JAX package. x: (B, 1, d). The new c_kv and k_rope are written into
+    the cache in place at position ``length`` (the JAX package returns new
+    arrays); returns (out, cache with ``length + 1``)."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    length = cache["length"]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, length[:, None])
+
+    rows = torch.arange(b, device=x.device)
+    c_cache, r_cache = cache["c_kv"], cache["k_rope"]
+    c_cache[rows, length.long()] = c_kv[:, 0].to(c_cache.dtype)
+    r_cache[rows, length.long()] = k_rope[:, 0, 0].to(r_cache.dtype)
+
+    wkv_b = params["wkv_b"]["w"].reshape(
+        m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    wk = wkv_b[:, :, :m.qk_nope_head_dim]                    # (r, H, nope)
+    wv = wkv_b[:, :, m.qk_nope_head_dim:]                    # (r, H, v)
+    q_eff = torch.einsum("bshn,rhn->bshr", _f32(q_nope), _f32(wk))
+
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    c_f32 = _f32(c_cache)
+    s_lat = torch.einsum("bshr,bkr->bhk", q_eff, c_f32) * scale
+    s_rope = torch.einsum("bshn,bkn->bhk", _f32(q_rope),
+                          _f32(r_cache)) * scale
+    scores = s_lat + s_rope
+    s_max = c_cache.shape[1]
+    mask = (torch.arange(s_max, device=x.device)[None, :]
+            < (length + 1)[:, None])
+    scores = torch.where(mask[:, None], scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)                        # (B, H, S)
+    ctx = torch.einsum("bhk,bkr->bhr", p, c_f32)
+    out = torch.einsum("bhr,rhv->bhv", ctx, _f32(wv))
+    out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype)
+    new_cache = {"c_kv": c_cache, "k_rope": r_cache, "length": length + 1}
+    return dense(params["wo"], out), new_cache
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None):
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros(batch, max_len, m.kv_lora_rank, dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros(batch, max_len, m.qk_rope_head_dim,
+                              dtype=dtype, device=device),
         "length": torch.zeros(batch, dtype=torch.int32, device=device),
     }

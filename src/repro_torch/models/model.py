@@ -1,6 +1,6 @@
 """Model facade: a uniform init / loss / logits / decode interface, plus
 the (arch x shape) grid's shape specs. Port of ``repro.models.model``; the
-dense, SSM and hybrid families so far.
+dense, MoE (MLA included), SSM and hybrid families so far.
 """
 
 from __future__ import annotations
@@ -57,6 +57,13 @@ class Model:
         same numbers as ``params``."""
         return transformer.cast_params(
             params, transformer.activation_dtype(self.cfg))
+
+    def init_serving(self, gen: torch.Generator):
+        """``serving_params(init(gen))``, bit for bit, built a layer at a
+        time so the float32 params never exist whole (the way a card
+        holds deepseek-v2-lite-16b)."""
+        return transformer.lm_init(self.cfg, gen,
+                                   transformer.activation_dtype(self.cfg))
 
     # -- training -----------------------------------------------------------
 

@@ -1,41 +1,51 @@
-"""Decoder-only LM assembly: the dense (olmo / qwen2 / qwen3), SSM (mamba2)
-and hybrid (zamba2) families. Port of ``repro.models.transformer``.
+"""Decoder-only LM assembly: the dense (olmo / qwen2 / qwen3), MoE (kimi-k2;
+deepseek-v2-lite with MLA), SSM (mamba2) and hybrid (zamba2) families.
+Port of ``repro.models.transformer``.
 
 Layer parameters are stacked along a leading axis, as in the JAX package;
-a Python loop over layer slices takes the place of ``lax.scan``. Zamba2's
-weight-tied shared attention+MLP block sits outside the stack and runs
-after every ``hybrid_attn_period`` layers. The other families raise
+a Python loop over layer slices takes the place of ``lax.scan``. The
+heterogeneous parts sit outside the stack: the leading dense layers of a
+MoE model (``dense_blocks``, run before it) and zamba2's weight-tied
+shared attention+MLP block (run after every ``hybrid_attn_period``
+layers). The encoder-decoder and VLM families raise
 ``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.models.attention import (attention, attention_decode,
-                                          attention_init, init_kv_cache)
+                                          attention_init, init_kv_cache,
+                                          init_mla_cache, mla_attention,
+                                          mla_decode, mla_init)
 from repro_torch.models.layers import (apply_norm, cross_entropy, dense,
                                        dense_init, embed, embedding_init,
                                        mlp, mlp_init, norm_init, unembed)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (init_ssm_cache, ssm_apply, ssm_decode,
                                     ssm_init)
 from repro_torch.utils import tree_map
 
 # families of ModelConfig the port does not run yet -> ROADMAP item
 NOT_PORTED_FAMILIES = {
-    "moe": "queue 1 item 10(b), MoE",
-    "mla": "queue 1 item 10(c), MLA",
     "encdec": "queue 1 item 10(e), encoder-decoder",
     "vlm": "queue 1 item 10(f), VLM",
 }
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "mla", "ssm", "hybrid")
 SSM_FAMILIES = ("ssm", "hybrid")
 
 # parameter leaves that are matrices: the ones a serving copy holds in the
 # activation dtype (``dense``/``embed``/``unembed`` cast them to it anyway;
 # the SSM's conv_w, a_log, d_skip, dt_bias and norm_scale stay float32)
 MATRIX_LEAVES = ("w", "table")
+# matrices that some use reads in float32 whatever the activation dtype, so
+# a serving copy keeps them float32: the MoE router (float32 routing) and
+# MLA's wkv_b (the absorbed decode's float32 einsums)
+FLOAT32_MATRICES = ("router", "wkv_b")
 
 
 def require_ported(cfg) -> None:
@@ -54,14 +64,18 @@ def activation_dtype(cfg) -> torch.dtype:
 
 def cast_params(params, dtype: torch.dtype):
     """A copy of ``params`` with the matrix leaves (``w``, ``table``) in
-    ``dtype`` and every other leaf (norm scales, biases) float32. With
-    ``dtype`` the activation dtype it computes the same numbers as the
-    float32 params, since every use casts a matrix to the activation dtype
-    first and every other leaf to float32 or the activation dtype."""
-    def cast(node, key=None):
+    ``dtype`` and every other leaf (norm scales, biases, and the matrices
+    of :data:`FLOAT32_MATRICES`) float32. With ``dtype`` the activation
+    dtype it computes the same numbers as the float32 params, since every
+    other use casts a matrix to the activation dtype first and every other
+    leaf to float32 or the activation dtype."""
+    def cast(node, key=None, parent=None):
         if isinstance(node, dict):
-            return {k: cast(v, k) for k, v in node.items()}
-        return node.to(dtype if key in MATRIX_LEAVES else torch.float32)
+            return {k: cast(v, k, key) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(cast(v, key, parent) for v in node)
+        matrix = key in MATRIX_LEAVES and parent not in FLOAT32_MATRICES
+        return node.to(dtype if matrix else torch.float32)
     return cast(params)
 
 
@@ -94,23 +108,44 @@ def block_init(gen: torch.Generator, cfg):
     if cfg.family in SSM_FAMILIES:
         return {"norm1": _norm_params(cfg, gen.device),
                 "ssm": ssm_init(gen, cfg)}
-    return shared_attn_init(gen, cfg)
-
-
-def shared_attn_init(gen: torch.Generator, cfg):
-    """Zamba2's weight-tied attention+MLP block. A dense layer has the same
-    structure, so the dense family's layers are built and run by these
-    functions too."""
+    if cfg.moe is None:
+        return dense_block_init(gen, cfg)
     return {"norm1": _norm_params(cfg, gen.device),
             "norm2": _norm_params(cfg, gen.device),
-            "attn": attention_init(gen, cfg),
-            "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, kind=cfg.mlp_type)}
+            "attn": _attn_init(gen, cfg),
+            "ffn": moe_init(gen, cfg)}
 
 
-def shared_attn_apply(params, cfg, x):
-    h = _apply_norm(cfg, params["norm1"], x)
-    h = attention(params["attn"], cfg, h, causal=True, rope=cfg.use_rope)
-    x = x + h
+def _attn_init(gen: torch.Generator, cfg):
+    return mla_init(gen, cfg) if cfg.mla is not None else \
+        attention_init(gen, cfg)
+
+
+def _attn(params, cfg, h):
+    if cfg.mla is not None:
+        return mla_attention(params, cfg, h)
+    return attention(params, cfg, h, causal=True, rope=cfg.use_rope)
+
+
+def _attn_decode(params, cfg, h, layer_cache):
+    if cfg.mla is not None:
+        return mla_decode(params, cfg, h, layer_cache)
+    return attention_decode(params, cfg, h, layer_cache, rope=cfg.use_rope)
+
+
+def dense_block_init(gen: torch.Generator, cfg):
+    """A dense attention+MLP layer: the dense family's layers, a MoE
+    model's leading layers (kimi / deepseek layer 0) and zamba2's
+    weight-tied shared block."""
+    d_ff = cfg.d_ff if cfg.d_ff else 4 * cfg.d_model
+    return {"norm1": _norm_params(cfg, gen.device),
+            "norm2": _norm_params(cfg, gen.device),
+            "attn": _attn_init(gen, cfg),
+            "ffn": mlp_init(gen, cfg.d_model, d_ff, kind=cfg.mlp_type)}
+
+
+def dense_block_apply(params, cfg, x):
+    x = x + _attn(params["attn"], cfg, _apply_norm(cfg, params["norm1"], x))
     h = _apply_norm(cfg, params["norm2"], x)
     return x + mlp(params["ffn"], h, kind=cfg.mlp_type)
 
@@ -119,7 +154,11 @@ def block_apply(params, cfg, x, aux):
     if cfg.family in SSM_FAMILIES:
         return x + ssm_apply(params["ssm"], cfg,
                              _apply_norm(cfg, params["norm1"], x)), aux
-    return shared_attn_apply(params, cfg, x), aux
+    if cfg.moe is None:
+        return dense_block_apply(params, cfg, x), aux
+    x = x + _attn(params["attn"], cfg, _apply_norm(cfg, params["norm1"], x))
+    h, a = moe_apply(params["ffn"], cfg, _apply_norm(cfg, params["norm2"], x))
+    return x + h, aux + a
 
 
 def _shared_period(cfg) -> int:
@@ -137,31 +176,69 @@ def _shared_period(cfg) -> int:
 # LM init / forward
 # ---------------------------------------------------------------------------
 
-def lm_init(cfg, gen: torch.Generator):
-    """Random params drawn from ``gen`` on its device, float32."""
+def _n_dense_layers(cfg) -> int:
+    return cfg.moe.n_dense_layers if cfg.moe is not None else 0
+
+
+def _n_stack_layers(cfg) -> int:
+    return cfg.n_layers - _n_dense_layers(cfg)
+
+
+def _stacked_init(make_layer, n: int):
+    """``n`` layers from ``make_layer()``, called in order, stacked along a
+    leading axis: each layer is written into preallocated stacked tensors
+    as it is drawn, so at most one layer exists outside the stack (as
+    ``torch.stack`` of a list of them would give, bit for bit)."""
+    stacked = None
+    for i in range(n):
+        layer = make_layer()
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, layer)
+        del layer          # before the next layer is drawn
+    return stacked
+
+
+def lm_init(cfg, gen: torch.Generator, dtype: torch.dtype | None = None):
+    """Random params drawn from ``gen`` on its device. ``dtype=None`` gives
+    float32 params. A ``dtype`` gives the serving copy
+    ``cast_params(lm_init(cfg, gen), dtype)``, bit for bit, without ever
+    holding the float32 tree: each layer is drawn in float32, cast, and
+    written into the stack (deepseek-v2-lite's float32 params alone are
+    62.8 GB; its bf16 serving copy is 31.4 GB). Draws: the embedding, the
+    leading dense layers, the stack, zamba2's shared block, the
+    read-out."""
     require_ported(cfg)
-    params = {"embed": embedding_init(gen, cfg.vocab_size, cfg.d_model)}
-    layers = [block_init(gen, cfg) for _ in range(cfg.n_layers)]
-    params["blocks"] = tree_map(lambda *ls: torch.stack(ls), *layers)
-    del layers
+    cast = (lambda t: t) if dtype is None else partial(cast_params,
+                                                       dtype=dtype)
+    params = {"embed": cast(embedding_init(gen, cfg.vocab_size,
+                                           cfg.d_model))}
+    if _n_dense_layers(cfg):
+        params["dense_blocks"] = [cast(dense_block_init(gen, cfg))
+                                  for _ in range(_n_dense_layers(cfg))]
+    params["blocks"] = _stacked_init(lambda: cast(block_init(gen, cfg)),
+                                     _n_stack_layers(cfg))
     params["final_norm"] = _norm_params(cfg, gen.device)
     if _shared_period(cfg):
-        params["shared_attn"] = shared_attn_init(gen, cfg)
+        params["shared_attn"] = cast(dense_block_init(gen, cfg))
     if not cfg.tie_embeddings:
-        params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                       scale=cfg.d_model ** -0.5)
+        params["unembed"] = cast(dense_init(gen, cfg.d_model,
+                                            cfg.vocab_size,
+                                            scale=cfg.d_model ** -0.5))
     return params
 
 
 def _run_stack(params, cfg, x):
     """Run the layer stack, one layer slice at a time, with zamba2's shared
-    block after every ``period`` layers. Returns (x, aux)."""
+    block after every ``period`` layers. Returns (x, aux), aux summed over
+    the MoE layers."""
     aux = torch.zeros((), device=x.device)
     period = _shared_period(cfg)
-    for i, layer in enumerate(_layers(params["blocks"], cfg.n_layers)):
+    for i, layer in enumerate(_layers(params["blocks"],
+                                      _n_stack_layers(cfg))):
         x, aux = block_apply(layer, cfg, x, aux)
         if period and (i + 1) % period == 0:
-            x = shared_attn_apply(params["shared_attn"], cfg, x)
+            x = dense_block_apply(params["shared_attn"], cfg, x)
     return x, aux
 
 
@@ -179,14 +256,16 @@ def lm_forward(params, cfg, tokens, *, prefix_embeds=None):
         raise NotImplementedError(f"prefix_embeds: ROADMAP "
                                   f"{NOT_PORTED_FAMILIES['vlm']}")
     x = embed(params["embed"], tokens).to(activation_dtype(cfg))
+    for dp in params.get("dense_blocks", ()):
+        x = dense_block_apply(dp, cfg, x)
     x, aux = _run_stack(params, cfg, x)
     return _read_out(params, cfg, x), aux
 
 
 def lm_loss(params, cfg, batch):
     """batch: {tokens (B, S+1)[, loss_mask (B, S)]} -> scalar loss: the
-    mean next-token cross entropy plus ``0.01 * aux`` (aux is zero for the
-    ported families)."""
+    mean next-token cross entropy plus ``0.01 * aux`` (aux, the MoE
+    layers' load-balancing loss, is zero for the other families)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     logits, aux = lm_forward(params, cfg, inputs,
@@ -200,10 +279,13 @@ def lm_loss(params, cfg, batch):
 # ---------------------------------------------------------------------------
 
 def _layer_cache_init(cfg, batch, max_len, dtype, device):
-    """One layer's cache: an SSM layer's is float32 whatever ``dtype``."""
+    """One layer's cache: an SSM layer's is float32 whatever ``dtype``; an
+    MLA layer's holds the latent and the rope key (c_kv, k_rope)."""
     require_ported(cfg)
     if cfg.family in SSM_FAMILIES:
         return init_ssm_cache(cfg, batch, torch.float32, device)
+    if cfg.mla is not None:
+        return init_mla_cache(cfg, batch, max_len, dtype, device)
     return init_kv_cache(cfg, batch, max_len, dtype, device)
 
 
@@ -213,12 +295,17 @@ def _stacked(caches: list) -> dict:
 
 def lm_decode_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):
-    """The decode cache: per-layer caches stacked over the layers, and for
-    zamba2 one k/v cache per application of the shared block."""
+    """The decode cache: per-layer caches stacked over the stack's layers,
+    a ``dense`` list with one per leading dense layer of a MoE model, and
+    for zamba2 one k/v cache per application of the shared block."""
     cache = {"stack": _stacked([
         _layer_cache_init(cfg, batch, max_len, dtype, device)
-        for _ in range(cfg.n_layers)]),
+        for _ in range(_n_stack_layers(cfg))]),
         "position": torch.zeros(batch, dtype=torch.int32, device=device)}
+    if _n_dense_layers(cfg):
+        cache["dense"] = [_layer_cache_init(cfg, batch, max_len, dtype,
+                                            device)
+                          for _ in range(_n_dense_layers(cfg))]
     period = _shared_period(cfg)
     if period:
         cache["shared"] = _stacked([
@@ -227,21 +314,26 @@ def lm_decode_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     return cache
 
 
-def shared_attn_decode(params, cfg, x, layer_cache):
-    h = _apply_norm(cfg, params["norm1"], x)
-    h, new = attention_decode(params["attn"], cfg, h, layer_cache,
-                              rope=cfg.use_rope)
+def dense_block_decode(params, cfg, x, layer_cache):
+    h, new = _attn_decode(params["attn"], cfg,
+                          _apply_norm(cfg, params["norm1"], x), layer_cache)
     x = x + h
     h = _apply_norm(cfg, params["norm2"], x)
     return x + mlp(params["ffn"], h, kind=cfg.mlp_type), new
 
 
-def _block_decode(params, cfg, x, layer_cache, position):
+def _block_decode(params, cfg, x, layer_cache):
     if cfg.family in SSM_FAMILIES:
         h, new = ssm_decode(params["ssm"], cfg,
                             _apply_norm(cfg, params["norm1"], x), layer_cache)
         return x + h, new
-    return shared_attn_decode(params, cfg, x, layer_cache)
+    if cfg.moe is None:
+        return dense_block_decode(params, cfg, x, layer_cache)
+    h, new = _attn_decode(params["attn"], cfg,
+                          _apply_norm(cfg, params["norm1"], x), layer_cache)
+    x = x + h
+    h, _ = moe_apply(params["ffn"], cfg, _apply_norm(cfg, params["norm2"], x))
+    return x + h, new
 
 
 def _slice(stack: dict, i: int) -> dict:
@@ -260,23 +352,29 @@ def _restacked(stack: dict, news: list) -> dict:
 
 def lm_decode_step(params, cfg, cache, tokens):
     """One decode step. tokens: (B,) integer -> (logits (B, V), cache). The
-    cache's k, v, SSM state and conv buffer are updated in place."""
+    cache's k, v, MLA latents, SSM state and conv buffer are updated in
+    place."""
     require_ported(cfg)
     x = embed(params["embed"], tokens[:, None]).to(activation_dtype(cfg))
-    position = cache["position"]
     period = _shared_period(cfg)
-    news, shared_news = [], []
-    for i, layer in enumerate(_layers(params["blocks"], cfg.n_layers)):
-        x, new = _block_decode(layer, cfg, x, _slice(cache["stack"], i),
-                               position)
+    news, shared_news, dense_news = [], [], []
+    for dp, dc in zip(params.get("dense_blocks", ()),
+                      cache.get("dense", ())):
+        x, new = dense_block_decode(dp, cfg, x, dc)
+        dense_news.append(new)
+    for i, layer in enumerate(_layers(params["blocks"],
+                                      _n_stack_layers(cfg))):
+        x, new = _block_decode(layer, cfg, x, _slice(cache["stack"], i))
         news.append(new)
         if period and (i + 1) % period == 0:
-            x, new = shared_attn_decode(
+            x, new = dense_block_decode(
                 params["shared_attn"], cfg, x,
                 _slice(cache["shared"], i // period))
             shared_news.append(new)
     new_cache = {"stack": _restacked(cache["stack"], news),
-                 "position": position + 1}
+                 "position": cache["position"] + 1}
+    if dense_news:
+        new_cache["dense"] = dense_news
     if period:
         new_cache["shared"] = _restacked(cache["shared"], shared_news)
     return _read_out(params, cfg, x)[:, 0], new_cache

@@ -55,15 +55,19 @@ TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-6, 2 ** -7)}   # atol, rtol
 # the kernel vs the plain version in float32: atol, rtol, block limit
 KERNEL_TOL = {"float32": (1e-5, 1e-5, None),
               "bfloat16": (1e-5, 2 ** -7, 5e-3)}
-# kv tile sizes the dropped-tile check runs at: the first kernel's 64 and
-# 128; the kernel's own tile (read from its source) must be among them
+# kv tile sizes the dropped-tile check runs at: 64 and 128; the kernel's
+# own tiles (read from its source: 128 rows, 64 above head dim 128) must be
+# among them
 KV_TILES = (64, 128)
 SOURCE = Path(tref.__file__).parent / "csrc" / "flash_attention.cu"
 # (B, S, Hq, Hkv, hd), causal: tests/test_kernels.py's sweep and GQA case,
-# then zamba2's head dim of 80
+# then zamba2's head dim of 80 and MLA's of 192 (deepseek-v2-lite) and of
+# its reduced config: 16 + 8 columns padded to 32 and scaled by 24 ** -0.5
 CASES = [((1, 128, 4, 4, 32), True), ((2, 256, 8, 8, 64), True),
          ((2, 128, 4, 4, 64), False), ((1, 512, 2, 2, 16), True),
-         ((2, 128, 8, 2, 32), True), ((2, 96, 4, 4, 80), True)]
+         ((2, 128, 8, 2, 32), True), ((2, 96, 4, 4, 80), True),
+         ((1, 160, 4, 4, 192), True), ((2, 40, 4, 4, 32), True)]
+SCALES = {(2, 40, 4, 4, 32): 24 ** -0.5}    # the rest: hd ** -0.5
 
 
 def need_jax():
@@ -122,12 +126,13 @@ def test_plain_version_matches_jax_ref(shape, causal, dtype):
     q, k, v = inputs(b, s, s, hq, hkv, hd, s + hq)
     tq, tk, tv = (torch.tensor(x).to(getattr(torch, dtype))
                   for x in (q, k, v))
-    got = tops.flash_attention(tq, tk, tv, causal, 64, 64)
+    scale = SCALES.get(shape)
+    got = tops.flash_attention(tq, tk, tv, causal, 64, 64, scale)
     assert got.dtype == tq.dtype and got.shape == tq.shape
     jq, jk, jv = (jnp.asarray(x).astype(getattr(jnp, dtype))
                   for x in (q, k, v))
-    close(got.float(), jref.flash_attention_ref(jq, jk, jv, causal=causal),
-          dtype)
+    close(got.float(), jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                                softmax_scale=scale), dtype)
 
 
 @pytest.mark.parametrize("sq,skv", [(5, 9), (9, 5), (70, 130)])
@@ -166,6 +171,9 @@ def test_wrapper_checks_its_inputs():
     q, k, v = (torch.tensor(x) for x in inputs(1, 8, 8, 4, 2, 16, 1))
     with pytest.raises(ValueError):
         tfa.flash_attention(q[..., :12], k[..., :12], v[..., :12])  # hd 12
+    qp, kp, vp = (torch.tensor(x) for x in inputs(1, 8, 8, 2, 2, 24, 1))
+    with pytest.raises(ValueError):        # the card's rule on the CPU too
+        tfa.flash_attention(qp, kp, vp)
     with pytest.raises(ValueError):
         tfa.flash_attention(q[:, :, :3], k, v)        # 3 heads over 2
     with pytest.raises(ValueError):
@@ -202,13 +210,13 @@ def test_kernel_tolerance_rejects_a_dropped_kv_tile(tile):
 
 def test_kernel_instantiates_every_head_dim():
     """The CUDA source's head-dim dispatch lists exactly ``HEAD_DIMS``, and
-    its bf16 kv tile is one the dropped-tile check runs at."""
+    its bf16 kv tiles are ones the dropped-tile check runs at."""
     src = SOURCE.read_text()
     found = re.findall(r"hd == (\d+)\) err = launch_hd<(\d+)>", src)
     assert found and all(a == b for a, b in found)
     assert tuple(int(a) for a, _ in found) == tfa.HEAD_DIMS
-    tile = re.search(r"constexpr int kBKV = (\d+);", src)
-    assert tile and int(tile.group(1)) in KV_TILES
+    tile = re.search(r"return HD > 128 \? (\d+) : (\d+);", src)
+    assert tile and {int(tile.group(1)), int(tile.group(2))} <= set(KV_TILES)
 
 
 @pytest.mark.parametrize("name", sorted(p.stem for p in tbuild.CSRC.glob(
@@ -233,7 +241,9 @@ def test_kernel_matches_plain_version_on_card():
              (2, 100, 100, 4, 4, 64, False), (1, 77, 77, 6, 3, 16, True),
              (1, 70, 130, 4, 2, 128, True), (2, 130, 60, 4, 1, 128, False),
              (4, 1024, 1024, 16, 8, 128, True),
-             (2, 300, 300, 8, 8, 80, True), (1, 129, 129, 4, 2, 80, False)]
+             (2, 300, 300, 8, 8, 80, True), (1, 129, 129, 4, 2, 80, False),
+             (2, 333, 333, 4, 2, 192, True), (1, 200, 170, 4, 4, 192, False),
+             (1, 70, 130, 4, 4, 192, True)]
     for b, sq, skv, hq, hkv, hd, causal in cases:
         for dtype in ("float32", "bfloat16"):
             q, k, v = (torch.tensor(x, device="cuda").to(getattr(torch,
@@ -246,3 +256,6 @@ def test_kernel_matches_plain_version_on_card():
             check_kernel(got, q, k, v, causal, dtype)
     with pytest.raises(ValueError):                   # not contiguous
         tfa.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError):        # no instantiation at head dim 24
+        tfa.flash_attention(*(torch.zeros(1, 8, 2, 24, device="cuda")
+                              for _ in range(3)))

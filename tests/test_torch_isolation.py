@@ -42,6 +42,9 @@ def test_port_import_leaves_jax_unloaded():
             "repro_torch.data, repro_torch.core.hierarchy, "
             "repro_torch.fl.live, "
             "repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.moe, repro_torch.models.attention, "
+            "repro_torch.configs.deepseek_v2_lite_16b, "
+            "repro_torch.configs.kimi_k2_1t_a32b, "
             "repro_torch.launch.serve, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.optim, "
             "repro_torch.checkpoint, repro_torch.runtime, "

@@ -1,6 +1,7 @@
 """Port parity: the LM serving path (``repro_torch.models``,
-``repro_torch.launch``) of the dense, SSM (mamba2) and hybrid (zamba2)
-families against the JAX package's model zoo.
+``repro_torch.launch``) of the dense, MoE (kimi-k2; deepseek-v2-lite with
+MLA), SSM (mamba2) and hybrid (zamba2) families against the JAX package's
+model zoo.
 
 Inputs come from numpy seeds and the JAX package's ``lm_init`` params,
 carried across leaf for leaf with ``convert.lm_params_from_numpy``; both
@@ -14,7 +15,11 @@ wrappers take their plain versions. Tolerances, stated per test:
 - decode against the port's own forward: atol/rtol 2e-3, the bound of
   ``tests/test_models.py``'s decode-vs-forward test;
 - SSM and hybrid decode caches: 1e-5 (float32 state, a few products per
-  step).
+  step);
+- MoE forwards, their aux loss and decode steps: 1e-4 (as the dense
+  family's), the MoE decode against the port's forward with a capacity
+  factor of 64, as ``tests/test_models.py`` sets it, so that no pair drops
+  in either and the two route the same tokens to the same experts.
 
 The SSM forwards run 96 positions, three chunks of the reduced config's
 32, so the state carried across chunk boundaries is checked (the JAX
@@ -60,6 +65,7 @@ try:                     # the oracle; absent on a machine with only torch
     from repro.models import build_model as jbuild
     from repro.models import layers as jl
     from repro.models import shape_applicable as j_applicable
+    from repro.models import transformer as jtr
 except ImportError:
     jax = None
 
@@ -67,6 +73,7 @@ torch.set_num_threads(2)
 
 DENSE = ["qwen3-0.6b", "olmo-1b", "qwen2-7b"]
 SSM = ["mamba2-1.3b", "zamba2-2.7b"]
+MOE = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
 
 
 def need_jax():
@@ -138,21 +145,21 @@ def test_configs_and_shapes_match_jax():
 
 
 def test_dense_configs_are_ported_and_the_rest_raise():
-    """The dense, SSM and hybrid configs are ported; the other families
-    raise naming their ROADMAP item."""
+    """The dense, MoE (MLA included), SSM and hybrid configs are ported;
+    the encoder-decoder and VLM families raise naming their ROADMAP
+    item."""
     assert sorted(all_configs()) == sorted(
         ["olmo-1b", "qwen2-7b", "qwen3-0.6b", "qwen3-32b", "mamba2-1.3b",
-         "zamba2-2.7b"])
-    assert sorted(NOT_PORTED) == sorted(
-        ["whisper-large-v3", "kimi-k2-1t-a32b", "deepseek-v2-lite-16b",
-         "internvl2-1b"])
+         "zamba2-2.7b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+    assert sorted(NOT_PORTED) == sorted(["whisper-large-v3", "internvl2-1b"])
     assert tget("qwen3_0p6b") == tget("qwen3-0.6b")
     assert tget("mamba2_1p3b") == tget("mamba2-1.3b")
+    assert tget("deepseek_v2_lite_16b") == tget("deepseek-v2-lite-16b")
     for arch in NOT_PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tget(arch)
     cfg = tget("qwen3-0.6b").reduced()
-    for family in ("moe", "encdec", "vlm"):
+    for family in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(dataclasses.replace(cfg, family=family))
     # training is ported: the loss of a reduced model is a finite scalar
@@ -566,7 +573,7 @@ def test_rmsnorm_launch_count_on_the_path_is_zero_on_cpu():
     assert (trms.LAUNCHES, tfa.LAUNCHES) == before
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b"] + SSM)
+@pytest.mark.parametrize("arch", ["qwen3-0.6b"] + SSM + MOE)
 def test_serve_cli_runs_on_cpu(capsys, arch):
     res = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--new-tokens", "4"])
@@ -593,12 +600,16 @@ def float_bytes(cache) -> int:
 @pytest.mark.parametrize("arch,dtype", [
     ("qwen3-0.6b", torch.bfloat16), ("mamba2-1.3b", torch.bfloat16),
     ("zamba2-2.7b", torch.bfloat16), ("zamba2-2.7b", torch.float32),
-    ("olmo-1b", torch.float32)])
+    ("olmo-1b", torch.float32), ("deepseek-v2-lite-16b", torch.bfloat16),
+    ("deepseek-v2-lite-16b", torch.float32),
+    ("kimi-k2-1t-a32b", torch.bfloat16)])
 def test_cache_bytes_count_a_built_cache(arch, dtype):
     """``cache_bytes`` per family equals the bytes of the float leaves of
     a built reduced cache: dense k/v in ``dtype``; SSM state and conv in
     float32 whatever ``dtype``; zamba2 both, its k/v one per application
-    of the shared block."""
+    of the shared block; MLA's (c_kv, k_rope) in ``dtype``, the leading
+    dense layer's (the ``dense`` list) included, as a MoE model's dense
+    k/v are."""
     cfg = port_cfg(arch)
     cache = tbuild(cfg).decode_init(
         None, {"tokens": torch.zeros(3, 1, dtype=torch.int32)}, 24,
@@ -672,6 +683,239 @@ def test_reduced_model_on_card_matches_cpu():
     assert (tfa.LAUNCHES, trms.LAUNCHES) == (cfg.n_layers,
                                              2 * cfg.n_layers + 1)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    a = tserve.serve(model, params, toks[:, :8], 8)
+    b = tserve.serve(model, on_card, toks[:, :8].cuda(), 8)
+    assert torch.equal(a.tokens, b.tokens.cpu())
+
+
+# ---------------------------------------------------------------------------
+# MoE (kimi-k2) and MoE + MLA (deepseek-v2-lite)
+# ---------------------------------------------------------------------------
+
+def high_capacity(cfg):
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=64.0))
+
+
+def test_moe_lm_params_carry_over_leaf_for_leaf():
+    """deepseek-v2-lite's JAX params reach the port leaf for leaf: the
+    ``dense_blocks`` list and the (layers, E, in, out) expert stacks. The
+    bf16 serving copy keeps the router and MLA's wkv_b float32 (read in
+    float32 by the routing and the absorbed decode) and the kv_norm scale
+    float32."""
+    need_jax()
+    _, _, params = jax_model("deepseek-v2-lite-16b")
+    tree = to_numpy(params)
+    got = convert.lm_params_from_numpy(tree, "cpu")
+    flat_j = jax.tree_util.tree_flatten_with_path(tree)[0]
+    assert len(flat_j) == len(tree_leaves(got))
+    for path, leaf in flat_j:
+        node = got
+        for p in path:
+            node = node[p.idx if hasattr(p, "idx") else p.key]
+        assert node.dtype == torch.float32
+        np.testing.assert_array_equal(node.numpy(), leaf)
+    assert isinstance(got["dense_blocks"], list)
+    assert got["blocks"]["ffn"]["experts"]["wi"]["w"].dim() == 4
+    serving = convert.lm_params_from_numpy(tree, "cpu", dtype=torch.bfloat16)
+    blk = serving["blocks"]
+    assert blk["ffn"]["experts"]["wo"]["w"].dtype == torch.bfloat16
+    assert blk["ffn"]["shared"]["wg"]["w"].dtype == torch.bfloat16
+    assert blk["ffn"]["router"]["w"].dtype == torch.float32
+    assert blk["attn"]["wkv_b"]["w"].dtype == torch.float32
+    assert blk["attn"]["wq"]["w"].dtype == torch.bfloat16
+    assert blk["attn"]["kv_norm"].dtype == torch.float32
+    assert serving["dense_blocks"][0]["ffn"]["wi"]["w"].dtype == \
+        torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_lm_init_has_jax_structure(arch):
+    need_jax()
+    _, _, jp = jax_model(arch)
+    tp = tbuild(port_cfg(arch)).init(torch.Generator().manual_seed(0))
+    shapes_j = jax.tree.map(lambda a: tuple(a.shape), jp)
+    shapes_t = ttr.tree_map(lambda a: tuple(a.shape), tp)
+    assert shapes_t == shapes_j
+
+
+@pytest.mark.parametrize("seq", [41, 70])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_lm_forward_matches_jax(arch, seq):
+    """Reduced f32 forwards of deepseek-v2-lite (MLA, 1 dense + 1 MoE
+    layer, shared expert) and kimi-k2 (GQA, the same layout) against the
+    JAX model: logits and the aux loss at 1e-4."""
+    need_jax()
+    cfg, model, params = jax_model(arch)
+    toks = tokens(cfg, 2, seq, seed=11)
+    want, want_aux = jtr.lm_forward(params, cfg, jnp.asarray(toks[:, :-1]))
+    got, got_aux = ttr.lm_forward(
+        convert.lm_params_from_numpy(to_numpy(params), "cpu"),
+        port_cfg(arch), torch.tensor(toks[:, :-1]))
+    assert got.shape == (2, seq - 1, cfg.vocab_size)
+    close(got, want, 1e-4)
+    close(got_aux, want_aux, 1e-4)
+    assert float(got_aux) > 0
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_steps_and_greedy_tokens_match_jax(arch):
+    """8 teacher-forced decode steps of reduced deepseek-v2-lite / kimi-k2
+    against JAX's (logits at 1e-4; every cache leaf, the ``dense`` list's
+    included, at 1e-5), then 8 greedy tokens, identical."""
+    need_jax()
+    cfg, model, params = jax_model(arch)
+    tparams = convert.lm_params_from_numpy(to_numpy(params), "cpu")
+    tmodel = tbuild(port_cfg(arch))
+    toks = tokens(cfg, 2, 8, seed=12)
+    jcache = model.decode_init(params, {"tokens": jnp.asarray(toks)}, 20,
+                               dtype=jnp.float32)
+    tcache = tmodel.decode_init(tparams, {"tokens": torch.tensor(toks)}, 20,
+                                dtype=torch.float32)
+    for t in range(8):
+        want, jcache = model.decode_step(params, jcache,
+                                         jnp.asarray(toks[:, t]))
+        got, tcache = tmodel.decode_step(tparams, tcache,
+                                         torch.tensor(toks[:, t]))
+        close(got, want, 1e-4)
+    flat_j = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    assert len(flat_j) == len(tree_leaves(tcache))
+    for path, leaf in flat_j:
+        node = tcache
+        for p in path:
+            node = node[p.idx if hasattr(p, "idx") else p.key]
+        close(node, leaf, 1e-5)
+    jtok = jnp.argmax(want, axis=-1).astype(jnp.int32)
+    jout = [np.asarray(jtok)]
+    for _ in range(7):
+        logits, jcache = model.decode_step(params, jcache, jtok)
+        jtok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        jout.append(np.asarray(jtok))
+    step = make_serve_step(tmodel)
+    ttok = torch.argmax(got, dim=-1).to(torch.int32)
+    tout = [ttok.numpy()]
+    for _ in range(7):
+        ttok, tcache = step(tparams, tcache, ttok)
+        tout.append(ttok.numpy())
+    np.testing.assert_array_equal(np.stack(tout, 1), np.stack(jout, 1))
+
+
+@pytest.mark.parametrize("prompt", [8, 13])
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_matches_forward_in_port(arch, prompt):
+    """The port's decode logits against its own forward at 2e-3, with a
+    capacity factor of 64 (no pair drops in either path)."""
+    cfg = high_capacity(port_cfg(arch))
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(13))
+    toks = torch.tensor(tokens(cfg, 2, prompt + 1, seed=14))
+    full = model.logits(params, {"tokens": toks})
+    res = tserve.serve(model, params, toks[:, :prompt], 4,
+                       max_len=prompt + 4, keep_prompt_logits=True)
+    torch.testing.assert_close(res.prompt_logits, full, atol=2e-3,
+                               rtol=2e-3)
+    assert torch.equal(res.tokens[:, 0],
+                       torch.argmax(full[:, -1], -1).to(torch.int32))
+
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("deepseek-v2-lite-16b", "bfloat16"), ("deepseek-v2-lite-16b", "float32"),
+    ("kimi-k2-1t-a32b", "bfloat16"), ("qwen3-0.6b", "bfloat16"),
+    ("qwen2-7b", "bfloat16"), ("mamba2-1.3b", "bfloat16"),
+    ("zamba2-2.7b", "bfloat16")])
+def test_init_serving_equals_serving_params_bitwise(arch, dtype):
+    """The serving copy built a layer at a time (``Model.init_serving``)
+    equals ``serving_params(init(gen))`` for the same seed, leaf for leaf
+    and bit for bit, in tree and dtype, for every family (so the full-
+    width paths that switched to it keep their numbers)."""
+    cfg = port_cfg(arch, dtype=dtype)
+    model = tbuild(cfg)
+    want = model.serving_params(model.init(torch.Generator().manual_seed(3)))
+    got = model.init_serving(torch.Generator().manual_seed(3))
+    assert ttr.tree_map(lambda a: (tuple(a.shape), a.dtype), got) == \
+        ttr.tree_map(lambda a: (tuple(a.shape), a.dtype), want)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(g, w)
+
+
+def test_moe_serving_params_give_the_same_numbers():
+    """A bfloat16 deepseek-v2-lite's serving copy (experts, MLA and dense
+    matrices bf16; router, wkv_b and scales f32) gives bit-identical
+    logits, aux and decode steps to its float32 params."""
+    cfg = port_cfg("deepseek-v2-lite-16b", dtype="bfloat16")
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(15))
+    serving = model.serving_params(params)
+    toks = torch.tensor(tokens(cfg, 2, 7, seed=16))
+    a_logits, a_aux = ttr.lm_forward(params, cfg, toks)
+    b_logits, b_aux = ttr.lm_forward(serving, cfg, toks)
+    assert torch.equal(a_logits, b_logits) and torch.equal(a_aux, b_aux)
+    a = tserve.serve(model, params, toks, 3, keep_prompt_logits=True)
+    b = tserve.serve(model, serving, toks, 3, keep_prompt_logits=True)
+    assert torch.equal(a.prompt_logits, b.prompt_logits)
+    assert torch.equal(a.tokens, b.tokens)
+
+
+def test_moe_configs_are_the_published_widths():
+    """deepseek-v2-lite-16b (arXiv:2405.04434, the Lite config): 27 layers,
+    the first dense, 64 routed experts top-6 and 2 shared of width 1408,
+    MLA with kv_lora_rank 512 and q/k heads of 128 + 64 (the flash
+    kernel's head dim 192); 15.71 G parameters, 2.66 G active."""
+    c = tget("deepseek-v2-lite-16b")
+    assert (c.n_layers, c.d_model, c.n_heads, c.d_ff, c.vocab_size) == (
+        27, 2048, 16, 10_944, 102_400)
+    assert (c.moe.n_experts, c.moe.top_k, c.moe.n_shared, c.moe.d_expert,
+            c.moe.n_dense_layers, c.moe.capacity_factor,
+            c.moe.router_jitter) == (64, 6, 2, 1408, 1, 1.25, 0.0)
+    assert (c.mla.kv_lora_rank, c.mla.qk_nope_head_dim,
+            c.mla.qk_rope_head_dim, c.mla.v_head_dim) == (512, 128, 64, 128)
+    assert tfa.HEAD_DIMS.count(c.mla.qk_nope_head_dim
+                               + c.mla.qk_rope_head_dim) == 1
+    assert round(c.param_count() / 1e9, 2) == 15.71
+    assert round(c.active_param_count() / 1e9, 2) == 2.66
+    k = tget("kimi-k2-1t-a32b")
+    assert (k.moe.n_experts, k.moe.top_k, k.n_layers) == (384, 8, 61)
+
+
+def test_cache_bytes_of_mla_decode_32k(monkeypatch):
+    """deepseek-v2-lite at decode_32k (128 requests of 32,768 positions)
+    needs 27 x 128 x 32,768 x 576 x 2 B = 130 GB of MLA cache in bf16, so
+    ``serve_shape`` refuses it on an 80 GB card before allocating
+    anything."""
+    cfg = tget("deepseek-v2-lite-16b")
+    shape = T_SHAPES["decode_32k"]
+    n = tserve.cache_bytes(cfg, 128, shape.seq_len, torch.bfloat16)
+    assert n == 27 * 128 * 32_768 * 576 * 2
+    assert 130e9 < n < 131e9
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev=None: (80 * 10 ** 9, 80 * 10 ** 9))
+    with pytest.raises(ValueError, match="deepseek-v2-lite-16b at decode_32k"):
+        tserve.serve_shape(cfg, shape, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE)
+def test_reduced_moe_model_on_card_matches_cpu(arch):
+    """Reduced deepseek-v2-lite (MLA at 16 + 8 columns padded to the
+    kernel's head dim 32) and kimi-k2 in float32, the kernels on
+    the card against the plain versions on the CPU: logits and aux at
+    1e-4, identical greedy tokens, and the launch counts of one
+    forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = port_cfg(arch)
+    model = tbuild(cfg)
+    params = model.init(torch.Generator().manual_seed(17))
+    on_card = ttr.tree_map(lambda p: p.cuda(), params)
+    toks = torch.tensor(tokens(cfg, 2, 33, seed=18))
+    want, want_aux = ttr.lm_forward(params, cfg, toks)
+    trms.LAUNCHES = tfa.LAUNCHES = 0
+    got, got_aux = ttr.lm_forward(on_card, cfg, toks.cuda())
+    assert (tfa.LAUNCHES, trms.LAUNCHES) == (cfg.n_layers,
+                                             2 * cfg.n_layers + 1)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-4
     a = tserve.serve(model, params, toks[:, :8], 8)
     b = tserve.serve(model, on_card, toks[:, :8].cuda(), 8)
     assert torch.equal(a.tokens, b.tokens.cpu())

@@ -130,6 +130,19 @@ def test_flash_backward_matches_jax_vjp(b, s, hq, hkv, hd, causal):
         close(a, w, JAX_RTOL)
 
 
+def test_flash_backward_takes_the_scale():
+    """A ``scale`` other than hd ** -0.5 (MLA's, padded q and k) reaches
+    the backward: the Function's gradients are autograd's through the plain
+    version at that scale."""
+    q, k, v, g = flash_inputs(1, 12, 2, 2, 32, 4)
+    _, got = port_grads(lambda *x: tops.flash_attention(*x, scale=0.2),
+                        (q, k, v), (g,))
+    _, want = port_grads(lambda *x: tref.flash_attention_ref(*x, scale=0.2),
+                         (q, k, v), (g,))
+    for a, w in zip(got, want):
+        close(a, w, AUTOGRAD_RTOL)
+
+
 def test_flash_backward_keeps_the_input_dtype():
     q, k, v, g = (torch.tensor(x).bfloat16()
                   for x in flash_inputs(1, 16, 4, 2, 64, 2))
