@@ -231,12 +231,43 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    + 3 MoE), float32, capacity factor 64: decode within 2e-3 of the
    prefill (asserted), the routing differences reported.
 
+26. Encoder-decoder and VLM serving, whisper-large-v3 and internvl2-1b.
+   (a) ``kernel``: flash against its plain version under ``FLASH_TOL`` at
+   whisper's encoder (B=4, 1500 frames, 20 heads of 64, non-causal) and
+   cross attention (448 queries over 1500 frames, non-causal), internvl2's
+   layer (B=4, S=4096, 14/2 heads of 64, causal) and kimi-k2's (64/8
+   heads of 112, causal), each with warm and L2-cold times, the bound,
+   SDPA's time and its share; at hd 112 the three planted faults rejected,
+   ragged float32 and bf16 cases, no spills (asserted); rmsnorm at d_model
+   896 in bf16 bit for bit at (16,384, 896) and (8, 896), timed. (b)
+   ``encdec_prefill_path``: full-size whisper (32 + 32 layers, random
+   weights from seed 0, bf16 serving copy built a layer at a time),
+   ``Model.logits`` on 4 x 1500 frames and 448 tokens: s a forward,
+   tokens/s, launches (96 flash and no rmsnorm a forward, asserted), peak
+   memory, ``encdec_prefill_profile``. (c) ``encdec_serve_path``: 8
+   requests of 1500 frames, whisper's 4-token start of transcript and 32
+   greedy tokens: ms a step, the encoder's 32 flash launches at the
+   cache's set-up and none a step (asserted), the cache's bytes (asserted
+   equal to ``cache_bytes``), the bf16 decode-vs-prefill gap (reported),
+   ``encdec_serve_profile``. (d) ``vlm_prefill_path``: full-size internvl2
+   (24 layers) on 4 x (256 random prefix embeddings + 3840 tokens): 24
+   flash and 49 rmsnorm a forward (asserted); ``vlm_serve_path``: 8
+   requests of 256 + 32 tokens (no flash, 49 rmsnorm a step, asserted),
+   then ``vlm_decode_32k``: ``serve_shape`` at decode_32k (128 requests, a
+   32,768-position cache): ms a step, peak memory (asserted under 75 GB),
+   the cache's bytes (asserted). (e) ``encdec_card_vs_cpu`` and
+   ``vlm_card_vs_cpu``: reduced whisper (16 frames against 32 decoder
+   positions) and internvl2 (with a prefix) in float32, card vs CPU
+   within 1e-4, greedy tokens identical.
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
 with each path's, phases 16-19's and the HFEL scheme runs' beside them;
 rmsnorm, flash and the scan add their train paths' launches and a
-``backward`` entry; rmsnorm and flash phase 25's launches, rmsnorm a
-``d2048`` entry and flash an ``hd192`` entry), the raw ``nvidia-smi`` line, and as the last line
-``{"ok": true, "device": {...}}``.
+``backward`` entry; rmsnorm and flash phases 25 and 26's launches,
+rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192`` and ``hd112``
+entries and one for each of whisper's two shapes and internvl2's layer),
+the raw ``nvidia-smi`` line, and as the last line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -693,6 +724,92 @@ def build_flash_fault(directory: str, name: str):
     return flash_attention.bind(ctypes.CDLL(str(out)))
 
 
+def sdpa(q, k, v, causal: bool) -> tuple[float, str]:
+    """``scaled_dot_product_attention``'s ms on the (B, H, S, hd) views of
+    the same tensors, GQA through ``enable_gqa`` (kv repeated beforehand on
+    a torch without it), and the call's name."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    name = ("torch.nn.functional.scaled_dot_product_attention"
+            f"(is_causal={causal}")
+    if q.shape[2] == k.shape[2]:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), reps=20), name + ")"
+    try:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
+            reps=20), name + ", enable_gqa=True)"
+    except TypeError:      # a torch without enable_gqa
+        g = q.shape[2] // k.shape[2]
+        kr, vr = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, is_causal=causal), reps=20), (
+            name + ") on kv repeated beforehand")
+
+
+def flash_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
+               fault_libs: dict | None = None, flush=None,
+               report: str | None = None) -> dict:
+    """The flash kernel on random inputs of ``shape`` (B, Sq, Skv, Hq, Hkv,
+    hd) against its plain version in float32 under ``FLASH_TOL`` (raises
+    otherwise); ``fault_libs``' planted faults must fail there too. With
+    ``flush``, warm and L2-cold times, the plain version's and SDPA's, the
+    bound and its share, TFLOP/s and ``report`` (ptxas). Returns the
+    ``kernel`` line's fields for the caller to emit."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    b, sq, skv, hq, hkv, hd = shape
+    dev = gen.device
+    q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
+    guard = f"flash_attention {case}"
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    await_card("kernel", guard)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal)
+    tname = str(dtype).removeprefix("torch.")
+    want_abs = None if dtype == torch.float32 else ref.flash_attention_ref(
+        q.float(), k.float(), v.float().abs(), causal=causal)
+    measures, ok = flash_error(got, want, want_abs, tname)
+    fields = dict(kernel="flash_attention", case=case, shape=list(shape),
+                  dtype=tname, causal=causal, **measures)
+    if not ok:
+        emit("kernel", **fields)
+        raise AssertionError(f"flash_attention {case} disagrees with its "
+                             "plain version")
+    for fault, lib in (fault_libs or {}).items():
+        bad = flash_attention.launch(q, k, v, causal, lib)
+        await_card("fault", f"flash_attention {case} fault {fault}")
+        f_measures, passed = flash_error(bad, want, want_abs, tname)
+        emit("fault", kernel="flash_attention", fault=fault, case=case,
+             caught=not passed, **f_measures)
+        if passed:
+            raise AssertionError(f"the tolerance lets the planted fault "
+                                 f"{fault} pass at {case}")
+        del bad
+    del got, want, want_abs
+    if flush is not None:
+        ops, nbytes = attention_work(b, sq, skv, hq, hkv, hd, causal,
+                                     q.element_size())
+        b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
+        k_ms = cuda_ms(lambda: flash_attention.flash_attention(
+            q, k, v, causal=causal), reps=20, guard=guard)
+        lib_ms, lib_name = sdpa(q, k, v, causal)
+        fields.update(
+            ms=k_ms, ms_cold_l2=cuda_ms_cold(
+                lambda: flash_attention.flash_attention(
+                    q, k, v, causal=causal), 10, flush, guard=guard),
+            plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal), reps=3),
+            library_ms=lib_ms, library=lib_name,
+            library_share=lib_ms / k_ms, operations=ops, bytes=nbytes,
+            peak_flops=PEAK_BF16_FLOPS, bound_ms=b_ms, bound_by=b_by,
+            bound_share=b_ms / k_ms, tflops=ops / (k_ms * 1e-3) / 1e12,
+            ptxas=report)
+    return fields
+
+
 def rmsnorm_decode_split(x, scale, calls: int = 200) -> dict:
     """Host and device microseconds per ``rmsnorm`` call at a small shape:
     the host clock around ``calls`` enqueues (no synchronize between them),
@@ -792,8 +909,6 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
     (``fault_libs``) against the same tolerance at the layer shape.
     Returns the main shapes' fields for the kernels line."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ref, rmsnorm
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     flush = l2_flush(dev)
@@ -822,74 +937,59 @@ def serving_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
             ("top_left", 1, 300, 700, 4, 2, 16, f32, True),
             ("serve_prompt", SERVE_REQUESTS, SERVE_PROMPT, SERVE_PROMPT, 16,
              8, 128, bf16, True)):
-        q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
-        guard = f"flash_attention {case}"
-        got = flash_attention.flash_attention(q, k, v, causal=causal)
-        await_card("kernel", guard)
-        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                       causal=causal)
-        tname = str(dtype).removeprefix("torch.")
-        want_abs = None if dtype == f32 else ref.flash_attention_ref(
-            q.float(), k.float(), v.float().abs(), causal=causal)
-        measures, ok = flash_error(got, want, want_abs, tname)
-        fields = dict(kernel="flash_attention", case=case,
-                      shape=[b, sq, skv, hq, hkv, hd], dtype=tname,
-                      causal=causal, **measures)
-        if not ok:
-            emit("kernel", **fields)
-            raise AssertionError(f"flash_attention {case} disagrees with its "
-                                 "plain version")
-        if case == "layer":
-            for fault, lib in fault_libs.items():
-                bad = flash_attention.launch(q, k, v, causal, lib)
-                await_card("fault", f"flash_attention fault {fault}")
-                f_measures, caught = flash_error(bad, want, want_abs,
-                                                 tname)
-                caught = not caught
-                emit("fault", kernel="flash_attention", fault=fault,
-                     case=case, caught=caught, **f_measures)
-                if not caught:
-                    raise AssertionError(f"the tolerance lets the planted "
-                                         f"fault {fault} pass")
-                del bad
-        del want, want_abs
-        if case == "layer":
-            ops, nbytes = attention_work(b, sq, skv, hq, hkv, hd, causal,
-                                         q.element_size())
-            b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
-            k_ms = cuda_ms(lambda: flash_attention.flash_attention(
-                q, k, v, causal=causal), reps=20, guard=guard)
-            k_cold = cuda_ms_cold(lambda: flash_attention.flash_attention(
-                q, k, v, causal=causal), 10, flush, guard=guard)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            try:
-                def library():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=causal, enable_gqa=True)
-                lib_ms = cuda_ms(library, reps=20)
-                lib_name = ("torch.nn.functional.scaled_dot_product_attention"
-                            "(is_causal=True, enable_gqa=True)")
-            except TypeError:      # a torch without enable_gqa
-                kr = kt.repeat_interleave(hq // hkv, dim=1)
-                vr = vt.repeat_interleave(hq // hkv, dim=1)
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kr, vr, is_causal=causal), reps=20)
-                lib_name = ("torch.nn.functional.scaled_dot_product_attention"
-                            "(is_causal=True) on kv repeated beforehand")
-            fields.update(
-                ms=k_ms, ms_cold_l2=k_cold,
-                plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
-                    q, k, v, causal=causal), reps=3),
-                library_ms=lib_ms, library=lib_name, operations=ops,
-                bytes=nbytes, peak_flops=PEAK_BF16_FLOPS, bound_ms=b_ms,
-                bound_by=b_by, bound_share=b_ms / k_ms,
-                tflops=ops / (k_ms * 1e-3) / 1e12,
-                ptxas=ptxas["flash_attention"].get(f"bf16,HD={hd}"))
+        layer = case == "layer"
+        fields = flash_case(gen, case, (b, sq, skv, hq, hkv, hd), dtype,
+                            causal, fault_libs=fault_libs if layer else None,
+                            flush=flush if layer else None,
+                            report=ptxas["flash_attention"].get(
+                                f"bf16,HD={hd}"))
+        if layer:
             main["flash_attention"] = fields
         emit("kernel", **fields)
     return main
+
+
+def init_timed(model, dev) -> tuple:
+    """``model.init_serving`` from seed 0 on the card: (params, seconds,
+    peak bytes above what was allocated before, parameters, bytes)."""
+    import torch
+    from repro_torch.utils import tree_leaves
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    return (params, init_s, torch.cuda.max_memory_allocated() - base,
+            sum(p.numel() for p in leaves),
+            sum(p.numel() * p.element_size() for p in leaves))
+
+
+def timed_forwards(model, params, batch) -> tuple:
+    """A warm-up forward, then ``PREFILL_REPS`` forwards counted: (seconds
+    of each, {kernel: launches} of flash_attention, rmsnorm and
+    ssd_state_scan, peak bytes, the last logits)."""
+    import torch
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    kernels = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+               "ssd_state_scan": ssd_scan}
+    model.logits(params, batch)                      # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for module in kernels.values():
+        module.LAUNCHES = 0
+    times, logits = [], None
+    for _ in range(PREFILL_REPS):
+        del logits                          # one logits tensor at a time
+        t0 = time.perf_counter()
+        logits = model.logits(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return (times, {k: m.LAUNCHES for k, m in kernels.items()},
+            torch.cuda.max_memory_allocated(), logits)
 
 
 def profile_forward(model, params, batch,
@@ -931,13 +1031,17 @@ def profile_forward(model, params, batch,
 
 
 def profile_decode(model, params, prompts, max_len: int,
-                   phase: str = "serve_profile") -> None:
+                   phase: str = "serve_profile", frames=None) -> None:
     """Two serve steps under ``torch.profiler``, after a few warm steps on
-    a fresh cache of ``max_len`` positions: wall and device time per step,
-    device kernels per step and the idle share (profiler on)."""
+    a fresh cache of ``max_len`` positions (an encoder-decoder's encodes
+    ``frames``): wall and device time per step, device kernels per step
+    and the idle share (profiler on)."""
     from repro_torch.launch.steps import make_serve_step
     step = make_serve_step(model)
-    cache = model.decode_init(params, {"tokens": prompts}, max_len)
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
+    cache = model.decode_init(params, batch, max_len)
     state = {"tok": prompts[:, 0], "cache": cache}
     for t in range(4):
         state["tok"], state["cache"] = step(params, state["cache"],
@@ -972,18 +1076,11 @@ def serving_paths(dev) -> dict:
     from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.launch.serve import serve_shape
     from repro_torch.models import ShapeSpec, build_model
-    from repro_torch.utils import tree_leaves
 
     cfg = get_config("qwen3-0.6b")
     model = build_model(cfg)
-    t0 = time.perf_counter()
     # the copy the server keeps, built a layer at a time
-    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in tree_leaves(params))
+    params, init_s, _, n_params, param_bytes = init_timed(model, dev)
     rng = np.random.default_rng(0)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size,
                                      (PREFILL_BATCH, PREFILL_SEQ + 1)),
@@ -993,19 +1090,8 @@ def serving_paths(dev) -> dict:
 
     # ---- 9. prefill ----
     with torch.inference_mode():
-        model.logits(params, batch)                  # warm-up, not counted
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
-        times, logits = [], None
-        for _ in range(PREFILL_REPS):
-            del logits                      # one logits tensor at a time
-            t0 = time.perf_counter()
-            logits = model.logits(params, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        launched = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
+        times, counts, peak, logits = timed_forwards(model, params, batch)
+        launched = (counts["flash_attention"], counts["rmsnorm"])
         ok = (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ,
                                       cfg.vocab_size)
               and bool(torch.isfinite(logits).all()))
@@ -1086,9 +1172,12 @@ def serving_paths(dev) -> dict:
 
 def serve_card_vs_cpu(dev, arch: str = "qwen3-0.6b", n_tokens: int = 33,
                       phase: str = "serve_card_vs_cpu") -> None:
-    """Phase 11 (and 15, 25d): reduced ``arch`` in float32, the same params
-    on the card (kernels) and the CPU (plain versions): logits of
-    ``n_tokens - 1`` positions, 8 prompt and 8 decode steps."""
+    """Phase 11 (and 15, 25d, 26e): reduced ``arch`` in float32, the same
+    params on the card (kernels) and the CPU (plain versions): logits of
+    ``n_tokens - 1`` positions, 8 prompt and 8 decode steps; an
+    encoder-decoder's from random frames (its encoder's 16 against the
+    decoder's ``n_tokens - 1``: non-causal Sq != Skv), a VLM's logits with
+    a random prefix (its decode takes none)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1100,15 +1189,23 @@ def serve_card_vs_cpu(dev, arch: str = "qwen3-0.6b", n_tokens: int = 33,
     model = build_model(cfg)
     cpu_params = model.init(torch.Generator().manual_seed(0))
     card_params = tree_map(lambda p: p.to(dev), cpu_params)
-    toks = torch.tensor(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (2, n_tokens)))
+    draw = np.random.default_rng(2)
+    toks = torch.tensor(draw.integers(0, cfg.vocab_size, (2, n_tokens)))
+    extra = {}
+    if cfg.family == "encdec":
+        extra["frames"] = torch.tensor(draw.normal(
+            size=(2, cfg.encoder_seq_len, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "vlm":
+        extra["prefix_embeds"] = torch.tensor(draw.normal(
+            size=(2, cfg.n_vision_tokens, cfg.d_model)), dtype=torch.float32)
     out = {}
     for where, params in (("card", card_params), ("cpu", cpu_params)):
         on = next(iter(params["embed"].values())).device
+        batch = {k: v.to(on) for k, v in extra.items()}
         with torch.inference_mode():
-            logits = model.logits(params, {"tokens": toks.to(on)})
+            logits = model.logits(params, {"tokens": toks.to(on), **batch})
         res = serve(model, params, toks[:, :8].to(on), 8,
-                    keep_prompt_logits=True)
+                    frames=batch.get("frames"), keep_prompt_logits=True)
         out[where] = (logits.cpu(), res.prompt_logits.cpu(), res.tokens.cpu())
     (lc, pc, tc), (lh, ph, th) = out["card"], out["cpu"]
     err_fwd = float((lc - lh).abs().max())
@@ -1134,9 +1231,8 @@ def ssm_kernels(dev, ptxas: dict) -> dict:
     its build's report from phase 2). Returns the main shapes' fields for
     the kernels line."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, ref, ssd_scan
+    from repro_torch.kernels import ref, ssd_scan
     gen = torch.Generator(device=dev).manual_seed(3)
     f32, bf16 = torch.float32, torch.bfloat16
 
@@ -1200,43 +1296,11 @@ def ssm_kernels(dev, ptxas: dict) -> dict:
 
     # zamba2's shared attention layer: B=4, S=4096, 32/32 heads of 80
     zamba = get_config("zamba2-2.7b")
-    b, sq, hq, hd = (PREFILL_BATCH, PREFILL_SEQ, zamba.n_heads,
-                     zamba.resolved_head_dim)
-    q, k, v = (torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(bf16)
-               for _ in range(3))
-    guard = "flash_attention zamba2_layer"
-    got = flash_attention.flash_attention(q, k, v, causal=True)
-    await_card("kernel", guard)
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
-    want_abs = ref.flash_attention_ref(q.float(), k.float(), v.float().abs())
-    measures, ok = flash_error(got, want, want_abs, "bfloat16")
-    fields = dict(kernel="flash_attention", case="zamba2_layer",
-                  shape=[b, sq, sq, hq, hq, hd], dtype="bfloat16",
-                  causal=True, **measures)
-    del got, want, want_abs
-    if not ok:
-        emit("kernel", **fields)
-        raise AssertionError("flash_attention at head dim 80 disagrees with "
-                             "its plain version")
-    ops, nbytes = attention_work(b, sq, sq, hq, hq, hd, True, 2)
-    b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
-    k_ms = cuda_ms(lambda: flash_attention.flash_attention(q, k, v), reps=20,
-                   guard=guard)
-    flush = l2_flush(dev)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fields.update(
-        ms=k_ms, ms_cold_l2=cuda_ms_cold(
-            lambda: flash_attention.flash_attention(q, k, v), 10, flush,
-            guard=guard),
-        plain_ms=cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
-                                  reps=3),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), reps=20),
-        library="torch.nn.functional.scaled_dot_product_attention("
-                "is_causal=True)",
-        operations=ops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
-        bound_share=b_ms / k_ms, tflops=ops / (k_ms * 1e-3) / 1e12,
-        ptxas=ptxas.get(f"bf16,HD={hd}"))
+    h, hd = zamba.n_heads, zamba.resolved_head_dim
+    fields = flash_case(gen, "zamba2_layer", (PREFILL_BATCH, PREFILL_SEQ,
+                                              PREFILL_SEQ, h, h, hd),
+                        bf16, True, flush=l2_flush(dev),
+                        report=ptxas.get(f"bf16,HD={hd}"))
     main["flash_attention_hd80"] = fields
     emit("kernel", **fields)
     return main
@@ -1288,45 +1352,21 @@ def ssm_prefill_path(dev, arch: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
     from repro_torch.models import build_model
-    from repro_torch.utils import tree_leaves
 
     cfg = get_config(arch)
     model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init_serving(                   # random, seed 0, bf16
-        torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in tree_leaves(params))
+    params, init_s, _, n_params, param_bytes = init_timed(model, dev)
     apps = cfg.n_layers // cfg.hybrid_attn_period \
         if cfg.hybrid_attn_period else 0
     per_fwd = (cfg.n_layers, apps, 2 * cfg.n_layers + 2 * apps + 1)
     toks = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ + 1)), device=dev)
     batch = {"tokens": toks}
-
-    def counts():
-        return (ssd_scan.LAUNCHES, flash_attention.LAUNCHES,
-                rmsnorm.LAUNCHES)
-
+    kernels = ("ssd_state_scan", "flash_attention", "rmsnorm")
     with torch.inference_mode():
-        model.logits(params, batch)                  # warm-up, not counted
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ssd_scan.LAUNCHES = flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
-        times, logits = [], None
-        for _ in range(PREFILL_REPS):
-            del logits
-            t0 = time.perf_counter()
-            logits = model.logits(params, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        launched = counts()
-        peak = torch.cuda.max_memory_allocated()
+        times, counts, peak, logits = timed_forwards(model, params, batch)
+        launched = tuple(counts[k] for k in kernels)
         ok = (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ,
                                       cfg.vocab_size)
               and bool(torch.isfinite(logits).all()))
@@ -1354,8 +1394,7 @@ def ssm_prefill_path(dev, arch: str) -> dict:
              ssd_chunked_share=split["ssd_chunked_ms"]
              / split["forward_wall_ms"])
         profile_forward(model, params, batch, phase="ssm_prefill_profile")
-    return dict(zip(("ssd_state_scan", "flash_attention", "rmsnorm"),
-                    launched))
+    return dict(zip(kernels, launched))
 
 
 def ssm_serve_path(dev) -> dict:
@@ -2918,8 +2957,6 @@ def mla_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
     SDPA's time at the same shape, registers and spills of both
     instantiations (asserted spill-free). Returns the layer's fields."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ref
     gen = torch.Generator(device=dev).manual_seed(25)
     bf16, f32 = torch.bfloat16, torch.float32
     flush = l2_flush(dev)
@@ -2932,62 +2969,20 @@ def mla_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
             ("top_left", 1, 70, 130, 4, 4, f32, True),
             ("full", 1, 200, 170, 4, 4, f32, False),
             ("ragged", 2, 333, 333, 4, 2, bf16, True)):
-        hd = 192
-        q = torch.randn(b, sq, hq, hd, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
-        guard = f"flash_attention hd192 {case}"
-        got = flash_attention.flash_attention(q, k, v, causal=causal)
-        await_card("kernel", guard)
-        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                       causal=causal)
-        tname = str(dtype).removeprefix("torch.")
-        want_abs = None if dtype == f32 else ref.flash_attention_ref(
-            q.float(), k.float(), v.float().abs(), causal=causal)
-        measures, ok = flash_error(got, want, want_abs, tname)
-        fields = dict(kernel="flash_attention", case=f"hd192_{case}",
-                      shape=[b, sq, skv, hq, hkv, hd], dtype=tname,
-                      causal=causal, **measures)
-        if not ok:
-            emit("kernel", **fields)
-            raise AssertionError(f"flash_attention hd 192 {case} disagrees "
-                                 "with its plain version")
-        if case == "layer":
-            for fault, lib in fault_libs.items():
-                bad = flash_attention.launch(q, k, v, causal, lib)
-                await_card("fault", f"flash_attention hd192 fault {fault}")
-                f_measures, passed = flash_error(bad, want, want_abs, tname)
-                emit("fault", kernel="flash_attention", fault=fault,
-                     case="hd192_layer", caught=not passed, **f_measures)
-                if passed:
-                    raise AssertionError(f"the tolerance lets the planted "
-                                         f"fault {fault} pass at hd 192")
-                del bad
-            ops, nbytes = attention_work(b, sq, skv, hq, hkv, hd, causal, 2)
+        layer = case == "layer"
+        fields = flash_case(gen, f"hd192_{case}", (b, sq, skv, hq, hkv, 192),
+                            dtype, causal,
+                            fault_libs=fault_libs if layer else None,
+                            flush=flush if layer else None,
+                            report=reports["bf16"])
+        if layer:
             # the useful work: P V over v's 128 columns, not the padding
-            ops_v128 = ops * (192 + 128) // (2 * 192)
-            b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
-            b128_ms, _ = bound_ms(ops_v128, nbytes, PEAK_BF16_FLOPS)
-            k_ms = cuda_ms(lambda: flash_attention.flash_attention(
-                q, k, v, causal=causal), reps=20, guard=guard)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            fields.update(
-                ms=k_ms, ms_cold_l2=cuda_ms_cold(
-                    lambda: flash_attention.flash_attention(
-                        q, k, v, causal=causal), 10, flush, guard=guard),
-                plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
-                    q, k, v, causal=causal), reps=3),
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), reps=20),
-                library="torch.nn.functional.scaled_dot_product_attention"
-                "(is_causal=True)", operations=ops, bytes=nbytes,
-                peak_flops=PEAK_BF16_FLOPS, bound_ms=b_ms, bound_by=b_by,
-                bound_share=b_ms / k_ms, bound_ms_v128=b128_ms,
-                bound_share_v128=b128_ms / k_ms,
-                tflops=ops / (k_ms * 1e-3) / 1e12, ptxas=reports["bf16"],
-                ptxas_f32=reports["f32"])
+            ops_v128 = fields["operations"] * (192 + 128) // (2 * 192)
+            b128_ms, _ = bound_ms(ops_v128, fields["bytes"], PEAK_BF16_FLOPS)
+            fields.update(bound_ms_v128=b128_ms,
+                          bound_share_v128=b128_ms / fields["ms"],
+                          ptxas_f32=reports["f32"])
             main = fields
-        del want, want_abs
         emit("kernel", **fields)
     if not all(spill_free(r) for r in reports.values()):
         raise AssertionError(f"flash at hd 192 spills: {reports}")
@@ -3078,42 +3073,19 @@ def moe_prefill_path(dev):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, rmsnorm
     from repro_torch.models import build_model, moe
-    from repro_torch.utils import tree_leaves, tree_map
+    from repro_torch.utils import tree_map
 
     cfg = get_config(MOE_ARCH)
     model = build_model(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_peak = torch.cuda.max_memory_allocated() - base
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    param_bytes = sum(p.numel() * p.element_size()
-                      for p in tree_leaves(params))
+    params, init_s, init_peak, n_params, param_bytes = init_timed(model, dev)
     per_fwd = (cfg.n_layers, 2 * cfg.n_layers + 1)    # flash, rmsnorm
     toks = torch.tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ + 1)), device=dev)
     batch = {"tokens": toks}
     with torch.inference_mode():
-        model.logits(params, batch)                  # warm-up, not counted
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
-        times, logits = [], None
-        for _ in range(PREFILL_REPS):
-            del logits
-            t0 = time.perf_counter()
-            logits = model.logits(params, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        launched = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
+        times, counts, peak, logits = timed_forwards(model, params, batch)
+        launched = (counts["flash_attention"], counts["rmsnorm"])
         ok = (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ,
                                       cfg.vocab_size)
               and bool(torch.isfinite(logits).all()))
@@ -3273,6 +3245,380 @@ def moe_decode_vs_prefill_f32(dev) -> None:
     if not (within and torch.isfinite(res.prompt_logits).all()):
         raise AssertionError(f"{cfg.name} float32 decode leaves "
                              f"{MOE_GAP_F32} of the prefill")
+
+
+ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "internvl2-1b"
+# whisper: 4 requests of 1500 frames (30 s of audio) and 448 tokens, its
+# published decoder context; 8 served requests from the start of
+# transcript (<|startoftranscript|> <|en|> <|transcribe|>
+# <|notimestamps|> in large-v3's vocabulary) and 32 greedy tokens
+ENCDEC_BATCH, ENCDEC_DEC_SEQ = 4, 448
+WHISPER_PROMPT = (50258, 50259, 50360, 50364)
+ENCDEC_SERVE_REQUESTS, ENCDEC_SERVE_NEW = 8, 32
+# internvl2: 256 vision tokens before the text, 4 x 4096 positions in all;
+# 8 served requests of 256 + 32 tokens (as qwen3's phase 10); decode_32k's
+# 128 requests over a 32,768-position cache, 8 new tokens each
+VLM_PREFIX, VLM_PREFILL_TEXT = 256, PREFILL_SEQ - 256
+VLM_DECODE_32K_NEW = 8
+VLM_PEAK_LIMIT = 75e9     # bytes, the acceptance bound on the card's 80 GB
+
+
+def encdec_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
+    """Phase 26a: the flash kernel at this slice's shapes against its
+    plain version under ``FLASH_TOL``: whisper's encoder (4 x 1500 frames,
+    20 heads of 64, non-causal) and cross attention (448 queries over 1500
+    frames, non-causal, Sq != Skv), internvl2's layer (4 x 4096, 14/2
+    heads of 64, causal) and kimi-k2's (4 x 4096, 64/8 heads of 112,
+    causal), each timed beside SDPA with its bound; at hd 112 the three
+    planted faults rejected, ragged float32 and bf16 cases, and no spills
+    in either instantiation (asserted). Then rmsnorm at internvl2's
+    d_model 896 in bf16 (vec 8, 3.5 vectors a lane: lanes hold unequal
+    counts), bit for bit, at the prefill's rows and the decode step's.
+    Returns {"flash": {case: fields}, "rmsnorm": {case: fields}}."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(27)
+    bf16, f32 = torch.bfloat16, torch.float32
+    flush = l2_flush(dev)
+    fla = ptxas["flash_attention"]
+    reports = {t: fla.get(f"{t},HD=112") for t in ("bf16", "f32")}
+    flash = {}
+    for case, shape, dtype, causal, timed in (
+            ("whisper_encoder", (ENCDEC_BATCH, 1500, 1500, 20, 20, 64), bf16,
+             False, True),
+            ("whisper_cross", (ENCDEC_BATCH, ENCDEC_DEC_SEQ, 1500, 20, 20,
+                               64), bf16, False, True),
+            ("internvl2_layer", (PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 14,
+                                 2, 64), bf16, True, True),
+            ("kimi_layer", (PREFILL_BATCH, PREFILL_SEQ, PREFILL_SEQ, 64, 8,
+                            112), bf16, True, True),
+            ("hd112_top_left", (1, 300, 700, 4, 2, 112), f32, True, False),
+            ("hd112_full", (2, 333, 200, 4, 4, 112), f32, False, False),
+            ("hd112_ragged", (2, 333, 333, 8, 1, 112), bf16, True, False),
+            ("cross_f32", (2, 97, 300, 4, 4, 64), f32, False, False)):
+        flash[case] = flash_case(
+            gen, case, shape, dtype, causal,
+            fault_libs=fault_libs if case == "kimi_layer" else None,
+            flush=flush if timed else None,
+            report=fla.get(f"bf16,HD={shape[-1]}"))
+        if case == "kimi_layer":
+            flash[case]["ptxas_f32"] = reports["f32"]
+        emit("kernel", **flash[case])
+    if not all(spill_free(r) for r in reports.values()):
+        raise AssertionError(f"flash at hd 112 spills: {reports}")
+    rms = {}
+    for case, rows in (("vlm_prefill", PREFILL_BATCH * PREFILL_SEQ),
+                       ("vlm_decode", SERVE_REQUESTS)):
+        fields, _, _ = rmsnorm_case(gen, case, rows, 896, bf16, flush,
+                                    ptxas["rmsnorm"], timed=True)
+        emit("kernel", **fields)
+        rms[case] = fields
+    return {"flash": flash, "rmsnorm": rms}
+
+
+def encdec_prefill_path(dev):
+    """Phase 26b: full-size whisper-large-v3 (32 + 32 layers, d 1280, 20
+    heads of 64, vocab 51,866), random weights from seed 0 built as the
+    bf16 serving copy a layer at a time (init seconds and peak), then
+    ``Model.logits`` on 4 requests of 1500 random bf16 frames and 448
+    tokens ``PREFILL_REPS`` times: s a forward, decoder tokens/s and
+    encoder frames/s, launches (96 flash: 32 encoder, 32 self, 32 cross;
+    no rmsnorm: LayerNorm, asserted), peak memory, a profiled forward.
+    Returns (model, params, launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(ENCDEC_ARCH)
+    model = build_model(cfg)
+    params, init_s, init_peak, n_params, param_bytes = init_timed(model, dev)
+    b, s = ENCDEC_BATCH, ENCDEC_DEC_SEQ
+    frames = torch.randn(b, cfg.encoder_seq_len, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1)
+                         ).to(torch.bfloat16)
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1)), device=dev)
+    batch = {"frames": frames, "tokens": toks}
+    per_fwd = (cfg.n_encoder_layers + 2 * cfg.n_layers, 0)
+    with torch.inference_mode():
+        times, counts, peak, logits = timed_forwards(model, params, batch)
+        launched = (counts["flash_attention"], counts["rmsnorm"])
+        expected = tuple(PREFILL_REPS * n for n in per_fwd)
+        ok = (tuple(logits.shape) == (b, s, cfg.vocab_size)
+              and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()))
+        emit("encdec_prefill_path", arch=cfg.name,
+             n_layers=[cfg.n_encoder_layers, cfg.n_layers],
+             n_params=n_params, param_bytes=param_bytes, init_s=init_s,
+             init_peak_bytes=init_peak, batch=b, frames=cfg.encoder_seq_len,
+             seq=s, dtype="bfloat16", s_per_forward=times,
+             mean_s=sum(times) / len(times),
+             tokens_per_s=b * s / min(times),
+             frames_per_s=b * cfg.encoder_seq_len / min(times),
+             launches_flash=launched[0], launches_rmsnorm=launched[1],
+             launches_expected=list(expected), max_memory_allocated=peak,
+             logits_std=float(logits[0, :64].float().std()), finite=ok)
+        if launched != expected:
+            raise AssertionError(f"{cfg.name} prefill launches {launched}, "
+                                 f"expected {PREFILL_REPS} x {per_fwd}")
+        if not ok:
+            raise AssertionError(f"{cfg.name} prefill logits are not finite "
+                                 "or of the wrong shape or dtype")
+        del logits
+        profile_forward(model, params, batch,
+                        phase="encdec_prefill_profile")
+    return model, params, {"flash_attention": launched[0],
+                           "rmsnorm": launched[1]}
+
+
+def encdec_serve_path(dev, model, params) -> dict:
+    """Phase 26c: the server answers ``ENCDEC_SERVE_REQUESTS`` requests of
+    1500 random bf16 frames from whisper's start of transcript (4 tokens)
+    with ``ENCDEC_SERVE_NEW`` greedy tokens (``serve_shape``): the cache's
+    set-up (the encoder once: 32 flash launches, asserted; its bytes
+    asserted equal to ``cache_bytes``), ms a step, launches a step (none,
+    asserted), the bf16 gap between the decode and prefill logits of the
+    prompt (reported), a profiled step. Returns the launch counts."""
+    import torch
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.launch.serve import cache_bytes, serve_shape
+    from repro_torch.models import ShapeSpec
+    from repro_torch.utils import tree_leaves
+
+    cfg = model.cfg
+    b, new = ENCDEC_SERVE_REQUESTS, ENCDEC_SERVE_NEW
+    p = len(WHISPER_PROMPT)
+    prompts = torch.tensor([WHISPER_PROMPT] * b, dtype=torch.int32,
+                           device=dev)
+    frames = torch.randn(b, cfg.encoder_seq_len, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3)
+                         ).to(torch.bfloat16)
+    flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = model.decode_init(params, {"tokens": prompts,
+                                           "frames": frames}, p + new,
+                                  dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    at_init = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+    built = sum(t.nbytes for t in tree_leaves(cache) if t.is_floating_point())
+    need = cache_bytes(cfg, b, p + new, torch.bfloat16)
+    del cache
+    shape = ShapeSpec("encdec_serve_smoke", seq_len=p + new, global_batch=b,
+                      kind="decode")
+    flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    res = serve_shape(cfg, shape, new, device=dev, params=params,
+                      prompts=prompts, frames=frames, keep_prompt_logits=True)
+    launched = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+    pad = torch.zeros(b, 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        prefill = model.logits(params, {"frames": frames,
+                                        "tokens": torch.cat([prompts, pad],
+                                                            1)})
+    pre, dec = prefill.float(), res.prompt_logits.float()
+    gap = (dec - pre).abs()
+    within = bool((gap <= SERVE_GAP_ATOL + SERVE_GAP_RTOL * pre.abs()).all())
+    emit("encdec_serve_path", arch=cfg.name, requests=b, prompt=p,
+         frames=cfg.encoder_seq_len, new_tokens=new, cache_len=p + new,
+         cache_bytes=built, cache_bytes_expected=need,
+         decode_init_s=init_s, launches_decode_init=list(at_init),
+         prompt_steps=res.prompt_steps,
+         prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+         decode_steps=res.decode_steps,
+         decode_ms_per_step=res.ms_per_decode_step,
+         decode_tokens_per_s=b / (res.ms_per_decode_step / 1e3),
+         tokens_per_s=res.tokens_per_s,
+         launches_serve=list(launched),
+         launches_per_step=[(launched[i] - at_init[i])
+                            / (res.prompt_steps + res.decode_steps)
+                            for i in range(2)],
+         max_gap=float(gap.max()), mean_gap=float(gap.mean()),
+         max_abs_prefill_logit=float(pre.abs().max()),
+         gap_bound_reported=[SERVE_GAP_ATOL, SERVE_GAP_RTOL],
+         gap_within_reported=within,
+         first_token_equal=int((res.tokens[:, 0] == pre[:, -1].argmax(-1))
+                               .sum()),
+         tokens=res.tokens[:2, :8].tolist())
+    if at_init != (cfg.n_encoder_layers, 0) or launched != at_init:
+        raise AssertionError(f"{cfg.name} serve launches: decode_init "
+                             f"{at_init}, serve {launched}; expected "
+                             f"({cfg.n_encoder_layers}, 0) in each")
+    if built != need:
+        raise AssertionError(f"{cfg.name} cache of {built} B, cache_bytes "
+                             f"says {need}")
+    if not (torch.isfinite(dec).all()
+            and tuple(res.tokens.shape) == (b, new)):
+        raise AssertionError(f"{cfg.name} decode logits are not finite")
+    profile_decode(model, params, prompts, p + new,
+                   phase="encdec_serve_profile", frames=frames)
+    return {"flash_attention": launched[0], "rmsnorm": launched[1]}
+
+
+def vlm_prefill_path(dev):
+    """Phase 26d: full-size internvl2-1b (24 layers, d 896, 14/2 heads of
+    64, QKV bias, vocab 151,655), random weights from seed 0 as the bf16
+    serving copy, ``Model.logits`` on 4 x (256 random bf16 prefix
+    embeddings + 3840 tokens) ``PREFILL_REPS`` times: s a forward,
+    positions/s, launches (24 flash and 49 rmsnorm a forward, asserted),
+    peak memory, a profiled forward. Returns (model, params, launch
+    counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(VLM_ARCH)
+    model = build_model(cfg)
+    params, init_s, init_peak, n_params, param_bytes = init_timed(model, dev)
+    b = PREFILL_BATCH
+    prefix = torch.randn(b, VLM_PREFIX, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2)
+                         ).to(torch.bfloat16)
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, VLM_PREFILL_TEXT + 1)), device=dev)
+    batch = {"tokens": toks, "prefix_embeds": prefix}
+    per_fwd = (cfg.n_layers, 2 * cfg.n_layers + 1)
+    with torch.inference_mode():
+        times, counts, peak, logits = timed_forwards(model, params, batch)
+        launched = (counts["flash_attention"], counts["rmsnorm"])
+        expected = tuple(PREFILL_REPS * n for n in per_fwd)
+        ok = (tuple(logits.shape) == (b, VLM_PREFIX + VLM_PREFILL_TEXT,
+                                      cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()))
+        emit("vlm_prefill_path", arch=cfg.name, n_layers=cfg.n_layers,
+             n_params=n_params, param_bytes=param_bytes, init_s=init_s,
+             init_peak_bytes=init_peak, batch=b, prefix=VLM_PREFIX,
+             seq=VLM_PREFILL_TEXT, dtype=cfg.dtype, s_per_forward=times,
+             mean_s=sum(times) / len(times),
+             positions_per_s=b * PREFILL_SEQ / min(times),
+             launches_flash=launched[0], launches_rmsnorm=launched[1],
+             launches_expected=list(expected), max_memory_allocated=peak,
+             logits_std=float(logits[0, :64].float().std()), finite=ok)
+        if launched != expected:
+            raise AssertionError(f"{cfg.name} prefill launches {launched}, "
+                                 f"expected {PREFILL_REPS} x {per_fwd}")
+        if not ok:
+            raise AssertionError(f"{cfg.name} prefill logits are not finite "
+                                 "or of the wrong shape")
+        del logits
+        profile_forward(model, params, batch, phase="vlm_prefill_profile")
+    return model, params, {"flash_attention": launched[0],
+                           "rmsnorm": launched[1]}
+
+
+def vlm_serve_path(dev, model, params) -> dict:
+    """Phase 26d: internvl2-1b serves 8 requests of 256 + 32 tokens (its
+    decode takes no vision prefix, as in the JAX package): ms a step,
+    launches (no flash, 49 rmsnorm a step, asserted), the bf16 gap to the
+    prefill logits without a prefix (reported), a profiled step; then
+    ``serve_shape`` at decode_32k (128 requests, a 32,768-position cache,
+    ``VLM_DECODE_32K_NEW`` tokens): ms a step, peak memory (asserted under
+    ``VLM_PEAK_LIMIT``), launches (asserted), the cache's bytes
+    (asserted equal to ``cache_bytes``) and a profiled step. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.launch.serve import cache_bytes, serve_shape
+    from repro_torch.models import SHAPES, ShapeSpec
+    from repro_torch.utils import tree_leaves
+
+    cfg = model.cfg
+    b, p, new = SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW
+    per_step = 2 * cfg.n_layers + 1
+    prompts = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (b, p)), dtype=torch.int32, device=dev)
+    shape = ShapeSpec("vlm_serve_smoke", seq_len=p + new, global_batch=b,
+                      kind="decode")
+    flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    res = serve_shape(cfg, shape, new, device=dev, params=params,
+                      prompts=prompts, keep_prompt_logits=True)
+    steps = res.prompt_steps + res.decode_steps
+    launched = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+    pad = torch.zeros(b, 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        prefill = model.logits(params, {"tokens": torch.cat([prompts, pad],
+                                                            1)})
+    pre, dec = prefill.float(), res.prompt_logits.float()
+    del prefill
+    gap = (dec - pre).abs()
+    within = bool((gap <= SERVE_GAP_ATOL + SERVE_GAP_RTOL * pre.abs()).all())
+    emit("vlm_serve_path", arch=cfg.name, requests=b, prompt=p,
+         new_tokens=new, cache_len=p + new, prompt_steps=res.prompt_steps,
+         prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+         decode_steps=res.decode_steps,
+         decode_ms_per_step=res.ms_per_decode_step,
+         decode_tokens_per_s=b / (res.ms_per_decode_step / 1e3),
+         tokens_per_s=res.tokens_per_s, launches_flash=launched[0],
+         rmsnorm_per_step=launched[1] / steps,
+         max_gap=float(gap.max()), mean_gap=float(gap.mean()),
+         max_abs_prefill_logit=float(pre.abs().max()),
+         gap_bound_reported=[SERVE_GAP_ATOL, SERVE_GAP_RTOL],
+         gap_within_reported=within,
+         first_token_equal=int((res.tokens[:, 0] == pre[:, -1].argmax(-1))
+                               .sum()),
+         tokens=res.tokens[:2, :8].tolist())
+    if launched != (0, per_step * steps):
+        raise AssertionError(f"{cfg.name} serve launches {launched}, "
+                             f"expected (0, {per_step} x {steps})")
+    if not (torch.isfinite(dec).all()
+            and tuple(res.tokens.shape) == (b, new)):
+        raise AssertionError(f"{cfg.name} decode logits are not finite")
+    del pre, dec, gap, res
+    profile_decode(model, params, prompts, p + new,
+                   phase="vlm_serve_profile")
+
+    # decode_32k: the zoo's first cache of that shape that one card holds
+    big = SHAPES["decode_32k"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = serve_shape(cfg, big, VLM_DECODE_32K_NEW, device=dev,
+                      params=params)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps32 = res.prompt_steps + res.decode_steps
+    step_ms = 1e3 * (res.prompt_s + res.decode_s) / steps32
+    decode_ms = res.ms_per_decode_step
+    launched32 = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
+    tokens_ok = (tuple(res.tokens.shape) == (big.global_batch,
+                                             VLM_DECODE_32K_NEW)
+                 and bool((res.tokens >= 0).all()))
+    del res
+    need = cache_bytes(cfg, big.global_batch, big.seq_len, torch.bfloat16)
+    cache = model.decode_init(params, {"tokens": torch.zeros(
+        big.global_batch, 1, dtype=torch.int32, device=dev)}, big.seq_len,
+        dtype=torch.bfloat16)
+    built = sum(t.nbytes for t in tree_leaves(cache) if t.is_floating_point())
+    del cache
+    torch.cuda.empty_cache()
+    emit("vlm_decode_32k", arch=cfg.name, requests=big.global_batch,
+         cache_len=big.seq_len, new_tokens=VLM_DECODE_32K_NEW,
+         total_s=total_s, steps=steps32, ms_per_step=step_ms,
+         decode_ms_per_step=decode_ms,
+         decode_tokens_per_s=big.global_batch / (decode_ms / 1e3),
+         cache_bytes=built, cache_bytes_expected=need,
+         max_memory_allocated=peak, peak_limit=VLM_PEAK_LIMIT,
+         launches_flash=launched32[0],
+         rmsnorm_per_step=launched32[1] / steps32)
+    if launched32 != (0, per_step * steps32) or not tokens_ok:
+        raise AssertionError(f"{cfg.name} decode_32k launches {launched32}, "
+                             f"expected (0, {per_step} x {steps32})")
+    if built != need:
+        raise AssertionError(f"{cfg.name} decode_32k cache of {built} B, "
+                             f"cache_bytes says {need}")
+    if peak > VLM_PEAK_LIMIT:
+        raise AssertionError(f"{cfg.name} decode_32k peak memory {peak} "
+                             f"passes {VLM_PEAK_LIMIT}")
+    profile_decode(model, params, torch.zeros(big.global_batch, 4,
+                                              dtype=torch.int32, device=dev),
+                   big.seq_len, phase="vlm_decode_32k_profile")
+    return {"flash_attention": launched[0] + launched32[0],
+            "rmsnorm": launched[1] + launched32[1]}
 
 
 def train_entry(kernel: str, bwd: dict, train_lm: dict,
@@ -3755,6 +4101,25 @@ def main() -> int:
     moe_launches = {k: moe_prefill[k] + moe_serve[k]
                     for k in ("flash_attention", "rmsnorm")}
 
+    # ---- 26. encoder-decoder and VLM serving: whisper-large-v3 and
+    # internvl2-1b; flash at head dim 112 ----
+    torch.cuda.empty_cache()
+    ed_kernels = encdec_kernels(dev, fault_libs, ptxas)
+    ed_model, ed_params, ed_prefill = encdec_prefill_path(dev)
+    ed_serve = encdec_serve_path(dev, ed_model, ed_params)
+    del ed_model, ed_params
+    torch.cuda.empty_cache()
+    vlm_model, vlm_params, vlm_prefill = vlm_prefill_path(dev)
+    vlm_serve = vlm_serve_path(dev, vlm_model, vlm_params)
+    del vlm_model, vlm_params
+    torch.cuda.empty_cache()
+    serve_card_vs_cpu(dev, ENCDEC_ARCH, phase="encdec_card_vs_cpu")
+    serve_card_vs_cpu(dev, VLM_ARCH, phase="vlm_card_vs_cpu")
+    ed_launches, vlm_launches = ({k: run[0][k] + run[1][k]
+                                  for k in ("flash_attention", "rmsnorm")}
+                                 for run in ((ed_prefill, ed_serve),
+                                             (vlm_prefill, vlm_serve)))
+
     no_train = {"train_lm": 0, "train_ssm": 0}
     t_rms, t_fla, t_scan = (train_entry(k, bwd, train_lm, train_ssm)
                             for k in ("rmsnorm", "flash_attention",
@@ -3808,11 +4173,14 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm.py:39",
              launches=serve_launches["rmsnorm"] + launched("rmsnorm")
-             + t_rms["kernel"] + moe_launches["rmsnorm"],
+             + t_rms["kernel"] + moe_launches["rmsnorm"]
+             + ed_launches["rmsnorm"] + vlm_launches["rmsnorm"],
              launches_by_path={"serving": serve_launches["rmsnorm"],
                                "ssm_serving": launched("rmsnorm"),
                                **t_rms["by_path"],
-                               "moe_serving": moe_launches["rmsnorm"]},
+                               "moe_serving": moe_launches["rmsnorm"],
+                               "encdec_serving": ed_launches["rmsnorm"],
+                               "vlm_serving": vlm_launches["rmsnorm"]},
              backward=t_rms["backward"],
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
              ms_cold_l2=rms["ms_cold_l2"],
@@ -3822,18 +4190,28 @@ def main() -> int:
              d2048={case: {key: f[key] for key in (
                  "shape", "held_vectors", "max_abs_err", "ms", "ms_cold_l2",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "ptxas")}
-                 for case, f in rms2048.items()}),
+                 for case, f in rms2048.items()},
+             d896={case: {key: f[key] for key in (
+                 "shape", "held_vectors", "max_abs_err", "ms", "ms_cold_l2",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms", "ptxas")}
+                 for case, f in ed_kernels["rmsnorm"].items()}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:103",
              launches=serve_launches["flash_attention"]
              + launched("flash_attention") + t_fla["kernel"]
-             + moe_launches["flash_attention"],
+             + moe_launches["flash_attention"]
+             + ed_launches["flash_attention"]
+             + vlm_launches["flash_attention"],
              launches_by_path={"serving": serve_launches["flash_attention"],
                                "ssm_serving": launched("flash_attention"),
                                **t_fla["by_path"],
                                "moe_serving":
-                                   moe_launches["flash_attention"]},
+                                   moe_launches["flash_attention"],
+                               "encdec_serving":
+                                   ed_launches["flash_attention"],
+                               "vlm_serving":
+                                   vlm_launches["flash_attention"]},
              backward=t_fla["backward"],
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
              ms_cold_l2=fla["ms_cold_l2"], tflops=fla["tflops"],
@@ -3846,7 +4224,16 @@ def main() -> int:
              hd192={key: fla192[key] for key in (
                  "shape", "max_abs_err", "ms", "ms_cold_l2", "plain_ms",
                  "bound_ms", "bound_by", "bound_ms_v128", "library_ms",
-                 "tflops", "ptxas", "ptxas_f32")}),
+                 "tflops", "ptxas", "ptxas_f32")},
+             hd112={key: ed_kernels["flash"]["kimi_layer"][key] for key in (
+                 "shape", "max_abs_err", "ms", "ms_cold_l2", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms", "tflops", "ptxas",
+                 "ptxas_f32")},
+             **{case: {key: ed_kernels["flash"][case][key] for key in (
+                 "shape", "causal", "max_abs_err", "ms", "ms_cold_l2",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")}
+                for case in ("whisper_encoder", "whisper_cross",
+                             "internvl2_layer")}),
         dict(name="ssd_state_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:47",

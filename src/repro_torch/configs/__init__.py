@@ -2,11 +2,10 @@
 architecture registry (port of ``repro.configs``).
 
 ``get_config(name)`` accepts either the registry id (``qwen3-0.6b``) or the
-module name (``qwen3_0p6b``). The dense, MoE (kimi-k2; deepseek-v2-lite
-with MLA), SSM (mamba2) and hybrid (zamba2) configurations are here as
-data; the encoder-decoder and VLM modules come with their layers, and
-asking for one of them raises ``NotImplementedError`` naming its ROADMAP
-item.
+module name (``qwen3_0p6b``). Every architecture of the JAX package's
+registry is here as data: dense, MoE (kimi-k2; deepseek-v2-lite with MLA),
+SSM (mamba2), hybrid (zamba2), VLM (internvl2) and encoder-decoder
+(whisper).
 """
 
 from __future__ import annotations
@@ -15,7 +14,6 @@ import importlib
 
 from repro_torch.configs.paper_mnist import CONFIG, PaperTaskConfig
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import NOT_PORTED_FAMILIES
 
 _MODULES = {
     "whisper-large-v3": "whisper_large_v3",
@@ -32,28 +30,19 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-# architectures whose family the port does not run yet -> that family
-NOT_PORTED = {
-    "whisper-large-v3": "encdec",
-    "internvl2-1b": "vlm",
-}
+# architectures of the registry the port does not run: none
+NOT_PORTED: dict[str, str] = {}
 
 
 def get_config(name: str) -> ModelConfig:
     module_name = _MODULES.get(name, name)
-    arch = next((a for a, m in _MODULES.items() if m == module_name), name)
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP "
-            f"{NOT_PORTED_FAMILIES[NOT_PORTED[arch]]}")
     mod = importlib.import_module(f"repro_torch.configs.{module_name}")
     return mod.CONFIG
 
 
 def all_configs() -> dict[str, ModelConfig]:
-    """Every architecture the port runs, by registry id."""
-    return {arch: get_config(arch) for arch in ARCH_IDS
-            if arch not in NOT_PORTED}
+    """Every architecture of the registry, by registry id."""
+    return {arch: get_config(arch) for arch in ARCH_IDS}
 
 
 __all__ = ["ARCH_IDS", "CONFIG", "NOT_PORTED", "PaperTaskConfig",

@@ -91,12 +91,15 @@ def tree_from_numpy(tree, device=None):
 
 
 def lm_params_from_numpy(tree: Mapping, device=None, dtype=None) -> dict:
-    """LM params from the JAX package's ``lm_init`` params as nested
-    mappings of numpy arrays, leaf for leaf (``blocks`` stacked along the
-    layer axis). ``dtype=None`` keeps every leaf float32, as JAX inits
-    them; a ``dtype`` (bfloat16 for serving) gives the serving copy of
+    """Model params from the JAX package's ``Model.init`` params as nested
+    mappings of numpy arrays, leaf for leaf: an LM's (``blocks`` stacked
+    along the layer axis) and an encoder-decoder's (``enc_blocks`` and
+    ``dec_blocks`` stacked, ``pos_embed``). ``dtype=None`` keeps every
+    leaf float32, as JAX inits them; a ``dtype`` (bfloat16 for serving)
+    gives the serving copy of
     :func:`repro_torch.models.transformer.cast_params`: matrices in
-    ``dtype``, norm scales and biases float32, the same numbers."""
+    ``dtype``, norm scales, biases and ``pos_embed`` float32, the same
+    numbers."""
     from repro_torch.models.transformer import cast_params
     params = tree_map(lambda t: t.to(torch.float32),
                       tree_from_numpy(tree, device))

@@ -36,8 +36,9 @@
 //   of the head dim: 64 columns (128-byte rows, 128-byte swizzle; two
 //   boxes at hd 128, whose 256-byte rows are wider than the swizzle span),
 //   all of hd 32 or 16 (64- and 32-byte swizzle), at hd 80 a 64-column
-//   part plus a 16-column one (32-byte swizzle), and three 64-column parts
-//   at hd 192. Rows past Sq or Skv come as zeros.
+//   part plus a 16-column one (32-byte swizzle), at hd 112 64 + 32 + 16
+//   columns (128-, 64- and 32-byte swizzle, one tensor map per width), and
+//   three 64-column parts at hd 192. Rows past Sq or Skv come as zeros.
 //   S = Q K^T: wgmma.m64n128k16 (m64n64k16 above hd 128) with Q and K
 //   read from shared memory through matrix descriptors (K-major, the
 //   swizzle the boxes were written with; a k16 step inside a row advances
@@ -47,7 +48,7 @@
 //   the A layout of one k16 step) and V as B from shared memory, MN-major
 //   (transposed), N = hd: one m64n128k16 over both 64-column parts at hd
 //   128 (the part stride is the leading byte offset), n64 + n16 at hd 80,
-//   one m64n192k16 over three parts at hd 192.
+//   n64 + n32 + n16 at hd 112, one m64n192k16 over three parts at hd 192.
 //   Schedule: S(t) and P(t-1) V(t-1) are started together and the online
 //   softmax of S(t) runs while P V is in flight; the two consumers take
 //   turns to start them (named barriers), so one's softmax runs beside the
@@ -63,7 +64,8 @@
 //   and 1 KB of alignment: one block of 12 warps per SM, whose latency the
 //   ring and the schedule hide instead of more blocks. Above hd 128 the kv
 //   tile is 64 rows (kv_rows; S is m64n64k16): at hd 192, Q 48 KB and
-//   three stages of K and V of 24 KB each, 192 KB.
+//   three stages of K and V of 24 KB each, 192 KB; at hd 112 (128-row
+//   tiles), Q 28 KB and three stages of K and V of 28 KB each, 196 KB.
 //   What it does about the causes that held the earlier designs back: K/V
 //   copies are asynchronous and a tile ahead of the products (three
 //   stages: V(t-1) for P V, K(t) for S, tile t + 1 in flight); S, P and the rescale factors never touch shared memory; the
@@ -133,20 +135,29 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 
 // The head dim in the column parts a TMA box and a wgmma swizzle atom
 // hold: kN0 leading parts of kW0 = min(HD, 64) columns, whose rows are
-// 2 kW0 bytes (a 128-byte swizzle at 64 columns, 64 at 32, 32 at 16), and
-// for HD = 80 a tail part of 16 columns (32-byte swizzle). A tile of R
-// rows keeps part p at byte R * 2 * col(p), rows of 2 * width(p) bytes.
+// 2 kW0 bytes (a 128-byte swizzle at 64 columns, 64 at 32, 32 at 16), then
+// the tail, the rest of the columns, as a part of 32 (64-byte swizzle)
+// and one of 16 (32-byte swizzle) where they are needed: 16 at HD = 80,
+// 32 + 16 at HD = 112. A tile of R rows keeps part p at byte
+// R * 2 * col(p), rows of 2 * width(p) bytes. Part p's tensor map is
+// map(p): 0 for the leading parts, then one per tail part.
 template <int HD>
 struct Parts {
   static constexpr int kW0 = HD < 64 ? HD : 64;
   static constexpr int kN0 = HD / kW0;
   static constexpr int kTail = HD - kN0 * kW0;
-  static constexpr int kCount = kN0 + (kTail ? 1 : 0);
-  static_assert(kTail == 0 || kTail == 16, "head dim not covered");
+  static constexpr int kT32 = kTail & 32, kT16 = kTail & 16;
+  static constexpr int kCount = kN0 + (kT32 ? 1 : 0) + (kT16 ? 1 : 0);
+  static_assert(kTail == kT32 + kT16, "head dim not covered");
   __host__ __device__ static constexpr int width(int p) {
-    return p < kN0 ? kW0 : kTail;
+    return p < kN0 ? kW0 : (p == kN0 && kT32) ? 32 : 16;
   }
-  __host__ __device__ static constexpr int col(int p) { return p * kW0; }
+  __host__ __device__ static constexpr int col(int p) {
+    return p <= kN0 ? p * kW0 : kN0 * kW0 + kT32;
+  }
+  __host__ __device__ static constexpr int map(int p) {
+    return p < kN0 ? 0 : 1 + p - kN0;
+  }
 };
 
 // shared memory (bytes from a 1024-aligned base): Q, the K and V rings,
@@ -163,10 +174,11 @@ struct Smem {
   static constexpr int kBytes = kQFull + 8 + 1024;  // + alignment slack
 };
 
-// one tensor map per part width: [0] for the leading parts, [1] for the
-// tail (HD = 80)
+// one tensor map per part width (Parts::map): [0] for the leading parts,
+// [1] and [2] for the tail parts (HD = 80: [1] of 16 columns; HD = 112:
+// [1] of 32, [2] of 16)
 struct Maps {
-  CUtensorMap q[2], k[2], v[2];
+  CUtensorMap q[3], k[3], v[3];
 };
 
 __device__ __forceinline__ float neg_inf() {
@@ -468,7 +480,8 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4],
 
 // O += P V for P's k16 step kk (pa), V (MN-major, its rows are kv) from
 // the tile at v_s: the leading parts as one wgmma of kN0 * kW0 columns,
-// the part stride as its leading byte offset; the tail as one of 16
+// the part stride as its leading byte offset; each tail part as one of its
+// width (one swizzle atom wide, so its leading byte offset is unused)
 template <int HD>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
                                         const uint32_t (&pa)[4], uint32_t v_s,
@@ -478,10 +491,15 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 2],
   constexpr int rb = 2 * P::kW0;
   wgmma_rs<P::kN0 * P::kW0>(
       o, pa, make_desc(v_s + 16 * kk * rb, kBKV * rb, 8 * rb, rb));
-  if constexpr (P::kTail > 0)
-    wgmma_rs<16>(o + P::kN0 * P::kW0 / 2, pa,
-                 make_desc(v_s + kBKV * 2 * P::col(P::kN0) + 16 * kk * 32, 16,
-                           8 * 32, 32));
+  auto tail = [&](int p) {
+    const int tb = 2 * P::width(p);
+    return make_desc(v_s + kBKV * 2 * P::col(p) + 16 * kk * tb, 16, 8 * tb,
+                     tb);
+  };
+  if constexpr (P::kT32 > 0)
+    wgmma_rs<32>(o + P::col(P::kN0) / 2, pa, tail(P::kN0));
+  if constexpr (P::kT16 > 0)
+    wgmma_rs<16>(o + P::col(P::kCount - 1) / 2, pa, tail(P::kCount - 1));
 }
 
 // all of P's k16 steps (KK = the tile's rows / 16) for tile v_s
@@ -631,8 +649,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(bar_q, kBQ * HD * 2);
 #pragma unroll
       for (int p = 0; p < P::kCount; ++p)
-        tma_load(base + L::kQ + kBQ * 2 * P::col(p),
-                 &maps.q[p < P::kN0 ? 0 : 1], bar_q, P::col(p), h, q0, b);
+        tma_load(base + L::kQ + kBQ * 2 * P::col(p), &maps.q[P::map(p)],
+                 bar_q, P::col(p), h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int stage = t % kStages;
         if (t >= kStages)   // the consumers released the stage's last tile
@@ -640,7 +658,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_expect_tx(bar_full + 8 * stage, 2 * L::kTile);
 #pragma unroll
         for (int p = 0; p < P::kCount; ++p) {
-          const int m = p < P::kN0 ? 0 : 1;
+          const int m = P::map(p);
           const uint32_t off = stage * L::kTile + kBKV * 2 * P::col(p);
           tma_load(base + L::kK + off, &maps.k[m], bar_full + 8 * stage,
                    P::col(p), hk, t * kBKV, b);
@@ -809,14 +827,16 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   Maps maps;
-  for (int m = 0; m < (P::kTail ? 2 : 1); ++m) {
-    const int width = m == 0 ? P::kW0 : P::kTail;
+  const int n_maps = 1 + P::kCount - P::kN0;
+  for (int m = 0; m < n_maps; ++m) {
+    const int width = P::width(m == 0 ? 0 : P::kN0 + m - 1);
     if (!encode(fn, &maps.q[m], a.q, HD, a.Hq, a.Sq, a.B, width, kBQ) ||
         !encode(fn, &maps.k[m], a.k, HD, a.Hkv, a.Skv, a.B, width, kBKV) ||
         !encode(fn, &maps.v[m], a.v, HD, a.Hkv, a.Skv, a.B, width, kBKV))
       return cudaErrorInvalidValue;
   }
-  if (!P::kTail) maps.q[1] = maps.k[1] = maps.v[1] = maps.q[0];
+  for (int m = n_maps; m < 3; ++m)   // unused: never read by a copy
+    maps.q[m] = maps.k[m] = maps.v[m] = maps.q[0];
   const int smem = Smem<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -987,8 +1007,8 @@ cudaError_t launch_hd(const Args& a, int dtype, cudaStream_t stream) {
 // Hq % Hkv == 0. The head dims below are exactly
 // flash_attention.HEAD_DIMS; a CPU test checks it. Each is a multiple of
 // 16 (whole k16 steps, 16-byte row copies); 80 is zamba2's shared block,
-// 192 MLA's prefill (deepseek-v2-lite: 128 + 64 columns of q and k, v
-// padded to 192).
+// 112 kimi-k2's attention, 192 MLA's prefill (deepseek-v2-lite: 128 + 64
+// columns of q and k, v padded to 192).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int Hq, int Hkv, int hd,
@@ -1004,6 +1024,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   else if (hd == 32) err = launch_hd<32>(a, dtype, s);
   else if (hd == 64) err = launch_hd<64>(a, dtype, s);
   else if (hd == 80) err = launch_hd<80>(a, dtype, s);
+  else if (hd == 112) err = launch_hd<112>(a, dtype, s);
   else if (hd == 128) err = launch_hd<128>(a, dtype, s);
   else if (hd == 192) err = launch_hd<192>(a, dtype, s);
   else err = cudaErrorInvalidValue;

@@ -39,7 +39,7 @@ LAUNCHES = 0
 BACKWARD_CALLS = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128, 192)   # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 192)   # the kernel's instantiations
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

@@ -5,10 +5,13 @@ ROADMAP queue 1 item 10(h)).
     python -m repro_torch.launch.serve --arch qwen3-0.6b --new-tokens 32 \\
         --reduced --device cpu
 
-``--arch`` takes a dense, MoE (``deepseek-v2-lite-16b``, with MLA;
-``kimi-k2-1t-a32b``, reduced only on one card), SSM (``mamba2-1.3b``) or
-hybrid (``zamba2-2.7b``) architecture. Without ``--device`` it runs on the
-card. Params are a random initialisation from a seed, built as the
+``--arch`` takes any architecture of the registry: dense, MoE
+(``deepseek-v2-lite-16b``, with MLA; ``kimi-k2-1t-a32b``, reduced only on
+one card), SSM (``mamba2-1.3b``), hybrid (``zamba2-2.7b``), VLM
+(``internvl2-1b``, whose decode takes no vision prefix, as in the JAX
+package) or encoder-decoder (``whisper-large-v3``, decoding from frames of
+zeros by default, as the JAX launcher does). Without ``--device`` it runs
+on the card. Params are a random initialisation from a seed, built as the
 serving copy a layer at a time (:meth:`Model.init_serving`); no weights
 are downloaded.
 """
@@ -54,13 +57,15 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def serve(model: Model, params, prompts: torch.Tensor, new_tokens: int, *,
-          max_len: int | None = None,
+          max_len: int | None = None, frames: torch.Tensor | None = None,
           keep_prompt_logits: bool = False) -> ServeResult:
     """Answer a batch of requests: feed each prompt (B, P) through the
     decode step token by token (teacher forced; the last prompt step's
     argmax is the first new token), then decode greedily with the serve
     step until ``new_tokens`` tokens per request exist. The cache holds
-    ``max_len`` positions (default P + new_tokens)."""
+    ``max_len`` positions (default P + new_tokens). An encoder-decoder
+    needs ``frames`` (B, encoder_seq_len, d), which its cache's set-up
+    encodes once."""
     b, p = prompts.shape
     if p < 1 or new_tokens < 1:
         raise ValueError("need at least one prompt token and one new token")
@@ -70,7 +75,10 @@ def serve(model: Model, params, prompts: torch.Tensor, new_tokens: int, *,
         raise ValueError(f"a cache of {max_len} positions cannot hold "
                          f"{steps} steps")
     device = prompts.device
-    cache = model.decode_init(params, {"tokens": prompts}, max_len,
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
+    cache = model.decode_init(params, batch, max_len,
                               dtype=activation_dtype(model.cfg))
     step = make_serve_step(model)
     kept = []
@@ -103,15 +111,19 @@ def cache_bytes(cfg, batch: int, max_len: int, dtype: torch.dtype) -> int:
     (kv_lora_rank + qk_rope_head_dim columns) in ``dtype``, the leading
     dense layers' too; an SSM layer's state (B, H, N, P) and conv buffer
     (B, K - 1, conv_dim) in float32, whatever ``dtype`` and ``max_len``;
-    zamba2 both, with one k/v cache per application of the shared block.
-    The int32 lengths and positions (4 bytes per request and layer) are not
-    counted."""
+    zamba2 both, with one k/v cache per application of the shared block;
+    an encoder-decoder's self k/v of every decoder layer and its cross k/v
+    of ``encoder_seq_len`` positions, both in ``dtype``. The int32 lengths
+    and positions (4 bytes per request and layer) are not counted."""
     item = torch.empty((), dtype=dtype).element_size()
     if cfg.mla is not None:
         m = cfg.mla
         return (cfg.n_layers * batch * max_len
                 * (m.kv_lora_rank + m.qk_rope_head_dim) * item)
-    kv = 2 * batch * max_len * cfg.n_kv_heads * cfg.resolved_head_dim * item
+    per_position = 2 * batch * cfg.n_kv_heads * cfg.resolved_head_dim * item
+    kv = per_position * max_len
+    if cfg.family == "encdec":
+        return cfg.n_layers * per_position * (max_len + cfg.encoder_seq_len)
     if cfg.family not in SSM_FAMILIES:
         return cfg.n_layers * kv
     s = cfg.ssm
@@ -125,13 +137,15 @@ def cache_bytes(cfg, batch: int, max_len: int, dtype: torch.dtype) -> int:
 
 
 def serve_shape(cfg, shape: ShapeSpec, new_tokens: int, *, device=None,
-                params=None, prompts=None,
+                params=None, prompts=None, frames=None,
                 keep_prompt_logits: bool = False) -> ServeResult:
     """The launcher's body: serve ``shape.global_batch`` requests with a
     cache of ``shape.seq_len`` positions. ``params`` default to a random
     init from seed 0 built as the serving copy (:meth:`Model.init_serving`,
     which never holds the float32 params); ``prompts`` default to one
-    token 0 per request, as the JAX launcher starts."""
+    token 0 per request, and an encoder-decoder's ``frames`` to zeros in
+    the activation dtype (bfloat16 at full size, float32 reduced), as the
+    JAX launcher starts."""
     dev = resolve_device(device)
     model = build_model(cfg)
     dtype = activation_dtype(cfg)
@@ -147,8 +161,11 @@ def serve_shape(cfg, shape: ShapeSpec, new_tokens: int, *, device=None,
     if prompts is None:
         prompts = torch.zeros(shape.global_batch, 1, dtype=torch.int32,
                               device=dev)
+    if frames is None and cfg.family == "encdec":
+        frames = torch.zeros(shape.global_batch, cfg.encoder_seq_len,
+                             cfg.d_model, dtype=dtype, device=dev)
     return serve(model, params, prompts, new_tokens, max_len=shape.seq_len,
-                 keep_prompt_logits=keep_prompt_logits)
+                 frames=frames, keep_prompt_logits=keep_prompt_logits)
 
 
 def main(argv=None):

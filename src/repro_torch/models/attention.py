@@ -5,8 +5,9 @@ Multi-head Latent Attention (MLA). Port of ``repro.models.attention``.
 All shapes are (batch, seq, heads, head_dim); softmax statistics in
 float32. The full-sequence paths are differentiable: their scores go
 through :func:`ops.flash_attention`, whose backward recomputes attention
-in float32 (``kernels/flash_attention.py``). Cross-attention
-(``cross_kv``) comes with its family (ROADMAP queue 1 item 10(e)).
+in float32 (``kernels/flash_attention.py``). The encoder-decoder's
+cross-attention reads the k and v of :func:`cross_kv`
+(``models/encdec.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +90,16 @@ def attention(params, cfg, x, *, causal: bool = True, rope: bool = True):
     q, k, v = _project_qkv(params, cfg, x, positions, rope=rope)
     out = ops.flash_attention(q, k, v, causal=causal)
     return dense(params["wo"], out.reshape(b, s, -1))
+
+
+def cross_kv(params, cfg, enc_out):
+    """The cross-attention k and v (B, S_enc, Hkv, hd) of the encoder
+    output."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = dense(params["wk"], enc_out).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(params["wv"], enc_out).reshape(b, s, cfg.n_kv_heads, hd)
+    return k, v
 
 
 def attention_decode(params, cfg, x, cache, *, rope: bool = True):

@@ -13,8 +13,8 @@ own.
 One :class:`ModelConfig` describes any of the assigned families:
 dense decoder-only LMs (olmo/qwen2/qwen3), MoE LMs (kimi-k2,
 deepseek-v2-lite w/ MLA), encoder-decoder audio (whisper), VLM backbones
-(internvl2), SSMs (mamba2) and hybrids (zamba2). The port runs the dense
-family so far; the others raise where they would run.
+(internvl2), SSMs (mamba2) and hybrids (zamba2). The port runs every
+one of them.
 """
 
 from __future__ import annotations

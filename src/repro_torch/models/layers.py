@@ -141,6 +141,15 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def sinusoidal_positions(seq_len: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed positional embeddings, (S, d) float32: the sines
+    of ``pos / 10000^(2i / d)`` then their cosines."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10_000.0 ** (dim / d))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------

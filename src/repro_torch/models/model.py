@@ -1,6 +1,7 @@
-"""Model facade: a uniform init / loss / logits / decode interface, plus
-the (arch x shape) grid's shape specs. Port of ``repro.models.model``; the
-dense, MoE (MLA included), SSM and hybrid families so far.
+"""Model facade: a uniform init / loss / logits / decode interface over
+every family (dense, MoE with or without MLA, SSM, hybrid, VLM and the
+encoder-decoder), plus the (arch x shape) grid's shape specs. Port of
+``repro.models.model``.
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -42,14 +43,19 @@ class Model:
     """Family-dispatched facade used by the train and serve launchers."""
 
     def __init__(self, cfg: ModelConfig):
-        transformer.require_ported(cfg)
         self.cfg = cfg
+        self._encdec = cfg.family == "encdec"
 
     # -- parameters ---------------------------------------------------------
 
+    def _init(self, gen: torch.Generator, dtype: torch.dtype | None):
+        if self._encdec:
+            return encdec.encdec_init(self.cfg, gen, dtype)
+        return transformer.lm_init(self.cfg, gen, dtype)
+
     def init(self, gen: torch.Generator):
         """Random float32 params drawn from ``gen``, on its device."""
-        return transformer.lm_init(self.cfg, gen)
+        return self._init(gen, None)
 
     def serving_params(self, params):
         """The copy a server keeps: matrices in the activation dtype, norm
@@ -62,16 +68,23 @@ class Model:
         """``serving_params(init(gen))``, bit for bit, built a layer at a
         time so the float32 params never exist whole (the way a card
         holds deepseek-v2-lite-16b)."""
-        return transformer.lm_init(self.cfg, gen,
-                                   transformer.activation_dtype(self.cfg))
+        return self._init(gen, transformer.activation_dtype(self.cfg))
 
     # -- training -----------------------------------------------------------
 
     def loss(self, params, batch):
-        """Scalar training loss of ``batch`` (``tokens`` (B, S+1))."""
+        """Scalar training loss of ``batch`` (``tokens`` (B, S+1); an
+        encoder-decoder's ``frames``, a VLM's ``prefix_embeds``)."""
+        if self._encdec:
+            return encdec.encdec_loss(params, self.cfg, batch)
         return transformer.lm_loss(params, self.cfg, batch)
 
     def logits(self, params, batch):
+        """Teacher-forced logits of ``batch["tokens"][:, :-1]``: (B, S, V);
+        (B, P + S, V) with a VLM's ``prefix_embeds``."""
+        if self._encdec:
+            return encdec.encdec_forward(params, self.cfg, batch["frames"],
+                                         batch["tokens"][:, :-1])
         out, _ = transformer.lm_forward(
             params, self.cfg, batch["tokens"][:, :-1],
             prefix_embeds=batch.get("prefix_embeds"))
@@ -82,23 +95,43 @@ class Model:
     def decode_init(self, params, batch: dict, max_len: int,
                     dtype=torch.bfloat16):
         """The decode cache on the device of ``batch["tokens"]``: k and v
-        in ``dtype``, SSM state and conv buffers in float32."""
+        in ``dtype``, SSM state and conv buffers in float32; an
+        encoder-decoder runs its encoder on ``batch["frames"]`` here and
+        keeps each layer's cross k/v. A VLM's decode takes no prefix, as in
+        the JAX package."""
+        if self._encdec:
+            if "frames" not in batch:
+                raise ValueError(f"{self.cfg.name} decodes from frames: "
+                                 "batch['frames'] is missing")
+            return encdec.encdec_decode_init(params, self.cfg,
+                                             batch["frames"], max_len, dtype)
         tokens = batch["tokens"]
         return transformer.lm_decode_init(self.cfg, tokens.shape[0], max_len,
                                           dtype, device=tokens.device)
 
     def decode_step(self, params, cache, tokens):
+        if self._encdec:
+            return encdec.encdec_decode_step(params, self.cfg, cache, tokens)
         return transformer.lm_decode_step(params, self.cfg, cache, tokens)
-
 
     # -- shapes -------------------------------------------------------------
 
     def batch_specs(self, shape: ShapeSpec, *,
                     batch_override: int | None = None) -> dict:
         """The training batch of ``shape`` as (shape, dtype) pairs: tokens
-        (B, seq_len + 1) int32."""
+        (B, seq_len + 1) int32; an encoder-decoder's frames (B,
+        encoder_seq_len, d) and a VLM's prefix (B, n_vision_tokens, d) in
+        bfloat16."""
+        cfg = self.cfg
         b = batch_override or shape.global_batch
-        return {"tokens": ((b, shape.seq_len + 1), torch.int32)}
+        specs = {"tokens": ((b, shape.seq_len + 1), torch.int32)}
+        if cfg.family == "encdec":
+            specs["frames"] = ((b, cfg.encoder_seq_len, cfg.d_model),
+                               torch.bfloat16)
+        if cfg.family == "vlm":
+            specs["prefix_embeds"] = ((b, cfg.n_vision_tokens, cfg.d_model),
+                                      torch.bfloat16)
+        return specs
 
 
 def build_model(cfg: ModelConfig) -> Model:

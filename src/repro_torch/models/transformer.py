@@ -1,14 +1,17 @@
 """Decoder-only LM assembly: the dense (olmo / qwen2 / qwen3), MoE (kimi-k2;
-deepseek-v2-lite with MLA), SSM (mamba2) and hybrid (zamba2) families.
-Port of ``repro.models.transformer``.
+deepseek-v2-lite with MLA), SSM (mamba2), hybrid (zamba2) and VLM
+(internvl2's Qwen2 backbone) families. Port of
+``repro.models.transformer``; the encoder-decoder family is
+``models/encdec.py``.
 
 Layer parameters are stacked along a leading axis, as in the JAX package;
 a Python loop over layer slices takes the place of ``lax.scan``. The
 heterogeneous parts sit outside the stack: the leading dense layers of a
 MoE model (``dense_blocks``, run before it) and zamba2's weight-tied
 shared attention+MLP block (run after every ``hybrid_attn_period``
-layers). The encoder-decoder and VLM families raise
-``NotImplementedError`` naming their ROADMAP items.
+layers). A VLM's forward takes ``prefix_embeds`` (B, P, d), the stub
+vision frontend's patch embeddings, prepended to the token embeddings;
+its decode takes none (the JAX package's decode drops the prefix too).
 """
 
 from __future__ import annotations
@@ -29,13 +32,6 @@ from repro_torch.models.ssm import (init_ssm_cache, ssm_apply, ssm_decode,
                                     ssm_init)
 from repro_torch.utils import tree_map
 
-# families of ModelConfig the port does not run yet -> ROADMAP item
-NOT_PORTED_FAMILIES = {
-    "encdec": "queue 1 item 10(e), encoder-decoder",
-    "vlm": "queue 1 item 10(f), VLM",
-}
-
-PORTED_FAMILIES = ("dense", "moe", "mla", "ssm", "hybrid")
 SSM_FAMILIES = ("ssm", "hybrid")
 
 # parameter leaves that are matrices: the ones a serving copy holds in the
@@ -46,16 +42,6 @@ MATRIX_LEAVES = ("w", "table")
 # a serving copy keeps them float32: the MoE router (float32 routing) and
 # MLA's wkv_b (the absorbed decode's float32 einsums)
 FLOAT32_MATRICES = ("router", "wkv_b")
-
-
-def require_ported(cfg) -> None:
-    """Raise ``NotImplementedError`` unless the port runs ``cfg``."""
-    what = ("mla" if cfg.mla is not None else
-            "moe" if cfg.moe is not None else cfg.family)
-    if what not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {what} family is not ported yet: ROADMAP "
-            f"{NOT_PORTED_FAMILIES.get(what, 'queue 1 item 10')}")
 
 
 def activation_dtype(cfg) -> torch.dtype:
@@ -88,7 +74,7 @@ def _apply_norm(cfg, p, x):
     return apply_norm(p, x, kind=cfg.norm_type)
 
 
-def _layers(blocks, n: int) -> list:
+def layer_slices(blocks, n: int) -> list:
     """The ``n`` per-layer views of the stacked ``blocks`` tree."""
     def split(node):
         if isinstance(node, dict):
@@ -104,7 +90,6 @@ def _layers(blocks, n: int) -> list:
 
 def block_init(gen: torch.Generator, cfg):
     """One layer of the stack, its structure fixed by ``cfg.family``."""
-    require_ported(cfg)
     if cfg.family in SSM_FAMILIES:
         return {"norm1": _norm_params(cfg, gen.device),
                 "ssm": ssm_init(gen, cfg)}
@@ -184,7 +169,7 @@ def _n_stack_layers(cfg) -> int:
     return cfg.n_layers - _n_dense_layers(cfg)
 
 
-def _stacked_init(make_layer, n: int):
+def stacked_init(make_layer, n: int):
     """``n`` layers from ``make_layer()``, called in order, stacked along a
     leading axis: each layer is written into preallocated stacked tensors
     as it is drawn, so at most one layer exists outside the stack (as
@@ -208,7 +193,6 @@ def lm_init(cfg, gen: torch.Generator, dtype: torch.dtype | None = None):
     62.8 GB; its bf16 serving copy is 31.4 GB). Draws: the embedding, the
     leading dense layers, the stack, zamba2's shared block, the
     read-out."""
-    require_ported(cfg)
     cast = (lambda t: t) if dtype is None else partial(cast_params,
                                                        dtype=dtype)
     params = {"embed": cast(embedding_init(gen, cfg.vocab_size,
@@ -216,7 +200,7 @@ def lm_init(cfg, gen: torch.Generator, dtype: torch.dtype | None = None):
     if _n_dense_layers(cfg):
         params["dense_blocks"] = [cast(dense_block_init(gen, cfg))
                                   for _ in range(_n_dense_layers(cfg))]
-    params["blocks"] = _stacked_init(lambda: cast(block_init(gen, cfg)),
+    params["blocks"] = stacked_init(lambda: cast(block_init(gen, cfg)),
                                      _n_stack_layers(cfg))
     params["final_norm"] = _norm_params(cfg, gen.device)
     if _shared_period(cfg):
@@ -234,7 +218,7 @@ def _run_stack(params, cfg, x):
     the MoE layers."""
     aux = torch.zeros((), device=x.device)
     period = _shared_period(cfg)
-    for i, layer in enumerate(_layers(params["blocks"],
+    for i, layer in enumerate(layer_slices(params["blocks"],
                                       _n_stack_layers(cfg))):
         x, aux = block_apply(layer, cfg, x, aux)
         if period and (i + 1) % period == 0:
@@ -250,12 +234,12 @@ def _read_out(params, cfg, x):
 
 
 def lm_forward(params, cfg, tokens, *, prefix_embeds=None):
-    """tokens: (B, S) integer. Returns (logits (B, S, V), aux_loss scalar)."""
-    require_ported(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError(f"prefix_embeds: ROADMAP "
-                                  f"{NOT_PORTED_FAMILIES['vlm']}")
+    """tokens: (B, S) integer; ``prefix_embeds`` (B, P, d), a VLM's patch
+    embeddings, prepended in the activation dtype. Returns (logits
+    (B, P + S, V), aux_loss scalar)."""
     x = embed(params["embed"], tokens).to(activation_dtype(cfg))
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     for dp in params.get("dense_blocks", ()):
         x = dense_block_apply(dp, cfg, x)
     x, aux = _run_stack(params, cfg, x)
@@ -263,13 +247,17 @@ def lm_forward(params, cfg, tokens, *, prefix_embeds=None):
 
 
 def lm_loss(params, cfg, batch):
-    """batch: {tokens (B, S+1)[, loss_mask (B, S)]} -> scalar loss: the
-    mean next-token cross entropy plus ``0.01 * aux`` (aux, the MoE
-    layers' load-balancing loss, is zero for the other families)."""
+    """batch: {tokens (B, S+1)[, prefix_embeds (B, P, d), loss_mask
+    (B, S)]} -> scalar loss: the mean next-token cross entropy of the
+    token positions (the prefix's logits are sliced off) plus ``0.01 *
+    aux`` (aux, the MoE layers' load-balancing loss, is zero for the other
+    families)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = lm_forward(params, cfg, inputs,
-                             prefix_embeds=batch.get("prefix_embeds"))
+    prefix = batch.get("prefix_embeds")
+    logits, aux = lm_forward(params, cfg, inputs, prefix_embeds=prefix)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
     loss = cross_entropy(logits, labels, batch.get("loss_mask"))
     return loss + 0.01 * aux
 
@@ -281,7 +269,6 @@ def lm_loss(params, cfg, batch):
 def _layer_cache_init(cfg, batch, max_len, dtype, device):
     """One layer's cache: an SSM layer's is float32 whatever ``dtype``; an
     MLA layer's holds the latent and the rope key (c_kv, k_rope)."""
-    require_ported(cfg)
     if cfg.family in SSM_FAMILIES:
         return init_ssm_cache(cfg, batch, torch.float32, device)
     if cfg.mla is not None:
@@ -289,18 +276,22 @@ def _layer_cache_init(cfg, batch, max_len, dtype, device):
     return init_kv_cache(cfg, batch, max_len, dtype, device)
 
 
-def _stacked(caches: list) -> dict:
-    return tree_map(lambda *ls: torch.stack(ls), *caches)
+def _stacked(layer_cache: dict, n: int) -> dict:
+    """``n`` copies of the all-zero ``layer_cache`` stacked along a leading
+    axis, each leaf allocated once (stacking ``n`` caches would hold twice
+    the cache for a moment: 103 GB for internvl2-1b at decode_32k)."""
+    return tree_map(lambda t: t.new_zeros((n, *t.shape)), layer_cache)
 
 
 def lm_decode_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):
     """The decode cache: per-layer caches stacked over the stack's layers,
     a ``dense`` list with one per leading dense layer of a MoE model, and
-    for zamba2 one k/v cache per application of the shared block."""
-    cache = {"stack": _stacked([
-        _layer_cache_init(cfg, batch, max_len, dtype, device)
-        for _ in range(_n_stack_layers(cfg))]),
+    for zamba2 one k/v cache per application of the shared block; all
+    zeros, lengths and positions 0."""
+    cache = {"stack": _stacked(
+        _layer_cache_init(cfg, batch, max_len, dtype, device),
+        _n_stack_layers(cfg)),
         "position": torch.zeros(batch, dtype=torch.int32, device=device)}
     if _n_dense_layers(cfg):
         cache["dense"] = [_layer_cache_init(cfg, batch, max_len, dtype,
@@ -308,9 +299,9 @@ def lm_decode_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                           for _ in range(_n_dense_layers(cfg))]
     period = _shared_period(cfg)
     if period:
-        cache["shared"] = _stacked([
-            init_kv_cache(cfg, batch, max_len, dtype, device)
-            for _ in range(cfg.n_layers // period)])
+        cache["shared"] = _stacked(
+            init_kv_cache(cfg, batch, max_len, dtype, device),
+            cfg.n_layers // period)
     return cache
 
 
@@ -354,7 +345,6 @@ def lm_decode_step(params, cfg, cache, tokens):
     """One decode step. tokens: (B,) integer -> (logits (B, V), cache). The
     cache's k, v, MLA latents, SSM state and conv buffer are updated in
     place."""
-    require_ported(cfg)
     x = embed(params["embed"], tokens[:, None]).to(activation_dtype(cfg))
     period = _shared_period(cfg)
     news, shared_news, dense_news = [], [], []
@@ -362,7 +352,7 @@ def lm_decode_step(params, cfg, cache, tokens):
                       cache.get("dense", ())):
         x, new = dense_block_decode(dp, cfg, x, dc)
         dense_news.append(new)
-    for i, layer in enumerate(_layers(params["blocks"],
+    for i, layer in enumerate(layer_slices(params["blocks"],
                                       _n_stack_layers(cfg))):
         x, new = _block_decode(layer, cfg, x, _slice(cache["stack"], i))
         news.append(new)

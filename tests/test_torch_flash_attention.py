@@ -37,15 +37,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
+from repro_torch.configs import get_config as tget
 from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tatt
 
 try:                     # the oracle; absent on a machine with only torch
+    import jax
     import jax.numpy as jnp
 
+    from repro.configs import get_config as jget
     from repro.kernels import ref as jref
+    from repro.models import attention as jatt
 except ImportError:
     jnp = jref = None
 
@@ -61,12 +67,14 @@ KERNEL_TOL = {"float32": (1e-5, 1e-5, None),
 KV_TILES = (64, 128)
 SOURCE = Path(tref.__file__).parent / "csrc" / "flash_attention.cu"
 # (B, S, Hq, Hkv, hd), causal: tests/test_kernels.py's sweep and GQA case,
-# then zamba2's head dim of 80 and MLA's of 192 (deepseek-v2-lite) and of
-# its reduced config: 16 + 8 columns padded to 32 and scaled by 24 ** -0.5
+# then zamba2's head dim of 80, kimi-k2's of 112 (GQA 8 over 1), MLA's of
+# 192 (deepseek-v2-lite) and of its reduced config: 16 + 8 columns padded
+# to 32 and scaled by 24 ** -0.5
 CASES = [((1, 128, 4, 4, 32), True), ((2, 256, 8, 8, 64), True),
          ((2, 128, 4, 4, 64), False), ((1, 512, 2, 2, 16), True),
          ((2, 128, 8, 2, 32), True), ((2, 96, 4, 4, 80), True),
-         ((1, 160, 4, 4, 192), True), ((2, 40, 4, 4, 32), True)]
+         ((2, 136, 8, 1, 112), True), ((1, 160, 4, 4, 192), True),
+         ((2, 40, 4, 4, 32), True)]
 SCALES = {(2, 40, 4, 4, 32): 24 ** -0.5}    # the rest: hd ** -0.5
 
 
@@ -133,6 +141,28 @@ def test_plain_version_matches_jax_ref(shape, causal, dtype):
                   for x in (q, k, v))
     close(got.float(), jref.flash_attention_ref(jq, jk, jv, causal=causal,
                                                 softmax_scale=scale), dtype)
+
+
+@pytest.mark.parametrize("seq", [40, 70])
+def test_attention_at_head_dim_112_matches_jax_blocked(seq):
+    """kimi-k2's attention at its published head dim of 112 (the reduced
+    config with ``head_dim=112``: GQA 4 over 2, rope) through the port's
+    ``attention`` (the flash wrapper's plain version on the CPU) against
+    JAX's blocked attention, at 1e-5; the wrapper refused hd 112 before
+    the kernel had an instantiation for it."""
+    need_jax()
+    jcfg = jget("kimi-k2-1t-a32b").reduced(head_dim=112)
+    assert jcfg.resolved_head_dim == 112 and not jcfg.use_flash_kernel
+    params = jax.tree.map(np.asarray,
+                          jatt.attention_init(jax.random.key(5), jcfg))
+    x = np.random.default_rng(seq).normal(
+        size=(2, seq, jcfg.d_model)).astype(np.float32)
+    want = jatt.attention(params, jcfg, jnp.asarray(x))
+    got = tatt.attention(convert.lm_params_from_numpy(params, "cpu"),
+                         tget("kimi-k2-1t-a32b").reduced(head_dim=112),
+                         torch.tensor(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("sq,skv", [(5, 9), (9, 5), (70, 130)])
@@ -234,7 +264,8 @@ def test_build_fuses_multiply_add_for_flash_only(name):
 def test_kernel_matches_plain_version_on_card():
     """The CUDA kernel against the plain version in float32 on the same
     card tensors, under ``KERNEL_TOL``; ragged lengths, GQA, both masks,
-    Sq != Skv (top-left); one launch per call."""
+    Sq != Skv (top-left causal, and non-causal as whisper's cross
+    attention), every head dim; one launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cases = [(1, 128, 128, 4, 4, 32, True), (2, 200, 200, 8, 2, 64, True),
@@ -243,7 +274,9 @@ def test_kernel_matches_plain_version_on_card():
              (4, 1024, 1024, 16, 8, 128, True),
              (2, 300, 300, 8, 8, 80, True), (1, 129, 129, 4, 2, 80, False),
              (2, 333, 333, 4, 2, 192, True), (1, 200, 170, 4, 4, 192, False),
-             (1, 70, 130, 4, 4, 192, True)]
+             (1, 70, 130, 4, 4, 192, True), (2, 300, 300, 8, 1, 112, True),
+             (1, 300, 700, 4, 2, 112, True), (2, 333, 200, 4, 4, 112, False),
+             (2, 97, 300, 4, 4, 64, False)]
     for b, sq, skv, hq, hkv, hd, causal in cases:
         for dtype in ("float32", "bfloat16"):
             q, k, v = (torch.tensor(x, device="cuda").to(getattr(torch,

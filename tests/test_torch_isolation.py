@@ -45,6 +45,9 @@ def test_port_import_leaves_jax_unloaded():
             "repro_torch.models.moe, repro_torch.models.attention, "
             "repro_torch.configs.deepseek_v2_lite_16b, "
             "repro_torch.configs.kimi_k2_1t_a32b, "
+            "repro_torch.models.encdec, "
+            "repro_torch.configs.whisper_large_v3, "
+            "repro_torch.configs.internvl2_1b, "
             "repro_torch.launch.serve, repro_torch.launch.steps, "
             "repro_torch.launch.train, repro_torch.optim, "
             "repro_torch.checkpoint, repro_torch.runtime, "

@@ -1,7 +1,8 @@
 """Port parity: the LM serving path (``repro_torch.models``,
 ``repro_torch.launch``) of the dense, MoE (kimi-k2; deepseek-v2-lite with
 MLA), SSM (mamba2) and hybrid (zamba2) families against the JAX package's
-model zoo.
+model zoo (the encoder-decoder and VLM families have their own files,
+``test_torch_encdec.py`` and ``test_torch_vlm.py``).
 
 Inputs come from numpy seeds and the JAX package's ``lm_init`` params,
 carried across leaf for leaf with ``convert.lm_params_from_numpy``; both
@@ -145,29 +146,31 @@ def test_configs_and_shapes_match_jax():
 
 
 def test_dense_configs_are_ported_and_the_rest_raise():
-    """The dense, MoE (MLA included), SSM and hybrid configs are ported;
-    the encoder-decoder and VLM families raise naming their ROADMAP
-    item."""
-    assert sorted(all_configs()) == sorted(
-        ["olmo-1b", "qwen2-7b", "qwen3-0.6b", "qwen3-32b", "mamba2-1.3b",
-         "zamba2-2.7b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
-    assert sorted(NOT_PORTED) == sorted(["whisper-large-v3", "internvl2-1b"])
+    """Every configuration of the registry is ported (the name dates from
+    when the encoder-decoder and VLM families raised): ``all_configs``
+    holds all ten, ``NOT_PORTED`` is empty, and each reduced model's
+    training loss is a finite scalar (whisper's from frames, internvl2's
+    with a vision prefix)."""
+    assert sorted(all_configs()) == sorted(T_ARCH_IDS)
+    assert len(T_ARCH_IDS) == 10 and NOT_PORTED == {}
     assert tget("qwen3_0p6b") == tget("qwen3-0.6b")
     assert tget("mamba2_1p3b") == tget("mamba2-1.3b")
     assert tget("deepseek_v2_lite_16b") == tget("deepseek-v2-lite-16b")
-    for arch in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tget(arch)
-    cfg = tget("qwen3-0.6b").reduced()
-    for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuild(dataclasses.replace(cfg, family=family))
-    # training is ported: the loss of a reduced model is a finite scalar
-    model = tbuild(cfg)
-    toks = torch.tensor(tokens(cfg, 2, 9))
-    loss = model.loss(model.init(torch.Generator().manual_seed(0)),
-                      {"tokens": toks})
-    assert loss.shape == () and torch.isfinite(loss)
+    assert tget("whisper_large_v3") == tget("whisper-large-v3")
+    assert tget("internvl2_1b") == tget("internvl2-1b")
+    for arch, full in all_configs().items():
+        cfg = full.reduced()
+        model = tbuild(cfg)
+        batch = {"tokens": torch.tensor(tokens(cfg, 2, 9))}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(2, cfg.encoder_seq_len,
+                                          cfg.d_model)
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = torch.randn(2, cfg.n_vision_tokens,
+                                                 cfg.d_model)
+        loss = model.loss(model.init(torch.Generator().manual_seed(0)),
+                          batch)
+        assert loss.shape == () and torch.isfinite(loss), arch
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +576,8 @@ def test_rmsnorm_launch_count_on_the_path_is_zero_on_cpu():
     assert (trms.LAUNCHES, tfa.LAUNCHES) == before
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b"] + SSM + MOE)
+@pytest.mark.parametrize("arch", ["qwen3-0.6b"] + SSM + MOE
+                         + ["whisper-large-v3", "internvl2-1b"])
 def test_serve_cli_runs_on_cpu(capsys, arch):
     res = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--new-tokens", "4"])
@@ -602,7 +606,7 @@ def float_bytes(cache) -> int:
     ("zamba2-2.7b", torch.bfloat16), ("zamba2-2.7b", torch.float32),
     ("olmo-1b", torch.float32), ("deepseek-v2-lite-16b", torch.bfloat16),
     ("deepseek-v2-lite-16b", torch.float32),
-    ("kimi-k2-1t-a32b", torch.bfloat16)])
+    ("kimi-k2-1t-a32b", torch.bfloat16), ("internvl2-1b", torch.bfloat16)])
 def test_cache_bytes_count_a_built_cache(arch, dtype):
     """``cache_bytes`` per family equals the bytes of the float leaves of
     a built reduced cache: dense k/v in ``dtype``; SSM state and conv in
@@ -822,7 +826,8 @@ def test_moe_decode_matches_forward_in_port(arch, prompt):
     ("deepseek-v2-lite-16b", "bfloat16"), ("deepseek-v2-lite-16b", "float32"),
     ("kimi-k2-1t-a32b", "bfloat16"), ("qwen3-0.6b", "bfloat16"),
     ("qwen2-7b", "bfloat16"), ("mamba2-1.3b", "bfloat16"),
-    ("zamba2-2.7b", "bfloat16")])
+    ("zamba2-2.7b", "bfloat16"), ("internvl2-1b", "bfloat16"),
+    ("whisper-large-v3", "bfloat16"), ("whisper-large-v3", "float32")])
 def test_init_serving_equals_serving_params_bitwise(arch, dtype):
     """The serving copy built a layer at a time (``Model.init_serving``)
     equals ``serving_params(init(gen))`` for the same seed, leaf for leaf
