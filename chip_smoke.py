@@ -260,12 +260,36 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    positions) and internvl2 (with a prefix) in float32, card vs CPU
    within 1e-4, greedy tokens identical.
 
+27. Training the MoE/MLA, encoder-decoder and VLM families, each line
+   with phase 22's fields (the launches per forward by family; the mfu
+   counts an MoE layer's active parameters and whisper's encoder over its
+   frames; the profile adds the MoE dispatch's ops, forward and backward,
+   and their share of the step). (a) ``train_moe_sync``:
+   deepseek-v2-lite-16b at full width cut to 4 layers (the dense one and
+   3 MoE), batch 4 x 4096, 3 ``sync`` steps (4 flash at hd 192 and 9
+   rmsnorm at d 2048 a forward, asserted). (b) ``train_encdec_sync``:
+   whisper-large-v3 whole on 4 x (1500 bf16 frames + 448 tokens), 3
+   ``sync`` steps (96 flash a forward, no rmsnorm). (c)
+   ``train_vlm_sync`` and ``train_vlm_hierarchical``: internvl2-1b whole
+   on 4 x (256 bf16 image tokens + 4096 tokens), 3 ``sync`` steps, then 2
+   pods x 2 for 4 steps with a TopK(0.01) cloud sync every 2 (24 flash and
+   49 rmsnorm a forward). (d) ``train_families_card_vs_cpu``: phase 21's
+   check on the reduced deepseek at capacity factor 0.5 (pairs dropped in
+   every MoE layer, asserted), kimi-k2 at head dim 112, whisper and
+   internvl2, all float32. Before (a), the kernels at the shapes of these
+   paths that phases 25a and 26a do not hold: flash at internvl2's 256 +
+   4096 positions (batch 4 and a pod's 2) and whisper's causal 448-token
+   decoder self attention in bf16, rmsnorm at d 896 on internvl2's train
+   rows; and in the MoE profile one of each dispatch op per MoE layer and
+   forward (asserted).
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
 with each path's, phases 16-19's and the HFEL scheme runs' beside them;
-rmsnorm, flash and the scan add their train paths' launches and a
-``backward`` entry; rmsnorm and flash phases 25 and 26's launches,
-rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192`` and ``hd112``
-entries and one for each of whisper's two shapes and internvl2's layer),
+rmsnorm, flash and the scan add their train paths' launches (phases 22,
+24 and 27) and a ``backward`` entry; rmsnorm and flash phases 25 and
+26's launches, rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
+and ``hd112`` entries and one for each of whisper's two shapes and
+internvl2's layer),
 the raw ``nvidia-smi`` line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -2380,6 +2404,17 @@ SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 2048, 2
 BWD_LABELS = {"flash_attention": "flash_attention_bwd",
               "rmsnorm": "rmsnorm_bwd",
               "ssd_state_scan": "ssd_state_scan_bwd"}
+# the MoE dispatch's ops in a train step's profile (models/moe.py): the
+# scatter of token copies into the expert buffer (``index_copy_``, its
+# backward a row gather) and the gather out of the (E, C, d) buffer
+# (advanced indexing, its backward an accumulating ``index_put_`` into
+# zeros of that shape); (op, rank of its first input, or None). The rank
+# tells the MoE gather from the embedding lookup, the same ops on a 2-D
+# table.
+DISPATCH_OPS = {"index_copy_fwd": ("aten::index_copy_", None),
+                "index_copy_bwd": ("IndexCopyBackward0", None),
+                "gather_fwd": ("aten::index", 3),
+                "gather_bwd": ("aten::_index_put_impl_", 3)}
 # card vs CPU of the train step (reduced float32 models): the loss,
 # gradients and moments at 1e-4 (atol 1e-4 x the leaf's largest value, the
 # CPU tests' bound for JAX parity); parameters after AdamW's first step the
@@ -2411,32 +2446,93 @@ class StepClock:
         return out
 
 
-def train_flops(cfg, n_params: int, batch: int, seq: int) -> float:
-    """Model FLOPs of one train step: 6 x params x tokens (forward and
-    backward of every matrix product; the tied table's read-out included),
-    plus causal attention's QK^T and PV over the visible pairs, three
-    times over (forward, and the backward's four products at twice the
-    forward's cost)."""
-    tokens = batch * seq
-    attn_layers = (cfg.n_layers if cfg.family == "dense" else
-                   cfg.n_layers // cfg.hybrid_attn_period
-                   if cfg.hybrid_attn_period else 0)
-    pairs = seq * (seq + 1) // 2
-    attn = 3 * 2 * 2 * pairs * cfg.resolved_head_dim * cfg.n_heads * batch
-    return 6.0 * n_params * tokens + attn * attn_layers
+def train_flops(cfg, params, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 x each parameter x the positions
+    it multiplies (forward and backward of every matrix product; the tied
+    table's read-out included), plus attention's QK^T and PV over the
+    visible pairs, three times over (forward, and the backward's four
+    products at twice the forward's cost). A VLM's positions are its
+    prefix's and its tokens'. An MoE layer counts its active parameters:
+    the router, ``top_k`` of its routed experts and the shared ones.
+    An encoder-decoder's encoder (and its decoder's cross k, v
+    projections) multiply the frames, the rest of its decoder the tokens
+    (``pos_embed`` is added, not multiplied); its encoder and cross
+    attention see every pair, its decoder's self attention the causal
+    ones. MLA's products run over its q/k and v widths, not the padding.
+    An untied embedding table is a lookup, not a product."""
+    from repro_torch.utils import tree_leaves_with_path
+    positions = seq + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
+    frames = cfg.encoder_seq_len if cfg.family == "encdec" else 0
+    moe = cfg.moe
+
+    def uses(path) -> float:
+        """Positions a leaf multiplies, times its active fraction."""
+        if path[0] == "embed" and not cfg.tie_embeddings:
+            return 0.0
+        if cfg.family == "encdec":
+            if path[0] == "pos_embed":
+                return 0.0
+            if path[0] in ("enc_blocks", "enc_norm") or (
+                    path[0] == "dec_blocks" and path[1] == "cross_attn"
+                    and path[2] in ("wk", "wv")):
+                return float(frames)
+        if moe is not None and "experts" in path:
+            return positions * moe.top_k / moe.n_experts
+        return float(positions)
+
+    matmul = sum(6.0 * leaf.numel() * uses(path) * batch
+                 for path, leaf in tree_leaves_with_path(params))
+    if cfg.mla is not None:
+        qk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        vd = cfg.mla.v_head_dim
+    else:
+        qk = vd = cfg.resolved_head_dim
+    per_pair = 3 * 2 * cfg.n_heads * (qk + vd) * batch
+
+    def causal(n):
+        return n * (n + 1) // 2
+
+    if cfg.family == "encdec":
+        pairs = (cfg.n_encoder_layers * frames * frames
+                 + cfg.n_layers * (causal(seq) + seq * frames))
+    elif cfg.family in ("dense", "vlm", "moe"):
+        pairs = cfg.n_layers * causal(positions)
+    elif cfg.hybrid_attn_period:
+        pairs = cfg.n_layers // cfg.hybrid_attn_period * causal(positions)
+    else:
+        pairs = 0
+    return matmul + per_pair * pairs
 
 
-def profile_train(phase: str, fn) -> dict | None:
+def train_launches_per_forward(cfg) -> dict:
+    """Each kernel's launches in one training forward, by family (each
+    launch has one backward call): flash once per attention (whisper:
+    encoder, decoder self and cross), rmsnorm at every parametric RMS
+    norm (two a layer and the final one; none under LayerNorm), the scan
+    once per SSM layer."""
+    flash = {"dense": cfg.n_layers, "vlm": cfg.n_layers,
+             "moe": cfg.n_layers, "ssm": 0,
+             "encdec": cfg.n_encoder_layers + 2 * cfg.n_layers}[cfg.family]
+    return {"flash_attention": flash,
+            "rmsnorm": 0 if cfg.norm_type == "layernorm"
+            else 2 * cfg.n_layers + 1,
+            "ssd_state_scan": cfg.n_layers if cfg.family == "ssm" else 0}
+
+
+def profile_train(phase: str, fn, shapes: bool = False) -> dict | None:
     """``fn()`` (one train step) under ``torch.profiler``: wall and device
     time, idle share, each backward function's device time (its
     ``record_function`` range, the kernels it launched included) and its
-    share of the step, and the top kernels. None when the profiler fails
+    share of the profiled step, the MoE dispatch's ops (``DISPATCH_OPS``;
+    ``shapes`` records the input shapes that tell them apart, at some
+    host cost), and the top kernels. None when the profiler fails
     (reported on the phase's line)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
         prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+                                   ProfilerActivity.CUDA],
+                       record_shapes=shapes)
         prof.start()
     except (RuntimeError, AttributeError) as exc:
         emit(phase, error=repr(exc))
@@ -2455,14 +2551,24 @@ def profile_train(phase: str, fn) -> dict | None:
         raise
     try:
         prof.stop()
-        kernels, bwd = [], {}
+        kernels, bwd, dispatch = [], {}, {}
         labels = set(BWD_LABELS.values())
-        for e in prof.key_averages():
+        for e in prof.key_averages(group_by_input_shape=True):
+            on_host = "CPU" in str(e.device_type)
+            op = [name for name, (key, rank) in DISPATCH_OPS.items()
+                  if e.key == key and (rank is None or (
+                      e.input_shapes and len(e.input_shapes[0]) == rank))]
             if e.key in labels:
-                if "CPU" in str(e.device_type):
-                    bwd[e.key] = dict(device_ms=e.device_time_total / 1e3,
-                                      host_ms=e.cpu_time_total / 1e3,
-                                      calls=e.count)
+                if on_host:      # a label's shape groups summed
+                    b = bwd.setdefault(e.key, dict(device_ms=0.0,
+                                                   host_ms=0.0, calls=0))
+                    b["device_ms"] += e.device_time_total / 1e3
+                    b["host_ms"] += e.cpu_time_total / 1e3
+                    b["calls"] += e.count
+            elif op and on_host:
+                d = dispatch.setdefault(op[0], dict(device_ms=0.0, calls=0))
+                d["device_ms"] += e.device_time_total / 1e3
+                d["calls"] += e.count
             elif "CUDA" in str(e.device_type):
                 kernels.append((e.key, e.self_device_time_total, e.count))
     except (RuntimeError, AttributeError) as exc:
@@ -2470,23 +2576,27 @@ def profile_train(phase: str, fn) -> dict | None:
         return None
     busy_ms = sum(us for _, us, _ in kernels) / 1e3
     kernels.sort(key=lambda x: -x[1])
-    for v in bwd.values():
+    for v in (*bwd.values(), *dispatch.values()):
         v["share_of_step"] = v["device_ms"] / wall_ms
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                 idle_share=1.0 - busy_ms / wall_ms, backward=bwd,
+                moe_dispatch=dispatch or None,
                 top=[dict(name=name[:80], ms=us / 1e3, count=cnt)
                      for name, us, cnt in kernels[:10]])
 
 
-def train_run(dev, model, tokens, *, phase: str, mode: str, batch: int,
-              steps: int, compressor=None, edge_period: int = 0):
+def train_run(dev, model, data, *, phase: str, mode: str, batch: int,
+              steps: int, compressor=None, edge_period: int = 0, **extra):
     """``steps`` train steps of ``model`` (random float32 params, seed 0)
-    in ``mode`` on the rows of ``tokens``, then one more under the
-    profiler. Emits the phase's line: s a step split into forward,
-    backward, optimizer and cloud sync; tokens/s; peak memory; the loss at
-    every step (asserted finite); the kernels' launches and the backward
-    functions' calls (asserted); each backward's share of the profiled
-    step; the mfu. Returns (line fields, the train state)."""
+    in ``mode`` on the rows of ``data`` (a batch in ``batch_specs``' keys:
+    step k takes rows [k * batch, (k + 1) * batch) of every key), then one
+    more under the profiler. Emits the phase's line (with ``extra``): s a
+    step split into forward, backward, optimizer and cloud sync; tokens/s;
+    peak memory; the loss at every step (asserted finite); the kernels'
+    launches and the backward functions' calls (asserted, per forward as
+    ``train_launches_per_forward``); each backward's share of the
+    profiled step, and the MoE dispatch's; the mfu. Returns (line fields,
+    the train state)."""
     import torch
     from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
     from repro_torch.launch.steps import make_train_step
@@ -2494,18 +2604,19 @@ def train_run(dev, model, tokens, *, phase: str, mode: str, batch: int,
     from repro_torch.utils import tree_size
 
     cfg = model.cfg
-    seq = tokens.shape[1] - 1
+    seq = data["tokens"].shape[1] - 1
     shape = ShapeSpec(f"train_{seq}", seq, batch, "train")
     bundle = make_train_step(model, shape, mode=mode, n_pods=TRAIN_PODS,
                              compressor=compressor, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     n_params = tree_size(params)
+    flops = train_flops(cfg, params, batch, seq)
     params, opt, step = bundle.init_state(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batches = [tokens[i * batch:(i + 1) * batch].to(dev)
-               for i in range(steps + 1)]
+    batches = [{key: v[i * batch:(i + 1) * batch].to(dev)
+                for key, v in data.items()} for i in range(steps + 1)]
     mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
             "ssd_state_scan": ssd_scan}
     for mod in mods.values():
@@ -2517,7 +2628,7 @@ def train_run(dev, model, tokens, *, phase: str, mode: str, batch: int,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, step, loss = bundle.step_fn(
-            params, opt, step, {"tokens": batches[k]}, clock=clock)
+            params, opt, step, batches[k], clock=clock)
         torch.cuda.synchronize()
         row = dict(step=k, loss=float(loss),
                    s=time.perf_counter() - t0,
@@ -2532,22 +2643,25 @@ def train_run(dev, model, tokens, *, phase: str, mode: str, batch: int,
     launched = {name: (mod.LAUNCHES, mod.BACKWARD_CALLS)
                 for name, mod in mods.items()}
     forwards = steps * bundle.n_pods
-    per_fwd = {"flash_attention": cfg.n_layers if cfg.family == "dense"
-               else 0,
-               "rmsnorm": 2 * cfg.n_layers + 1,
-               "ssd_state_scan": 0 if cfg.family == "dense"
-               else cfg.n_layers}
     expected = {name: (forwards * n, forwards * n)
-                for name, n in per_fwd.items()}
+                for name, n in train_launches_per_forward(cfg).items()}
     prof = profile_train(phase + "_profile", lambda: bundle.step_fn(
-        params, opt, step.clone(), {"tokens": batches[steps]}))
+        params, opt, step.clone(), batches[steps]),
+        shapes=cfg.moe is not None)
     warm = rows[1:] or rows
     step_s = sum(r["s"] for r in warm) / len(warm)
+    # the profiler's own host cost stretches a host-bound step: each
+    # entry's device time over the warm step's unprofiled time too
+    for entry in ({**prof["backward"], **(prof["moe_dispatch"] or {})}
+                  .values() if prof else ()):
+        entry["share_of_warm_step"] = entry["device_ms"] / (1e3 * step_s)
     syncs = [r["cloud_sync_s"] for r in rows if "cloud_sync_s" in r]
-    flops = train_flops(cfg, n_params, batch, seq)
+    positions = seq + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
     fields = dict(
         arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
         n_params=n_params, mode=mode, batch=batch, seq=seq,
+        inputs={key: [list(v.shape[1:]), str(v.dtype)]
+                for key, v in batches[0].items()}, **extra,
         pods=bundle.n_pods, dtype=cfg.dtype, param_dtype="float32",
         compressor=None if compressor is None else repr(compressor),
         edge_period=edge_period or None, init_s=init_s, steps=rows,
@@ -2556,6 +2670,9 @@ def train_run(dev, model, tokens, *, phase: str, mode: str, batch: int,
                        / len(warm)
                        for key in ("forward", "backward", "optimizer")},
         cloud_sync_s=syncs, tokens_per_s=batch * seq / step_s,
+        positions_per_s=batch * positions / step_s,
+        frames_per_s=(batch * cfg.encoder_seq_len / step_s
+                      if cfg.family == "encdec" else None),
         max_memory_allocated=peak, peak_limit=TRAIN_PEAK_LIMIT,
         launches={name: dict(kernel=v[0], backward=v[1],
                              expected=list(expected[name]))
@@ -2572,17 +2689,39 @@ def train_run(dev, model, tokens, *, phase: str, mode: str, batch: int,
     if peak > TRAIN_PEAK_LIMIT:
         raise AssertionError(f"{phase}: peak memory {peak} passes "
                              f"{TRAIN_PEAK_LIMIT}")
+    if prof is not None and cfg.moe is not None:
+        # one of each dispatch op per MoE layer and forward: nothing else
+        # on the path matched DISPATCH_OPS' keys and ranks
+        want = (cfg.n_layers - cfg.moe.n_dense_layers) * bundle.n_pods
+        calls = {op: (prof["moe_dispatch"] or {}).get(op, {}).get("calls")
+                 for op in DISPATCH_OPS}
+        if any(c != want for c in calls.values()):
+            raise AssertionError(f"{phase}: MoE dispatch op calls {calls} "
+                                 f"in the profiled step, expected {want} "
+                                 "each")
     return fields, (params, opt, step)
 
 
-def train_tokens(cfg, rows: int, seq: int):
-    """``rows`` sequences from one ``TokenPipeline`` draw (seed 0): its
-    cost is one pass over the sequence whatever the rows."""
+def train_data(model, rows: int, seq: int, dev):
+    """A training batch of ``rows`` rows in ``model.batch_specs``' keys,
+    shapes and dtypes: tokens (B, seq + 1) from one ``TokenPipeline`` draw
+    (seed 0; its cost is one pass over the sequence whatever the rows), an
+    encoder-decoder's frames and a VLM's prefix as bf16 normals from a
+    seeded generator on the card (both frontends are stubs). Returns
+    (batch, seconds)."""
     import torch
     from repro_torch.data import TokenPipeline
+    from repro_torch.models import ShapeSpec
     t0 = time.perf_counter()
-    out = torch.as_tensor(next(TokenPipeline(cfg.vocab_size, seq, rows,
-                                             seed=0)))
+    out = {"tokens": torch.as_tensor(next(TokenPipeline(
+        model.cfg.vocab_size, seq, rows, seed=0)))}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for key, (shape, dtype) in model.batch_specs(
+            ShapeSpec("train_data", seq, rows, "train")).items():
+        if key != "tokens":
+            out[key] = torch.randn(shape, generator=gen,
+                                   device=dev).to(dtype)
+    torch.cuda.synchronize()
     return out, time.perf_counter() - t0
 
 
@@ -2601,30 +2740,36 @@ def train_lm_path(dev) -> dict:
     cfg = get_config(TRAIN_ARCH)
     model = build_model(cfg)
     need = max(TRAIN_SYNC_STEPS, TRAIN_HIER_STEPS) + 1
-    tokens, data_s = train_tokens(
-        cfg, need * max(TRAIN_SYNC_BATCH, TRAIN_PODS * TRAIN_PER_POD),
-        TRAIN_SEQ)
-    launches = {}
-    sync, _ = train_run(dev, model, tokens, phase="train_lm_sync",
+    data, data_s = train_data(
+        model, need * max(TRAIN_SYNC_BATCH, TRAIN_PODS * TRAIN_PER_POD),
+        TRAIN_SEQ, dev)
+    sync, _ = train_run(dev, model, data, phase="train_lm_sync",
                         mode="sync", batch=TRAIN_SYNC_BATCH,
                         steps=TRAIN_SYNC_STEPS)
     torch.cuda.empty_cache()
-    hier, state = train_run(dev, model, tokens, phase="train_lm_hierarchical",
+    hier, state = train_run(dev, model, data, phase="train_lm_hierarchical",
                             mode="hierarchical",
                             batch=TRAIN_PODS * TRAIN_PER_POD,
                             steps=TRAIN_HIER_STEPS,
                             compressor=TopKCompressor(TRAIN_TOPK),
                             edge_period=TRAIN_EDGE_PERIOD)
-    emit("train_lm_data", rows=tokens.shape[0], seq=TRAIN_SEQ,
+    emit("train_lm_data", rows=data["tokens"].shape[0], seq=TRAIN_SEQ,
          pipeline_s=data_s)
     checkpoint_phase(state)
     del state
     torch.cuda.empty_cache()
-    for name in sync["launches"]:
-        launches[name] = {key: sync["launches"][name][key]
-                          + hier["launches"][name][key]
-                          for key in ("kernel", "backward")}
-    return dict(launches=launches, sync=sync, hierarchical=hier)
+    return path_launches(train_lm_sync=sync, train_lm_hierarchical=hier)
+
+
+def path_launches(**runs) -> dict:
+    """A train path's summary for the ``kernels`` line: each kernel's
+    launches and backward calls summed over its ``runs`` (phase name ->
+    ``train_run`` fields), and the runs."""
+    first = next(iter(runs.values()))["launches"]
+    return dict(launches={name: {key: sum(run["launches"][name][key]
+                                          for run in runs.values())
+                                 for key in ("kernel", "backward")}
+                          for name in first}, runs=runs)
 
 
 def checkpoint_phase(state) -> None:
@@ -2677,46 +2822,66 @@ def train_ssm_path(dev) -> dict:
     cfg = dataclasses.replace(get_config(SSM_TRAIN_ARCH),
                               n_layers=SSM_TRAIN_LAYERS)
     model = build_model(cfg)
-    tokens, data_s = train_tokens(cfg, (SSM_TRAIN_STEPS + 1)
-                                  * SSM_TRAIN_BATCH, SSM_TRAIN_SEQ)
-    run, _ = train_run(dev, model, tokens, phase="train_ssm_sync",
+    data, data_s = train_data(model, (SSM_TRAIN_STEPS + 1)
+                              * SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, dev)
+    run, _ = train_run(dev, model, data, phase="train_ssm_sync",
                        mode="sync", batch=SSM_TRAIN_BATCH,
                        steps=SSM_TRAIN_STEPS)
-    emit("train_ssm_data", rows=tokens.shape[0], seq=SSM_TRAIN_SEQ,
+    emit("train_ssm_data", rows=data["tokens"].shape[0], seq=SSM_TRAIN_SEQ,
          pipeline_s=data_s)
     torch.cuda.empty_cache()
-    return dict(launches={name: {key: v[key] for key in ("kernel",
-                                                         "backward")}
-                          for name, v in run["launches"].items()},
-                sync=run)
+    return path_launches(train_ssm_sync=run)
 
 
-def grad_close(got, want, rtol: float) -> tuple[float, bool]:
+def grad_close(got, want, rtol: float,
+               scale: float | None = None) -> tuple[float, bool]:
     """Largest |got - want| and whether every entry is within rtol x
-    (|want| elementwise + the leaf's largest |want|)."""
+    (|want| elementwise + ``scale``, by default the leaf's largest
+    |want|); with a ``scale`` given (a leaf whose exact value is zero,
+    ``zero_grad_scales``) |want| must lie within rtol x scale too."""
     import torch
     got, want = got.detach().float().cpu(), want.detach().float().cpu()
     err = (got - want).abs()
-    ok = bool(torch.isfinite(got).all()
-              and (err <= rtol * (want.abs() + want.abs().max())).all())
+    ok = scale is None or bool((want.abs() <= rtol * scale).all())
+    scale = want.abs().max() if scale is None else scale
+    ok = ok and bool(torch.isfinite(got).all()
+                     and (err <= rtol * (want.abs() + scale)).all())
     return float(err.max()), ok
 
 
-def step_close(got, want, grads, lr: float) -> tuple[float, bool]:
+def step_close(got, want, grads, lr: float,
+               scale: float | None = None) -> tuple[float, bool]:
     """Parameters after AdamW's first step against a reference: entries
     whose gradient ``grads`` is within ``TRAIN_TOL`` of zero (relative to
-    the leaf's largest) to lr, the rest as ``grad_close`` at
-    ``TRAIN_TOL``. For pod-stacked leaves the gradient is per pod."""
+    the leaf's largest, or to ``scale`` where the leaf's exact gradient is
+    zero) to lr, the rest as ``grad_close`` at ``TRAIN_TOL``. For
+    pod-stacked leaves the gradient is per pod."""
     import torch
     got, want = got.detach().float().cpu(), want.detach().float().cpu()
     g = grads.detach().float().cpu().abs()
-    tiny = g <= TRAIN_TOL * g.max()
+    tiny = g <= TRAIN_TOL * (g.max() if scale is None else scale)
     err = (got - want).abs()
     ok = bool(torch.isfinite(got).all()
               and (err[tiny] <= lr * (1 + 1e-6)).all()
               and (err[~tiny] <= TRAIN_TOL * (want.abs()[~tiny]
                                               + want.abs().max())).all())
     return float(err.max()), ok
+
+
+def zero_grad_scales(cfg, tree) -> list:
+    """Per leaf of ``tree`` (gradients, parameters or moments in the
+    params' layout): None, or, for a key bias of a model with qkv biases
+    and no rope (whisper's), the largest |value| of the same projection's
+    weight leaf. Such a bias adds q.b to every score of a query's row,
+    which the softmax ignores: its exact gradient is zero and both devices
+    give rounding noise, held at the scale of the terms that cancel."""
+    from repro_torch.utils import tree_leaves_with_path
+    pairs = tree_leaves_with_path(tree)
+    if not cfg.qkv_bias or cfg.use_rope:
+        return [None] * len(pairs)
+    leaf = dict(pairs)
+    return [float(leaf[path[:-1] + ("w",)].abs().max())
+            if path[-2:] == ("wk", "b") else None for path, _ in pairs]
 
 
 def library_bwd_ms(fn, inputs, g, reps: int) -> float:
@@ -2831,43 +2996,64 @@ def backward_kernels(dev) -> dict:
     return out
 
 
-def train_card_vs_cpu(dev) -> None:
-    """Phase 21: reduced qwen3-0.6b and mamba2-1.3b in float32 from the
-    same params, card (kernels) against CPU (plain versions): the loss and
-    gradients, one ``sync`` step, one ``hierarchical`` step, and its cloud
-    sync under TopK and under Int8 on identical inputs."""
+def train_card_vs_cpu(dev, configs=None,
+                      phase: str = "train_card_vs_cpu") -> None:
+    """Phase 21 (and 27d): reduced models in float32 from the same params
+    (by default qwen3-0.6b and mamba2-1.3b), card (kernels) against CPU
+    (plain versions): the loss and gradients, one ``sync`` step, one
+    ``hierarchical`` step, and its cloud sync under TopK and under Int8 on
+    identical inputs. ``configs``: (config, whether MoE pairs must drop)
+    pairs. The batch has ``batch_specs``' keys (frames and prefix as
+    float32 normals); where pairs must drop, the card's run records each
+    MoE layer's kept pairs (``moe.dispatch``) and asserts some dropped."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import Int8Compressor, TopKCompressor
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.models import ShapeSpec, build_model, moe
     from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
     lr = 1e-2
     shape = ShapeSpec("train_check", 64, 4, "train")   # 2 chunks of 32
-    for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH):
-        cfg = get_config(arch).reduced(dtype="float32")
+    if configs is None:
+        configs = [(get_config(arch).reduced(dtype="float32"), False)
+                   for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH)]
+    for cfg, drop in configs:
         model = build_model(cfg)
         cpu_params = model.init(torch.Generator().manual_seed(3))
-        toks = torch.tensor(np.random.default_rng(4).integers(
-            0, cfg.vocab_size, (4, 65)))
+        draw = np.random.default_rng(4)
+        cpu_batch = {key: torch.tensor(
+            draw.integers(0, cfg.vocab_size, spec) if key == "tokens"
+            else draw.normal(size=spec).astype(np.float32))
+            for key, (spec, _) in model.batch_specs(shape).items()}
+        dispatch, kept = moe.dispatch, []
+
+        def recording(ids, cap):
+            slot, k = dispatch(ids, cap)
+            kept.append(k)
+            return slot, k
+
         res, errs, ok = {}, {}, True
         for where in ("card", "cpu"):
             on = dev if where == "card" else torch.device("cpu")
             params = tree_map(lambda p: p.to(on), cpu_params)
-            batch = {"tokens": toks.to(on)}
+            batch = {key: v.to(on) for key, v in cpu_batch.items()}
+
             def grads_of(rows):
                 leaves = [p.detach().requires_grad_()
                           for p in tree_leaves(params)]
                 loss = model.loss(tree_unflatten(params, leaves),
-                                  {"tokens": rows})
+                                  {key: v[rows] for key, v in batch.items()})
                 return loss, torch.autograd.grad(loss, leaves)
 
-            loss, grads = grads_of(batch["tokens"])
+            moe.dispatch = recording if where == "card" else dispatch
+            try:
+                loss, grads = grads_of(slice(None))
+            finally:
+                moe.dispatch = dispatch
             pod_grads = [torch.stack(gs) for gs in zip(
-                *(grads_of(batch["tokens"][2 * p:2 * p + 2])[1]
-                  for p in range(2)))]
+                *(grads_of(slice(2 * p, 2 * p + 2))[1] for p in range(2)))]
             bundle = make_train_step(model, shape, mode="sync", lr=lr,
                                      device=on)
             p1, o1, s1 = bundle.init_state(tree_map(torch.clone, params))
@@ -2876,30 +3062,32 @@ def train_card_vs_cpu(dev) -> None:
                                  n_pods=2, device=on)
             p2, o2, s2 = hb.init_state(params)
             p2, o2, _, l2 = hb.step_fn(p2, o2, s2, batch)
-            res[where] = dict(loss=float(loss.detach()), grads=grads,
-                              pod_grads=pod_grads, p1=p1, o1=o1,
-                              l1=float(l1), p2=p2, o2=o2, l2=float(l2))
+            res[where] = dict(loss=float(loss.detach()),
+                              grads=tree_unflatten(params, list(grads)),
+                              pod_grads=tree_unflatten(params, pod_grads),
+                              p1=p1, o1=o1, l1=float(l1), p2=p2, o2=o2,
+                              l2=float(l2))
         card, cpu = res["card"], res["cpu"]
+        dropped = [int((~k).sum()) for k in kept]
         errs["loss"] = max(abs(card[k] - cpu[k]) for k in ("loss", "l1",
                                                             "l2"))
         ok = all(math.isclose(card[k], cpu[k], rel_tol=TRAIN_TOL)
                  for k in ("loss", "l1", "l2"))
         checks = (("grads", card["grads"], cpu["grads"], None),
-                  ("sync_params", tree_leaves(card["p1"]),
-                   tree_leaves(cpu["p1"]), cpu["grads"]),
-                  ("sync_moments", tree_leaves(card["o1"]),
-                   tree_leaves(cpu["o1"]), None),
-                  ("hier_params", tree_leaves(card["p2"]),
-                   tree_leaves(cpu["p2"]), cpu["pod_grads"]),
-                  ("hier_moments", tree_leaves(card["o2"]),
-                   tree_leaves(cpu["o2"]), None))
+                  ("sync_params", card["p1"], cpu["p1"], cpu["grads"]),
+                  ("sync_moments", card["o1"], cpu["o1"], None),
+                  ("hier_params", card["p2"], cpu["p2"], cpu["pod_grads"]),
+                  ("hier_moments", card["o2"], cpu["o2"], None))
         for name, gots, wants, step_grads in checks:
             if step_grads is None:
-                pairs = [grad_close(a, w, TRAIN_TOL)
-                         for a, w in zip(gots, wants)]
+                pairs = [grad_close(a, w, TRAIN_TOL, z) for a, w, z in zip(
+                    tree_leaves(gots), tree_leaves(wants),
+                    zero_grad_scales(cfg, wants))]
             else:
-                pairs = [step_close(a, w, g, lr)
-                         for a, w, g in zip(gots, wants, step_grads)]
+                pairs = [step_close(a, w, g, lr, z) for a, w, g, z in zip(
+                    tree_leaves(gots), tree_leaves(wants),
+                    tree_leaves(step_grads),
+                    zero_grad_scales(cfg, step_grads))]
             errs[name] = max(e for e, _ in pairs)
             ok = ok and all(p for _, p in pairs)
         # the cloud sync on identical inputs: the card's state after the
@@ -2917,15 +3105,23 @@ def train_card_vs_cpu(dev) -> None:
                      zip(tree_leaves(a), tree_leaves(w))]
             errs[f"cloud_sync_{cname}"] = max(e for e, _ in pairs)
             ok = ok and all(p for _, p in pairs)
-        emit("train_card_vs_cpu", arch=cfg.name + " (reduced)",
-             dtype="float32", lr=lr, tolerance=dict(
+        emit(phase, arch=cfg.name + " (reduced)", dtype="float32", lr=lr,
+             head_dim=cfg.resolved_head_dim,
+             inputs=sorted(cpu_batch), tolerance=dict(
                  train=TRAIN_TOL, cloud_sync=SYNC_TOL,
-                 tiny_gradient_entries="lr"),
+                 tiny_gradient_entries="lr",
+                 exact_zero_key_bias="rtol x |wk.w|"
+                 if any(zero_grad_scales(cfg, cpu_params)) else None),
+             capacity_factor=cfg.moe.capacity_factor if cfg.moe else None,
+             dropped_pairs_card=dropped if cfg.moe else None,
              max_abs_err=errs, loss_card=card["loss"], loss_cpu=cpu["loss"],
              within=ok)
         if not ok:
-            raise AssertionError(f"train_card_vs_cpu: {cfg.name} card and "
-                                 "CPU disagree")
+            raise AssertionError(f"{phase}: {cfg.name} card and CPU "
+                                 "disagree")
+        if drop and not (dropped and all(n > 0 for n in dropped)):
+            raise AssertionError(f"{phase}: {cfg.name} dropped no pair in "
+                                 f"some MoE layer: {dropped}")
 
 
 # ---------------------------------------------------------------------------
@@ -3621,25 +3817,172 @@ def vlm_serve_path(dev, model, params) -> dict:
             "rmsnorm": launched[1] + launched32[1]}
 
 
-def train_entry(kernel: str, bwd: dict, train_lm: dict,
-                train_ssm: dict) -> dict:
-    """A kernel's launches on the train paths and its ``backward`` entry
-    for the ``kernels`` line: route, ms at the train shape and error
-    against the CPU (``bwd``), calls on the train paths and share of each
-    profiled step."""
-    lm, sm = (run["launches"][kernel] for run in (train_lm, train_ssm))
+# ---------------------------------------------------------------------------
+# 27. Training the MoE/MLA, encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+
+# 27a: deepseek-v2-lite-16b at full width, depth cut to the dense layer
+# and 3 MoE layers of 27 (the memory arithmetic is in PERF.md), train_4k's
+# sequence at batch 4 (train_4k's 256, cut)
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 4, 4, 3
+# 27b: whisper-large-v3 whole: 1500 frames, its 448-token decoder context
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 4, 3
+# 27c: internvl2-1b whole: 256 image tokens before 4096 text tokens; sync
+# at batch 4, then hierarchical at TRAIN_PODS x TRAIN_PER_POD
+VLM_TRAIN_BATCH, VLM_TRAIN_STEPS, VLM_TRAIN_HIER_STEPS = 4, 3, 4
+# 27d: the reduced deepseek at a capacity factor where every MoE layer
+# drops pairs (asserted); the reduced kimi-k2 at its own head dim 112
+TRAIN_DROP_CF, KIMI_HEAD_DIM = 0.5, 112
+
+
+def train_kernels(dev) -> None:
+    """Phase 27 (first): each kernel at the shapes of this phase's paths
+    that no earlier phase holds, against its plain version: flash under
+    ``FLASH_TOL`` at internvl2's train layer (256 + 4096 positions, 14/2
+    heads of 64, causal, bf16) at the sync batch and a pod's, and at
+    whisper's decoder self attention (448 positions, 3.5 kv tiles of 128,
+    causal, bf16); rmsnorm at d 896 on the rows of both, bit for bit.
+    deepseek's train shapes are phase 25a's layer and ``moe_prefill``,
+    whisper's encoder and cross attention phase 26a's."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(28)
+    positions = VLM_PREFIX + TRAIN_SEQ
+    for batch in (VLM_TRAIN_BATCH, TRAIN_PER_POD):
+        emit("kernel", **flash_case(
+            gen, f"vlm_train_b{batch}", (batch, positions, positions, 14, 2,
+                                         64), torch.bfloat16, True))
+        fields, _, _ = rmsnorm_case(gen, f"vlm_train_b{batch}",
+                                    batch * positions, 896, torch.bfloat16,
+                                    None, {}, timed=False)
+        emit("kernel", **fields)
+    emit("kernel", **flash_case(
+        gen, "whisper_decoder_self", (ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ,
+                                      ENCDEC_DEC_SEQ, 20, 20, 64),
+        torch.bfloat16, True))
+
+
+def train_moe_path(dev) -> dict:
+    """Phase 27a: deepseek-v2-lite-16b at full width (d 2048, MLA, 64
+    experts top-6 + 2 shared, vocab 102,400) cut to 4 layers (the dense
+    one and 3 MoE), bf16 activations, float32 params and AdamW state,
+    batch 4 x 4096, 3 ``sync`` steps: flash at head dim 192 (one a layer)
+    and rmsnorm at d 2048 with their backwards; the profile's MoE dispatch
+    share. Returns the path's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import SHAPES, build_model, moe
+
+    full = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    model = build_model(cfg)
+    data, data_s = train_data(model, (MOE_TRAIN_STEPS + 1)
+                              * MOE_TRAIN_BATCH, TRAIN_SEQ, dev)
+    run = train_run(dev, model, data, phase="train_moe_sync", mode="sync",
+                    batch=MOE_TRAIN_BATCH, steps=MOE_TRAIN_STEPS,
+                    cut=dict(n_layers=[MOE_TRAIN_LAYERS, full.n_layers],
+                             batch=[MOE_TRAIN_BATCH,
+                                    SHAPES["train_4k"].global_batch]),
+                    capacity=moe.capacity(cfg, MOE_TRAIN_BATCH * TRAIN_SEQ),
+                    data_s=data_s)[0]
+    del data
+    torch.cuda.empty_cache()
+    return path_launches(train_moe_sync=run)
+
+
+def train_encdec_path(dev) -> dict:
+    """Phase 27b: whisper-large-v3 whole (32 + 32 layers, d 1280, vocab
+    51,866), bf16 activations from bf16 frames, float32 params and AdamW
+    state, batch 4 x (1500 frames + 448 tokens), 3 ``sync`` steps: 96
+    flash launches a forward (encoder, decoder self, cross; the cross
+    attention non-causal at 448 over 1500) and no rmsnorm (LayerNorm).
+    Returns the path's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(ENCDEC_ARCH))
+    data, data_s = train_data(model, (ENCDEC_TRAIN_STEPS + 1)
+                              * ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ, dev)
+    run = train_run(dev, model, data, phase="train_encdec_sync",
+                    mode="sync", batch=ENCDEC_TRAIN_BATCH,
+                    steps=ENCDEC_TRAIN_STEPS, data_s=data_s)[0]
+    del data
+    torch.cuda.empty_cache()
+    return path_launches(train_encdec_sync=run)
+
+
+def train_vlm_path(dev) -> dict:
+    """Phase 27c: internvl2-1b whole (24 layers, d 896, tied vocab
+    151,655) on 256 bf16 image tokens before 4096 text tokens: ``sync`` at
+    batch 4 for 3 steps, then ``hierarchical`` with 2 pods x 2 sequences
+    (the prefix split with its tokens), a ``TopKCompressor(0.01)`` cloud
+    sync every 2 steps, 4 steps: 24 flash and 49 rmsnorm launches a
+    forward. Returns the path's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import TopKCompressor
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(VLM_ARCH))
+    need = max(VLM_TRAIN_STEPS, VLM_TRAIN_HIER_STEPS) + 1
+    data, data_s = train_data(model, need * max(
+        VLM_TRAIN_BATCH, TRAIN_PODS * TRAIN_PER_POD), TRAIN_SEQ, dev)
+    sync = train_run(dev, model, data, phase="train_vlm_sync", mode="sync",
+                     batch=VLM_TRAIN_BATCH, steps=VLM_TRAIN_STEPS,
+                     data_s=data_s)[0]
+    torch.cuda.empty_cache()
+    hier = train_run(dev, model, data, phase="train_vlm_hierarchical",
+                     mode="hierarchical", batch=TRAIN_PODS * TRAIN_PER_POD,
+                     steps=VLM_TRAIN_HIER_STEPS,
+                     compressor=TopKCompressor(TRAIN_TOPK),
+                     edge_period=TRAIN_EDGE_PERIOD)[0]
+    del data
+    torch.cuda.empty_cache()
+    return path_launches(train_vlm_sync=sync, train_vlm_hierarchical=hier)
+
+
+def train_families_card_vs_cpu(dev) -> None:
+    """Phase 27d: phase 21's card-against-CPU check of the train step on
+    the reduced deepseek-v2-lite-16b at capacity factor 0.5 (pairs drop in
+    every MoE layer, asserted; MLA), kimi-k2 at head dim 112, whisper (its
+    16 frames against 64 decoder positions) and internvl2 (with its
+    prefix), all float32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    deepseek = get_config(MOE_ARCH).reduced(dtype="float32")
+    deepseek = dataclasses.replace(deepseek, moe=dataclasses.replace(
+        deepseek.moe, capacity_factor=TRAIN_DROP_CF))
+    train_card_vs_cpu(dev, [
+        (deepseek, True),
+        (get_config("kimi-k2-1t-a32b").reduced(dtype="float32",
+                                               head_dim=KIMI_HEAD_DIM),
+         False),
+        (get_config(ENCDEC_ARCH).reduced(dtype="float32"), False),
+        (get_config(VLM_ARCH).reduced(dtype="float32"), False)],
+        phase="train_families_card_vs_cpu")
+
+
+def train_entry(kernel: str, bwd: dict, paths: dict) -> dict:
+    """A kernel's launches on the train paths (``paths``: path name ->
+    ``path_launches``) and its ``backward`` entry for the ``kernels``
+    line: route, ms at the train shape and error against the CPU
+    (``bwd``), calls on each train path and share of each profiled
+    step."""
     share = {}
-    for label, run in (("train_lm_sync", train_lm["sync"]),
-                       ("train_lm_hierarchical", train_lm["hierarchical"]),
-                       ("train_ssm", train_ssm["sync"])):
-        b = (run["profile"] or {}).get("backward", {}).get(
-            BWD_LABELS[kernel])
-        share[label] = None if b is None else b["share_of_step"]
-    return dict(kernel=lm["kernel"] + sm["kernel"],
-                by_path={"train_lm": lm["kernel"], "train_ssm": sm["kernel"]},
+    for path in paths.values():
+        for label, run in path["runs"].items():
+            b = (run["profile"] or {}).get("backward", {}).get(
+                BWD_LABELS[kernel])
+            share[label] = None if b is None else b["share_of_step"]
+    return dict(kernel=sum(p["launches"][kernel]["kernel"]
+                           for p in paths.values()),
+                by_path={name: p["launches"][kernel]["kernel"]
+                         for name, p in paths.items()},
                 backward=dict(bwd[kernel], calls={
-                    "train_lm": lm["backward"], "train_ssm": sm["backward"]},
-                    share_of_step=share))
+                    name: p["launches"][kernel]["backward"]
+                    for name, p in paths.items()}, share_of_step=share))
 
 
 def main() -> int:
@@ -4120,8 +4463,16 @@ def main() -> int:
                                  for run in ((ed_prefill, ed_serve),
                                              (vlm_prefill, vlm_serve)))
 
-    no_train = {"train_lm": 0, "train_ssm": 0}
-    t_rms, t_fla, t_scan = (train_entry(k, bwd, train_lm, train_ssm)
+    # ---- 27. training the MoE/MLA, encoder-decoder and VLM families ----
+    train_kernels(dev)
+    train_paths = dict(train_lm=train_lm, train_ssm=train_ssm,
+                       train_moe=train_moe_path(dev),
+                       train_encdec=train_encdec_path(dev),
+                       train_vlm=train_vlm_path(dev))
+    train_families_card_vs_cpu(dev)
+
+    no_train = {name: 0 for name in train_paths}
+    t_rms, t_fla, t_scan = (train_entry(k, bwd, train_paths)
                             for k in ("rmsnorm", "flash_attention",
                                       "ssd_state_scan"))
 

@@ -21,7 +21,10 @@ optimizer is vmapped over pods (so the global-norm clip is taken per
 pod).
 
 The step writes the new parameters and optimizer state into the trees it
-was given, in place (the JAX step donates them), and returns them.
+was given, in place (the JAX step donates them), and returns them. The
+update goes one leaf at a time (``Optimizer.apply_``), each gradient
+released once used, so beside the parameters, moments and gradients it
+holds a few copies of one leaf, not of the tree.
 
 Serving (``make_serve_step``) is one greedy decode step.
 """
@@ -35,8 +38,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import Model, ShapeSpec
-from repro_torch.optim import (Optimizer, adamw, apply_updates,
-                               clip_by_global_norm)
+from repro_torch.optim import Optimizer, adamw, clip_by_global_norm
 from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 MODES = ("sync", "hierarchical")
@@ -73,20 +75,15 @@ class TrainStepBundle:
                 torch.zeros((), dtype=torch.int32, device=self.device))
 
 
-def _assign(dst, src) -> None:
-    """Copy every leaf of ``src`` into the same leaf of ``dst``."""
-    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
-        d.copy_(s)
-
-
 def _loss_and_grads(model: Model, params, batch, scale: float, clock):
-    """(loss, grads of ``scale * loss``) with respect to every leaf."""
+    """(loss, grads of ``scale * loss`` with respect to every leaf, a list
+    in ``tree_leaves`` order)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     clock("forward")
     loss = model.loss(tree_unflatten(params, leaves), batch)
     clock("backward")
     grads = torch.autograd.grad(loss * scale, leaves)
-    return loss.detach(), tree_unflatten(params, list(grads))
+    return loss.detach(), list(grads)
 
 
 def make_train_step(model: Model, shape: ShapeSpec, *, mode: str = "sync",
@@ -116,10 +113,7 @@ def make_train_step(model: Model, shape: ShapeSpec, *, mode: str = "sync",
         clock = clock or no_clock
         loss, grads = _loss_and_grads(model, params, batch, 1.0, clock)
         clock("optimizer")
-        updates, new_state = opt.update(grads, opt_state, params, step)
-        del grads
-        _assign(params, apply_updates(params, updates))
-        _assign(opt_state, new_state)
+        opt.apply_(grads, opt_state, params, step)
         clock("end")
         return params, opt_state, step + 1, loss
 
@@ -138,10 +132,7 @@ def make_train_step(model: Model, shape: ShapeSpec, *, mode: str = "sync",
             # pod p's update reads only pod p's gradient, parameters and
             # state, so it runs before the next pod's forward
             clock("optimizer")
-            updates, new_state = opt.update(grads, state_p, params_p, step)
-            del grads
-            _assign(params_p, apply_updates(params_p, updates))
-            _assign(state_p, new_state)
+            opt.apply_(grads, state_p, params_p, step)
         clock("end")
         return params, opt_state, step + 1, torch.mean(torch.stack(losses))
 

@@ -144,3 +144,34 @@ def test_update_leaves_its_inputs_alone():
     opt.update(g, s, p, torch.tensor(0, dtype=torch.int32))
     assert all(torch.equal(a, b) for a, b in zip(before,
                                                  tree_leaves((p, s, g))))
+
+
+IN_PLACE = {"adamw": lambda: topt.adamw(1e-2),
+            "adamw_wd": lambda: topt.adamw(1e-2, weight_decay=0.1),
+            "sgd": lambda: topt.sgd(1e-2),
+            "sgd_momentum": lambda: topt.sgd(1e-2, momentum=0.9),
+            "sgd_nesterov": lambda: topt.sgd(1e-2, momentum=0.9,
+                                             nesterov=True)}
+
+
+@pytest.mark.parametrize("name", list(IN_PLACE))
+@pytest.mark.parametrize("grad_scale", [1.0, 100.0])
+def test_apply_in_place_equals_update_then_apply_updates(name, grad_scale):
+    """``apply_`` (the train step's leaf-by-leaf update, in place) gives
+    ``update`` then ``apply_updates`` bit for bit over several steps,
+    under the clip and past it (grad_scale 100), and releases each
+    gradient from its list."""
+    opt = topt.clip_by_global_norm(IN_PLACE[name](), 1.0)
+    p = tree_map(torch.tensor, tree(0))
+    s = opt.init(p)
+    p_in, s_in = tree_map(torch.clone, p), opt.init(p)
+    for t in range(STEPS):
+        g = tree_map(torch.tensor, tree(10 + t, grad_scale))
+        step = torch.tensor(t, dtype=torch.int32)
+        u, s = opt.update(g, s, p, step)
+        p = topt.apply_updates(p, u)
+        grads = tree_leaves(g)
+        opt.apply_(grads, s_in, p_in, step)
+        assert grads == [None] * len(grads)
+        for a, b in zip(tree_leaves((p_in, s_in)), tree_leaves((p, s))):
+            assert torch.equal(a, b)

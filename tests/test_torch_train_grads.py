@@ -17,9 +17,14 @@ two references:
 
 Gradients are compared elementwise with atol = rtol x the largest
 magnitude of the reference leaf, so entries near zero are held to the
-leaf's scale. Flash runs at Sq == Skv (where the JAX reference's
-bottom-right causal mask equals the port's top-left one), causal and not,
-GQA, head dims 64 and 128.
+leaf's scale. Flash runs causal at Sq == Skv (where the JAX reference's
+bottom-right causal mask equals the port's top-left one), and non-causal
+at Sq == Skv and at Sq != Skv (whisper's cross attention: the reshapes of
+q and the cotangent take Sq, those of k and v Skv); GQA; head dims 64,
+112 (kimi-k2's), 128, and 192 as MLA calls it (deepseek-v2-lite: q and k
+of 128 + 64 columns, v zero-padded from 128, the scale (128 + 64)^-0.5,
+and the cotangent zero in v's padded columns, which the model slices
+off).
 
 The ``gpu`` test holds the repair that lets gradients through the CUDA
 kernels: on CUDA tensors each call returns an output with a ``grad_fn``,
@@ -28,6 +33,8 @@ within a bf16 step, the norm and the scan in float32 at 1e-5). It skips
 without a card; ``PYTHONPATH=src python -m pytest --noconftest -m gpu
 tests/test_torch_train_grads.py`` runs it on the card's machine.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -89,17 +96,40 @@ def jax_grads(fn, inputs, cotangents):
 # flash attention
 # ---------------------------------------------------------------------------
 
-FLASH_CASES = [  # (B, S, Hq, Hkv, hd, causal)
+# MLA's call (models/attention.py::mla_attention at deepseek-v2-lite's
+# widths): q and k of nope 128 + rope 64 columns, v of 128 zero-padded to
+# the same 192, scores scaled by (128 + 64) ** -0.5
+MLA_HD, MLA_V, MLA_SCALE = 192, 128, (128 + 64) ** -0.5
+
+FLASH_CASES = [  # (B, S or (Sq, Skv), Hq, Hkv, hd, causal)
     (2, 40, 4, 4, 64, True), (1, 64, 4, 2, 64, False),
-    (2, 33, 8, 2, 128, True), (1, 48, 2, 1, 128, False)]
+    (2, 33, 8, 2, 128, True), (1, 48, 2, 1, 128, False),
+    pytest.param(2, (24, 40), 4, 2, 64, False, id="2-24x40-4-2-64-False"),
+    pytest.param(1, (16, 50), 4, 4, 64, False, id="1-16x50-4-4-64-False"),
+    pytest.param(2, 33, 4, 4, MLA_HD, True, id="2-33-4-4-192mla-True"),
+    pytest.param(1, 40, 4, 2, 112, True, id="1-40-4-2-112-True"),
+    pytest.param(1, (20, 36), 8, 2, 112, False, id="1-20x36-8-2-112-False")]
+
+
+def flash_scale(hd):
+    """The score scale a model passes at ``hd``: MLA's at 192, else the
+    default hd ** -0.5 (None)."""
+    return MLA_SCALE if hd == MLA_HD else None
 
 
 def flash_inputs(b, s, hq, hkv, hd, seed):
+    """q, k, v and the output cotangent g; ``s`` is S or (Sq, Skv). At
+    MLA's head dim v's columns past 128 and g's are zero, as the model
+    pads v and slices the output."""
+    sq, skv = s if isinstance(s, tuple) else (s, s)
     r = np.random.default_rng(seed)
-    q = r.normal(size=(b, s, hq, hd)).astype(np.float32)
-    k, v = (r.normal(size=(b, s, hkv, hd)).astype(np.float32)
+    q = r.normal(size=(b, sq, hq, hd)).astype(np.float32)
+    k, v = (r.normal(size=(b, skv, hkv, hd)).astype(np.float32)
             for _ in range(2))
-    g = r.normal(size=(b, s, hq, hd)).astype(np.float32)
+    g = r.normal(size=(b, sq, hq, hd)).astype(np.float32)
+    if hd == MLA_HD:
+        v[..., MLA_V:] = 0
+        g[..., MLA_V:] = 0
     return q, k, v, g
 
 
@@ -107,25 +137,29 @@ def flash_inputs(b, s, hq, hkv, hd, seed):
 def test_flash_backward_matches_autograd_of_plain_version(b, s, hq, hkv,
                                                           hd, causal):
     q, k, v, g = flash_inputs(b, s, hq, hkv, hd, 0)
+    scale = flash_scale(hd)
     before = tfa.BACKWARD_CALLS
-    out, got = port_grads(lambda *x: tops.flash_attention(*x, causal=causal),
-                          (q, k, v), (g,))
+    out, got = port_grads(lambda *x: tops.flash_attention(
+        *x, causal=causal, scale=scale), (q, k, v), (g,))
     assert out[0].grad_fn is not None
     assert tfa.BACKWARD_CALLS == before + 1
     _, want = port_grads(lambda *x: tref.flash_attention_ref(
-        *x, causal=causal), (q, k, v), (g,))
+        *x, causal=causal, scale=scale), (q, k, v), (g,))
     for a, w in zip(got, want):
         close(a, w, AUTOGRAD_RTOL)
+    if hd == MLA_HD:      # v's zero columns give zero output columns
+        assert out[0][..., MLA_V:].abs().max() == 0
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,hd,causal", FLASH_CASES)
 def test_flash_backward_matches_jax_vjp(b, s, hq, hkv, hd, causal):
     need_jax()
     q, k, v, g = flash_inputs(b, s, hq, hkv, hd, 1)
+    scale = flash_scale(hd)
     got = tfa.flash_attention_bwd(*(torch.tensor(x) for x in (q, k, v, g)),
-                                  causal=causal)
-    want = jax_grads(lambda *x: jref.flash_attention_ref(*x, causal=causal),
-                     (q, k, v), (g,))
+                                  causal=causal, scale=scale)
+    want = jax_grads(lambda *x: jref.flash_attention_ref(
+        *x, causal=causal, softmax_scale=scale), (q, k, v), (g,))
     for a, w in zip(got, want):
         close(a, w, JAX_RTOL)
 
@@ -272,20 +306,26 @@ def test_gradients_through_the_kernels_on_card_match_cpu():
     """On CUDA tensors each differentiable call launches its kernel once,
     returns an output with a grad_fn, and its backward gives the CPU's
     gradients: flash in bf16 (the backward rounds its float32 result to
-    bf16 once, so one bf16 step, rtol 2^-7), the norm and the scan in
-    float32 at 1e-5 (another summation order)."""
+    bf16 once, so one bf16 step, rtol 2^-7) at qwen3's GQA layer,
+    whisper's cross attention (448 queries over 1500 frames,
+    non-causal), MLA's head dim 192 with its scale and kimi-k2's 112; the
+    norm and the scan in float32 at 1e-5 (another summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    flash = [(2, 256, 16, 8, 128, True), (2, (448, 1500), 20, 20, 64, False),
+             (1, 512, 16, 16, MLA_HD, True), (1, 256, 16, 2, 112, True)]
     cases = [
-        (tops.flash_attention, tfa,
-         [torch.tensor(x).bfloat16() for x in flash_inputs(2, 256, 16, 8,
-                                                           128, 8)], 2 ** -7),
+        (functools.partial(tops.flash_attention, causal=causal,
+                           scale=flash_scale(hd)), tfa,
+         [torch.tensor(x).bfloat16()
+          for x in flash_inputs(b, s, hq, hkv, hd, 8)], 2 ** -7)
+        for b, s, hq, hkv, hd, causal in flash] + [
         (tops.rmsnorm, trms,
          [torch.tensor(x) for x in norm_inputs((64, 1024), 9)], 1e-5),
         (tops.ssd_state_scan, tscan,
          [torch.tensor(x) for x in scan_inputs((8, 2, 4, 16, 8), 10)], 1e-5)]
     for fn, mod, ins, rtol in cases:
-        n_in = 3 if fn is not tops.rmsnorm else 2
+        n_in = 2 if fn is tops.rmsnorm else 3
         grads = {}
         for dev in ("cpu", "cuda"):
             xs = [x.to(dev).requires_grad_() for x in ins[:n_in]]
