@@ -11,11 +11,12 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    limit (also printed raw on a line of its own).
 2. ``build``: builds every kernel of the main paths with ``nvcc`` from the
    checkout's sources (golden_section, its cbrtf variant of phase 3b,
-   hier_aggregate, rmsnorm, flash_attention, ssd_scan), and the flash
-   kernel's three planted faults of phase 8 in a temporary directory, all
-   at once, each with its own nvcc flags (``build.nvcc_flags``: every
-   kernel but flash with -fmad=false); build seconds and the ptxas
-   register/spill report.
+   hier_aggregate, rmsnorm, flash_attention, flash_attention_bwd,
+   ssd_scan), and the flash kernel's five planted faults of phase 8 and
+   the backward's four of phase 21b in a temporary directory, all at
+   once, each with its own nvcc flags (``build.nvcc_flags``: every kernel
+   but flash's forward and backward with -fmad=false); build seconds and
+   the ptxas register/spill report.
 3. ``kernel``: each kernel against its plain PyTorch version on the same
    card tensors, at the main path's shapes and at ragged ones, with the
    stated tolerance; kernel and plain times (CUDA events), the operation
@@ -89,10 +90,14 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    plain and library-call times, the bound and the kernel's share, flash's
    TFLOP/s, each kernel's registers and spills from phase 2, and
    rmsnorm's host and device microseconds per call at the decode shape.
+   Every flash line also holds the rows' logsumexp the kernel writes for
+   the backward against the plain forward's under ``FLASH_LSE_ATOL``.
    Then ``fault``: copies of the flash kernel with a planted fault (one kv
    tile left out; O rounded to bfloat16 after each k16 step of P V; S
-   reading K from the next ring stage, a stale or not-yet-landed tile) at
-   the layer shape, each of which the flash tolerance must reject. Every
+   reading K from the next ring stage, a stale or not-yet-landed tile;
+   lse without the scale in its running max; lse in natural-log units) at
+   the layer shape, each of which the flash tolerance or the lse one must
+   reject. Every
    flash launch of phases 8 and 12 is waited for against a host-side
    deadline (``CARD_DEADLINE_S``): a launch that never finishes prints the
    phase's failing line and ends the run non-zero.
@@ -172,13 +177,28 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``rerun_incremental``, and ``run_live`` at N = 40 / K = 4 with verify
    on, card against CPU: the same assignments (asserted).
 
-21. LM training: first ``backward``, each kernel's backward function
-   (flash's float32 recompute, rmsnorm's closed form, the scan's reverse
-   recurrence; plain PyTorch, the same code as on the CPU) at the train
-   shapes, with its ms and bound, the library call's backward at the same
-   shape (``scaled_dot_product_attention``'s and ``rms_norm``'s autograd
+21. LM training. First (21b) ``kernel`` lines of flash's backward kernel
+   (``csrc/flash_attention_bwd.cu``, from the forward kernel's o and lse)
+   against its plain version under ``FLASH_BWD_TOL``, and that lse against
+   the plain forward's under ``FLASH_LSE_ATOL``, at every attention
+   shape of the train paths in bf16: qwen3-0.6b's layer (4 x 4096, 16/8
+   heads of 128, causal; the four planted faults of ``FLASH_BWD_FAULTS``
+   rejected there, the plain version's and the whole float32 recompute's
+   ms), deepseek-v2-lite's MLA at hd 192, internvl2-1b's layer at the sync
+   and pod batches, whisper-large-v3's encoder, cross attention and
+   decoder; each with its ms, SDPA's autograd backward at the same shape,
+   the bound and its share, TFLOP/s, whether two runs give the same bits,
+   and ptxas' report (asserted spill-free); then float32 at small shapes of
+   every head dim. Then ``backward``: each kernel's backward (flash's
+   kernel, rmsnorm's closed form and the scan's reverse recurrence in
+   plain PyTorch, the same code as on the CPU) at the train shapes, with
+   its ms and bound, the library call's backward at the same shape
+   (``scaled_dot_product_attention``'s and ``rms_norm``'s autograd
    backward; the scan has none), and card against CPU on the same inputs
-   (flash in bf16 under ``FLASH_TOL``, the others in float32 at 1e-5);
+   (flash's forward and backward kernels in bf16 against the plain forward
+   and backward on the CPU, each side from its own forward's o and lse,
+   under ``FLASH_BWD_TOL`` and ``FLASH_LSE_ATOL``; the others in float32
+   at 1e-5);
    then ``train_card_vs_cpu``: reduced qwen3-0.6b and mamba2-1.3b in
    float32, the loss, gradients, one ``sync`` and one ``hierarchical``
    step, card against CPU at 1e-4 (parameter entries with a gradient
@@ -193,7 +213,8 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    forward, backward and optimizer (CUDA events at the step's marks), the
    cloud syncs' seconds, tokens/s, peak memory (asserted under 75 GB), the
    loss at every step (asserted finite), the launches of flash, rmsnorm
-   and the scan and their backward calls (asserted), the mfu (model FLOPs
+   and the scan and their backward calls (asserted), flash's backward
+   kernel launches (asserted: one a backward call), the mfu (model FLOPs
    over step time x the bf16 dense peak), and ``profile``: one more step
    under ``torch.profiler``, device time and share of the step of each
    backward function, idle share, top kernels.
@@ -205,7 +226,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 25. MoE + MLA serving, deepseek-v2-lite-16b. (a) ``kernel``: flash at
    head dim 192 (MLA's prefill: q, k of 128 + 64 columns, v padded to 192)
    against its plain version at the layer shape (B=4, S=4096, 16 heads,
-   bf16, causal) under ``FLASH_TOL``, the three planted faults rejected
+   bf16, causal) under ``FLASH_TOL``, the five planted faults rejected
    there, and in float32 at ragged shapes; warm and L2-cold times, the
    bound (v at 192 and at its useful 128 columns), SDPA's time, registers
    and spills (asserted spill-free); rmsnorm at d_model 2048 in bf16 (8
@@ -237,7 +258,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    cross attention (448 queries over 1500 frames, non-causal), internvl2's
    layer (B=4, S=4096, 14/2 heads of 64, causal) and kimi-k2's (64/8
    heads of 112, causal), each with warm and L2-cold times, the bound,
-   SDPA's time and its share; at hd 112 the three planted faults rejected,
+   SDPA's time and its share; at hd 112 the five planted faults rejected,
    ragged float32 and bf16 cases, no spills (asserted); rmsnorm at d_model
    896 in bf16 bit for bit at (16,384, 896) and (8, 896), timed. (b)
    ``encdec_prefill_path``: full-size whisper (32 + 32 layers, random
@@ -289,7 +310,9 @@ rmsnorm, flash and the scan add their train paths' launches (phases 22,
 24 and 27) and a ``backward`` entry; rmsnorm and flash phases 25 and
 26's launches, rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
 and ``hd112`` entries and one for each of whisper's two shapes and
-internvl2's layer),
+internvl2's layer), then ``flash_attention_bwd``, the backward kernel:
+its launches on each train path, phase 21b's qwen3 line and one entry for
+each other train shape,
 the raw ``nvidia-smi`` line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -342,12 +365,25 @@ TRAIN_ROUNDS = 3
 FLASH_TOL = {"float32": (1e-5, 1e-5, None),
              "bfloat16": (1e-5, 2 ** -7, 5e-3)}
 FLASH_ROWS = 64          # query rows of a block in the norm-relative error
+# the rows' logsumexp that the forward writes for the backward (log2
+# units), against the plain version's computed in float32 on the same
+# inputs: |got - want| <= FLASH_LSE_ATOL. The kernel's differs by the
+# float32 roundings of the scores (about 2^-24 |s c log2 e| each, 1e-6 at
+# |s c| <= 8), ex2.approx's 2^-22 relative error in each term of the sum
+# l (3.4e-7 in log2 l) and the sum's own order (a thread's chain of at
+# most ~1100 terms, 2^-24 each, 9.4e-5 in log2 l at worst). An lse off
+# by 1e-4 moves every P by 1e-4 ln 2 = 6.9e-5 relatively, under 2% of the
+# bf16 rounding u = 2^-8 that FLASH_BWD_TOL grants P. An lse that leaves
+# the scale out of the running max, or is written in natural-log units,
+# must fail (phase 8 plants both and checks).
+FLASH_LSE_ATOL = 1e-4
 # faults planted in copies of csrc/flash_attention.cu (bfloat16 kernel):
 # (text that must occur once, text put in its place)
 _BUF = "    const int buf = stage;  // the ring stage S(t) reads\n"
 _SOFTMAX = ("    online_softmax(s, m, l, corr, a, t * kBKV, q_lo, row0, t4, "
             "cl);\n")
 _PV = "    pv_tile<HD>(o, pa, v_tile(prev));  // O += P(t-1) V(t-1)\n"
+_LSE = "            m[r] * cl + log2f(fmaxf(l[r], 1e-30f));\n"
 FLASH_FAULTS = {
     # the middle tile's scores all masked: it adds nothing
     "skip_one_kv_tile": (_SOFTMAX, "    if (n_tiles > 2 && t == n_tiles / 2)"
@@ -369,6 +405,54 @@ FLASH_FAULTS = {
     # already consumed): a stale or not-yet-landed tile
     "stale_ring_stage": (_BUF, _BUF.replace("= stage;",
                                             "= (stage + 1) % kStages;")),
+    # lse = m + log2(l): the running max of the raw scores, unscaled
+    "lse_without_scale": (_LSE, _LSE.replace("m[r] * cl + ", "m[r] + ")),
+    # lse = m c + ln(l): natural-log units
+    "lse_natural_log": (_LSE, _LSE.replace(
+        "m[r] * cl + log2f(fmaxf(l[r], 1e-30f));",
+        "(m[r] * cl + log2f(fmaxf(l[r], 1e-30f))) * 0.69314718f;")),
+}
+
+# the backward kernel against its plain version (phase 21b), in FLASH_TOL's
+# form: elementwise |got - want| <= atol + rtol (|want| + A), A the
+# magnitudes of the terms the kernel rounds (P^T |dO| for dv, c |dS|^T |q|
+# for dk, c |dS| |k| for dq), and the norm-relative error of every block of
+# 64 rows of one (batch, head) at most ``block`` (A from
+# ref.flash_attention_bwd_ref(magnitudes=True)). In phase 21b both sides
+# take the same o and lse (the forward kernel's, each checked against the
+# plain forward), so D = rowsum(dO o) is one function of the same bf16 o
+# on both and o's rounding cancels; phase 21's card-vs-CPU check, whose CPU
+# side runs its own forward, widens A by what o's rounding can move D
+# (``o_err``). float32: the summation
+# order alone, rtol 1e-5. bfloat16: the kernel rounds P (dV's operand) and
+# dS (dK's and dQ's) to bf16 and each result once, each by at most u = 2^-8
+# relatively: rtol 2u; per block 1e-2, about 3x the sqrt(2) u / sqrt(3) =
+# 3.2e-3 that two independent roundings of uniform relative error give a
+# block's norm. A q tile left out of dK/dV, D left out of dS, dK/dV from
+# the first q head of each GQA group alone, or lse read as a natural log
+# must fail (phase 21b plants all four and checks).
+FLASH_BWD_TOL = {"float32": (1e-5, 1e-5, None),
+                 "bfloat16": (1e-5, 2 ** -7, 1e-2)}
+# faults planted in copies of csrc/flash_attention_bwd.cu, as FLASH_FAULTS
+_PACK_P = "    if constexpr (DV) pack(pa, s);     // P^T: dV's A operand\n"
+FLASH_BWD_FAULTS = {
+    # the middle step of each dK/dV walk adds nothing
+    "skipped_q_tile": (_PACK_P, (
+        "    if (n_steps > 2 && i == n_steps / 2)\n"
+        "#pragma unroll\n"
+        "      for (int e = 0; e < kBQ / 2; ++e) s[e] = dp[e] = 0.f;\n"
+        + _PACK_P)),
+    # dS = P dP
+    "no_d": ("  return p * (dp - d);\n", "  return p * dp;\n"),
+    # the dK/dV walk over the first q head of each group alone
+    "first_head_only": (
+        "  return (a.Hq / a.Hkv) * per_head;   // every q head of the GQA "
+        "group\n", "  return per_head;\n"),
+    # the forward's log2-unit lse converted as if it were a natural log
+    "natural_lse": (
+        "    lse2 = a.lse[static_cast<long long>(bh) * a.Sq + qi];   "
+        "// log2 units\n",
+        "    lse2 = a.lse[static_cast<long long>(bh) * a.Sq + qi] * kLog2e;\n"),
 }
 
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_REPS = 4, 4096, 3
@@ -484,6 +568,9 @@ def ptxas_report(log: str) -> dict:
             v = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?",
                           mangled)
             f = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)E", mangled)
+            fb = re.search(r"flash_bwd_(pre|dq|dkdv)(?:_(bf16|f32))?I"
+                           r"(f|13__nv_bfloat16)?Li(\d+)E(?:Lb(\d)ELb(\d)E)?",
+                           mangled)
             sc = re.search(r"ssd_scan_kernelI(f|13__nv_bfloat16)E", mangled)
             name = ("warp_per_group" if "golden_section_kernel" in mangled
                     else "block_per_group"
@@ -492,12 +579,23 @@ def ptxas_report(log: str) -> dict:
                     f"V={v.group(2)}"
                     + (f",K={v.group(3)}" if v.group(3) else "") if v else
                     f"{f.group(1)},HD={f.group(2)}" if f else
+                    bwd_kernel_name(*fb.groups()) if fb else
                     f"T={'f32' if sc.group(1) == 'f' else 'bf16'}" if sc else
                     mangled)
             out[name] = []
         elif name and re.search(r"registers|spill", line):
             out[name].append(line.split(":", 1)[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
+
+
+def bwd_kernel_name(kind, dtype, pre_type, hd, dv, dk) -> str:
+    """ptxas_report's key of a flash_attention_bwd.cu instantiation: its
+    kernel (pre, dq, dkdv), type and head dim, and for dkdv the gradients
+    it computes."""
+    dtype = dtype or ("f32" if pre_type == "f" else "bf16")
+    grads = "" if dv is None else "," + "+".join(
+        name for name, on in (("dv", dv), ("dk", dk)) if on == "1")
+    return f"{kind} {dtype},HD={hd}{grads}"
 
 
 def groups_not_bitwise(got, want) -> int:
@@ -695,15 +793,18 @@ def attention_work(b, sq, skv, hq, hkv, hd, causal, itemsize):
     return ops, nbytes
 
 
-def flash_error(got, want, want_abs, dtype: str) -> tuple[dict, bool]:
+def flash_error(got, want, want_abs, dtype: str,
+                tol: tuple | None = None) -> tuple[dict, bool]:
     """A flash-attention output against the float32 plain version ``want``
-    (and ``want_abs``, the plain version over |v|) under
-    :data:`FLASH_TOL`: the error measures, and whether it passes."""
+    (and ``want_abs``, the plain version over |v|) under ``tol`` (by
+    default :data:`FLASH_TOL`'s): the error measures, and whether it
+    passes. The scale is |want|, plus ``want_abs`` where one is given
+    (the forward's bf16 checks, and the backward's ``FLASH_BWD_TOL``)."""
     import torch
     import torch.nn.functional as F
-    atol, rtol, block_limit = FLASH_TOL[dtype]
+    atol, rtol, block_limit = tol or FLASH_TOL[dtype]
     err = (got.float() - want).abs()
-    scale = want.abs() if dtype == "float32" else want.abs() + want_abs
+    scale = want.abs() if want_abs is None else want.abs() + want_abs
     share = float((err / (atol + rtol * scale)).max())
     b, s, h, d = want.shape
     pad = (0, 0, 0, 0, 0, (-s) % FLASH_ROWS)
@@ -717,35 +818,49 @@ def flash_error(got, want, want_abs, dtype: str) -> tuple[dict, bool]:
     ok = (bool(torch.isfinite(got.float()).all()) and share <= 1.0
           and (block_limit is None or block_rel <= block_limit))
     return dict(tolerance=dict(atol=atol, rtol=rtol,
-                               scale="|want|" if dtype == "float32"
+                               scale="|want|" if want_abs is None
                                else "|want| + P|V|",
                                max_block_rel_err=block_limit),
                 max_abs_err=float(err.max()), limit_share=share,
                 max_block_rel_err=block_rel), ok
 
 
-def build_flash_fault(directory: str, name: str):
-    """A copy of ``csrc/flash_attention.cu`` with the fault
-    ``FLASH_FAULTS[name]`` planted, built with the flash kernel's own flags
+def lse_error(got, want) -> tuple[dict, bool]:
+    """The forward's logsumexp against the plain version's, computed in
+    float32 on the same inputs, under ``FLASH_LSE_ATOL`` (log2 units): the
+    largest difference, and whether it passes."""
+    import torch
+    err = float((got - want).abs().max())
+    return dict(lse_max_abs_err=err, lse_atol=FLASH_LSE_ATOL), (
+        bool(torch.isfinite(got).all()) and err <= FLASH_LSE_ATOL)
+
+
+def build_flash_fault(directory: str, name: str,
+                      kernel: str = "flash_attention"):
+    """A copy of ``csrc/<kernel>.cu`` (``flash_attention`` or
+    ``flash_attention_bwd``) with the fault ``FLASH_FAULTS[name]`` or
+    ``FLASH_BWD_FAULTS[name]`` planted, built with the kernel's own flags
     into ``directory`` and loaded; returns the bound library."""
     import ctypes
 
     from repro_torch.kernels import build, flash_attention
-    old, new = FLASH_FAULTS[name]
-    text = (build.CSRC / "flash_attention.cu").read_text()
+    forward = kernel == "flash_attention"
+    old, new = (FLASH_FAULTS if forward else FLASH_BWD_FAULTS)[name]
+    text = (build.CSRC / f"{kernel}.cu").read_text()
     if text.count(old) != 1:
         raise AssertionError(f"fault {name}: its anchor is not in the source "
                              "exactly once")
-    src = Path(directory) / f"flash_attention_{name}.cu"
+    src = Path(directory) / f"{kernel}_{name}.cu"
     src.write_text(text.replace(old, new))
     out = src.with_suffix(".so")
-    proc = subprocess.run([build.nvcc_path(),
-                           *build.nvcc_flags("flash_attention"), "-o",
-                           str(out), str(src)], capture_output=True,
+    proc = subprocess.run([build.nvcc_path(), *build.nvcc_flags(kernel),
+                           "-o", str(out), str(src)], capture_output=True,
                           text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on fault {name}:\n{proc.stderr}")
-    return flash_attention.bind(ctypes.CDLL(str(out)))
+    lib = ctypes.CDLL(str(out))
+    return flash_attention.bind(lib) if forward else flash_attention.bind_bwd(
+        lib)
 
 
 def sdpa(q, k, v, causal: bool) -> tuple[float, str]:
@@ -775,8 +890,10 @@ def flash_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
                fault_libs: dict | None = None, flush=None,
                report: str | None = None) -> dict:
     """The flash kernel on random inputs of ``shape`` (B, Sq, Skv, Hq, Hkv,
-    hd) against its plain version in float32 under ``FLASH_TOL`` (raises
-    otherwise); ``fault_libs``' planted faults must fail there too. With
+    hd) against its plain version in float32 under ``FLASH_TOL``, and the
+    rows' logsumexp it writes for the backward under ``FLASH_LSE_ATOL``
+    (raises otherwise); ``fault_libs``' planted faults must fail one of
+    the two. With
     ``flush``, warm and L2-cold times, the plain version's and SDPA's, the
     bound and its share, TFLOP/s and ``report`` (ptxas). Returns the
     ``kernel`` line's fields for the caller to emit."""
@@ -788,31 +905,36 @@ def flash_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
     k = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
     v = torch.randn(b, skv, hkv, hd, generator=gen, device=dev).to(dtype)
     guard = f"flash_attention {case}"
-    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    got, lse = flash_attention.flash_attention(q, k, v, causal=causal,
+                                               return_lse=True)
     await_card("kernel", guard)
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                   causal=causal)
+    want, want_lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                             causal=causal, return_lse=True)
     tname = str(dtype).removeprefix("torch.")
     want_abs = None if dtype == torch.float32 else ref.flash_attention_ref(
         q.float(), k.float(), v.float().abs(), causal=causal)
     measures, ok = flash_error(got, want, want_abs, tname)
+    lse_measures, lse_ok = lse_error(lse, want_lse)
     fields = dict(kernel="flash_attention", case=case, shape=list(shape),
-                  dtype=tname, causal=causal, **measures)
-    if not ok:
+                  dtype=tname, causal=causal, **measures, **lse_measures)
+    if not (ok and lse_ok):
         emit("kernel", **fields)
         raise AssertionError(f"flash_attention {case} disagrees with its "
                              "plain version")
     for fault, lib in (fault_libs or {}).items():
-        bad = flash_attention.launch(q, k, v, causal, lib)
+        bad, bad_lse = flash_attention.launch(q, k, v, causal, lib,
+                                              return_lse=True)
         await_card("fault", f"flash_attention {case} fault {fault}")
         f_measures, passed = flash_error(bad, want, want_abs, tname)
+        l_measures, l_passed = lse_error(bad_lse, want_lse)
+        caught = not (passed and l_passed)
         emit("fault", kernel="flash_attention", fault=fault, case=case,
-             caught=not passed, **f_measures)
-        if passed:
+             caught=caught, **f_measures, **l_measures)
+        if not caught:
             raise AssertionError(f"the tolerance lets the planted fault "
                                  f"{fault} pass at {case}")
-        del bad
-    del got, want, want_abs
+        del bad, bad_lse
+    del got, lse, want, want_lse, want_abs
     if flush is not None:
         ops, nbytes = attention_work(b, sq, skv, hq, hkv, hd, causal,
                                      q.element_size())
@@ -832,6 +954,190 @@ def flash_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
             bound_share=b_ms / k_ms, tflops=ops / (k_ms * 1e-3) / 1e12,
             ptxas=report)
     return fields
+
+
+def bwd_work(b, sq, skv, hq, hkv, hd, causal):
+    """Operations and bytes of one attention backward: the five products
+    (S, dP, dV, dK, dQ) over the visible pairs, 2 operations a
+    multiply-add; q, k, v, o, dO (bf16) and lse read once, dq, dk, dv
+    written once."""
+    ops, _ = attention_work(b, sq, skv, hq, hkv, hd, causal, 2)
+    nbytes = 2 * hd * (4 * b * sq * hq + 4 * b * skv * hkv) + 4 * b * hq * sq
+    return ops * 5 // 2, nbytes
+
+
+def bwd_error(got, want, mags, dtype: str) -> tuple[dict, bool]:
+    """(dq, dk, dv) against the plain version under ``FLASH_BWD_TOL``:
+    each gradient's measures, the largest error, and whether all pass."""
+    errs, ok = {}, True
+    for name, a, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+        e, passed = flash_error(a, w, m, dtype, FLASH_BWD_TOL[dtype])
+        errs[name] = {key: e[key] for key in ("max_abs_err", "limit_share",
+                                              "max_block_rel_err")}
+        ok = ok and passed
+    return dict(tolerance=dict(zip(("atol", "rtol", "max_block_rel_err"),
+                                   FLASH_BWD_TOL[dtype]),
+                               scale="|want| + A"),
+                max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+                errors=errs), ok
+
+
+def flash_bwd_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
+                   scale=None, v_cols=None, fault_libs=None,
+                   timed: bool = False) -> dict:
+    """The backward kernel on random inputs of ``shape`` (B, Sq, Skv, Hq,
+    Hkv, hd), with o and lse from the forward kernel, against its plain
+    version in float32 under ``FLASH_BWD_TOL``, and that lse against the
+    plain forward's under ``FLASH_LSE_ATOL`` (raises otherwise; v and the
+    cotangent zero past ``v_cols``, as MLA pads them); ``fault_libs``'
+    planted faults must fail there. With ``timed``: the kernel's ms, the
+    library call's backward (SDPA's autograd backward at the same scale),
+    the bound (and at v's useful columns), whether two runs give the same
+    bits. Returns the line's fields."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    b, sq, skv, hq, hkv, hd = shape
+    dev = gen.device
+
+    def randn(*dims):
+        return torch.randn(*dims, generator=gen, device=dev).to(dtype)
+
+    q, g = randn(b, sq, hq, hd), randn(b, sq, hq, hd)
+    k, v = randn(b, skv, hkv, hd), randn(b, skv, hkv, hd)
+    if v_cols is not None:
+        v[..., v_cols:] = 0
+        g[..., v_cols:] = 0
+    guard = f"flash_attention_bwd {case}"
+    o, lse = fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                                return_lse=True)
+    got = fa.flash_attention_backward(q, k, v, o, lse, g, causal=causal,
+                                      scale=scale)
+    await_card("kernel", guard)
+    want, mags = ref.flash_attention_bwd_ref(
+        *(x.float() for x in (q, k, v, o, lse, g)), causal=causal,
+        scale=scale, magnitudes=True)
+    tname = str(dtype).removeprefix("torch.")
+    measures, ok = bwd_error(got, want, mags, tname)
+    lse_measures, lse_ok = lse_error(lse, ref.flash_attention_ref(
+        q.float(), k.float(), v.float(), causal=causal, scale=scale,
+        return_lse=True)[1])
+    fields = dict(kernel="flash_attention_bwd", case=case, shape=list(shape),
+                  dtype=tname, causal=causal, scale=scale, v_cols=v_cols,
+                  **measures, **lse_measures)
+    if not (ok and lse_ok):
+        emit("kernel", **fields)
+        raise AssertionError(f"flash_attention_bwd {case} disagrees with "
+                             "its plain version")
+    for fault, lib in (fault_libs or {}).items():
+        bad = fa.launch_bwd(q, k, v, o, lse, g, causal, lib, scale)
+        await_card("fault", f"flash_attention_bwd {case} fault {fault}")
+        f_measures, passed = bwd_error(bad, want, mags, tname)
+        emit("fault", kernel="flash_attention_bwd", fault=fault, case=case,
+             caught=not passed, **f_measures)
+        if passed:
+            raise AssertionError(f"the tolerance lets the planted fault "
+                                 f"{fault} pass at {case}")
+        del bad
+    del want, mags
+    if timed:
+        ops, nbytes = bwd_work(b, sq, skv, hq, hkv, hd, causal)
+        b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
+        k_ms = cuda_ms(lambda: fa.flash_attention_backward(
+            q, k, v, o, lse, g, causal=causal, scale=scale), reps=10,
+            guard=guard)
+        again = fa.flash_attention_backward(q, k, v, o, lse, g,
+                                            causal=causal, scale=scale)
+        lib_ms = library_bwd_ms(
+            lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+                q_, k_, v_, is_causal=causal, enable_gqa=hq != hkv,
+                scale=scale), [x.transpose(1, 2) for x in (q, k, v)],
+            g.transpose(1, 2), reps=10)
+        fields.update(
+            ms=k_ms, library_ms=lib_ms, library="scaled_dot_product_"
+            f"attention(is_causal={causal}, enable_gqa={hq != hkv}), its "
+            "autograd backward", library_share=lib_ms / k_ms,
+            operations=ops, bytes=nbytes, peak_flops=PEAK_BF16_FLOPS,
+            bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms,
+            tflops=ops / (k_ms * 1e-3) / 1e12,
+            bitwise_repeatable=all(bool(torch.equal(x, y))
+                                   for x, y in zip(got, again)))
+        if v_cols is not None:   # dV and dP over v's useful columns
+            ops_v = ops * (3 * hd + 2 * v_cols) // (5 * hd)
+            fields["bound_ms_v_cols"] = bound_ms(ops_v, nbytes,
+                                                 PEAK_BF16_FLOPS)[0]
+    return fields
+
+
+def flash_bwd_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
+    """Phase 21b: the backward kernel against its plain version on the
+    card under ``FLASH_BWD_TOL``, and the forward's lse against the plain
+    forward's under ``FLASH_LSE_ATOL``, at every attention shape of the
+    train paths in bf16, with its ms, bound and SDPA's backward: qwen3-0.6b's
+    layer (4 x 4096, 16/8 heads of 128, causal; the four planted faults
+    rejected there, the plain version's and the whole recompute's ms),
+    deepseek-v2-lite's MLA (16 heads at hd 192, scale 192^-0.5, v padded
+    from 128), internvl2-1b's (256 + 4096 positions, 14/2 heads of 64) at
+    the sync batch and a pod's, whisper-large-v3's encoder (1500 frames,
+    non-causal), cross attention (448 over 1500) and decoder (448,
+    causal), 20 heads of 64; then float32 at small shapes of every head
+    dim (ragged, GQA, Sq != Skv). Registers and spills of the bf16
+    instantiations (asserted spill-free). Returns the lines by case."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bf16, f32 = torch.bfloat16, torch.float32
+    vlm = VLM_PREFIX + TRAIN_SEQ
+    cases = [
+        ("qwen3_layer", (TRAIN_SYNC_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 8, 128),
+         True, {}),
+        ("deepseek_layer", (MOE_TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16,
+                            192), True, dict(scale=192 ** -0.5, v_cols=128)),
+        ("internvl2_layer", (VLM_TRAIN_BATCH, vlm, vlm, 14, 2, 64), True, {}),
+        ("internvl2_pod", (TRAIN_PER_POD, vlm, vlm, 14, 2, 64), True, {}),
+        ("whisper_encoder", (ENCDEC_TRAIN_BATCH, 1500, 1500, 20, 20, 64),
+         False, {}),
+        ("whisper_cross", (ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ, 1500, 20, 20,
+                           64), False, {}),
+        ("whisper_decoder", (ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ,
+                             ENCDEC_DEC_SEQ, 20, 20, 64), True, {})]
+    out = {}
+    for case, shape, causal, extra in cases:
+        first = case == "qwen3_layer"
+        fields = flash_bwd_case(gen, case, shape, bf16, causal, timed=True,
+                                fault_libs=fault_libs if first else None,
+                                **extra)
+        hd = shape[-1]
+        fields["ptxas"] = {key: r for key, r in ptxas.items()
+                           if key.endswith(f"bf16,HD={hd}") or
+                           f" bf16,HD={hd}," in key}
+        if first:
+            b, s, _, hq, hkv, _ = shape
+            q, g = (torch.randn(b, s, hq, hd, generator=gen, device=dev)
+                    .to(bf16) for _ in range(2))
+            k, v = (torch.randn(b, s, hkv, hd, generator=gen, device=dev)
+                    .to(bf16) for _ in range(2))
+            o, lse = fa.flash_attention(q, k, v, return_lse=True)
+            fields.update(
+                plain_ms=cuda_ms(lambda: ref.flash_attention_bwd_ref(
+                    q, k, v, o, lse, g), reps=2),
+                recompute_ms=cuda_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, g), reps=2))
+            del q, k, v, g, o, lse
+        emit("kernel", **fields)
+        out[case] = fields
+    for hd in fa.HEAD_DIMS:
+        for shape, causal in (((2, 200, 200, 4, 2, hd), True),
+                              ((1, 77, 150, 2, 1, hd), False),
+                              ((1, 150, 77, 2, 2, hd), True)):
+            emit("kernel", **flash_bwd_case(gen, f"f32_hd{hd}", shape, f32,
+                                            causal))
+    bf16_reports = {key: r for key, r in ptxas.items() if " bf16," in key}
+    if not bf16_reports or not all(spill_free(r)
+                                   for r in bf16_reports.values()):
+        raise AssertionError(f"the bf16 backward spills: {bf16_reports}")
+    return out
 
 
 def rmsnorm_decode_split(x, scale, calls: int = 200) -> dict:
@@ -2522,7 +2828,8 @@ def train_launches_per_forward(cfg) -> dict:
 def profile_train(phase: str, fn, shapes: bool = False) -> dict | None:
     """``fn()`` (one train step) under ``torch.profiler``: wall and device
     time, idle share, each backward function's device time (its
-    ``record_function`` range, the kernels it launched included) and its
+    ``record_function`` range, the kernels it launched included; flash's
+    backward kernels by name) and its
     share of the profiled step, the MoE dispatch's ops (``DISPATCH_OPS``;
     ``shapes`` records the input shapes that tell them apart, at some
     host cost), and the top kernels. None when the profiler fails
@@ -2574,6 +2881,13 @@ def profile_train(phase: str, fn, shapes: bool = False) -> dict | None:
     except (RuntimeError, AttributeError) as exc:
         emit(phase, error=repr(exc))
         return None
+    # the flash backward's kernels launch through ctypes, which the
+    # profiler does not tie to the range they run in: they count by name
+    flash_bwd = sum(us for name, us, _ in kernels if "flash_bwd_" in name)
+    if flash_bwd:
+        entry = bwd.setdefault(BWD_LABELS["flash_attention"], dict(
+            device_ms=0.0, host_ms=0.0, calls=0))
+        entry["device_ms"] += flash_bwd / 1e3
     busy_ms = sum(us for _, us, _ in kernels) / 1e3
     kernels.sort(key=lambda x: -x[1])
     for v in (*bwd.values(), *dispatch.values()):
@@ -2621,6 +2935,7 @@ def train_run(dev, model, data, *, phase: str, mode: str, batch: int,
             "ssd_state_scan": ssd_scan}
     for mod in mods.values():
         mod.LAUNCHES = mod.BACKWARD_CALLS = 0
+    flash_attention.BWD_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     rows = []
     for k in range(steps):
@@ -2642,6 +2957,10 @@ def train_run(dev, model, data, *, phase: str, mode: str, batch: int,
     peak = torch.cuda.max_memory_allocated()
     launched = {name: (mod.LAUNCHES, mod.BACKWARD_CALLS)
                 for name, mod in mods.items()}
+    # backward kernel launches: flash's (one a backward call); the norm's
+    # and the scan's backwards are plain PyTorch
+    bwd_kernel = {name: flash_attention.BWD_LAUNCHES
+                  if name == "flash_attention" else 0 for name in mods}
     forwards = steps * bundle.n_pods
     expected = {name: (forwards * n, forwards * n)
                 for name, n in train_launches_per_forward(cfg).items()}
@@ -2675,6 +2994,7 @@ def train_run(dev, model, data, *, phase: str, mode: str, batch: int,
                       if cfg.family == "encdec" else None),
         max_memory_allocated=peak, peak_limit=TRAIN_PEAK_LIMIT,
         launches={name: dict(kernel=v[0], backward=v[1],
+                             backward_kernel=bwd_kernel[name],
                              expected=list(expected[name]))
                   for name, v in launched.items()},
         model_flops_per_step=flops, peak_bf16_flops=PEAK_BF16_FLOPS,
@@ -2686,6 +3006,11 @@ def train_run(dev, model, data, *, phase: str, mode: str, batch: int,
     if launched != expected:
         raise AssertionError(f"{phase}: launches {launched}, expected "
                              f"{expected}")
+    if bwd_kernel["flash_attention"] != launched["flash_attention"][1]:
+        raise AssertionError(f"{phase}: {bwd_kernel['flash_attention']} "
+                             "flash backward kernel launches for "
+                             f"{launched['flash_attention'][1]} backward "
+                             "calls")
     if peak > TRAIN_PEAK_LIMIT:
         raise AssertionError(f"{phase}: peak memory {peak} passes "
                              f"{TRAIN_PEAK_LIMIT}")
@@ -2768,7 +3093,8 @@ def path_launches(**runs) -> dict:
     first = next(iter(runs.values()))["launches"]
     return dict(launches={name: {key: sum(run["launches"][name][key]
                                           for run in runs.values())
-                                 for key in ("kernel", "backward")}
+                                 for key in ("kernel", "backward",
+                                             "backward_kernel")}
                           for name in first}, runs=runs)
 
 
@@ -2896,55 +3222,52 @@ def library_bwd_ms(fn, inputs, g, reps: int) -> float:
                                                retain_graph=True), reps=reps)
 
 
-def backward_kernels(dev) -> dict:
+def backward_kernels(dev, flash_line: dict) -> dict:
     """Phase 21: each backward function at the train shape on the card
     (ms, and the bound of the same work), the library call's backward at
     the same shape where one PyTorch call computes the function
     (``scaled_dot_product_attention``, ``rms_norm``), and card against CPU
-    on the same inputs (flash in bf16 under ``FLASH_TOL``, the norm and the
-    scan in float32 at ``GRAD_TOL_F32``). Returns per kernel: route, ms,
-    bound, library ms, max error."""
+    on the same inputs (flash in bf16: the forward and backward kernels
+    against the plain forward and backward in float32 on the CPU, the
+    gradients under ``FLASH_BWD_TOL`` with A widened by o's rounding, lse
+    under ``FLASH_LSE_ATOL``; the norm and the scan in float32 at
+    ``GRAD_TOL_F32``). Flash's times are phase 21b's at the qwen3 layer
+    (``flash_line``). Returns per kernel: route, ms, bound, library ms, max
+    error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm, ssd_scan
+    from repro_torch.kernels import ref, rmsnorm, ssd_scan
     gen = torch.Generator(device=dev).manual_seed(11)
     out = {}
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    # flash: the qwen3 train layer, and a (1, 1024) slice for the CPU check
+    # flash: the kernel at the qwen3 train layer (phase 21b's line), and
+    # card against CPU on a (1, 1024) slice: the forward and backward
+    # kernels against the plain forward and backward on the CPU, each side
+    # from its own forward's o and lse (A widened by o's rounding, o_err)
     b, s, hq, hkv, hd = TRAIN_SYNC_BATCH, TRAIN_SEQ, 16, 8, 128
-    q, g = (randn(b, s, hq, hd, dtype=torch.bfloat16) for _ in range(2))
-    k, v = (randn(b, s, hkv, hd, dtype=torch.bfloat16) for _ in range(2))
-    ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, g), reps=3)
-    lib_ms = library_bwd_ms(
-        lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
-            q_, k_, v_, is_causal=True, enable_gqa=True),
-        [x.transpose(1, 2) for x in (q, k, v)], g.transpose(1, 2), reps=10)
-    pairs = s * (s + 1) // 2
-    ops = 2 * 5 * b * hq * hd * pairs          # S, dV, dP, dQ, dK
-    nbytes = 2 * b * s * hd * (3 * hq + 4 * hkv)   # q, g, dq; k, v, dk, dv
-    bound, by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
-    small = [x[:1, :1024].contiguous() for x in (q, k, v, g)]
-    got = fa.flash_attention_bwd(*small)
-    want = fa.flash_attention_bwd(*(x.cpu() for x in small))
-    errs, ok = {}, True
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        e, passed = flash_error(a.cpu(), w.float(), torch.zeros_like(
-            w.float()), "bfloat16")
-        errs[name] = e["max_abs_err"]
-        ok = ok and passed
+    q, k, v, g = (randn(1, 1024, h, hd, dtype=torch.bfloat16)
+                  for h in (hq, hkv, hkv, hq))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    got = fa.flash_attention_backward(q, k, v, o, lse, g)
+    ins = [x.cpu().float() for x in (q, k, v)]
+    o_cpu, lse_cpu = fa.flash_attention(*ins, return_lse=True)
+    want, mags = ref.flash_attention_bwd_ref(
+        *ins, o_cpu, lse_cpu, g.cpu().float(), magnitudes=True, o_err=True)
+    measures, ok = bwd_error([x.cpu() for x in got], want, mags, "bfloat16")
+    lse_measures, lse_ok = lse_error(lse.cpu(), lse_cpu)
     out["flash_attention"] = dict(
-        route="plain PyTorch (float32 recompute; XLA autodiff's "
-        "counterpart)", shape=[b, s, hq, hkv, hd], dtype="bfloat16",
-        ms=ms, plain_full_square=True, bound_ms=bound, bound_by=by,
-        library_ms=lib_ms, library="scaled_dot_product_attention(is_causal="
-        "True, enable_gqa=True), its autograd backward",
-        max_abs_err=max(errs.values()), errors=errs,
-        check_shape=[1, 1024, hq, hkv, hd], tolerance=FLASH_TOL["bfloat16"],
-        within=ok)
-    del q, k, v, g, small, got, want
+        route="cuda (csrc/flash_attention_bwd.cu)",
+        shape=[b, s, hq, hkv, hd], dtype="bfloat16",
+        **{key: flash_line[key] for key in (
+            "ms", "plain_ms", "recompute_ms", "bound_ms", "bound_by",
+            "library_ms", "library", "bitwise_repeatable")},
+        max_abs_err=measures["max_abs_err"], errors=measures["errors"],
+        **lse_measures, check_shape=[1, 1024, hq, hkv, hd],
+        tolerance=FLASH_BWD_TOL["bfloat16"], within=ok and lse_ok)
+    del q, k, v, g, o, lse, got, want, mags, ins, o_cpu, lse_cpu
 
     # rmsnorm: the train path's rows (B x S of d_model), bf16
     x = randn(b * s, 1024, dtype=torch.bfloat16)
@@ -3147,7 +3470,7 @@ def mla_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
     """Phase 25a: the flash kernel at head dim 192 (MLA's prefill, q and k
     of 128 + 64 columns, v padded to 192) against its plain version: at
     deepseek-v2-lite's layer (B=4, S=4096, 16 heads, bf16, causal) under
-    ``FLASH_TOL`` with the three planted faults rejected there too, and in
+    ``FLASH_TOL`` with the five planted faults rejected there too, and in
     float32 at ragged shapes. The layer's line: warm and L2-cold times, the
     bound (v at 192 columns, and at its useful 128), its share, TFLOP/s,
     SDPA's time at the same shape, registers and spills of both
@@ -3982,6 +4305,8 @@ def train_entry(kernel: str, bwd: dict, paths: dict) -> dict:
                          for name, p in paths.items()},
                 backward=dict(bwd[kernel], calls={
                     name: p["launches"][kernel]["backward"]
+                    for name, p in paths.items()}, kernel_launches={
+                    name: p["launches"][kernel]["backward_kernel"]
                     for name, p in paths.items()}, share_of_step=share))
 
 
@@ -4024,17 +4349,23 @@ def main() -> int:
                 "hier_aggregate": ("hier_aggregate", ()),
                 "rmsnorm": ("rmsnorm", ()),
                 "flash_attention": ("flash_attention", ()),
+                "flash_attention_bwd": ("flash_attention_bwd", ()),
                 "ssd_state_scan": ("ssd_scan", ())}
     t0 = time.perf_counter()
-    # the planted faults of phase 8 build beside them, into a directory
-    # that goes once they are loaded
+    # the planted faults of phases 8 and 21b build beside them, into a
+    # directory that goes once they are loaded
     with tempfile.TemporaryDirectory() as fault_dir, ThreadPoolExecutor(
-            len(variants) + len(FLASH_FAULTS)) as pool:
+            len(variants) + len(FLASH_FAULTS)
+            + len(FLASH_BWD_FAULTS)) as pool:
         faults = {f: pool.submit(build_flash_fault, fault_dir, f)
                   for f in FLASH_FAULTS}
+        bwd_faults = {f: pool.submit(build_flash_fault, fault_dir, f,
+                                     "flash_attention_bwd")
+                      for f in FLASH_BWD_FAULTS}
         built = dict(zip(variants, pool.map(
             lambda job: build.load(*job), variants.values())))
         fault_libs = {f: job.result() for f, job in faults.items()}
+        bwd_fault_libs = {f: job.result() for f, job in bwd_faults.items()}
     build_s = time.perf_counter() - t0
     ptxas = {kname: ptxas_report(b.ptxas_log) for kname, b in built.items()}
     for kname, b in built.items():
@@ -4425,7 +4756,9 @@ def main() -> int:
         return sum(run.get(kernel, 0) for run in ssm_launches)
 
     # ---- 21-24. LM training: gradients through the kernels ----
-    bwd = backward_kernels(dev)
+    fla_bwd = flash_bwd_kernels(dev, bwd_fault_libs,
+                                ptxas["flash_attention_bwd"])
+    bwd = backward_kernels(dev, fla_bwd["qwen3_layer"])
     train_card_vs_cpu(dev)
     train_lm = train_lm_path(dev)
     train_ssm = train_ssm_path(dev)
@@ -4585,6 +4918,19 @@ def main() -> int:
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")}
                 for case in ("whisper_encoder", "whisper_cross",
                              "internvl2_layer")}),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/ops.py:38",
+             launches=sum(t_fla["backward"]["kernel_launches"].values()),
+             launches_by_path=t_fla["backward"]["kernel_launches"],
+             backward=None, **{key: fla_bwd["qwen3_layer"][key] for key in (
+                 "shape", "max_abs_err", "ms", "plain_ms", "recompute_ms",
+                 "bound_ms", "bound_by", "library_ms", "tflops",
+                 "bitwise_repeatable", "ptxas")},
+             **{case: {key: line.get(key) for key in (
+                 "shape", "causal", "max_abs_err", "ms", "bound_ms",
+                 "bound_by", "bound_ms_v_cols", "library_ms", "tflops")}
+                for case, line in fla_bwd.items() if case != "qwen3_layer"}),
         dict(name="ssd_state_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:47",

@@ -26,9 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # -fmad=false keeps every multiply and add separately rounded, as in the
 # plain PyTorch version, so a kernel follows it op for op: every kernel but
-# these, which are held to a tolerance rather than to bit-equality and may
-# fuse a multiply and an add.
-FUSED_MULTIPLY_ADD = frozenset({"flash_attention"})
+# these (flash attention's forward and backward), which are held to a
+# tolerance rather than to bit-equality and may fuse a multiply and an add.
+FUSED_MULTIPLY_ADD = frozenset({"flash_attention", "flash_attention_bwd"})
 
 
 def nvcc_flags(name: str) -> tuple[str, ...]:

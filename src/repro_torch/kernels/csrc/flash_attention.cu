@@ -81,6 +81,12 @@
 //   Shared memory is Q, K and V tiles of 64 rows of hd + 4 floats and P:
 //   164 KB at hd 192.
 //
+// For training, both kernels also write each row's logsumexp where the
+// caller passes an lse buffer (B, Hq, Sq) (the serving path passes null and
+// nothing changes): in the units the row's probabilities were computed in,
+// the scaled, log2 e-folded scores, lse = m + log2(l), so that the backward
+// (flash_attention_bwd.cu) recomputes P = 2^(s * scale * log2 e - lse).
+//
 // Plain C entry point flash_attention_launch: launches on the given stream,
 // does not synchronise, allocates nothing, returns cudaGetLastError().
 
@@ -98,6 +104,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;     // (B, Hq, Sq) in log2 units, or null
   int B, Sq, Skv, Hq, Hkv;
   float scale;
   int causal;
@@ -758,6 +765,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int q_pos = row0 + 8 * r;
     if (q_pos < a.Sq) {
+      if (a.lse != nullptr && t4 == 0)   // m * cl: the running max, scaled
+        a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + q_pos] =
+            m[r] * cl + log2f(fmaxf(l[r], 1e-30f));
       __nv_bfloat16* dst =
           out + ((static_cast<long long>(b) * a.Sq + q_pos) * a.Hq + h) * HD;
 #pragma unroll
@@ -975,6 +985,9 @@ __global__ void __launch_bounds__(kF32Threads)
 
   if (q_pos < a.Sq) {
     const float denom = fmaxf(l, 1e-30f);
+    if (a.lse != nullptr && half == 0)   // m is in log2-scaled units here
+      a.lse[(static_cast<long long>(b) * a.Hq + h) * a.Sq + q_pos] =
+          m + log2f(denom);
     float* out = static_cast<float*>(a.o) +
                  ((static_cast<long long>(b) * a.Sq + q_pos) * a.Hq + h) * HD;
 #pragma unroll
@@ -1004,20 +1017,22 @@ cudaError_t launch_hd(const Args& a, int dtype, cudaStream_t stream) {
 
 // dtype 0 is float32, 1 is bfloat16. q (B, Sq, Hq, hd), k and v
 // (B, Skv, Hkv, hd), o like q, all contiguous and 16-byte aligned;
-// Hq % Hkv == 0. The head dims below are exactly
+// Hq % Hkv == 0. lse: null, or float32 (B, Hq, Sq) to receive each row's
+// logsumexp in log2 units. The head dims below are exactly
 // flash_attention.HEAD_DIMS; a CPU test checks it. Each is a multiple of
 // 16 (whole k16 steps, 16-byte row copies); 80 is zamba2's shared block,
 // 112 kimi-k2's attention, 192 MLA's prefill (deepseek-v2-lite: 128 + 64
 // columns of q and k, v padded to 192).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
+                                      const void* v, void* o, float* lse,
+                                      int B, int Sq,
                                       int Skv, int Hq, int Hkv, int hd,
                                       float scale, int causal, int dtype,
                                       void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       B > 65535 || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, B, Sq, Skv, Hq, Hkv, scale, causal};
+  const Args a{q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, scale, causal};
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (hd == 16) err = launch_hd<16>(a, dtype, s);

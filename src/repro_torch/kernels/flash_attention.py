@@ -1,4 +1,4 @@
-"""Flash attention forward: the wrapper of the CUDA kernel.
+"""Flash attention: the wrappers of the forward and backward CUDA kernels.
 
 The kernel (``csrc/flash_attention.cu``) replaces
 ``repro/kernels/flash_attention.py::_fwd_kernel``, the Pallas TPU kernel.
@@ -19,12 +19,18 @@ flash_attention_ref`. A CUDA tensor launches the kernel or raises; nothing
 falls back. ``LAUNCHES`` counts kernel launches, and only those.
 
 Gradients go through :class:`FlashAttentionFn` on both devices: its
-forward is :func:`flash_attention` (the kernel on the card), its backward
-:func:`flash_attention_bwd`, which recomputes attention in float32 in
-plain PyTorch and takes its VJP, as the JAX package's custom VJP
-(``repro/kernels/ops.py::_fa_bwd``) recomputes through its reference. It
-is the same code on the CPU and the card. ``BACKWARD_CALLS`` counts its
-backward calls.
+forward is :func:`flash_attention` with the rows' logsumexp (the kernel on
+the card), its backward :func:`flash_attention_backward` from the saved q,
+k, v, output and logsumexp: on the card the kernel of
+``csrc/flash_attention_bwd.cu``, which replaces the JAX package's custom
+VJP (``repro/kernels/ops.py::_fa_bwd``, XLA autodiff through its
+reference), on the CPU its plain version :func:`ref.
+flash_attention_bwd_ref`. ``BACKWARD_CALLS`` counts the Function's
+backward calls, ``BWD_LAUNCHES`` the backward kernel's launches (each a
+pre-pass, the dK/dV walk, two of them above head dim 128, and the dQ walk;
+counted once). :func:`flash_attention_bwd` recomputes attention whole in
+float32 and takes its VJP: the oracle the tests and ``chip_smoke.py`` hold
+both to.
 """
 
 from __future__ import annotations
@@ -37,12 +43,19 @@ from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
 BACKWARD_CALLS = 0
+BWD_LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 192)   # the kernel's instantiations
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
+# the backward's (B, Hq, Sq_pad) scratch of lse and D: Sq rounded up to
+# this (csrc/flash_attention_bwd.cu's kPad)
+BWD_PAD = 128
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -58,8 +71,24 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures on a library built from
+    ``flash_attention_bwd.cu`` (or a copy with a planted fault)."""
+    fn = lib.flash_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     return bind(build.load("flash_attention").lib)
+
+
+def _bwd_library() -> ctypes.CDLL:
+    return bind_bwd(build.load("flash_attention_bwd").lib)
 
 
 def _check(q, k, v, block_q, block_kv):
@@ -85,45 +114,119 @@ def _check(q, k, v, block_q, block_kv):
         raise ValueError("block sizes must be positive")
 
 
+def _on_card(*tensors) -> None:
+    """Raise unless every tensor lies on the card, contiguous and 16-byte
+    aligned, with batch and heads within the grid's 65535."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"no kernel for device {tensors[0].device}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in tensors):
+        raise ValueError("flash attention's kernels need contiguous, "
+                         "16-byte aligned inputs")
+    if max(tensors[0].shape[0], tensors[0].shape[2]) > 65535:
+        raise ValueError("batch and heads must each be at most 65535")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 512,
-                    block_kv: int = 512, scale: float | None = None
-                    ) -> torch.Tensor:
+                    block_kv: int = 512, scale: float | None = None,
+                    return_lse: bool = False):
     """q (B, Sq, Hq, hd), k and v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd) in
     q's dtype; scores scaled by ``scale`` (default hd ** -0.5), float32
-    softmax statistics and accumulation."""
+    softmax statistics and accumulation. With ``return_lse``, also each
+    row's logsumexp (float32 (B, Hq, Sq), log2 units: the residual of
+    :func:`flash_attention_backward`)."""
     global LAUNCHES
     _check(q, k, v, block_q, block_kv)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_attention needs contiguous, 16-byte aligned "
-                         "q, k, v")
-    if max(q.shape[0], q.shape[2]) > 65535:
-        raise ValueError("batch and heads must each be at most 65535")
-    out = launch(q, k, v, causal, _library(), scale)
+        return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                       return_lse=return_lse)
+    _on_card(q, k, v)
+    out = launch(q, k, v, causal, _library(), scale, return_lse)
     LAUNCHES += 1
     return out
 
 
 def launch(q, k, v, causal: bool, lib: ctypes.CDLL,
-           scale: float | None = None) -> torch.Tensor:
+           scale: float | None = None, return_lse: bool = False):
     """Launch ``lib``'s kernel (see :func:`bind`) on checked contiguous
-    CUDA inputs on the current stream, without counting it."""
+    CUDA inputs on the current stream, without counting it; with
+    ``return_lse`` the output and the rows' logsumexp."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv,
-        hq, hkv, hd, hd ** -0.5 if scale is None else scale, int(causal), DTYPES[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, hd,
+        hd ** -0.5 if scale is None else scale, int(causal), DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
+    return (out, lse) if return_lse else out
+
+
+def _check_bwd(q, o, lse, g) -> None:
+    if o.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and g {tuple(g.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    b, sq, hq, _ = q.shape
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 of shape {(b, hq, sq)}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if o.dtype != q.dtype or g.dtype != q.dtype:
+        raise TypeError(f"o and g must have q's dtype {q.dtype}, got "
+                        f"{o.dtype}, {g.dtype}")
+    if not (q.device == o.device == lse.device == g.device):
+        raise ValueError("inputs lie on several devices")
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, g: torch.Tensor, *,
+                             causal: bool = True, scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention` at ``(q, k, v)`` for the
+    output cotangent ``g``, from the forward's output ``o`` and logsumexp
+    ``lse`` (``return_lse``), in the inputs' dtype. CPU tensors take the
+    plain version (:func:`ref.flash_attention_bwd_ref`); CUDA tensors
+    launch the kernel or raise."""
+    global BWD_LAUNCHES
+    _check(q, k, v, 1, 1)
+    _check_bwd(q, o, lse, g)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=causal,
+                                           scale=scale)
+    _on_card(q, k, v, o, lse, g)
+    out = launch_bwd(q, k, v, o, lse, g, causal, _bwd_library(), scale)
+    BWD_LAUNCHES += 1
     return out
+
+
+def launch_bwd(q, k, v, o, lse, g, causal: bool, lib: ctypes.CDLL,
+               scale: float | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``lib``'s backward (see :func:`bind_bwd`) on checked
+    contiguous CUDA inputs on the current stream, without counting it."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    pad = -(-sq // BWD_PAD) * BWD_PAD
+    lse_p = torch.empty(b, hq, pad, dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse_p)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    rc = lib.flash_attention_bwd_launch(
+        *(t.data_ptr() for t in (q, k, v, o, g, lse, lse_p, dsum, dq, dk,
+                                 dv)),
+        b, sq, skv, hq, hkv, hd, pad, hd ** -0.5 if scale is None else scale,
+        int(causal), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("flash_attention backward launch failed: "
+                           + lib.flash_attention_bwd_error_string(rc).decode())
+    return dq, dk, dv
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -174,23 +277,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
-    backward; q, k and v are saved, no score-sized residual."""
+    """:func:`flash_attention` with :func:`flash_attention_backward` as its
+    backward; q, k, v, the output and the rows' logsumexp are saved, no
+    score-sized residual."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_kv, scale=None):
-        ctx.save_for_backward(q, k, v)
+        out, lse = flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                   block_kv=block_kv, scale=scale,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.scale = scale
-        return flash_attention(q, k, v, causal=causal, block_q=block_q,
-                               block_kv=block_kv, scale=scale)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         global BACKWARD_CALLS
-        q, k, v = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         with torch.profiler.record_function("flash_attention_bwd"):
-            dq, dk, dv = flash_attention_bwd(q, k, v, g, causal=ctx.causal,
-                                             scale=ctx.scale)
+            dq, dk, dv = flash_attention_backward(
+                q, k, v, o, lse, g.contiguous(), causal=ctx.causal,
+                scale=ctx.scale)
         BACKWARD_CALLS += 1
         return dq, dk, dv, None, None, None, None

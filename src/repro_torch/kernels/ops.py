@@ -7,9 +7,10 @@ raise.
 
 ``flash_attention``, ``rmsnorm`` and ``ssd_state_scan`` are differentiable:
 when an input needs a gradient the call goes through the kernel's
-``torch.autograd.Function``, whose forward is the same dispatch and whose
-backward is one plain PyTorch function on both devices. Without a
-gradient the call goes to the dispatch directly.
+``torch.autograd.Function``, whose forward is the same dispatch. Flash's
+backward dispatches the same way (its backward kernel on the card);
+rmsnorm's and the scan's backward is one plain PyTorch function on both
+devices. Without a gradient the call goes to the dispatch directly.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@
 float32 statistics, its sum of squares taken in that kernel's order.
 ``flash_attention_ref`` is the plain version of ``csrc/flash_attention.cu``:
 attention computed whole, in float32, with the Pallas kernel's top-left
-causal mask.
+causal mask; on request it also returns each row's logsumexp in the
+kernel's log2 units. ``flash_attention_bwd_ref`` is the plain version of
+``csrc/flash_attention_bwd.cu``: the gradients from the forward's saved
+output and logsumexp, by the kernel's formulas.
 
 ``hier_aggregate_ref`` is the plain version of ``csrc/hier_aggregate.cu``,
 the eq. (8)/(14) weighted mean, summed in that kernel's order.
@@ -30,6 +33,7 @@ import torch
 
 GOLDEN = 0.6180339887498949
 EPS = 1e-12
+LOG2E = 1.4426950408889634
 
 
 # The golden-section kernel's dispatch table (csrc/golden_section.cu: kWarps,
@@ -336,14 +340,17 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True,
-                        scale: float | None = None) -> torch.Tensor:
+                        causal: bool = True, scale: float | None = None,
+                        return_lse: bool = False):
     """Attention computed whole. q (B, Sq, Hq, hd); k, v (B, Skv, Hkv, hd)
     with Hq % Hkv == 0 (q head h reads kv head h // (Hq // Hkv)); scores
-    scaled by ``scale`` (default hd ** -0.5); float32 throughout, output in q's dtype. The causal mask keeps kv_pos <= q_pos,
+    scaled by ``scale`` (default hd ** -0.5); float32 throughout, output in
+    q's dtype. The causal mask keeps kv_pos <= q_pos,
     aligned top-left as the Pallas kernel aligns it; the JAX reference
     aligns it bottom-right (``tril(k=skv - sq)``), which is the same only
-    when Sq == Skv."""
+    when Sq == Skv. With ``return_lse``, also each row's logsumexp of the
+    scaled, masked scores in log2 units (float32 (B, Hq, Sq)), the
+    kernel's residual for :func:`flash_attention_bwd_ref`."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -355,7 +362,80 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(torch.float32))
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    # logsumexp = m - ln(max P), P's largest entry being exp(m - lse): no
+    # score-sized temporary beside s and p
+    lse = s.amax(-1) - torch.log(p.amax(-1))
+    return o, (lse * LOG2E).reshape(b, hq, sq)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, g: torch.Tensor, *,
+                            causal: bool = True, scale: float | None = None,
+                            magnitudes: bool = False, o_err: bool = False):
+    """The gradients of attention (the function of
+    :func:`flash_attention_ref`) for the output cotangent ``g``, from the
+    forward's output ``o`` and logsumexp ``lse`` (float32 (B, Hq, Sq), log2
+    units), as the kernel computes them, in float32: with c = ``scale``
+    (default hd ** -0.5), P = 2^(c log2(e) q k^T - lse) (0 where the
+    top-left causal mask hides kv_pos > q_pos), D = rowsum(g o), dS = P (g
+    v^T - D), dq = c dS k, dk = c dS^T q, dv = P^T g. One batch element at
+    a time, so the transient score-sized tensors are those of one
+    sequence. Returns (dq, dk, dv) in the inputs' dtype.
+
+    With ``magnitudes``, returns ((dq, dk, dv), A): A, float32, the
+    magnitudes of the terms the bf16 kernel rounds, the scale of its
+    tolerance (``chip_smoke.FLASH_BWD_TOL``): (c |dS| |k|, c |dS|^T |q|,
+    P^T |g|) for (dq, dk, dv). With ``o_err`` too, the kernel read another
+    forward's o, within that forward's tolerance 2u (|o| + P|v|) of this
+    ``o`` (``chip_smoke.FLASH_TOL``): |dS| widens by P rowsum(|g| (|o| +
+    P|v|)), u times which bounds how far D can move."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    grp = hq // hkv
+    c = hd ** -0.5 if scale is None else scale
+    f32 = torch.float32
+    hide = (~torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril()
+            if causal else None)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    mags = [torch.empty(t.shape, dtype=f32, device=q.device)
+            for t in (q, k, v)] if magnitudes else None
+    for i in range(b):
+        qi, gi = (x[i].to(f32).reshape(sq, hkv, grp, hd) for x in (q, g))
+        ki, vi = k[i].to(f32), v[i].to(f32)
+        oi = o[i].to(f32).reshape(sq, hkv, grp, hd)
+        d = (gi * oi).sum(-1)
+        s = torch.einsum("qhgd,khd->hgqk", qi, ki)
+        p = torch.exp2(s * (c * LOG2E)
+                       - lse[i].reshape(hkv, grp, sq, 1))
+        del s
+        if causal:
+            p.masked_fill_(hide, 0.0)
+        dv[i] = torch.einsum("hgqk,qhgd->khd", p, gi).to(v.dtype)
+        ds = torch.einsum("qhgd,khd->hgqk", gi, vi)
+        ds.sub_(d.permute(1, 2, 0)[..., None]).mul_(p)
+        if magnitudes:
+            mags[2][i] = torch.einsum("hgqk,qhgd->khd", p, gi.abs())
+            ds_abs = ds.abs()
+            if o_err:
+                pv_abs = torch.einsum("hgqk,khd->qhgd", p, vi.abs())
+                d_abs = (gi.abs() * (oi.abs() + pv_abs)).sum(-1)
+                ds_abs.add_(p * d_abs.permute(1, 2, 0)[..., None])
+        del p
+        dq[i] = (torch.einsum("hgqk,khd->qhgd", ds, ki) * c).reshape(
+            sq, hq, hd).to(q.dtype)
+        dk[i] = (torch.einsum("hgqk,qhgd->khd", ds, qi) * c).to(k.dtype)
+        del ds
+        if magnitudes:
+            mags[0][i] = c * torch.einsum("hgqk,khd->qhgd", ds_abs,
+                                          ki.abs()).reshape(sq, hq, hd)
+            mags[1][i] = c * torch.einsum("hgqk,qhgd->khd", ds_abs,
+                                          qi.abs())
+            del ds_abs
+    return ((dq, dk, dv), tuple(mags)) if magnitudes else (dq, dk, dv)
 
 
 def ssd_state_scan_ref(states: torch.Tensor, decay: torch.Tensor,

@@ -4,8 +4,9 @@ Multi-head Latent Attention (MLA). Port of ``repro.models.attention``.
 
 All shapes are (batch, seq, heads, head_dim); softmax statistics in
 float32. The full-sequence paths are differentiable: their scores go
-through :func:`ops.flash_attention`, whose backward recomputes attention
-in float32 (``kernels/flash_attention.py``). The encoder-decoder's
+through :func:`ops.flash_attention`, whose backward is the flash
+backward kernel from the saved output and logsumexp
+(``kernels/flash_attention.py``). The encoder-decoder's
 cross-attention reads the k and v of :func:`cross_kv`
 (``models/encdec.py``).
 """

@@ -252,11 +252,13 @@ def test_kernel_instantiates_every_head_dim():
 @pytest.mark.parametrize("name", sorted(p.stem for p in tbuild.CSRC.glob(
     "*.cu")))
 def test_build_fuses_multiply_add_for_flash_only(name):
-    """Every kernel but flash attention is built with ``-fmad=false``, on
-    which its bit-equality with its plain version rests; flash attention,
-    held to a tolerance, is built with fused multiply-add."""
+    """Every kernel but flash attention's forward and backward is built
+    with ``-fmad=false``, on which its bit-equality with its plain version
+    rests; flash attention, held to a tolerance, is built with fused
+    multiply-add."""
     flags = tbuild.nvcc_flags(name)
-    assert ("-fmad=false" in flags) == (name != "flash_attention")
+    assert ("-fmad=false" in flags) == (
+        name not in ("flash_attention", "flash_attention_bwd"))
     assert set(tbuild.NVCC_FLAGS) <= set(flags)
 
 
