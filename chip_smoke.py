@@ -11,9 +11,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    limit (also printed raw on a line of its own).
 2. ``build``: builds every kernel of the main paths with ``nvcc`` from the
    checkout's sources (golden_section, its cbrtf variant of phase 3b,
-   hier_aggregate, rmsnorm, flash_attention, flash_attention_bwd,
-   ssd_scan), and the flash kernel's five planted faults of phase 8 and
-   the backward's four of phase 21b in a temporary directory, all at
+   hier_aggregate, rmsnorm, flash_attention, flash_attention_bwd and its
+   build with the walk's counters for phase 21b, ssd_scan), and the flash kernel's five planted faults of phase 8 and
+   the backward's five of phase 21b in a temporary directory, all at
    once, each with its own nvcc flags (``build.nvcc_flags``: every kernel
    but flash's forward and backward with -fmad=false); build seconds and
    the ptxas register/spill report.
@@ -182,14 +182,17 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    against its plain version under ``FLASH_BWD_TOL``, and that lse against
    the plain forward's under ``FLASH_LSE_ATOL``, at every attention
    shape of the train paths in bf16: qwen3-0.6b's layer (4 x 4096, 16/8
-   heads of 128, causal; the four planted faults of ``FLASH_BWD_FAULTS``
+   heads of 128, causal; the five planted faults of ``FLASH_BWD_FAULTS``
    rejected there, the plain version's and the whole float32 recompute's
    ms), deepseek-v2-lite's MLA at hd 192, internvl2-1b's layer at the sync
    and pod batches, whisper-large-v3's encoder, cross attention and
-   decoder; each with its ms, SDPA's autograd backward at the same shape,
-   the bound and its share, TFLOP/s, whether two runs give the same bits,
-   and ptxas' report (asserted spill-free); then float32 at small shapes of
-   every head dim. Then ``backward``: each kernel's backward (flash's
+   decoder; each with its ms and SDPA's autograd backward at the same
+   shape (three device-time runs of each in turns, their median and
+   spread), the bound and its share, TFLOP/s, the launch plan
+   (``flash_attention.bwd_plan``), that two runs give the same bits
+   (asserted), ptxas' report (asserted spill-free), and where the time
+   goes (``counters``: the walk's own cycle counters by phase); then
+   float32 at small shapes of every head dim. Then ``backward``: each kernel's backward (flash's
    kernel, rmsnorm's closed form and the scan's reverse recurrence in
    plain PyTorch, the same code as on the CPU) at the train shapes, with
    its ms and bound, the library call's backward at the same shape
@@ -325,6 +328,7 @@ import math
 import os
 import pstats
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -429,14 +433,19 @@ FLASH_FAULTS = {
 # relatively: rtol 2u; per block 1e-2, about 3x the sqrt(2) u / sqrt(3) =
 # 3.2e-3 that two independent roundings of uniform relative error give a
 # block's norm. A q tile left out of dK/dV, D left out of dS, dK/dV from
-# the first q head of each GQA group alone, or lse read as a natural log
-# must fail (phase 21b plants all four and checks).
+# the first q head of each GQA group alone, lse read as a natural log, or
+# one kv tile's dQ partials left out of the ordered sum must fail (phase
+# 21b plants all five and checks).
 FLASH_BWD_TOL = {"float32": (1e-5, 1e-5, None),
                  "bfloat16": (1e-5, 2 ** -7, 1e-2)}
-# faults planted in copies of csrc/flash_attention_bwd.cu, as FLASH_FAULTS
-_PACK_P = "    if constexpr (DV) pack(pa, s);     // P^T: dV's A operand\n"
+# faults planted in copies of csrc/flash_attention_bwd.cu, as FLASH_FAULTS;
+# the walk's (bf16 at hd <= 128, the qwen3 layer where they are planted)
+_PACK_P = "    pack(pa, s);    // P^T: dV's A operand\n"
+_DQ_ADD = ("        else bulk_reduce_add(dst, src, L::kDQBytes);   "
+           "// the next in kv order\n")
 FLASH_BWD_FAULTS = {
-    # the middle step of each dK/dV walk adds nothing
+    # the middle step of each walk adds nothing (P and dS zero: to dV, dK
+    # and dQ's partial)
     "skipped_q_tile": (_PACK_P, (
         "    if (n_steps > 2 && i == n_steps / 2)\n"
         "#pragma unroll\n"
@@ -444,15 +453,19 @@ FLASH_BWD_FAULTS = {
         + _PACK_P)),
     # dS = P dP
     "no_d": ("  return p * (dp - d);\n", "  return p * dp;\n"),
-    # the dK/dV walk over the first q head of each group alone
+    # each walk over the first q head of its GQA group alone
     "first_head_only": (
-        "  return (a.Hq / a.Hkv) * per_head;   // every q head of the GQA "
-        "group\n", "  return per_head;\n"),
+        "  return hi - lo;   // the rank's q heads of the GQA group\n",
+        "  return lo == 0 ? 1 : 0;\n"),
     # the forward's log2-unit lse converted as if it were a natural log
     "natural_lse": (
         "    lse2 = a.lse[static_cast<long long>(bh) * a.Sq + qi];   "
         "// log2 units\n",
         "    lse2 = a.lse[static_cast<long long>(bh) * a.Sq + qi] * kLog2e;\n"),
+    # the middle kv tile's dQ partials left out of the ordered sum (its
+    # count still moves on, so the kv tiles after it add theirs)
+    "dropped_dq_partial": (_DQ_ADD, _DQ_ADD.replace(
+        "        else ", "        else if (z != gridDim.z / 2) ")),
 }
 
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_REPS = 4, 4096, 3
@@ -521,15 +534,21 @@ def nvidia_smi_line() -> str:
 # timed call may take to enqueue (the wrappers take 20-30 us)
 SLEEP_CYCLES_PER_US = 1980
 HOST_US_PER_CALL = 60
+# phase 21b's times of the flash backward and SDPA's autograd backward:
+# runs of each, taken in turns; back-to-back calls a run; the host time a
+# call may take to enqueue (SDPA's autograd backward takes more than 60
+# us, and was timed at the host's pace at whisper's small shapes)
+BWD_TIMING_RUNS, BWD_TIMING_REPS, BWD_HOST_US = 3, 50, 500
 
 
-def cuda_ms(fn, reps: int, warm: int = 1, guard: str | None = None) -> float:
+def cuda_ms(fn, reps: int, warm: int = 1, guard: str | None = None,
+            host_us: int = HOST_US_PER_CALL) -> float:
     """Mean milliseconds of ``fn()`` on the current stream (CUDA events).
-    The card spins first for ``HOST_US_PER_CALL`` microseconds per rep, so
-    the host can enqueue every rep before the first runs: a call that is
-    shorter on the card than on the host is timed at the card's rate, not
-    the host's. With ``guard`` (the launches' name), every wait goes
-    through :func:`await_card` under the ``kernel`` phase."""
+    The card spins first for ``host_us`` microseconds per rep, so the host
+    can enqueue every rep before the first runs: a call that is shorter on
+    the card than on the host is timed at the card's rate, not the host's.
+    With ``guard`` (the launches' name), every wait goes through
+    :func:`await_card` under the ``kernel`` phase."""
     import torch
 
     def wait():
@@ -543,7 +562,7 @@ def cuda_ms(fn, reps: int, warm: int = 1, guard: str | None = None) -> float:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     wait()
-    torch.cuda._sleep(reps * HOST_US_PER_CALL * SLEEP_CYCLES_PER_US)
+    torch.cuda._sleep(reps * host_us * SLEEP_CYCLES_PER_US)
     start.record()
     for _ in range(reps):
         fn()
@@ -568,7 +587,8 @@ def ptxas_report(log: str) -> dict:
             v = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?",
                           mangled)
             f = re.search(r"flash_fwd_(bf16|f32)ILi(\d+)E", mangled)
-            fb = re.search(r"flash_bwd_(pre|dq|dkdv)(?:_(bf16|f32))?I"
+            fb = re.search(r"flash_bwd_(pre|dq|dkdv|walk|post_dq|post_kv)"
+                           r"(?:_(bf16|f32))?I"
                            r"(f|13__nv_bfloat16)?Li(\d+)E(?:Lb(\d)ELb(\d)E)?",
                            mangled)
             sc = re.search(r"ssd_scan_kernelI(f|13__nv_bfloat16)E", mangled)
@@ -590,8 +610,8 @@ def ptxas_report(log: str) -> dict:
 
 def bwd_kernel_name(kind, dtype, pre_type, hd, dv, dk) -> str:
     """ptxas_report's key of a flash_attention_bwd.cu instantiation: its
-    kernel (pre, dq, dkdv), type and head dim, and for dkdv the gradients
-    it computes."""
+    kernel (pre, dq, dkdv, walk, post_dq, post_kv), type and head dim, and
+    for dkdv the gradients it computes."""
     dtype = dtype or ("f32" if pre_type == "f" else "bf16")
     grads = "" if dv is None else "," + "+".join(
         name for name, on in (("dv", dv), ("dk", dk)) if on == "1")
@@ -990,10 +1010,12 @@ def flash_bwd_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
     version in float32 under ``FLASH_BWD_TOL``, and that lse against the
     plain forward's under ``FLASH_LSE_ATOL`` (raises otherwise; v and the
     cotangent zero past ``v_cols``, as MLA pads them); ``fault_libs``'
-    planted faults must fail there. With ``timed``: the kernel's ms, the
-    library call's backward (SDPA's autograd backward at the same scale),
-    the bound (and at v's useful columns), whether two runs give the same
-    bits. Returns the line's fields."""
+    planted faults must fail there. With ``timed``: the kernel's ms and
+    the library call's backward's (SDPA's autograd backward at the same
+    scale), each the median of ``BWD_TIMING_RUNS`` device-time runs taken
+    in turns, with every run and the spread; the bound (and at v's useful
+    columns); the launch plan; and that two runs give the same bits
+    (raises otherwise). Returns the line's fields."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1043,25 +1065,48 @@ def flash_bwd_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
     if timed:
         ops, nbytes = bwd_work(b, sq, skv, hq, hkv, hd, causal)
         b_ms, b_by = bound_ms(ops, nbytes, PEAK_BF16_FLOPS)
-        k_ms = cuda_ms(lambda: fa.flash_attention_backward(
-            q, k, v, o, lse, g, causal=causal, scale=scale), reps=10,
-            guard=guard)
         again = fa.flash_attention_backward(q, k, v, o, lse, g,
                                             causal=causal, scale=scale)
-        lib_ms = library_bwd_ms(
+        await_card("kernel", guard)
+        fields["bitwise_repeatable"] = all(bool(torch.equal(x, y))
+                                           for x, y in zip(got, again))
+        del again
+        if not fields["bitwise_repeatable"]:
+            emit("kernel", **fields)
+            raise AssertionError(f"flash_attention_bwd {case}: two runs "
+                                 "give different bits")
+        plan = fa.bwd_plan(b, sq, skv, hq, hkv, hd, causal, dtype,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+        kernel = lambda: fa.flash_attention_backward(  # noqa: E731
+            q, k, v, o, lse, g, causal=causal, scale=scale)
+        library = library_bwd_fn(
             lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
                 q_, k_, v_, is_causal=causal, enable_gqa=hq != hkv,
                 scale=scale), [x.transpose(1, 2) for x in (q, k, v)],
-            g.transpose(1, 2), reps=10)
+            g.transpose(1, 2))
+        k_runs, lib_runs = [], []
+        for _ in range(BWD_TIMING_RUNS):   # in turns, device time
+            k_runs.append(cuda_ms(kernel, reps=BWD_TIMING_REPS, guard=guard,
+                                  host_us=BWD_HOST_US))
+            lib_runs.append(cuda_ms(library, reps=BWD_TIMING_REPS,
+                                    host_us=BWD_HOST_US))
+        del library
+        k_ms, lib_ms = statistics.median(k_runs), statistics.median(lib_runs)
         fields.update(
-            ms=k_ms, library_ms=lib_ms, library="scaled_dot_product_"
+            ms=k_ms, ms_runs=k_runs, ms_spread=max(k_runs) / min(k_runs) - 1,
+            library_ms=lib_ms, library_ms_runs=lib_runs,
+            library_ms_spread=max(lib_runs) / min(lib_runs) - 1,
+            library="scaled_dot_product_"
             f"attention(is_causal={causal}, enable_gqa={hq != hkv}), its "
             "autograd backward", library_share=lib_ms / k_ms,
             operations=ops, bytes=nbytes, peak_flops=PEAK_BF16_FLOPS,
             bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k_ms,
             tflops=ops / (k_ms * 1e-3) / 1e12,
-            bitwise_repeatable=all(bool(torch.equal(x, y))
-                                   for x, y in zip(got, again)))
+            plan=dict(walk=plan.walk, split=plan.split, grid=plan.grid,
+                      longest=plan.longest, balanced=plan.balanced,
+                      scratch_bytes=plan.stats_bytes + plan.dq_acc_bytes
+                      + plan.sem_bytes + plan.kv_part_bytes))
         if v_cols is not None:   # dV and dP over v's useful columns
             ops_v = ops * (3 * hd + 2 * v_cols) // (5 * hd)
             fields["bound_ms_v_cols"] = bound_ms(ops_v, nbytes,
@@ -1069,7 +1114,52 @@ def flash_bwd_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
     return fields
 
 
-def flash_bwd_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
+# the walk's own counters (csrc/flash_attention_bwd.cu's ProfSlot order,
+# the build with -DFLASH_BWD_PROFILE): cycles by phase of one thread of
+# each consumer and of writer 0 a block, summed over the blocks
+BWD_COUNTER_SLOTS = ("setup", "walk", "full", "sdp", "softmax", "grads",
+                     "half", "stage", "epilogue", "writer", "dq_full",
+                     "count", "bulk", "steps")
+
+
+def bwd_counters(counters_lib, q, k, v, o, lse, g, causal: bool,
+                 scale) -> dict:
+    """Where a walk's time goes: its counters from one launch of
+    ``counters_lib``, the consumer's phases as shares of its block time
+    (setup + walk + epilogue), the writer's as shares of its own, and
+    block cycles a step; empty where the call runs no walk (hd 192)."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    fn = counters_lib.flash_attention_bwd_profile
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_ulonglong * len(BWD_COUNTER_SLOTS))()
+
+    def read():
+        rc = fn(ctypes.addressof(out))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_bwd_profile failed: {rc}")
+        return dict(zip(BWD_COUNTER_SLOTS, out))
+
+    result = {}
+    torch.cuda.synchronize()
+    read()                                        # cleared
+    fa.launch_bwd(q, k, v, o, lse, g, causal, counters_lib, scale)
+    await_card("kernel", "flash_attention_bwd counters")
+    c = read()
+    if c["steps"]:
+        block = c["setup"] + c["walk"] + c["epilogue"]
+        result.update(
+            block_cycles_per_step=block / c["steps"],
+            consumer={key: c[key] / block for key in BWD_COUNTER_SLOTS[:9]},
+            writer={key: c[key] / c["writer"]
+                    for key in ("dq_full", "count", "bulk")})
+    return result
+
+
+def flash_bwd_kernels(dev, fault_libs: dict, ptxas: dict,
+                      counters_lib=None) -> dict:
     """Phase 21b: the backward kernel against its plain version on the
     card under ``FLASH_BWD_TOL``, and the forward's lse against the plain
     forward's under ``FLASH_LSE_ATOL``, at every attention shape of the
@@ -1082,7 +1172,9 @@ def flash_bwd_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
     non-causal), cross attention (448 over 1500) and decoder (448,
     causal), 20 heads of 64; then float32 at small shapes of every head
     dim (ragged, GQA, Sq != Skv). Registers and spills of the bf16
-    instantiations (asserted spill-free). Returns the lines by case."""
+    instantiations (asserted spill-free). With ``counters_lib`` (the build
+    with the walk's counters), each bf16 line's ``counters``
+    (:func:`bwd_counters`). Returns the lines by case."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -1112,6 +1204,17 @@ def flash_bwd_kernels(dev, fault_libs: dict, ptxas: dict) -> dict:
         fields["ptxas"] = {key: r for key, r in ptxas.items()
                            if key.endswith(f"bf16,HD={hd}") or
                            f" bf16,HD={hd}," in key}
+        if counters_lib is not None:
+            b, sq, skv, hq, hkv, _ = shape
+            ins = [torch.randn(b, n, h, hd, generator=gen, device=dev).to(bf16)
+                   for n, h in ((sq, hq), (skv, hkv), (skv, hkv), (sq, hq))]
+            o, lse = fa.flash_attention(*ins[:3], causal=causal,
+                                        scale=extra.get("scale"),
+                                        return_lse=True)
+            fields["counters"] = bwd_counters(
+                counters_lib, *ins[:3], o, lse, ins[3], causal,
+                extra.get("scale"))
+            del ins, o, lse
         if first:
             b, s, _, hq, hkv, _ = shape
             q, g = (torch.randn(b, s, hq, hd, generator=gen, device=dev)
@@ -3210,16 +3313,20 @@ def zero_grad_scales(cfg, tree) -> list:
             if path[-2:] == ("wk", "b") else None for path, _ in pairs]
 
 
-def library_bwd_ms(fn, inputs, g, reps: int) -> float:
-    """Milliseconds of the backward alone of one PyTorch call ``fn(*inputs)``
-    (its autograd graph built once, then ``torch.autograd.grad`` with the
-    graph retained, ``reps`` times)."""
+def library_bwd_fn(fn, inputs, g):
+    """The backward alone of one PyTorch call ``fn(*inputs)`` as a call:
+    its autograd graph built once, then ``torch.autograd.grad`` with the
+    graph retained."""
     import torch
     leaves = [x.detach().requires_grad_(True) for x in inputs]
     with torch.enable_grad():
         out = fn(*leaves)
-    return cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
-                                               retain_graph=True), reps=reps)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def library_bwd_ms(fn, inputs, g, reps: int) -> float:
+    """Milliseconds of :func:`library_bwd_fn`'s call, ``reps`` times."""
+    return cuda_ms(library_bwd_fn(fn, inputs, g), reps=reps)
 
 
 def backward_kernels(dev, flash_line: dict) -> dict:
@@ -4332,6 +4439,7 @@ def main() -> int:
     from repro_torch.data import make_mnist_like
     from repro_torch.fl import FederatedTrainer, train_federated
     from repro_torch.kernels import build, golden_section, hier_aggregate, ref
+    from repro_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4350,6 +4458,8 @@ def main() -> int:
                 "rmsnorm": ("rmsnorm", ()),
                 "flash_attention": ("flash_attention", ()),
                 "flash_attention_bwd": ("flash_attention_bwd", ()),
+                "flash_attention_bwd_counters": ("flash_attention_bwd",
+                                                 ("FLASH_BWD_PROFILE",)),
                 "ssd_state_scan": ("ssd_scan", ())}
     t0 = time.perf_counter()
     # the planted faults of phases 8 and 21b build beside them, into a
@@ -4756,8 +4866,9 @@ def main() -> int:
         return sum(run.get(kernel, 0) for run in ssm_launches)
 
     # ---- 21-24. LM training: gradients through the kernels ----
-    fla_bwd = flash_bwd_kernels(dev, bwd_fault_libs,
-                                ptxas["flash_attention_bwd"])
+    fla_bwd = flash_bwd_kernels(
+        dev, bwd_fault_libs, ptxas["flash_attention_bwd"],
+        fa.bind_bwd(built["flash_attention_bwd_counters"].lib))
     bwd = backward_kernels(dev, fla_bwd["qwen3_layer"])
     train_card_vs_cpu(dev)
     train_lm = train_lm_path(dev)

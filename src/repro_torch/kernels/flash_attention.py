@@ -26,16 +26,19 @@ k, v, output and logsumexp: on the card the kernel of
 VJP (``repro/kernels/ops.py::_fa_bwd``, XLA autodiff through its
 reference), on the CPU its plain version :func:`ref.
 flash_attention_bwd_ref`. ``BACKWARD_CALLS`` counts the Function's
-backward calls, ``BWD_LAUNCHES`` the backward kernel's launches (each a
-pre-pass, the dK/dV walk, two of them above head dim 128, and the dQ walk;
-counted once). :func:`flash_attention_bwd` recomputes attention whole in
-float32 and takes its VJP: the oracle the tests and ``chip_smoke.py`` hold
-both to.
+backward calls, ``BWD_LAUNCHES`` the backward kernel's launches, counted
+once a call: in bf16 up to head dim 128 a pre-pass, one walk per kv tile
+and the passes that round its sums (:func:`bwd_plan` says how the walk is
+split), above it and in float32 a pre-pass, the dK/dV walk (two above
+head dim 128) and the dQ walk. :func:`flash_attention_bwd` recomputes
+attention whole in float32 and takes its VJP: the oracle the tests and
+``chip_smoke.py`` hold both to.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -50,12 +53,78 @@ HEAD_DIMS = (16, 32, 64, 80, 112, 128, 192)   # the kernel's instantiations
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
 # the backward's (B, Hq, Sq_pad) scratch of lse and D: Sq rounded up to
 # this (csrc/flash_attention_bwd.cu's kPad)
 BWD_PAD = 128
+# the walk's tiles (csrc/flash_attention_bwd.cu's kBQ and kBKV): q rows a
+# step, kv rows a block
+BWD_Q_ROWS, BWD_KV_ROWS = 64, 128
+BWD_WALK_MAX_HD = 128    # the walk's head dims; above them, three walks
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How the backward kernel is launched for one shape (pure arithmetic,
+    so the CPU tests check it). ``walk``: bf16 at head dim <= 128, one walk
+    per kv tile; then ``split`` blocks share each (batch, kv head, kv
+    tile), rank r taking q heads ``heads[r]`` (a half-open range of the
+    GQA group's), and ``grid`` is the walk's (Hkv * split, B, kv tiles).
+    ``longest`` and ``balanced`` are steps (one q tile of one head): the
+    longest block's walk and the walks' sum over the SMs. Scratch bytes:
+    the pre-pass's lse and D, the walk's float32 dQ sums and their counts,
+    and the ranks' float32 dK and dV partials."""
+
+    walk: bool
+    split: int
+    heads: tuple[tuple[int, int], ...]
+    grid: tuple[int, int, int]
+    longest: int
+    balanced: float
+    stats_bytes: int
+    dq_acc_bytes: int
+    sem_bytes: int
+    kv_part_bytes: int
+
+
+def bwd_plan(b: int, sq: int, skv: int, hq: int, hkv: int, hd: int,
+             causal: bool, dtype=torch.bfloat16, sms: int = H100_SMS
+             ) -> BwdPlan:
+    """The launch plan of :func:`flash_attention_backward` at q (b, sq, hq,
+    hd), k and v (b, skv, hkv, hd). The walk's kv tile z sees the q tiles
+    from ``first(z)`` on (all of them without the causal mask); a block
+    walks them for each head of its share. ``split`` is the fewest ranks
+    (at most the group's size and 8) whose longest walk, ceil(G / split)
+    heads at kv tile 0, is at most the balanced share, so that one long
+    block does not set the launch's time (internvl2's GQA 7 at batch 2)."""
+    pad = -(-sq // BWD_PAD) * BWD_PAD
+    stats = 2 * b * hq * pad * 4
+    walk = dtype == torch.bfloat16 and hd <= BWD_WALK_MAX_HD
+    group = hq // hkv
+    n_q = -(-sq // BWD_Q_ROWS)
+    n_kv = -(-skv // BWD_KV_ROWS)
+    per_head = [n_q - (min(z * BWD_KV_ROWS // BWD_Q_ROWS, n_q) if causal
+                       else 0) for z in range(n_kv)]
+    balanced = b * hkv * group * sum(per_head) / sms
+    split = 1
+    if walk:
+        while (split < min(group, 8)
+               and -(-group // split) * per_head[0] > balanced):
+            split += 1
+    heads = tuple((r * group // split, (r + 1) * group // split)
+                  for r in range(split))
+    longest = max(hi - lo for lo, hi in heads) * per_head[0]
+    return BwdPlan(
+        walk=walk, split=split, heads=heads,
+        grid=(hkv * split, b, n_kv), longest=longest, balanced=balanced,
+        stats_bytes=stats,
+        dq_acc_bytes=b * hq * pad * hd * 4 if walk else 0,
+        sem_bytes=b * hq * (pad // BWD_Q_ROWS) * 4 if walk else 0,
+        kv_part_bytes=split * 2 * b * skv * hkv * hd * 4 if split > 1
+        else 0)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -213,16 +282,29 @@ def launch_bwd(q, k, v, o, lse, g, causal: bool, lib: ctypes.CDLL,
     contiguous CUDA inputs on the current stream, without counting it."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    plan = bwd_plan(b, sq, skv, hq, hkv, hd, causal, q.dtype,
+                    torch.cuda.get_device_properties(q.device)
+                    .multi_processor_count)
     pad = -(-sq // BWD_PAD) * BWD_PAD
     lse_p = torch.empty(b, hq, pad, dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse_p)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+
+    def scratch(nbytes, dtype=torch.float32):
+        return (torch.empty(nbytes // 4, dtype=dtype, device=q.device)
+                if nbytes else None)
+
+    dq_acc = scratch(plan.dq_acc_bytes)
+    sem = scratch(plan.sem_bytes, torch.int32)
+    kv_part = scratch(plan.kv_part_bytes)
     rc = lib.flash_attention_bwd_launch(
         *(t.data_ptr() for t in (q, k, v, o, g, lse, lse_p, dsum, dq, dk,
                                  dv)),
-        b, sq, skv, hq, hkv, hd, pad, hd ** -0.5 if scale is None else scale,
-        int(causal), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *(None if t is None else t.data_ptr() for t in (dq_acc, sem,
+                                                        kv_part)),
+        b, sq, skv, hq, hkv, hd, pad, plan.split,
+        hd ** -0.5 if scale is None else scale, int(causal),
+        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("flash_attention backward launch failed: "
                            + lib.flash_attention_bwd_error_string(rc).decode())

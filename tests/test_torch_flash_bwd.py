@@ -30,14 +30,20 @@ a norm-relative error of at most 1e-2 in every block of 64 rows of one
 (batch, head). The tolerance tests show that it passes the plain version
 rounded to bf16 and rejects the functions of the faults ``chip_smoke.py``
 plants in the kernel: D left out, lse read as a natural log, dK/dV from
-the first q head of each GQA group only, and a q tile left out of dK/dV;
-and that ``FLASH_LSE_ATOL`` rejects the forward's two planted lse faults
-(the scale left out of the running max, natural-log units). Each planted
+the first q head of each GQA group only, a q tile left out of the walk,
+and one kv tile's dQ partials left out of the ordered sum; and that
+``FLASH_LSE_ATOL`` rejects the forward's two planted lse faults (the
+scale left out of the running max, natural-log units). Each planted
 fault's anchor occurs once in its source.
 
+The launch plan (``bwd_plan``: the walk's split of a GQA group over
+blocks, its grid and scratch) is checked by shape, and against the
+source's tile sizes.
+
 The ``gpu`` test holds the kernel against its plain version on the card
-(skips without one; ``PYTHONPATH=src python -m pytest --noconftest -m gpu
-tests/test_torch_flash_bwd.py`` runs it on the card's machine).
+and two calls to the same bits (skips without one; ``PYTHONPATH=src
+python -m pytest --noconftest -m gpu tests/test_torch_flash_bwd.py`` runs
+it on the card's machine).
 """
 
 import importlib.util
@@ -242,12 +248,13 @@ def test_tolerance_with_o_err_passes_another_forwards_o():
 
 
 @pytest.mark.parametrize("fault", ["no_d", "natural_lse", "first_head",
-                                   "skipped_q_tile"])
+                                   "skipped_q_tile", "dropped_dq_partial"])
 def test_tolerance_rejects_the_planted_faults(fault):
     """Each fault's function, rounded to bf16 as the kernel rounds, fails
     ``FLASH_BWD_TOL`` in at least one of the gradients it changes."""
     ins, (q, k, v, o, lse, g), want, mags = fault_case()
     hkv = k.shape[2]
+    checked = range(3)
     if fault == "no_d":                  # dS = P dP: D of o = 0 is 0
         o = torch.zeros_like(o)
     elif fault == "natural_lse":         # lse taken as ln: x log2 e
@@ -256,12 +263,25 @@ def test_tolerance_rejects_the_planted_faults(fault):
         g = g.clone().unflatten(2, (hkv, -1))
         g[:, :, :, 1:] = 0
         g = g.flatten(2, 3)
-    else:                                # one q tile of 64 rows left out
+        checked = range(1, 3)
+    elif fault == "skipped_q_tile":      # one q tile of 64 rows left out
         g = g.clone()
         g[:, 256:320] = 0
-    bad = tref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=True)
-    checked = range(1, 3) if fault in ("first_head", "skipped_q_tile") \
-        else range(3)
+        checked = range(1, 3)
+    if fault == "dropped_dq_partial":
+        # dQ without kv tile 2 of 4 (the middle one, as planted): the
+        # tile's part c dS k is the plain dq with k zero off its rows (P
+        # comes from lse, so dS on the tile's rows is unchanged)
+        lo, hi = 2 * tfa.BWD_KV_ROWS, 3 * tfa.BWD_KV_ROWS
+        k_tile = torch.zeros_like(k)
+        k_tile[:, lo:hi] = k[:, lo:hi]
+        part = tref.flash_attention_bwd_ref(q, k_tile, v, o, lse, g,
+                                            causal=True)[0]
+        assert float(part.abs().max()) > 0
+        bad = (want[0] - part, *want[1:])
+        checked = range(1)
+    else:
+        bad = tref.flash_attention_bwd_ref(q, k, v, o, lse, g, causal=True)
     assert not all(within(bad[i].bfloat16(), want[i], mags[i], "bfloat16")
                    for i in checked)
 
@@ -285,6 +305,117 @@ def test_lse_tolerance_rejects_the_forward_faults(fault):
         bad = lse / tref.LOG2E
     assert smoke.lse_error(lse.clone(), lse)[1]
     assert not smoke.lse_error(bad, lse)[1]
+
+
+# (B, Sq, Skv, Hq, Hkv, hd, causal) of every train path's attention (the
+# shapes of chip_smoke.py's phase 21b) and small ones
+PLAN_SHAPES = [
+    (4, 4096, 4096, 16, 8, 128, True),       # qwen3-0.6b
+    (4, 4096, 4096, 16, 16, 192, True),      # deepseek-v2-lite's MLA
+    (4, 4352, 4352, 14, 2, 64, True),        # internvl2-1b, sync batch
+    (2, 4352, 4352, 14, 2, 64, True),        # internvl2-1b, a pod
+    (4, 1500, 1500, 20, 20, 64, False),      # whisper encoder
+    (4, 448, 1500, 20, 20, 64, False),       # whisper cross attention
+    (4, 448, 448, 20, 20, 64, True),         # whisper decoder
+    (1, 1024, 1024, 16, 8, 128, True),       # phase 21's card-vs-CPU slice
+    (2, 200, 200, 4, 2, 64, True), (1, 77, 150, 2, 1, 112, False),
+    (1, 150, 77, 8, 1, 80, True), (1, 300, 300, 24, 3, 16, True),
+    (3, 96, 96, 9, 1, 32, False), (2, 200, 200, 4, 2, 64, False),
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_bwd_plan_covers_every_head_once(shape):
+    """The walk's ranks split each GQA group's q heads into consecutive
+    ranges that cover every head exactly once, at most 8 and at most the
+    group's size of them; the grid is (Hkv * split, B, kv tiles); the
+    split is the fewest ranks whose longest walk is within the balanced
+    share (or the most allowed); the scratch is sized as the kernel reads
+    it (float32 dQ tiles of the padded rows, an int32 count per 64-row
+    tile, float32 dK and dV partials per rank only when split)."""
+    b, sq, skv, hq, hkv, hd, causal = shape
+    plan = tfa.bwd_plan(*shape)
+    group = hq // hkv
+    covered = [h for lo, hi in plan.heads for h in range(lo, hi)]
+    assert covered == list(range(group))
+    assert all(hi > lo for lo, hi in plan.heads)
+    assert 1 <= plan.split <= min(group, 8) == min(hq // hkv, 8)
+    assert len(plan.heads) == plan.split
+    n_kv = -(-skv // tfa.BWD_KV_ROWS)
+    assert plan.grid == (hkv * plan.split, b, n_kv)
+    assert plan.walk == (hd <= tfa.BWD_WALK_MAX_HD)
+    per_head = -(-sq // tfa.BWD_Q_ROWS)      # kv tile 0 sees every q tile
+    width = max(hi - lo for lo, hi in plan.heads)
+    assert plan.longest == width * per_head
+    if plan.split > 1:       # one rank fewer would be too long
+        fewer = -(-group // (plan.split - 1)) * per_head
+        assert fewer > plan.balanced
+    if plan.split < min(group, 8):
+        assert plan.longest <= plan.balanced
+    pad = -(-sq // tfa.BWD_PAD) * tfa.BWD_PAD
+    assert plan.stats_bytes == 2 * b * hq * pad * 4
+    assert plan.dq_acc_bytes == (b * hq * pad * hd * 4 if plan.walk else 0)
+    assert plan.sem_bytes == (b * hq * pad // tfa.BWD_Q_ROWS * 4
+                              if plan.walk else 0)
+    assert plan.kv_part_bytes == (plan.split * 2 * b * skv * hkv * hd * 4
+                                  if plan.split > 1 else 0)
+    assert plan.split == 1 or plan.walk
+
+
+def test_bwd_plan_train_shapes():
+    """At the train shapes: internvl2's pod (GQA 7, batch 2) splits its
+    groups so the longest walk is within the balanced share (it was 1.9x
+    it with one block per group); MHA (whisper), qwen3's GQA 2 and the
+    sync batch keep one block; hd 192 and float32 take the three walks;
+    qwen3's dQ sums take 134 MB."""
+    pod = tfa.bwd_plan(2, 4352, 4352, 14, 2, 64, True)
+    assert pod.split == 3 and pod.longest <= pod.balanced
+    assert pod.heads == ((0, 2), (2, 4), (4, 7))
+    for shape in [(4, 1500, 1500, 20, 20, 64, False),
+                  (4, 448, 1500, 20, 20, 64, False),
+                  (4, 448, 448, 20, 20, 64, True),
+                  (4, 4096, 4096, 16, 8, 128, True),
+                  (4, 4352, 4352, 14, 2, 64, True)]:
+        assert tfa.bwd_plan(*shape).split == 1, shape
+    assert not tfa.bwd_plan(4, 4096, 4096, 16, 16, 192, True).walk
+    assert not tfa.bwd_plan(2, 200, 200, 4, 2, 64, True,
+                            torch.float32).walk
+    qwen = tfa.bwd_plan(4, 4096, 4096, 16, 8, 128, True)
+    assert qwen.dq_acc_bytes == 134_217_728
+
+
+def test_bwd_plan_matches_the_source():
+    """The wrapper's tile sizes and head-dim limit are the kernel's."""
+    src = SOURCE.read_text()
+
+    def const(name):
+        found = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert found, name
+        return int(found.group(1))
+
+    assert const("kBQ") == tfa.BWD_Q_ROWS
+    assert const("kBKV") == tfa.BWD_KV_ROWS
+    assert "if constexpr (HD <= 128) {\n    return launch_walk<HD>" in src
+    assert tfa.BWD_WALK_MAX_HD == 128
+
+
+def test_counter_slots_match_the_source():
+    """``chip_smoke.py`` reads the walk's counters in the order of the
+    source's ``ProfSlot`` enum, and ``scripts/flash_bwd_study.py`` names
+    the backward's kernels as the source does."""
+    src = SOURCE.read_text()
+    enum = src[src.index("enum ProfSlot {"):src.index("kProfSlots")]
+    slots = re.findall(r"^  kProf(\w+),", enum, re.M)
+    snake = [re.sub(r"(?<!^)(?=[A-Z])", "_", x).lower() for x in slots]
+    assert snake == list(smoke.BWD_COUNTER_SLOTS)
+    path = Path(__file__).resolve().parents[1] / "scripts" / (
+        "flash_bwd_study.py")
+    spec = importlib.util.spec_from_file_location("flash_bwd_study", path)
+    study = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(study)
+    kernels = set(re.findall(r"void __launch_bounds__\([^)]*\)\s+"
+                             r"flash_bwd_(\w+?)(?:_bf16|_f32)?\(", src))
+    assert kernels == set(study.KERNELS)
 
 
 @pytest.mark.parametrize("kernel,name", [
@@ -343,3 +474,29 @@ def test_kernel_matches_plain_version_on_card():
                 name = str(dtype).removeprefix("torch.")
                 for a, w, m in zip(got, want, mags):
                     assert within(a, w, m, name), case
+
+
+@pytest.mark.gpu
+def test_kernel_gives_the_same_bits_on_card():
+    """Two calls give the same bits at GQA shapes with several kv tiles,
+    causal and not, one block per group and split over ranks (the walk's
+    dQ sums run in kv-tile order, its dK and dV partials in rank order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for b, sq, skv, hq, hkv, hd, causal in [
+            (2, 1000, 1000, 14, 2, 64, True), (1, 1024, 1024, 16, 8, 128, True),
+            (2, 700, 900, 8, 2, 128, False), (1, 600, 600, 6, 3, 112, True)]:
+        q, g = (torch.randn(b, sq, hq, hd, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, skv, hkv, hd, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        o, lse = tfa.flash_attention(q, k, v, causal=causal,
+                                     return_lse=True)
+        first = tfa.flash_attention_backward(q, k, v, o, lse, g,
+                                             causal=causal)
+        for _ in range(3):
+            again = tfa.flash_attention_backward(q, k, v, o, lse, g,
+                                                 causal=causal)
+            assert all(torch.equal(x, y) for x, y in zip(first, again)), (
+                b, sq, skv, hq, hkv, hd, causal)
