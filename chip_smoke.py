@@ -307,8 +307,29 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    rows; and in the MoE profile one of each dispatch op per MoE layer and
    forward (asserted).
 
+28. The sharded sweep and Algorithm 1's collectives, run after phase 20:
+   it holds phases 4, 4b, 17 and 18 to their sharded runs, every shard on
+   the one card (``shard_devices``). ``sharded_setup``: ``distinct_cards``
+   (false unless the machine has more than one card). ``sharded_path``:
+   (a) phase 4's transfer-only descent at p = 1 and p = 4 (and over the
+   first cards when there are several): the same assignment, moves and
+   trace bits, K + 2 moves + 1 launches (asserted), ms a move; (b) phase
+   4b's exchange descent at p = 4: the same moves, exchanges, exchange
+   rounds, assignment and trace, K + 2 moves + p exchange rounds + 1
+   launches (asserted); (c) phase 17's N = 50k cold descent and warm
+   rerun at p = 4: the same stable points and moves (asserted), seconds;
+   (d) phase 18's incremental-warm live run at p = 2: the same swaps
+   (asserted). ``collectives``: four spawned ranks on a (pod=2, data=2)
+   mesh from ``launch.mesh.make_test_mesh``, gloo over CUDA tensors (NCCL
+   refuses two ranks on one card): ``psum_mean`` over each axis, weighted
+   and not, and ``hierarchical_sync`` at every level, of the MLP's leaves,
+   against plain float64 means on one process (within 1e-6 of the
+   magnitudes, asserted), and ms a cloud sync; then a 1-rank NCCL mesh
+   whose mean is its own tree (asserted).
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
-with each path's, phases 16-19's and the HFEL scheme runs' beside them;
+with each path's, phases 16-19's, phase 28's and the HFEL scheme runs'
+beside them;
 rmsnorm, flash and the scan add their train paths' launches (phases 22,
 24 and 27) and a ``backward`` entry; rmsnorm and flash phases 25 and
 26's launches, rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
@@ -2435,8 +2456,8 @@ def scale_path(dev) -> dict:
     eng = FastAssociationEngine(sc, **opts)
     build_s = time.perf_counter() - t0
     with LaunchSampler(REPLAY_EVERY) as sampler:
-        eng.run("nearest", max_moves=SCALE_MOVES, exchange_samples=0,
-                finalize=False)
+        cold_a0 = eng.run("nearest", max_moves=SCALE_MOVES,
+                          exchange_samples=0, finalize=False)
         torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = golden_section.LAUNCHES
@@ -2501,7 +2522,8 @@ def scale_path(dev) -> dict:
     member = torch.as_tensor(eng.last_state["member"], device=dev)
     wide = max(eng._buckets, key=lambda bd: bd.width)
     server = int(wide.servers[wide.exists.sum(1).argmax()])
-    b, rows, masks = eng._refresh_groups(member, server)
+    b, row = int(eng._bucket_of[server]), int(eng._row_of[server])
+    rows, masks = eng._refresh_groups(member[server], eng._buckets[b], row)
     refresh = gs_kernel_line("bucket_refresh",
                              kernel_inputs(eng._buckets[b], rows, masks),
                              iters, "coarse")
@@ -2534,7 +2556,8 @@ def scale_path(dev) -> dict:
                            calls=v[1], own_s=v[2], cumulative_s=v[3])
                       for (f, line, name), v in top])
     return dict(launches=launches, cold=cold, warm=warm,
-                bucket_refresh=refresh, flat_exchange_batch=exch)
+                bucket_refresh=refresh, flat_exchange_batch=exch,
+                cold_assignment=cold_a0, warm_assignment=warm_a)
 
 
 class HookedRunner:
@@ -2706,7 +2729,7 @@ def live_path(dev) -> dict:
         ("golden_section", golden_section.LAUNCHES),
         ("hier_aggregate", hier_aggregate.LAUNCHES))}
     return dict(launches=launches, masked=masked["masked_cloud"],
-                zero_edge=masked["zero_weight_edge"])
+                zero_edge=masked["zero_weight_edge"], warm=warm)
 
 
 def live_scale(dev) -> dict:
@@ -2796,6 +2819,328 @@ def compact_card_vs_cpu(dev) -> None:
     if not (same_engine and same_live):
         raise AssertionError("card and CPU disagree in a compact space or "
                              "in the live loop")
+
+
+# ---- phase 28: the sharded sweep and Algorithm 1's collectives ----
+
+SHARDS = 4             # (a)-(c): four shards, all on the one card
+LIVE_SHARDS = 2        # (d)
+# (e): a (pod=2, data=2) mesh of gloo ranks over CUDA tensors (NCCL refuses
+# two ranks on one card), each rank's weight; the MLP's leaves at MNIST
+# width (phase 6) as the tree; plain float64 means on one process as the
+# reference, |got - want| <= rtol x the same mean over |x|
+COLLECTIVE_WEIGHTS = (1.0, 2.0, 3.0, 4.0)
+COLLECTIVE_SHAPES = {"w1": (784, 128), "b1": (128,), "w2": (128, 10),
+                     "b2": (10,)}
+COLLECTIVE_RTOL = 1e-6
+COLLECTIVE_REPS = 20
+COLLECTIVE_GROUPS = {"data": [[0, 1], [2, 3]], "pod": [[0, 2], [1, 3]]}
+LEVEL_NAMES = ("LOCAL", "EDGE", "CLOUD")
+
+
+def collective_inputs(rank: int) -> dict:
+    """Rank ``rank``'s tree: float32 normals from seed 100 + rank."""
+    import numpy as np
+    rng = np.random.default_rng(100 + rank)
+    return {k: rng.standard_normal(shape).astype(np.float32)
+            for k, shape in COLLECTIVE_SHAPES.items()}
+
+
+def collective_rank(rank: int, world: int, backend: str, out: str) -> None:
+    """One spawned rank of phase 28e on the card: ``psum_mean`` over each
+    axis, weighted and not, and ``hierarchical_sync`` at every level of its
+    tree (a (pod, data) mesh of ``world`` ranks from
+    ``launch.mesh.make_test_mesh``), then the seconds of
+    ``COLLECTIVE_REPS`` cloud syncs; written to ``out/rank<r>.npz``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{out}/store",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.core.hierarchy import (SyncLevel, hierarchical_sync,
+                                                psum_mean)
+        from repro_torch.launch.mesh import batch_axes, make_test_mesh, n_pods
+        mesh = make_test_mesh((2, world // 2) if world > 1 else (1, 1),
+                              ("pod", "data"), device_type="cuda")
+        tree = {k: torch.from_numpy(v).cuda()
+                for k, v in collective_inputs(rank).items()}
+        w = COLLECTIVE_WEIGHTS[rank]
+        res = {}
+        for axis in ("data", "pod"):
+            res[f"mean_{axis}"] = psum_mean(tree, axis, mesh=mesh)
+            res[f"wmean_{axis}"] = psum_mean(tree, axis, w, mesh=mesh)
+        for name in LEVEL_NAMES:
+            res[f"sync_{name}"] = hierarchical_sync(
+                tree, SyncLevel[name], mesh=mesh, weight=w)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(COLLECTIVE_REPS):
+            hierarchical_sync(tree, SyncLevel.CLOUD, mesh=mesh, weight=w)
+        torch.cuda.synchronize()
+        cloud_ms = 1e3 * (time.perf_counter() - t0) / COLLECTIVE_REPS
+        on_card = all(x.is_cuda for t in res.values() for x in t.values())
+        np.savez(f"{out}/rank{rank}.npz",
+                 **{f"{case}/{k}": x.cpu().numpy()
+                    for case, t in res.items() for k, x in t.items()},
+                 cloud_ms=cloud_ms, on_card=on_card,
+                 backend=dist.get_backend(), batch_axes=batch_axes(mesh),
+                 n_pods=n_pods(mesh))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, out: str) -> tuple[list, float]:
+    """Phase 28e's ranks as spawned processes, joined; (each rank's
+    results, seconds from spawn to join)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.start_processes(collective_rank, args=(world, backend, out),
+                       nprocs=world, join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with np.load(f"{out}/rank{r}.npz") as z:
+            ranks.append({k: z[k] for k in z.files})
+    return ranks, seconds
+
+
+def collective_want(case: str, leaf: str):
+    """Plain float64 means of phase 28e's case for every rank: (want (4,
+    ...), the same mean over |x|)."""
+    import numpy as np
+    x = np.stack([collective_inputs(r)[leaf] for r in range(4)]
+                 ).astype(np.float64)
+
+    def mean(v, axis, weights=None):
+        w = np.ones(4) if weights is None else np.asarray(weights)
+        out = np.empty_like(v)
+        for group in COLLECTIVE_GROUPS[axis]:
+            wg = w[group].reshape((-1,) + (1,) * (v.ndim - 1))
+            out[group] = (wg * v[group]).sum(0) / wg.sum()
+        return out
+
+    def of(v):
+        kind, rest = case.split("_", 1)
+        if kind == "mean":
+            return mean(v, rest)
+        if kind == "wmean":
+            return mean(v, rest, COLLECTIVE_WEIGHTS)
+        if rest == "LOCAL":
+            return v
+        edge = mean(v, "data", COLLECTIVE_WEIGHTS)
+        return edge if rest == "EDGE" else mean(edge, "pod")
+
+    return of(x), of(np.abs(x))
+
+
+def collectives(dev) -> dict:
+    """Phase 28e: ``psum_mean`` and ``hierarchical_sync`` over a (pod=2,
+    data=2) mesh of four gloo ranks on the one card, against plain weighted
+    means on one process (asserted within ``COLLECTIVE_RTOL`` of the
+    magnitudes), with the seconds of a cloud sync; then a 1-rank NCCL
+    mesh whose mean over ``data`` is its own tree (asserted)."""
+    import numpy as np
+    cases = ([f"{k}_{a}" for k in ("mean", "wmean") for a in ("data", "pod")]
+             + [f"sync_{n}" for n in LEVEL_NAMES])
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks, gloo_s = spawn_ranks(4, "gloo", tmp)
+        nccl_dir = os.path.join(tmp, "nccl")
+        os.makedirs(nccl_dir)
+        nccl, nccl_s = spawn_ranks(1, "nccl", nccl_dir)
+    errs = {}
+    for case in cases:
+        worst = 0.0
+        for leaf in COLLECTIVE_SHAPES:
+            want, scale = collective_want(case, leaf)
+            got = np.stack([r[f"{case}/{leaf}"] for r in ranks])
+            worst = max(worst, float((np.abs(got - want) / scale).max()))
+        errs[case] = worst
+    x0 = collective_inputs(0)
+    nccl_same = all(np.array_equal(nccl[0][f"mean_data/{k}"], x0[k])
+                    and np.array_equal(nccl[0][f"sync_CLOUD/{k}"], x0[k])
+                    for k in COLLECTIVE_SHAPES)
+    on_card = bool(all(r["on_card"] for r in ranks + nccl))
+    fields = dict(
+        mesh={"pod": 2, "data": 2}, backend=str(ranks[0]["backend"]),
+        ranks_on_one_card=4, tree_shapes=COLLECTIVE_SHAPES,
+        weights=COLLECTIVE_WEIGHTS, rtol=COLLECTIVE_RTOL,
+        max_err_over_magnitude=errs, outputs_on_card=on_card,
+        batch_axes=ranks[0]["batch_axes"].tolist(),
+        n_pods=int(ranks[0]["n_pods"]),
+        cloud_sync_ms=[float(r["cloud_ms"]) for r in ranks],
+        spawn_to_join_s=gloo_s, nccl_backend=str(nccl[0]["backend"]),
+        nccl_ranks=1, nccl_mean_is_input=bool(nccl_same),
+        nccl_cloud_sync_ms=float(nccl[0]["cloud_ms"]),
+        nccl_spawn_to_join_s=nccl_s)
+    emit("collectives", **fields)
+    if not (max(errs.values()) <= COLLECTIVE_RTOL and on_card
+            and nccl_same and fields["batch_axes"] == ["pod", "data"]
+            and fields["n_pods"] == 2
+            and fields["nccl_backend"] == "nccl"):
+        raise AssertionError("the collectives disagree with the plain "
+                             f"means: {errs}")
+    return fields
+
+
+def sharded_run(make, run) -> dict:
+    """Build an engine (``make``), run it (``run``) under the card's clock
+    with the golden-section launches counted: (engine, result, seconds,
+    launches)."""
+    import torch
+    from repro_torch.kernels import golden_section
+    golden_section.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = make()
+    res = run(eng)
+    torch.cuda.synchronize()
+    return eng, res, time.perf_counter() - t0, golden_section.LAUNCHES
+
+
+def sharded_path(dev, main_sc, main_res, ex, scale, live) -> dict:
+    """Phase 28 (a)-(d): the sharded sweep with its shards on the card
+    (``shard_devices``), against the unsharded phases: (a) phase 4's
+    transfer-only descent at p = 1 and 4 (and across the first cards when
+    there are several): the same assignment, moves and trace bits, K + 2
+    moves + 1 launches (asserted); (b) phase 4b's exchange descent at p = 4:
+    the same moves, exchanges, exchange rounds, assignment and trace, K + 2
+    moves + p rounds + 1 launches (asserted); (c) phase 17's N = 50k cold
+    descent and warm rerun at p = 4, the same stable points and moves
+    (asserted); (d) phase 18's incremental-warm live run at p = 2, the same
+    swaps (asserted). Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.assoc_fast import FastAssociationEngine
+    from repro_torch.core.scenario import (make_large_scenario,
+                                           perturb_scenario)
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fl import DEFAULT_CHURN, run_live
+    k = main_sc.n_servers
+    cards = torch.cuda.device_count()
+    distinct = cards > 1
+    emit("sharded_setup", distinct_cards=distinct, cards=cards,
+         shards=SHARDS, shard_devices=[str(dev)] * SHARDS)
+    launches = {}
+
+    def on_card(p):
+        return [dev] * p
+
+    # (a) transfers only, phase 4's scenario
+    want = main_res
+    runs = {}
+    for name, opts in [("p1", dict(shards=1, shard_devices=on_card(1))),
+                       ("p4", dict(shards=SHARDS,
+                                   shard_devices=on_card(SHARDS)))] + (
+            [("distinct", dict(shards=min(SHARDS, cards)))] if distinct
+            else []):
+        eng, res, secs, n_launch = sharded_run(
+            lambda: FastAssociationEngine(main_sc, device=dev, **opts),
+            lambda e: e.run("nearest", exchange_samples=0))
+        moves = res.n_adjustments
+        same = (np.array_equal(res.assignment, want.assignment)
+                and moves == want.n_adjustments
+                and bits(res.cost_trace) == bits(want.cost_trace))
+        runs[name] = dict(
+            shards=eng.shards, devices=sorted({str(d) for d in
+                                               eng.shard_devices}),
+            moves=moves, seconds=secs, init_s=eng.last_timing["init_s"],
+            ms_per_move=1e3 * eng.last_timing["moves_s"] / max(moves, 1),
+            launches=n_launch, launches_expected=k + 2 * moves + 1,
+            same_as_phase_4=bool(same))
+        launches[f"transfers_{name}"] = n_launch
+        if not (same and n_launch == k + 2 * moves + 1):
+            emit("sharded_path", part="transfers", **runs)
+            raise AssertionError(f"sharded transfers ({name}) differ from "
+                                 "phase 4 or launched otherwise")
+    emit("sharded_path", part="transfers", n_devices=main_sc.n_devices,
+         n_servers=k, **runs)
+
+    # (b) exchanges, phase 4b's random start
+    want, counts = ex["res"], ex["counts"]
+    eng, res, secs, n_launch = sharded_run(
+        lambda: FastAssociationEngine(main_sc, device=dev, shards=SHARDS,
+                                      shard_devices=on_card(SHARDS)),
+        lambda e: e.run("random"))
+    moves, got = res.n_adjustments, eng.last_counts
+    expected = k + 2 * moves + SHARDS * got["exchange_rounds"] + 1
+    same = (got == counts and moves == want.n_adjustments
+            and np.array_equal(res.assignment, want.assignment)
+            and bits(res.cost_trace) == bits(want.cost_trace))
+    launches["exchanges"] = n_launch
+    emit("sharded_path", part="exchanges", shards=SHARDS, moves=moves,
+         **got, seconds=secs, init_s=eng.last_timing["init_s"],
+         ms_per_move=1e3 * eng.last_timing["moves_s"] / max(moves, 1),
+         ms_per_exchange_round=1e3 * eng.last_timing["exchange_pricing_s"]
+         / max(got["exchange_rounds"], 1), launches=n_launch,
+         launches_expected=expected, same_as_phase_4b=bool(same))
+    if not (same and n_launch == expected):
+        raise AssertionError("sharded exchanges differ from phase 4b or "
+                             "launched otherwise")
+
+    # (c) N = 50k, phase 17's cold descent and churn tick
+    opts = dict(profile="coarse", rel_tol=1e-2, compact="bucketed",
+                device=dev, shards=SHARDS, shard_devices=on_card(SHARDS))
+    sc = make_large_scenario(SCALE_N, SCALE_K, seed=0, spread_m=SCALE_SPREAD,
+                             device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    eng, cold_a, cold_s, n_cold = sharded_run(
+        lambda: FastAssociationEngine(sc, **opts),
+        lambda e: e.run("nearest", max_moves=SCALE_MOVES, exchange_samples=0,
+                        finalize=False))
+    cold_moves, cold_init = eng.last_moves, eng.last_timing["init_s"]
+    sc2, delta = perturb_scenario(sc, **SCALE_PERTURB)
+    _, warm_a, warm_s, n_warm = sharded_run(
+        lambda: eng, lambda e: e.rerun_incremental(
+            sc2, delta, max_moves=SCALE_MOVES, exchange_samples=0,
+            finalize=False))
+    same = (np.array_equal(cold_a, scale["cold_assignment"])
+            and cold_moves == scale["cold"]["moves"]
+            and np.array_equal(warm_a, scale["warm_assignment"])
+            and eng.last_moves == scale["warm"]["moves"])
+    launches["scale_cold"] = n_cold
+    emit("sharded_path", part="scale", shards=SHARDS, n_devices=SCALE_N,
+         n_servers=SCALE_K, cold_s=cold_s, cold_init_s=cold_init,
+         cold_moves=cold_moves, cold_launches=n_cold,
+         phase_17_cold_s=scale["cold"]["seconds"],
+         warm_s=warm_s, warm_moves=eng.last_moves,
+         warm_prepare_s=eng.last_timing["prepare_s"],
+         stale_rows=eng.last_counts["init_rows"], warm_launches=n_warm,
+         phase_17_warm_s=scale["warm"]["seconds"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         same_as_phase_17=bool(same))
+    if not same:
+        raise AssertionError("the sharded N = 50k sweep differs from phase "
+                             "17's")
+    del eng, sc, sc2
+
+    # (d) phase 18's incremental-warm live run at p = 2
+    sc = make_large_scenario(250, 10, seed=0, device=dev)
+    ds = make_mnist_like(250, samples_total=3000, seed=0)
+    want = live["warm"]
+    _, h, secs, n_live = sharded_run(lambda: None, lambda _: run_live(
+        sc, ds, policy="incremental-warm", rounds=8, resolve_every=2,
+        churn=DEFAULT_CHURN, seed=0, profile="coarse", rel_tol=1e-3,
+        local_iters=2, edge_iters=2, lr=0.05, eval_every=8, model="mlr",
+        shards=LIVE_SHARDS, shard_devices=on_card(LIVE_SHARDS), device=dev))
+    same = (h.swap_rounds == want.swap_rounds
+            and all(np.array_equal(a, b) for a, b in
+                    zip(h.swap_assignments, want.swap_assignments))
+            and h.moves == want.moves)
+    launches["live"] = n_live
+    emit("sharded_path", part="live", shards=LIVE_SHARDS, seconds=secs,
+         assoc_s=h.assoc_seconds_total, swap_rounds=h.swap_rounds,
+         moves=[int(m) for m in h.moves], launches=n_live,
+         same_as_phase_18=bool(same))
+    if not same:
+        raise AssertionError("the sharded live run swaps otherwise than "
+                             "phase 18's")
+    return dict(launches=launches, total=sum(launches.values()),
+                transfers=runs)
 
 
 # ---------------------------------------------------------------------------
@@ -4849,6 +5194,11 @@ def main() -> int:
     live_big = live_scale(dev)
     compact_card_vs_cpu(dev)
 
+    # ---- 28. the sharded sweep against phases 4, 4b, 17 and 18, and
+    # Algorithm 1's collectives over spawned ranks ----
+    sharded = sharded_path(dev, main_sc, res, ex, scale, live)
+    collectives(dev)
+
     # ---- 8-11. serving: kernels, prefill and serve paths, card vs CPU ----
     serving = serving_kernels(dev, fault_libs, ptxas)
     serve_launches = serving_paths(dev)
@@ -4937,6 +5287,7 @@ def main() -> int:
                                    live["launches"]["golden_section"],
                                "live_scale":
                                    live_big["launches"]["golden_section"],
+                               "sharded_path": sharded["total"],
                                **no_train},
              backward=None, library_ms=None, shape=list(masks.shape), **main_kernel,
              exchange_batch={key: ex_kernel[key] for key in (

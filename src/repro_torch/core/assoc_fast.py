@@ -31,9 +31,10 @@ slot maps (:class:`_Bucket`):
 Each round scans every candidate from the cache with no solve and picks
 the best permitted move with the reference's explicit device-major
 tie-break key (smallest ``n*K + k`` among equal deltas). The per-bucket
-caches are views of one flat buffer, so the scan is one pass over all of
-them: since every (server, device) pair has its own key, the global
-minimum of (delta, key) is the reference's fold of the per-bucket argmins.
+caches are views of one flat buffer (one a shard, below), so the scan is
+one pass over all of them: since every (server, device) pair has its own
+key, the global minimum of (delta, key) is the reference's fold of the
+per-bucket argmins.
 Padded slots hold garbage costs and are never candidates. A move re-solves
 the two touched servers' rows: ``R_b + 1`` groups of width ``R_b`` each,
 one launch of the golden-section kernel per row for the ``fast`` kind.
@@ -56,8 +57,27 @@ re-converges after churn from the previous stable point: it patches the
 reach maps, repairs the assignment (:func:`repair_assignment`) and re-solves
 only the cache rows the delta or the repair made stale.
 
-Not ported, and raising ``NotImplementedError``: the sharded sweep
-(``shards=p``, ROADMAP queue 1).
+The sharded sweep (``shards=p``) is the reference's ``shard_map`` program
+with one process in place of the single controller: ``p`` shards, each on
+its own device (the first ``p`` cards, every shard on the CPU for
+``device="cpu"``, or ``shard_devices=`` explicitly, repeats allowed).
+Every bucket's rows are split into ``p`` contiguous ranges of
+``ceil(K_b / p)`` rows (the padding to a multiple of ``p`` holds nothing,
+so a bucket narrower than ``p`` leaves some shards empty); a shard holds
+its rows' constants, its slice of the flat toggle cache and the whole
+exchange space. Membership, assignment, ``cur`` and the merges stay on
+``device``, the leader. A round gathers each device's removal toggle from
+the shard that owns its server, scans every shard's candidates with the
+global key, and folds the shards' best (delta, key) pairs
+lexicographically: keys are unique, so that is the move ``shards=None``
+picks. A move re-solves each touched row on its owner. An exchange round
+splits the 2S candidate solves into contiguous sample chunks, one launch a
+shard, and folds the shards' first best (delta, sample index) pairs, which
+is ``argmin``'s first-occurrence tie-break. The pair proposal stays on the
+host (the same threefry stream), a round still costs one host sync, and
+the moves, the trace and the stable point are those of ``shards=None``,
+bit for bit. ``shards=None`` is the same loop with one shard on the
+leader, which ``shards=1`` on the leader's device also gives.
 """
 
 from __future__ import annotations
@@ -99,11 +119,6 @@ BUCKETED_AUTO_THRESHOLD = 0.25
 _I64_BIG = torch.iinfo(torch.int64).max
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-
-
 @dataclass(frozen=True)
 class _Bucket:
     """One slot-width bucket of the sweep: its servers' slot maps and every
@@ -121,6 +136,71 @@ class _Bucket:
     @property
     def width(self) -> int:
         return int(self.idx.shape[1])
+
+    def cut(self, lo: int, hi: int, device) -> "_Bucket":
+        """Rows ``[lo, hi)`` on ``device`` (views when it is already
+        there)."""
+        def part(x):
+            return None if x is None else x[lo:hi].to(device)
+
+        return _Bucket(
+            servers=part(self.servers), idx=part(self.idx),
+            exists=part(self.exists), ok=part(self.ok),
+            consts=RAConstants(**{name: part(v) for name, v
+                                  in vars(self.consts).items()}),
+            random_f=part(self.random_f), inv_dist=part(self.inv_dist),
+            eye=self.eye.to(device))
+
+
+@dataclass(frozen=True)
+class _Shard:
+    """One shard of the sweep on its device: rows ``spans[b]`` of every
+    bucket b, the whole exchange space, and the layout of its slice of the
+    flat toggle cache (bucket after bucket)."""
+
+    device: torch.device
+    spans: tuple[tuple[int, int], ...]
+    buckets: tuple[_Bucket, ...]
+    ex_bucket: _Bucket
+    offsets: np.ndarray         # (n_buckets + 1,) bucket starts in the cache
+    flat_dev: torch.Tensor      # per cache slot: device, server, target flag
+    flat_srv: torch.Tensor
+    flat_ok: torch.Tensor
+    flat_order: torch.Tensor    # the global key n*K + k
+    row_base: torch.Tensor      # (K,) cache start of an owned server's row
+    row_width: torch.Tensor     # (K,) its width; 1 for servers owned elsewhere
+    cloud_const: torch.Tensor   # (K,)
+    cap: torch.Tensor           # (K,)
+
+    @property
+    def size(self) -> int:
+        return int(self.offsets[-1])
+
+
+def _shard_devices(shards, shard_devices, leader: torch.device):
+    """``(shards, devices)``: the shard count (None for the plain sweep) and
+    the device of each shard, after checking them."""
+    if shard_devices is not None:
+        shard_devices = tuple(torch.device(d) for d in shard_devices)
+        if shards is None:
+            shards = len(shard_devices)
+        elif len(shard_devices) != shards:
+            raise ValueError(f"shard_devices names {len(shard_devices)} "
+                             f"devices for shards={shards}")
+    if shards is None:
+        return None, (leader,)
+    if isinstance(shards, bool) or int(shards) != shards or shards < 1:
+        raise ValueError(f"shards must be a positive integer, got {shards!r}")
+    shards = int(shards)
+    if shard_devices is not None:
+        return shards, shard_devices
+    if leader.type == "cpu":
+        return shards, (leader,) * shards
+    count = torch.cuda.device_count()
+    if shards > count:
+        raise ValueError(f"shards={shards} but only {count} CUDA device(s) "
+                         "visible (shard_devices= places shards explicitly)")
+    return shards, tuple(torch.device("cuda", i) for i in range(shards))
 
 
 def _dense_member(assignment: np.ndarray, active: np.ndarray,
@@ -208,7 +288,10 @@ class FastAssociationEngine:
     ``kind`` is any §V.A scheme kind of :class:`GroupSolver`.
 
     ``device=None`` means CUDA and raises without a card; pass
-    ``device="cpu"`` for the plain PyTorch path. A ``fast``-kind bucket (or
+    ``device="cpu"`` for the plain PyTorch path. ``shards=p`` runs the
+    sharded sweep (module docstring) over the first ``p`` cards, or over
+    ``p`` CPU shards for ``device="cpu"``, or over ``shard_devices``; it
+    raises ``ValueError`` for ``p < 1`` or fewer cards. A ``fast``-kind bucket (or
     exchange space) wider than the kernel's ``MAX_R`` slots raises
     ``ValueError``. ``last_timing`` holds the seconds of the last sweep's
     cache init, of its moves (every round after the init) and, within
@@ -223,14 +306,15 @@ class FastAssociationEngine:
                  permission: str = "utilitarian", min_residual_group: int = 2,
                  seed: int = 0, rel_tol: float = 1e-5,
                  profile: str = "default", compact: bool | str = "auto",
-                 shards: int | None = None, device=None):
+                 shards: int | None = None, shard_devices=None,
+                 device=None):
         if permission not in ("utilitarian", "pareto"):
             raise ValueError(f"unknown permission {permission!r}")
         if compact not in (True, False, "auto", "bucketed"):
             raise ValueError(f"unknown compact={compact!r}")
-        if shards is not None:
-            raise _not_ported("the sharded sweep (shards=p)", "6, last")
         self.device = resolve_device(device)
+        self.shards, self.shard_devices = _shard_devices(
+            shards, shard_devices, self.device)
         self.solver = GroupSolver(sc, kind, seed=seed, profile=profile,
                                   device=self.device)
         # final reporting is always at reference accuracy
@@ -324,23 +408,49 @@ class FastAssociationEngine:
                                         dtype=torch.int32, device=dev)
         self._bucket_of = np.asarray(bucket_of, np.int64)
         self._row_of = np.asarray(row_of, np.int64)
-        # every bucket's cache is a view of one flat buffer; these are the
-        # flat buffer's per-slot device, server, target flag and key
-        sizes = [bd.idx.numel() for bd in self._buckets]
-        self._offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(int)
-        widths = np.array([bd.width for bd in self._buckets], np.int64)
-        self._flat_dev = torch.cat([bd.idx.reshape(-1)
-                                    for bd in self._buckets])
-        self._flat_srv = torch.cat([
+        # the partition: ceil(K_b / p) rows of bucket b a shard
+        p = len(self.shard_devices)
+        per = np.array([max(-(-bd.servers.shape[0] // p), 1)
+                        for bd in self._buckets], np.int64)
+        self._owner = self._row_of // per[self._bucket_of]
+        self._local_row = self._row_of % per[self._bucket_of]
+        self._owner_t = torch.as_tensor(self._owner, device=dev)
+        self._shards = tuple(self._make_shard(
+            j, d, [(min(j * c, bd.servers.shape[0]),
+                    min((j + 1) * c, bd.servers.shape[0]))
+                   for bd, c in zip(self._buckets, per)])
+            for j, d in enumerate(self.shard_devices))
+
+    def _make_shard(self, j: int, device, spans) -> _Shard:
+        """Shard j on ``device``: rows ``spans[b]`` of every bucket b, and
+        the flat layout of its slice of the toggle cache (every bucket's
+        slice is a view of one buffer, so a scan is one pass)."""
+        k = self.sc.n_servers
+        buckets = tuple(bd.cut(lo, hi, device)
+                        for bd, (lo, hi) in zip(self._buckets, spans))
+        sizes = [bd.idx.numel() for bd in buckets]
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        widths = np.array([bd.width for bd in buckets], np.int64)
+        flat_dev = torch.cat([bd.idx.reshape(-1) for bd in buckets])
+        flat_srv = torch.cat([
             bd.servers[:, None].expand(bd.idx.shape).reshape(-1)
-            for bd in self._buckets])
-        self._flat_ok = torch.cat([bd.ok.reshape(-1) for bd in self._buckets])
-        self._flat_order = self._flat_dev * k + self._flat_srv
-        self._row_base = torch.as_tensor(
-            self._offsets[self._bucket_of] + self._row_of
-            * widths[self._bucket_of], dtype=torch.int64, device=dev)
-        self._row_width = torch.as_tensor(widths[self._bucket_of],
-                                          device=dev)
+            for bd in buckets])
+        own = self._owner == j
+        b_of = self._bucket_of
+        ex = self._ex_bucket
+        return _Shard(
+            device=device, spans=tuple(spans), buckets=buckets,
+            ex_bucket=ex.cut(0, ex.servers.shape[0], device),
+            offsets=offsets, flat_dev=flat_dev, flat_srv=flat_srv,
+            flat_ok=torch.cat([bd.ok.reshape(-1) for bd in buckets]),
+            flat_order=flat_dev * k + flat_srv,
+            row_base=torch.as_tensor(np.where(
+                own, offsets[b_of] + self._local_row * widths[b_of], 0),
+                device=device),
+            row_width=torch.as_tensor(np.where(own, widths[b_of], 1),
+                                      device=device),
+            cloud_const=self.cloud_const.to(device),
+            cap=self._cap.to(device))
 
     def _gather_bucket(self, servers, idx, exists, ok) -> _Bucket:
         """Gather every per-device RA quantity into this bucket's (K_b,
@@ -460,7 +570,10 @@ class FastAssociationEngine:
         displaced devices and arrivals, every row of a rebuilt bucket, and
         every row of a dense ``proportional`` engine when devices moved).
         It runs at the profile of the last sweep. Chained deltas work: each
-        call refreshes the cache for the next.
+        call refreshes the cache for the next. Under ``shards=p`` the cache
+        is kept whole on the leader; each shard takes its rows of it back
+        (a rebuilt bucket is partitioned anew) and re-solves its stale
+        rows.
 
         ``verify=True`` builds a cold engine on ``sc_new``, descends it from
         the same repaired assignment and raises unless the two stable
@@ -554,6 +667,8 @@ class FastAssociationEngine:
                 sc_new, kind=self.kind, permission=self.permission,
                 min_residual_group=self.min_residual, seed=self.seed,
                 rel_tol=self.rel_tol, profile=profile, compact=self.compact,
+                shards=self.shards,
+                shard_devices=self.shard_devices if self.shards else None,
                 device=self.device)
             ref = cold.run(assignment=self.last_repaired_assignment,
                            max_moves=max_moves,
@@ -601,13 +716,11 @@ class FastAssociationEngine:
         member = torch.as_tensor(self._member_of(assignment),
                                  device=self.device)
         assign = assignment.copy()
-        cur, toggles, moves, trace = self._descend(
+        cur, per_bucket, moves, trace = self._descend(
             member, assign, profile, max_moves, exchange_samples, key,
             self.rel_tol if rel_tol is None else rel_tol, warm)
         self.last_moves = moves
         member_np = member.cpu().numpy()
-        per_bucket = [toggles[self._offsets[b]:self._offsets[b + 1]].view(
-            bd.idx.shape) for b, bd in enumerate(self._buckets)]
         self.last_state = {"member": member_np,
                            "cur_cost": cur.cpu().numpy()}
         if self.compact == "bucketed":
@@ -623,19 +736,17 @@ class FastAssociationEngine:
         else:
             self.last_state.update(toggle_cost=per_bucket[0].cpu().numpy())
         self._warm_cache = {"assignment": assign.copy(), "cur": cur.clone(),
-                            "toggles": [t.clone() for t in per_bucket],
-                            "profile": profile}
+                            "toggles": per_bucket, "profile": profile}
         return assign, member_np, moves, trace
 
-    def _refresh_groups(self, member: torch.Tensor, s: int):
-        """Server s's refresh batch in its bucket: ``(bucket index, bucket
-        rows (R_b + 1,), masks (R_b + 1, R_b))``, its current group and
-        its R_b single-slot toggles."""
-        b, row = int(self._bucket_of[s]), int(self._row_of[s])
-        bd = self._buckets[b]
-        base = (member[s, bd.idx[row]] & bd.exists[row])[None]
-        rows = torch.full((bd.width + 1,), row, device=member.device)
-        return b, rows, torch.cat([base, base ^ bd.eye])
+    @staticmethod
+    def _refresh_groups(member_row: torch.Tensor, bd: _Bucket, row: int):
+        """The refresh batch of row ``row`` of bucket ``bd``, whose server's
+        membership is ``member_row`` (N,): ``(rows (R_b + 1,), masks (R_b +
+        1, R_b))``, its current group and its R_b single-slot toggles."""
+        base = (member_row[bd.idx[row]] & bd.exists[row])[None]
+        rows = torch.full((bd.width + 1,), row, device=bd.idx.device)
+        return rows, torch.cat([base, base ^ bd.eye])
 
     def _exchange_groups(self, member: torch.Tensor, assign_t: torch.Tensor,
                          pairs: torch.Tensor):
@@ -673,27 +784,24 @@ class FastAssociationEngine:
     def _descend(self, member: torch.Tensor, assign: np.ndarray,
                  profile: str, max_moves: int, exchange_samples: int,
                  key: torch.Tensor, rel_tol: float, warm):
-        """The adjustment loop (``_run_device_impl`` of the reference,
-        single device). Updates ``member`` and ``assign`` in place; returns
-        (cur, flat toggle cache, n_moves, trace) and sets ``last_timing``
-        and ``last_counts``."""
+        """The adjustment loop (``_run_device_impl`` of the reference) over
+        the engine's shards. Updates ``member`` and ``assign`` in place;
+        returns (cur, each bucket's (K_b, R_b) cache on the leader,
+        n_moves, trace) and sets ``last_timing`` and ``last_counts``."""
         k, n = member.shape
         dev = self.device
-        buckets = self._buckets
+        shards = self._shards
         idx_n = torch.arange(n, device=dev)
         big = torch.tensor(_I64_BIG, device=dev)
-        inf = torch.tensor(math.inf, device=dev)
         assign_t = torch.as_tensor(assign, device=dev)
         slot_of = self._slot_of
-        f_dev, f_srv, f_ok = self._flat_dev, self._flat_srv, self._flat_ok
-        f_order = self._flat_order
         pareto = self.permission == "pareto"
         kind = self.kind
 
         def harmless(new, old):
             return new <= old + rel_tol * torch.clamp_min(old, 1e-9)
 
-        def bucket_costs(bd: _Bucket, rows: torch.Tensor, masks):
+        def bucket_costs(bd: _Bucket, rows: torch.Tensor, masks, cloud):
             """Group costs of ``masks`` (M, R_b) at bucket rows ``rows``,
             plus each non-empty group's cloud constant: one batched solve
             (one kernel launch for the ``fast`` kind)."""
@@ -702,81 +810,143 @@ class FastAssociationEngine:
                 random_f=None if bd.random_f is None else bd.random_f[rows],
                 inv_dist=None if bd.inv_dist is None else bd.inv_dist[rows],
                 profile=profile)
-            return sol.cost + torch.where(
-                masks.any(-1), self.cloud_const[bd.servers[rows]], 0.0)
+            return sol.cost + torch.where(masks.any(-1),
+                                          cloud[bd.servers[rows]], 0.0)
+
+        def fold(pairs):
+            """The lexicographic minimum of the shards' (delta, order)
+            pairs, on the leader."""
+            if len(pairs) == 1:
+                return pairs[0]
+            deltas = torch.stack([d.to(dev) for d, _ in pairs])
+            orders = torch.stack([o.to(dev) for _, o in pairs])
+            best = deltas.min()
+            return best, torch.where(deltas == best, orders, big).min()
 
         t0 = time.perf_counter()
         cur = torch.zeros(k, device=dev)
-        toggles = torch.empty(int(self._offsets[-1]), device=dev)
-        views = [toggles[self._offsets[b]:self._offsets[b + 1]].view(
-            bd.idx.shape) for b, bd in enumerate(buckets)]
+        toggles = [torch.empty(sh.size, device=sh.device) for sh in shards]
+        views = [[t[sh.offsets[b]:sh.offsets[b + 1]].view(bd.idx.shape)
+                  for b, bd in enumerate(sh.buckets)]
+                 for sh, t in zip(shards, toggles)]
 
         def refresh(s: int) -> None:
-            """Re-solve server s's row of its bucket: R_b + 1 groups, one
-            batch."""
-            b, rows, masks = self._refresh_groups(member, s)
-            costs = bucket_costs(buckets[b], rows, masks)
-            cur[s] = costs[0]
-            views[b][int(self._row_of[s])] = costs[1:]
+            """Re-solve server s's row of its bucket on the shard that owns
+            it: R_b + 1 groups, one batch."""
+            j, b = int(self._owner[s]), int(self._bucket_of[s])
+            row = int(self._local_row[s])
+            sh = shards[j]
+            bd = sh.buckets[b]
+            rows, masks = self._refresh_groups(member[s].to(sh.device), bd,
+                                               row)
+            costs = bucket_costs(bd, rows, masks, sh.cloud_const)
+            cur[s] = costs[0].to(dev)
+            views[j][b][row] = costs[1:]
 
         if warm is None:
             solve_rows = np.arange(k)
         else:
             cur_prev, toggles_prev, stale = warm
             cur.copy_(cur_prev)
-            for view, prev in zip(views, toggles_prev):
-                if prev is not None:
-                    view.copy_(prev)
+            for sh, shard_views in zip(shards, views):
+                for (lo, hi), view, prev in zip(sh.spans, shard_views,
+                                                toggles_prev):
+                    if prev is not None:
+                        view.copy_(prev[lo:hi])
             solve_rows = np.flatnonzero(stale)
         for s in solve_rows:
             refresh(int(s))
         trace = [cur.sum()]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)     # so init_s times the init
+        for d in {sh.device for sh in shards} | {dev}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)     # so init_s times the init
         t1 = time.perf_counter()
 
         def best_transfer():
-            """Scan every transfer candidate of every bucket from the
-            cache, no solves: (delta, device, destination) of the best
-            permitted one."""
-            cur_src = cur[assign_t]                              # (n,)
-            # each device's removal toggle, in its server's bucket row
-            # (clamped: a parked device has no slot and is no candidate)
-            sl = torch.minimum(slot_of[assign_t, idx_n].long(),
-                               self._row_width[assign_t] - 1)
-            minus = toggles[self._row_base[assign_t] + sl]       # (n,)
+            """Scan every transfer candidate of every shard from the cache,
+            no solves: (delta, key n*K + k) of the best permitted one."""
+            # each device's slot in its server's row (clamped below: a
+            # parked device has no slot and is no candidate)
+            sl = slot_of[assign_t, idx_n].long()
             gsize = member.sum(1)                                # (k,)
-            cur_b = cur[f_srv]
-            src = assign_t[f_dev]
-            delta = (minus - cur_src)[f_dev] + toggles - cur_b
-            scale = torch.clamp_min(cur_b + cur_src[f_dev], 1e-9)
-            valid = (f_ok & (src != f_srv) & (gsize[src] > self.min_residual)
-                     & (gsize[f_srv] < self._cap[f_srv]))
-            permitted = valid & (delta < -rel_tol * scale)
-            if pareto:
-                permitted &= (harmless(toggles, cur_b)
-                              & harmless(minus, cur_src)[f_dev])
-            masked = torch.where(permitted, delta, inf)
-            best = masked.min()
-            p = torch.where(masked == best, f_order, big).argmin()
-            return best, f_dev[p], f_srv[p]
+            a_sh = [assign_t.to(sh.device) for sh in shards]
+            # each device's removal toggle, from the shard owning its server
+            minus = []
+            for sh, t, a in zip(shards, toggles, a_sh):
+                if not sh.size:
+                    minus.append(torch.zeros(n, device=dev))
+                    continue
+                at = sh.row_base[a] + torch.minimum(sl.to(sh.device),
+                                                    sh.row_width[a] - 1)
+                minus.append(t[at].to(dev))
+            minus = (minus[0] if len(minus) == 1 else torch.stack(minus)
+                     .gather(0, self._owner_t[assign_t][None])[0])
+            pairs = []
+            for sh, t, a in zip(shards, toggles, a_sh):
+                if not sh.size:
+                    continue
+                d = sh.device
+                cur_d, gsize_d, minus_d = (x.to(d) for x in (cur, gsize,
+                                                            minus))
+                f_dev, f_srv = sh.flat_dev, sh.flat_srv
+                cur_src = cur_d[a]                                # (n,)
+                cur_b = cur_d[f_srv]
+                src = a[f_dev]
+                delta = (minus_d - cur_src)[f_dev] + t - cur_b
+                scale = torch.clamp_min(cur_b + cur_src[f_dev], 1e-9)
+                valid = (sh.flat_ok & (src != f_srv)
+                         & (gsize_d[src] > self.min_residual)
+                         & (gsize_d[f_srv] < sh.cap[f_srv]))
+                permitted = valid & (delta < -rel_tol * scale)
+                if pareto:
+                    permitted &= (harmless(t, cur_b)
+                                  & harmless(minus_d, cur_src)[f_dev])
+                masked = torch.where(permitted, delta, math.inf)
+                best = masked.min()
+                p = torch.where(masked == best, sh.flat_order,
+                                _I64_BIG).argmin()
+                pairs.append((best, sh.flat_order[p]))
+            return fold(pairs)
 
         def best_exchange(pairs: torch.Tensor):
-            """Price both swapped groups of every sampled pair in one batch
-            in the exchange space: (delta, sample index) of the first best
-            permitted one."""
+            """Price both swapped groups of every sampled pair in the
+            exchange space, a contiguous chunk of samples a shard (one batch
+            each): (delta, sample index) of the first best permitted one."""
             rows, masks, okay = self._exchange_groups(member, assign_t, pairs)
-            costs = bucket_costs(self._ex_bucket, rows, masks)
-            si, sj = rows[:exchange_samples], rows[exchange_samples:]
-            ci, cj = costs[:exchange_samples], costs[exchange_samples:]
-            old = cur[si] + cur[sj]
-            delta = ci + cj - old
-            permitted = okay & (delta < -rel_tol * torch.clamp_min(old, 1e-9))
-            if pareto:
-                permitted &= harmless(ci, cur[si]) & harmless(cj, cur[sj])
-            masked = torch.where(permitted, delta, inf)
-            e = masked.argmin()
-            return masked[e], e
+            chunk = -(-exchange_samples // len(shards))
+            out = []
+            for j, sh in enumerate(shards):
+                lo = j * chunk
+                hi = min(lo + chunk, exchange_samples)
+                if lo >= hi:
+                    continue
+                if hi - lo == exchange_samples:
+                    rows_j, masks_j = rows, masks
+                else:
+                    sel = torch.cat([torch.arange(lo, hi, device=dev),
+                                     torch.arange(exchange_samples + lo,
+                                                  exchange_samples + hi,
+                                                  device=dev)])
+                    rows_j, masks_j = rows[sel], masks[sel]
+                d = sh.device
+                rows_j, masks_j = rows_j.to(d), masks_j.to(d)
+                costs = bucket_costs(sh.ex_bucket, rows_j, masks_j,
+                                     sh.cloud_const)
+                m = hi - lo
+                cur_d = cur.to(d)
+                si, sj = rows_j[:m], rows_j[m:]
+                ci, cj = costs[:m], costs[m:]
+                old = cur_d[si] + cur_d[sj]
+                delta = ci + cj - old
+                permitted = okay[lo:hi].to(d) & (
+                    delta < -rel_tol * torch.clamp_min(old, 1e-9))
+                if pareto:
+                    permitted &= (harmless(ci, cur_d[si])
+                                  & harmless(cj, cur_d[sj]))
+                masked = torch.where(permitted, delta, math.inf)
+                e = masked.argmin()
+                out.append((masked[e], e + lo))
+            return fold(out)
 
         def move(dev_: int, src: int, dst: int) -> None:
             member[src, dev_] = False
@@ -787,11 +957,11 @@ class FastAssociationEngine:
         moves = transfers = exchanges = exchange_rounds = 0
         exchange_s = 0.0
         while moves < max_moves:
-            best, t_dev, t_dst = best_transfer()
-            best_v, t_dev, t_dst = torch.stack(
-                [best.double(), t_dev.double(), t_dst.double()]).tolist()
+            best, order = best_transfer()
+            best_v, order_v = torch.stack([best.double(),
+                                           order.double()]).tolist()
             if math.isfinite(best_v):
-                t_dev, t_dst = int(t_dev), int(t_dst)
+                t_dev, t_dst = divmod(int(order_v), k)
                 t_src = int(assign[t_dev])
                 move(t_dev, t_src, t_dst)
                 transfers += 1
@@ -825,7 +995,10 @@ class FastAssociationEngine:
         self.last_counts = {"transfers": transfers, "exchanges": exchanges,
                             "exchange_rounds": exchange_rounds,
                             "init_rows": int(len(solve_rows))}
-        return cur, toggles, moves, trace
+        # each bucket's cache back in its unsharded layout, on the leader
+        per_bucket = [torch.cat([v[b].to(dev) for v in views])
+                      for b in range(len(self._buckets))]
+        return cur, per_bucket, moves, trace
 
     def _finalize(self, assignment, member, moves, trace) -> AssociationResult:
         k = self.sc.n_servers

@@ -7,10 +7,12 @@ Port of ``repro.core.hierarchy``.
 * :class:`SyncSchedule` decides, per step, whether to run a local step, an
   edge sync or a cloud sync — the L(theta) / I(eps, theta) structure of
   Algorithm 1.
-
-The datacenter-scale collectives of the reference (``psum_mean``,
-``hierarchical_sync`` over a device mesh) need ``torch.distributed`` across
-more than one GPU and are not ported yet (ROADMAP queue 1, item 7).
+* **Datacenter scale**: :func:`psum_mean` and :func:`hierarchical_sync`
+  average a tree of tensors across the ranks of a named
+  ``torch.distributed`` device mesh (:mod:`repro_torch.launch.mesh`): eq.
+  (8) over the ``data`` axis, eq. (14) over ``pod``. Every rank of the
+  mesh calls them (the reference calls them inside ``shard_map``); the
+  caller initialises the process group.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ from dataclasses import dataclass
 from enum import IntEnum
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.utils import tree_weighted_mean
+from repro_torch.utils import tree_leaves, tree_map, tree_weighted_mean
 
 
 class SyncLevel(IntEnum):
@@ -76,14 +79,44 @@ def cloud_aggregate(edge_models: list, edge_samples):
     return tree_weighted_mean(edge_models, edge_samples)
 
 
-def psum_mean(tree, axis_name: str, weight=None):
-    raise NotImplementedError(
-        "psum_mean needs torch.distributed across more than one GPU; not "
-        "ported yet (ROADMAP queue 1, item 7)")
+def _all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over ``group``, in float32, into a new tensor."""
+    out = x.to(torch.float32, copy=True)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
 
 
-def hierarchical_sync(tree, level, *, edge_axis: str = "data",
+def psum_mean(tree, axis_name: str, weight=None, *, mesh):
+    """Mean of ``tree``'s leaves over the ranks of mesh axis ``axis_name``:
+    eq. (8) over ``data``, eq. (14) over ``pod``. Unweighted it is the
+    all-reduced sum over the axis's size; with this rank's ``weight`` (a
+    number or 0-d tensor) it is the all-reduced ``x * weight`` over the
+    all-reduced weight. float32; the inputs are left as they are."""
+    group = mesh.get_group(axis_name)
+    if weight is None:
+        n = float(dist.get_world_size(group))
+        return tree_map(lambda x: _all_sum(x, group) / n, tree)
+    leaves = tree_leaves(tree)
+    w = torch.as_tensor(weight, dtype=torch.float32,
+                        device=leaves[0].device if leaves else None)
+    total_w = _all_sum(w, group)
+    return tree_map(lambda x: _all_sum(x.to(torch.float32) * w, group)
+                    / total_w, tree)
+
+
+def hierarchical_sync(tree, level, *, mesh, edge_axis: str = "data",
                       cloud_axis: str = "pod", weight=None):
-    raise NotImplementedError(
-        "hierarchical_sync needs torch.distributed across more than one GPU; "
-        "not ported yet (ROADMAP queue 1, item 7)")
+    """The sync that ``level`` (an int or a 0-d tensor, the same on every
+    rank, as :class:`SyncSchedule` gives it) asks for. LOCAL: the identity.
+    EDGE: the ``weight``-weighted mean over ``edge_axis``. CLOUD: that,
+    then the unweighted mean over ``cloud_axis`` (a cloud round includes
+    Algorithm 1's last edge aggregation; the reference drops ``weight`` at
+    the pod step, and so does this). A level outside 0-2 is clamped into
+    it, as ``lax.switch`` does."""
+    level = min(max(int(level), int(SyncLevel.LOCAL)), int(SyncLevel.CLOUD))
+    if level == SyncLevel.LOCAL:
+        return tree
+    tree = psum_mean(tree, edge_axis, weight, mesh=mesh)
+    if level == SyncLevel.EDGE:
+        return tree
+    return psum_mean(tree, cloud_axis, mesh=mesh)

@@ -50,7 +50,8 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.core.assoc_fast import (DEFAULT_EXCHANGE_SAMPLES,
-                                         FastAssociationEngine, _not_ported,
+                                         FastAssociationEngine,
+                                         _shard_devices,
                                          assignment_true_cost,
                                          repair_assignment)
 from repro_torch.core.edge_association import (GroupSolver,
@@ -139,15 +140,17 @@ class LiveHFELRunner:
     """The round policy behind :func:`run_live`, usable directly as
     ``train_federated(..., round_hook=runner)``: ``begin_round(trainer,
     r)`` churns, re-associates and repairs, and returns the round's
-    (n_clients,) assignment. ``device=None`` means CUDA. ``shards`` is the
-    engine's sharded sweep, not ported (it raises)."""
+    (n_clients,) assignment. ``device=None`` means CUDA. ``shards`` and
+    ``shard_devices`` reach every engine the policies build (the engine's
+    sharded sweep, the same assignments as without)."""
 
     def __init__(self, sc: Scenario, n_clients: int, *,
                  policy: str = "incremental-warm", resolve_every: int = 1,
                  churn: dict | None = None, seed: int = 0,
                  kind: str = "fast", profile: str = "coarse",
                  rel_tol: float = 1e-3, compact: bool | str = "auto",
-                 shards: int | None = None, max_moves: int = 10_000,
+                 shards: int | None = None, shard_devices=None,
+                 max_moves: int = 10_000,
                  exchange_samples: int = DEFAULT_EXCHANGE_SAMPLES,
                  verify: bool = False, overflow_max: int = 64,
                  bridge: DeviceClientBridge | None = None, device=None):
@@ -158,8 +161,6 @@ class LiveHFELRunner:
             raise ValueError("resolve_every must be >= 1")
         if overflow_max < 0:
             raise ValueError("overflow_max must be >= 0")
-        if shards is not None:
-            raise _not_ported("the sharded sweep (shards=p)", "6, last")
         self.device = resolve_device(device)
         # streaming admission (caps only): the true scenario churns, the
         # association sees the admitted view
@@ -190,6 +191,9 @@ class LiveHFELRunner:
         self.profile = profile
         self.rel_tol = rel_tol
         self.compact = compact
+        _shard_devices(shards, shard_devices, self.device)   # checks them
+        self.shards = shards
+        self.shard_devices = shard_devices
         self.max_moves = max_moves
         self.exchange_samples = exchange_samples
         self.verify = verify
@@ -230,6 +234,8 @@ class LiveHFELRunner:
                                      rel_tol=self.rel_tol,
                                      profile=self.profile,
                                      compact=self.compact,
+                                     shards=self.shards,
+                                     shard_devices=self.shard_devices,
                                      device=self.device)
 
     # -- streaming admission (capacitated scenarios only) --------------------
@@ -417,7 +423,8 @@ def run_live(sc: Scenario, ds: FederatedDataset, *,
              model: str = "mlr", eval_every: int = 1, train_seed: int = 0,
              kind: str = "fast", profile: str = "coarse",
              rel_tol: float = 1e-3, compact: bool | str = "auto",
-             shards: int | None = None, max_moves: int = 10_000,
+             shards: int | None = None, shard_devices=None,
+             max_moves: int = 10_000,
              exchange_samples: int = DEFAULT_EXCHANGE_SAMPLES,
              verify: bool = False, overflow_max: int = 64,
              bridge: DeviceClientBridge | None = None,
@@ -432,7 +439,7 @@ def run_live(sc: Scenario, ds: FederatedDataset, *,
                             resolve_every=resolve_every, churn=churn,
                             seed=seed, kind=kind, profile=profile,
                             rel_tol=rel_tol, compact=compact, shards=shards,
-                            max_moves=max_moves,
+                            shard_devices=shard_devices, max_moves=max_moves,
                             exchange_samples=exchange_samples, verify=verify,
                             overflow_max=overflow_max, bridge=bridge,
                             device=device)

@@ -1,0 +1,41 @@
+"""Device meshes. Port of ``repro.launch.mesh``.
+
+Single pod: (data=16, model=16) = 256 ranks. Multi-pod: (pod=2, data=16,
+model=16) = 512 ranks; the ``pod`` axis is the HFEL "cloud" tier, ``data``
+the "edge" tier, ``model`` tensor parallelism.
+
+Each function builds a named ``torch.distributed`` device mesh with
+``init_device_mesh`` and needs a process group of as many ranks, which the
+caller initialises (as ``torchrun`` or a test's spawned ranks do). A mesh is
+on CUDA devices unless the caller asks for ``device_type="cpu"`` (gloo).
+"""
+
+from __future__ import annotations
+
+from torch.distributed.device_mesh import init_device_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_test_mesh(shape=(2, 2), axes=("data", "model"),
+                   device_type: str = "cuda"):
+    """A small mesh for integration tests (``shape`` ranks in all)."""
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes the global batch is sharded over."""
+    if "pod" in mesh.mesh_dim_names:
+        return ("pod", "data")
+    return ("data",)
+
+
+def n_pods(mesh) -> int:
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index("pod")) if "pod" in names else 1

@@ -154,18 +154,19 @@ def test_explicit_assignment_and_finalize_off():
 
 
 def test_engine_raises_for_what_is_not_ported():
-    """Only the sharded sweep still raises, naming its ROADMAP item; the
-    compact and bucketed spaces build, ``rerun_incremental`` asks for a
-    prior run, and every scheme kind and the default of 64 exchanges
-    run."""
+    """Nothing raises for want of a port: the compact and bucketed spaces
+    and the sharded sweep build (it refuses a shard count below 1),
+    ``rerun_incremental`` asks for a prior run, and every scheme kind and
+    the default of 64 exchanges run."""
     ts = port_scenario(jsc.make_scenario(8, 2, seed=0))
     eng = taf.FastAssociationEngine(ts, device="cpu")
     assert eng.compact is False               # "auto" on a dense scenario
     for compact in (True, "bucketed"):
         assert taf.FastAssociationEngine(ts, compact=compact,
                                          device="cpu").compact == compact
-    with pytest.raises(NotImplementedError, match="6, last"):
-        taf.FastAssociationEngine(ts, shards=2, device="cpu")
+    assert taf.FastAssociationEngine(ts, shards=2, device="cpu").shards == 2
+    with pytest.raises(ValueError, match="positive"):
+        taf.FastAssociationEngine(ts, shards=0, device="cpu")
     with pytest.raises(RuntimeError, match="prior run"):
         eng.rerun_incremental(ts, None)
     with pytest.raises(ValueError):

@@ -221,10 +221,12 @@ def test_simulation_scale_aggregates_match_jax():
         for g, x in zip(tutils.tree_leaves(got), jax.tree.leaves(want)):
             np.testing.assert_allclose(g.numpy(), np.asarray(x), rtol=1e-6,
                                        atol=1e-7)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        th.psum_mean({}, "data")
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        th.hierarchical_sync({}, 1)
+    # the datacenter-scale collectives take a mesh (their parity over four
+    # gloo ranks is test_torch_hierarchy_dist.py's); LOCAL needs none
+    tree = {"a": torch.ones(2)}
+    assert th.hierarchical_sync(tree, th.SyncLevel.LOCAL, mesh=None) is tree
+    with pytest.raises(TypeError, match="mesh"):
+        th.psum_mean(tree, "data")
 
 
 # -- fl/training: the trainer against the JAX trainer --------------------------

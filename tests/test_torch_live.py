@@ -188,8 +188,8 @@ def test_runner_rejects_bad_config_and_releases_the_engine():
     with pytest.raises(ValueError, match="maps 5 clients"):
         tlive.LiveHFELRunner(sc, 10, device="cpu",
                              bridge=tlive.device_client_bridge(sc, 5))
-    with pytest.raises(NotImplementedError, match="shards"):
-        tlive.LiveHFELRunner(sc, N, shards=2, device="cpu")
+    with pytest.raises(ValueError, match="shards"):
+        tlive.LiveHFELRunner(sc, N, shards=0, device="cpu")
     runner = tlive.LiveHFELRunner(sc, N, policy="static", churn=CHURN,
                                   seed=0, device="cpu")
     runner.begin_round(_FakeTrainer(), 0)
