@@ -327,12 +327,39 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    magnitudes, asserted), and ms a cloud sync; then a 1-rank NCCL mesh
    whose mean is its own tree (asserted).
 
+29. The model zoo over a mesh of ranks, after phase 27 (``mesh_path``):
+   qwen3-0.6b at full width, random weights from seed 0, bf16 activations,
+   float32 params and AdamW state, ranks spawned on the one card. (f)
+   first, on one NCCL rank (``mesh_one_rank``): a (1, 1) mesh's step is
+   the ``mesh=None`` step bit for bit (asserted), whose loss is (a)'s
+   reference. Then four gloo ranks (``mesh_rank``): the collectives the
+   backend carries on CUDA tensors; (a) ``sync``, ``fsdp`` over (data=2,
+   model=2) at 4096 x 2, 3 steps: s a step, each rank's peak (their sum
+   under 75 GB, asserted), flash forward and backward 28 + 28 and rmsnorm
+   57 launches a step on every rank (asserted), the first loss within
+   ``MESH_LOSS_RTOL`` of (f)'s and the logits at every 256th position
+   within ``MESH_BF16_LOGIT_ATOL`` of (f)'s, while a control forward with
+   the last layer's row-parallel all-reduce dropped lands outside both
+   (asserted); (e) (a)'s params written by rank 0 and
+   restored onto (data=4, model=1), every leaf reassembled bit for bit
+   (asserted); (b) (a) at float32 and 2 layers, one step, the loss within
+   1e-5 and the state within ``TRAIN_TOL`` of the one-rank step's
+   (asserted); (c) ``hierarchical`` over (pod=2, data=2, model=1) at 2048
+   x 4, 4 steps, a cloud sync every 2: the pods' leaves equal bit for bit
+   after each (asserted), ms a sync; (d) serving over (data=2, model=2):
+   phase 10's 8 requests with 64-token prompts and 32 new tokens in
+   bf16 (ms a step, the share of greedy tokens equal to one rank's), then
+   at float32 and 2 layers the same greedy tokens and decode logits
+   within 1e-4 (asserted). Four ranks sharing one card measure the
+   mechanism and its cost, not the speed-up of four cards.
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
 with each path's, phases 16-19's, phase 28's and the HFEL scheme runs'
 beside them;
 rmsnorm, flash and the scan add their train paths' launches (phases 22,
 24 and 27) and a ``backward`` entry; rmsnorm and flash phases 25 and
-26's launches, rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
+26's launches and phase 29's (a) (``mesh_train``, summed over the four
+ranks), rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
 and ``hd112`` entries and one for each of whisper's two shapes and
 internvl2's layer), then ``flash_attention_bwd``, the backward kernel:
 its launches on each train path, phase 21b's qwen3 line and one entry for
@@ -1491,7 +1518,7 @@ def profile_decode(model, params, prompts, max_len: int,
     ``frames``): wall and device time per step, device kernels per step
     and the idle share (profiler on)."""
     from repro_torch.launch.steps import make_serve_step
-    step = make_serve_step(model)
+    step = make_serve_step(model).step_fn
     batch = {"tokens": prompts}
     if frames is not None:
         batch["frames"] = frames
@@ -4762,6 +4789,666 @@ def train_entry(kernel: str, bwd: dict, paths: dict) -> dict:
                     for name, p in paths.items()}, share_of_step=share))
 
 
+# ---- 29: the model zoo over a mesh of ranks, all on the one card ----
+# qwen3-0.6b at full width (hf Qwen/Qwen3-0.6B), random weights from seed
+# 0, bf16 activations, float32 params and AdamW state; gloo ranks over CUDA
+# tensors (NCCL refuses two ranks on one card), spawned processes. Four
+# ranks sharing one card measure the mechanism and its cost, not the
+# speed-up of four cards.
+MESH_ARCH = "qwen3-0.6b"
+MESH_SEQ, MESH_BATCH, MESH_STEPS = 4096, 2, 3        # (a), (b), (f)
+# (a)'s bf16 first-step loss against the one-rank step's (relative), and
+# the max abs gap of its logits at every MESH_LOGIT_STRIDE-th position.
+# Each limit is the geometric mean of the sound reading and a control's:
+# the same forward with the last layer's row-parallel all-reduce dropped
+# (MESH_FAULT_LAYERS), the weakest of the two faults planted in the
+# control run. On an H100 80GB HBM3 at 700 W (PERF.md): loss 7.2e-6 sound,
+# 1.77e-4 fault; logits 0.082 sound, 0.416 fault. Every run asserts that
+# the control lands above both limits.
+MESH_LOSS_RTOL = 3.5e-5
+MESH_BF16_LOGIT_ATOL = 0.18
+MESH_LOGIT_STRIDE = 256
+MESH_FAULT_LAYERS = (-1,)
+MESH_F32_LAYERS = 2                                  # (b), (d)'s check
+# (c): (pod=2, data=2, model=1), one row a rank; at sequence 4096 a rank
+# would hold a whole pod copy's float32 params, moments and gathered
+# blocks (~7 GB) and one row's activations (~10 GB): ~70 GB for four, too
+# close to 75; at 2048 ~55 GB
+MESH_HIER_SEQ, MESH_HIER_BATCH = 2048, 4
+MESH_HIER_STEPS, MESH_HIER_PERIOD = 4, 2
+# (d): phase 10's 8 requests with their prompts cut from 256 to the first
+# 64 tokens: over gloo a step takes ~0.45 s (0.4326 s a decode step and
+# 0.5351 s a prompt step on an H100 80GB HBM3 at 700 W, PERF.md), so the
+# 287 steps of the whole requests took ~140 s; 95 steps take ~45 s
+MESH_SERVE_PROMPT = 64
+MESH_SERVE_F32 = (64, 16)          # (d)'s float32 check: prompt, new tokens
+MESH_LOGIT_ATOL = 1e-4
+MESH_PEAK_LIMIT = 75e9             # bytes: the ranks' peaks summed
+MESH_TIMEOUT_S = 600               # a collective's deadline in the ranks
+
+
+def mesh_plan(device: str = "cuda") -> dict:
+    """Phase 29's sizes, handed to the spawned ranks (which do not see
+    this module's globals as a test may have patched them)."""
+    return dict(device=device, arch=MESH_ARCH, reduced=False, seq=MESH_SEQ,
+                batch=MESH_BATCH, steps=MESH_STEPS,
+                f32_layers=MESH_F32_LAYERS, hier_seq=MESH_HIER_SEQ,
+                hier_batch=MESH_HIER_BATCH, hier_steps=MESH_HIER_STEPS,
+                hier_period=MESH_HIER_PERIOD,
+                serve=[SERVE_REQUESTS, MESH_SERVE_PROMPT, SERVE_NEW],
+                serve_f32=list(MESH_SERVE_F32), lr=3e-4,
+                train_tol=TRAIN_TOL, logit_stride=MESH_LOGIT_STRIDE,
+                fault_layers=list(MESH_FAULT_LAYERS))
+
+
+def mesh_config(plan: dict, f32: bool = False):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(plan["arch"])
+    if plan["reduced"]:
+        cfg = cfg.reduced(dtype="bfloat16")
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32",
+                                  n_layers=plan["f32_layers"])
+    return cfg
+
+
+def mesh_tokens(cfg, rows: int, seq: int, dev, seed: int = 29):
+    """(rows, seq + 1) int32 tokens below the vocab from a numpy seed, the
+    same in every process."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.integers(0, cfg.vocab_size, (rows, seq + 1)),
+                        dtype=torch.int32, device=dev)
+
+
+def mesh_prompts(cfg, plan, dev):
+    """Phase 10's requests (the same numpy draws: the prefill batch first,
+    then the prompts), each prompt's first ``plan["serve"][1]`` tokens."""
+    import numpy as np
+    import torch
+    n, p, _ = plan["serve"]
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ + 1))
+    full = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
+    return torch.tensor(full[:n, :p], dtype=torch.int32, device=dev)
+
+
+def _dev_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak(dev) -> int:
+    import torch
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import flash_attention, rmsnorm
+    return {"flash_attention": flash_attention.LAUNCHES,
+            "flash_attention_bwd": flash_attention.BWD_LAUNCHES,
+            "rmsnorm": rmsnorm.LAUNCHES}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels import flash_attention, rmsnorm
+    flash_attention.LAUNCHES = flash_attention.BWD_LAUNCHES = 0
+    flash_attention.BACKWARD_CALLS = rmsnorm.LAUNCHES = 0
+    rmsnorm.BACKWARD_CALLS = 0
+
+
+def mesh_train_steps(bundle, params, batches, dev, *, period: int = 0,
+                     pod_equal=None) -> dict:
+    """``bundle``'s steps on ``batches`` (whole batches; each rank takes its
+    rows) from whole ``params``: s a step, the loss, each step's kernel
+    launches on this rank, the peak memory; after each cloud sync the
+    seconds it took and ``pod_equal(params)``."""
+    import torch
+    p, o, step = bundle.init_state(params)
+    del params
+    _reset_peak(dev)
+    rows = []
+    for k, whole in enumerate(batches):
+        batch = bundle.local_batch(whole)
+        before = _counts()
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        p, o, step, loss = bundle.step_fn(p, o, step, batch)
+        _dev_sync(dev)
+        row = dict(step=k, s=time.perf_counter() - t0, loss=float(loss),
+                   launches={key: v - before[key]
+                             for key, v in _counts().items()})
+        if period and (k + 1) % period == 0:
+            _dev_sync(dev)
+            t0 = time.perf_counter()
+            p, o = bundle.cloud_sync_fn(p, o)
+            _dev_sync(dev)
+            row["cloud_sync_ms"] = 1e3 * (time.perf_counter() - t0)
+            row["pods_equal"] = pod_equal(p)
+        rows.append(row)
+    return dict(rows=rows, peak=_peak(dev),
+                s_median=statistics.median(r["s"] for r in rows)), \
+        (p, o, step)
+
+
+def mesh_forward(bundle, model, mesh, blocks, batch, stride: int,
+                 fault_layer: int | None = None):
+    """(loss, logits) of one forward of (a)'s model from this rank's
+    parameter blocks on its rows of ``batch``, no gradient: the loss the
+    mean over the ranks, the logits at every ``stride``-th position
+    gathered whole over ``model``. ``fault_layer``: that layer's
+    attention output is not all-reduced over ``model`` (a planted tensor
+    parallel fault; the rank keeps its partial sum)."""
+    import torch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import attention, pjit_hints
+    from repro_torch.models.layers import dense
+    from repro_torch.utils import collectives as coll
+    from repro_torch.utils import (tree_leaves, tree_leaves_with_path,
+                                   tree_unflatten)
+
+    cfg = model.cfg
+    paths = [shd._key_str(p)
+             for p, _ in tree_leaves_with_path(bundle.params_spec)]
+    specs = [sh.spec for sh in shd._sharding_leaves(bundle.params_shardings)]
+    real, calls = attention.out_proj, [0]
+    fault = None if fault_layer is None else fault_layer % cfg.n_layers
+
+    def out_proj(params, out, split):
+        calls[0] += 1
+        if calls[0] - 1 == fault:
+            return dense(params["wo"], out)
+        return real(params, out, split)
+
+    attention.out_proj = out_proj
+    try:
+        with torch.no_grad(), pjit_hints.hints_ctx(
+                pjit_hints.from_mesh(mesh)):
+            used = tree_unflatten(blocks, pjit_hints.use_params(
+                tree_leaves(blocks), paths, specs, cfg))
+            loss = model.loss(used, batch) if fault is not None else None
+            calls[0] = 0
+            logits = model.logits(used, batch)[:, ::stride].float()
+            logits = pjit_hints.gather_from_model(logits, -1)
+    finally:
+        attention.out_proj = real
+    if loss is not None:
+        loss = float(coll.all_reduce(loss.float(), mesh.get_group("data"))
+                     / coll.size(mesh.get_group("data")))
+    return loss, logits
+
+
+def mesh_controls(bundle, model, mesh, params, batch, plan, out) -> dict:
+    """(a)'s sound forward and its two planted faults against the one-rank
+    logits of (f): each one's loss (the faults') and max abs logit gap,
+    the gap's max over the ranks."""
+    import torch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.utils import collectives as coll
+    import torch.distributed as dist
+
+    blocks = shd.shard_tree(params, bundle.params_shardings)
+    local = bundle.local_batch(batch)
+    ref = bundle.batch_shardings["tokens"].local(
+        torch.load(f"{out}/one/logits.pt")).to(batch["tokens"].device)
+    got = {}
+    for name, layer in [("sound", None)] + [
+            (f"fault_layer_{k % model.cfg.n_layers}", k)
+            for k in plan["fault_layers"]]:
+        loss, logits = mesh_forward(bundle, model, mesh, blocks, local,
+                                    plan["logit_stride"], layer)
+        gap = coll.all_reduce((logits - ref).abs().max(), dist.group.WORLD,
+                              "max")
+        got[name] = dict(loss=loss, max_abs_logit_err=float(gap))
+        del logits
+    return got
+
+
+def mesh_job_a(mesh, plan, dev, out) -> dict:
+    """(a) sync fsdp over (data=2, model=2) at full width, then (e): its
+    params written by rank 0 and restored onto (data=4, model=1)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves
+
+    cfg = mesh_config(plan)
+    model = build_model(cfg)
+    shape = ShapeSpec("train_mesh", plan["seq"], plan["batch"], "train")
+    bundle = make_train_step(model, shape, mesh=mesh, lr=plan["lr"],
+                             device=dev)
+    data = mesh_tokens(cfg, plan["batch"] * plan["steps"], plan["seq"], dev)
+    batches = [{"tokens": data[k * plan["batch"]:(k + 1) * plan["batch"]]}
+               for k in range(plan["steps"])]
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    t0 = time.perf_counter()
+    controls = mesh_controls(bundle, model, mesh, params, batches[0], plan,
+                             out)
+    controls_s = time.perf_counter() - t0
+    _zero_counts()
+    res, (p, o, step) = mesh_train_steps(bundle, params, batches, dev)
+    res["controls"], res["controls_s"] = controls, controls_s
+    res["local_param_bytes"] = sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(p))
+    del o
+    # (e): whole leaves written by rank 0, restored onto (data=4, model=1)
+    other = make_test_mesh((4, 1), ("data", "model"), device_type=dev.type)
+    target = shd.param_shardings(bundle.params_spec, other)
+    mgr = CheckpointManager(os.path.join(out, "ckpt"), keep=1,
+                            async_save=False)
+    t0 = time.perf_counter()
+    mgr.save(plan["steps"], {"params": p},
+             shardings={"params": bundle.params_shardings})
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    at, got, _ = mgr.restore({"params": p}, shardings={"params": target})
+    restore_s = time.perf_counter() - t0
+    whole = shd.gather_tree(p, bundle.params_shardings)
+    del p
+    again = shd.gather_tree(got["params"], target)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(again),
+                                                 tree_leaves(whole)))
+    blocks = all(torch.equal(a.to(dev), sh.local(b)) for a, b, sh in zip(
+        tree_leaves(got["params"]), tree_leaves(whole),
+        shd._sharding_leaves(target)))
+    res["restore"] = dict(step=at, reassembled_bitwise=bool(same),
+                          blocks_bitwise=bool(blocks), save_s=save_s,
+                          restore_s=restore_s, to_mesh=[4, 1])
+    del whole, again, got
+    return res
+
+
+def mesh_job_b(mesh, plan, dev) -> dict:
+    """(b) (a) at float32 and 2 layers, one step; rank 0 holds it to the
+    one-rank step (loss at 1e-5, state at ``TRAIN_TOL``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    cfg = mesh_config(plan, f32=True)
+    model = build_model(cfg)
+    shape = ShapeSpec("train_mesh_f32", plan["seq"], plan["batch"], "train")
+    bundle = make_train_step(model, shape, mesh=mesh, lr=plan["lr"],
+                             device=dev)
+    batch = {"tokens": mesh_tokens(cfg, plan["batch"], plan["seq"], dev)}
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    _zero_counts()
+    res, (p, o, _) = mesh_train_steps(bundle, tree_map(torch.clone, params),
+                                      [batch], dev)
+    got = {"params": shd.gather_tree(p, bundle.params_shardings),
+           "m": shd.gather_tree(o["m"], bundle.opt_shardings["m"]),
+           "v": shd.gather_tree(o["v"], bundle.opt_shardings["v"])}
+    del p, o
+    if dist.get_rank() == 0:
+        one = make_train_step(model, shape, lr=plan["lr"], device=dev)
+        p1, o1, s1 = one.init_state(params)
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p1)]
+        loss1 = model.loss(tree_unflatten(p1, leaves), batch)
+        grads = torch.autograd.grad(loss1, leaves)
+        del leaves
+        p1, o1, s1, loss1 = one.step_fn(p1, o1, s1, batch)
+        tol = plan["train_tol"]
+        worst, ok = 0.0, True
+        for g, w, gr in zip(tree_leaves(got["params"]), tree_leaves(p1),
+                            grads):
+            e, good = step_close(g, w, gr, plan["lr"])
+            worst, ok = max(worst, e), ok and good
+        for key in ("m", "v"):
+            for g, w in zip(tree_leaves(got[key]), tree_leaves(o1[key])):
+                e, good = grad_close(g, w, tol)
+                worst, ok = max(worst, e), ok and good
+        loss_rel = abs(res["rows"][0]["loss"] - float(loss1)) \
+            / abs(float(loss1))
+        res["vs_one_rank"] = dict(loss=res["rows"][0]["loss"],
+                                  loss_one_rank=float(loss1),
+                                  loss_rel_err=loss_rel, loss_rtol=1e-5,
+                                  state_max_abs_err=worst, state_tol=tol,
+                                  state_within=bool(ok),
+                                  loss_within=bool(loss_rel <= 1e-5))
+        del p1, o1, grads
+    del got, params
+    dist.barrier()
+    return res
+
+
+def mesh_job_c(plan, dev) -> dict:
+    """(c) hierarchical over (pod=2, data=2, model=1): 4 steps, a cloud
+    sync every 2; after each sync every leaf of the two pods' copies equal
+    bit for bit."""
+    import torch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import collectives as coll
+    from repro_torch.utils import tree_leaves
+
+    mesh = make_test_mesh((2, 2, 1), ("pod", "data", "model"),
+                          device_type=dev.type)
+    cfg = mesh_config(plan)
+    model = build_model(cfg)
+    shape = ShapeSpec("train_mesh_hier", plan["hier_seq"],
+                      plan["hier_batch"], "train")
+    bundle = make_train_step(model, shape, mesh=mesh, mode="hierarchical",
+                             lr=plan["lr"], device=dev)
+    rows = plan["hier_batch"]
+    data = mesh_tokens(cfg, rows * plan["hier_steps"], plan["hier_seq"], dev,
+                       seed=30)
+    batches = [{"tokens": data[k * rows:(k + 1) * rows]}
+               for k in range(plan["hier_steps"])]
+    pod = mesh.get_group("pod")
+
+    def pod_equal(p):
+        return all(bool(torch.equal(*coll.all_gather(x, pod, 0)
+                                    .chunk(2)))
+                   for x in tree_leaves(p))
+
+    _zero_counts()
+    res, _ = mesh_train_steps(bundle, model.init(torch.Generator(
+        device=dev).manual_seed(0)), batches, dev,
+        period=plan["hier_period"], pod_equal=pod_equal)
+    return res
+
+
+def mesh_job_d(mesh, plan, dev) -> dict:
+    """(d) serving over (data=2, model=2): phase 10's requests in bf16 (ms
+    a decode step, the share of greedy tokens equal to one rank's), then
+    at float32 and 2 layers the same greedy tokens and decode logits
+    within ``MESH_LOGIT_ATOL`` of one rank's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import ShapeSpec, build_model
+
+    out = {}
+    for case, f32 in (("bf16", False), ("f32", True)):
+        cfg = mesh_config(plan, f32=f32)
+        model = build_model(cfg)
+        prompts = mesh_prompts(cfg, plan, dev)
+        new = plan["serve"][2]
+        if f32:
+            prompts, new = prompts[:, :plan["serve_f32"][0]], \
+                plan["serve_f32"][1]
+        n, prompt = prompts.shape
+        shape = ShapeSpec("serve_mesh", prompt + new, n, "decode")
+        bundle = make_serve_step(model, mesh, shape)
+        whole = model.init_serving(torch.Generator(device=dev).manual_seed(0))
+        params = bundle.compute_params(shd.shard_tree(
+            whole, bundle.params_shardings))
+        _zero_counts()
+        _reset_peak(dev)
+        res = serve(model, params, bundle.token_sharding.local(prompts), new,
+                    max_len=prompt + new, keep_prompt_logits=f32,
+                    bundle=bundle)
+        steps = res.prompt_steps + res.decode_steps
+        line = dict(requests=n, prompt=prompt, new_tokens=new,
+                    dtype=cfg.dtype, n_layers=cfg.n_layers,
+                    decode_ms_per_step=res.ms_per_decode_step,
+                    prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+                    rmsnorm_per_step=_counts()["rmsnorm"] / steps,
+                    flash_launches=_counts()["flash_attention"],
+                    peak=_peak(dev))
+        del params
+        if dist.get_rank() == 0:
+            one = serve(model, whole, prompts, new, max_len=prompt + new,
+                        keep_prompt_logits=f32)
+            same = (res.tokens == one.tokens)
+            line.update(tokens_equal_share=float(same.float().mean()),
+                        one_rank_decode_ms_per_step=one.ms_per_decode_step)
+            if f32:
+                gap = (res.prompt_logits - one.prompt_logits).abs()
+                line.update(max_abs_logit_err=float(gap.max()),
+                            logit_atol=MESH_LOGIT_ATOL,
+                            tokens_equal=bool(same.all()),
+                            logits_within=bool(gap.max() <= MESH_LOGIT_ATOL))
+        del whole
+        dist.barrier()
+        out[case] = line
+    return out
+
+
+def mesh_rank(rank: int, world: int, out: str, plan: dict) -> None:
+    """One of phase 29's four gloo ranks on the card: the collectives the
+    backend carries, then jobs (a) + (e), (b), (c) and (d); its fields to
+    ``out/rank<r>.json``."""
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(plan["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{out}/store", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    fields = {}
+    try:
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.utils import collectives as coll
+        mesh = make_test_mesh((2, 2), ("data", "model"),
+                              device_type=dev.type)
+        fields["carries"] = coll.probe(dist.group.WORLD, dev)
+        for job, fn in (("a", lambda: mesh_job_a(mesh, plan, dev, out)),
+                        ("b", lambda: mesh_job_b(mesh, plan, dev)),
+                        ("c", lambda: mesh_job_c(plan, dev)),
+                        ("d", lambda: mesh_job_d(mesh, plan, dev))):
+            t0 = time.perf_counter()
+            fields[job] = fn()
+            fields[job]["job_s"] = time.perf_counter() - t0
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(f"{out}/rank{rank}.json", "w") as f:
+            json.dump(fields, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_one_rank(rank: int, world: int, out: str, plan: dict) -> None:
+    """(f): a 1-rank NCCL mesh of (a)'s step against the ``mesh=None``
+    step on the same params and batch (bit for bit), whose loss is also
+    (a)'s one-rank reference."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(plan["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{out}/store", rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_test_mesh
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import ShapeSpec, build_model
+        from repro_torch.utils import tree_leaves, tree_map
+        mesh = make_test_mesh((1, 1), ("data", "model"),
+                              device_type=dev.type)
+        cfg = mesh_config(plan)
+        model = build_model(cfg)
+        shape = ShapeSpec("train_mesh", plan["seq"], plan["batch"], "train")
+        batch = {"tokens": mesh_tokens(cfg, plan["batch"] * plan["steps"],
+                                       plan["seq"], dev)[:plan["batch"]]}
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        runs = {}
+        for name, kw in (("none", {}), ("mesh", {"mesh": mesh})):
+            bundle = make_train_step(model, shape, lr=plan["lr"],
+                                     device=dev, **kw)
+            p, o, step = bundle.init_state(tree_map(torch.clone, params))
+            _dev_sync(dev)
+            t0 = time.perf_counter()
+            p, o, step, loss = bundle.step_fn(p, o, step, batch)
+            _dev_sync(dev)
+            runs[name] = (time.perf_counter() - t0, loss,
+                          tree_leaves(p) + tree_leaves(o))
+        loss_none = float(runs["none"][1])
+        s_none, s_mesh = runs["none"][0], runs["mesh"][0]
+        same = bool(torch.equal(runs["none"][1], runs["mesh"][1])) and all(
+            torch.equal(a, b) for a, b in zip(runs["none"][2],
+                                              runs["mesh"][2]))
+        del runs
+        with torch.no_grad():      # (a)'s reference logits
+            ref = model.logits(params, batch)[:, ::plan["logit_stride"]]
+            torch.save(ref.float().cpu(), f"{out}/logits.pt")
+        with open(f"{out}/one_rank.json", "w") as f:
+            json.dump(dict(backend=dist.get_backend(), bitwise=same,
+                           loss=loss_none, s_none=s_none, s_mesh=s_mesh), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh(fn, world: int, out: str, plan: dict) -> float:
+    """``fn`` on ``world`` spawned ranks, joined; the seconds from spawn to
+    join."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.start_processes(fn, args=(world, out, plan), nprocs=world, join=True,
+                       start_method="spawn")
+    return time.perf_counter() - t0
+
+
+def mesh_path(dev, plan: dict | None = None) -> dict:
+    """Phase 29: (f) first (its ``mesh=None`` step is (a)'s one-rank
+    reference), then (a)-(e) on four ranks. Emits ``mesh_train``,
+    ``mesh_restore``, ``mesh_train_f32``, ``mesh_hier``, ``mesh_serve``
+    and ``mesh_one_rank``; asserts each check. Returns each kernel's
+    launches in (a) summed over the ranks."""
+    import torch
+    plan = plan or mesh_plan(dev.type)
+    held = 0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(f"{tmp}/one")
+        one_s = spawn_mesh(mesh_one_rank, 1, f"{tmp}/one", plan)
+        with open(f"{tmp}/one/one_rank.json") as f:
+            one = json.load(f)
+        four_s = spawn_mesh(mesh_rank, 4, tmp, plan)
+        ranks = []
+        for r in range(4):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    smi = nvidia_smi_line() if dev.type == "cuda" else "cpu"
+    emit("mesh_one_rank", card=smi, backend=one["backend"],
+         bitwise=one["bitwise"], loss=one["loss"], s_mesh_none=one["s_none"],
+         s_mesh_1x1=one["s_mesh"], spawn_to_join_s=one_s)
+    cfg = mesh_config(plan)
+    a = [r["a"] for r in ranks]
+    per_step = {"flash_attention": cfg.n_layers,
+                "flash_attention_bwd": cfg.n_layers,
+                "rmsnorm": 2 * cfg.n_layers + 1}
+    launches_ok = all(row["launches"] == per_step
+                      for ra in a for row in ra["rows"])
+    first = a[0]["rows"][0]["loss"]
+    loss_rel = abs(first - one["loss"]) / abs(one["loss"])
+    ctrl = a[0]["controls"]
+    faults = {k: dict(v, loss_rel_err=abs(v["loss"] - one["loss"])
+                      / abs(one["loss"])) for k, v in ctrl.items()
+              if k != "sound"}
+    logit_err = ctrl["sound"]["max_abs_logit_err"]
+    peaks = [ra["peak"] for ra in a]
+    emit("mesh_train", card=smi, arch=cfg.name, mesh={"data": 2, "model": 2},
+         sharding="fsdp", backend="gloo", ranks_on_one_card=4,
+         seq=plan["seq"], global_batch=plan["batch"], steps=plan["steps"],
+         dtype=cfg.dtype, carries=ranks[0]["carries"],
+         s_per_step_median=[ra["s_median"] for ra in a],
+         s_per_step=[[row["s"] for row in ra["rows"]] for ra in a],
+         losses=[row["loss"] for row in a[0]["rows"]],
+         first_loss_one_rank=one["loss"], first_loss_rel_err=loss_rel,
+         loss_rtol=MESH_LOSS_RTOL, max_abs_logit_err=logit_err,
+         logit_atol=MESH_BF16_LOGIT_ATOL, logit_stride=plan["logit_stride"],
+         controls=faults, controls_s=a[0]["controls_s"],
+         launches_per_step_per_rank=[ra["rows"][-1]["launches"] for ra in a],
+         launches_expected=per_step, peak_per_rank=peaks,
+         peak_total=sum(peaks), peak_limit=MESH_PEAK_LIMIT,
+         local_param_bytes=[ra["local_param_bytes"] for ra in a],
+         job_s=[ra["job_s"] for ra in a], spawn_to_join_s=four_s,
+         parent_reserved_bytes=held)
+    rest = [r["a"]["restore"] for r in ranks]
+    emit("mesh_restore", **rest[0],
+         bitwise_all_ranks=all(x["reassembled_bitwise"] and x["blocks_bitwise"]
+                               for x in rest))
+    b = ranks[0]["b"]
+    emit("mesh_train_f32", n_layers=plan["f32_layers"], seq=plan["seq"],
+         global_batch=plan["batch"], peak_per_rank=[r["b"]["peak"]
+                                                    for r in ranks],
+         job_s=b["job_s"], **b["vs_one_rank"])
+    c = [r["c"] for r in ranks]
+    syncs = [row for row in c[0]["rows"] if "cloud_sync_ms" in row]
+    emit("mesh_hier", mesh={"pod": 2, "data": 2, "model": 1},
+         seq=plan["hier_seq"], global_batch=plan["hier_batch"],
+         steps=plan["hier_steps"], edge_period=plan["hier_period"],
+         s_per_step_median=[rc["s_median"] for rc in c],
+         losses=[row["loss"] for row in c[0]["rows"]],
+         cloud_sync_ms=[[row["cloud_sync_ms"] for row in rc["rows"]
+                         if "cloud_sync_ms" in row] for rc in c],
+         pods_equal=[[row["pods_equal"] for row in rc["rows"]
+                      if "pods_equal" in row] for rc in c],
+         peak_per_rank=[rc["peak"] for rc in c],
+         peak_total=sum(rc["peak"] for rc in c), job_s=c[0]["job_s"])
+    d = ranks[0]["d"]
+    emit("mesh_serve", card=smi, mesh={"data": 2, "model": 2},
+         bf16=d["bf16"], f32=d["f32"],
+         decode_ms_per_step_per_rank=[r["d"]["bf16"]["decode_ms_per_step"]
+                                      for r in ranks],
+         peak_per_rank=[r["d"]["bf16"]["peak"] for r in ranks],
+         job_s=d["job_s"])
+    checks = dict(
+        launches=launches_ok, one_rank_bitwise=one["bitwise"],
+        first_loss=loss_rel <= MESH_LOSS_RTOL,
+        logits=logit_err <= MESH_BF16_LOGIT_ATOL,
+        controls_caught=all(
+            f["loss_rel_err"] > MESH_LOSS_RTOL
+            and f["max_abs_logit_err"] > MESH_BF16_LOGIT_ATOL
+            for f in faults.values()),
+        peak=sum(peaks) <= MESH_PEAK_LIMIT,
+        finite=all(math.isfinite(row["loss"]) for ra in a + c
+                   for row in ra["rows"]),
+        restore=all(x["reassembled_bitwise"] and x["blocks_bitwise"]
+                    for x in rest),
+        f32_loss=b["vs_one_rank"]["loss_within"],
+        f32_state=b["vs_one_rank"]["state_within"],
+        hier_pods_equal=len(syncs) == plan["hier_steps"]
+        // plan["hier_period"] and all(row["pods_equal"] for rc in c
+                                       for row in rc["rows"]
+                                       if "pods_equal" in row),
+        hier_peak=sum(rc["peak"] for rc in c) <= MESH_PEAK_LIMIT,
+        serve_f32_tokens=d["f32"]["tokens_equal"],
+        serve_f32_logits=d["f32"]["logits_within"],
+        serve_rmsnorm=all(r["d"][k]["rmsnorm_per_step"]
+                          == 2 * r["d"][k]["n_layers"] + 1
+                          and r["d"][k]["flash_launches"] == 0
+                          for r in ranks for k in ("bf16", "f32")))
+    emit("mesh_checks", **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 29 failed: {checks}")
+    return {key: sum(sum(row["launches"][key] for row in ra["rows"])
+                     for ra in a) for key in per_step}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5265,6 +5952,9 @@ def main() -> int:
                        train_vlm=train_vlm_path(dev))
     train_families_card_vs_cpu(dev)
 
+    # ---- 29. the model zoo over a mesh of ranks on the one card ----
+    mesh_launches = mesh_path(dev)
+
     no_train = {name: 0 for name in train_paths}
     t_rms, t_fla, t_scan = (train_entry(k, bwd, train_paths)
                             for k in ("rmsnorm", "flash_attention",
@@ -5320,13 +6010,15 @@ def main() -> int:
              replaces="src/repro/kernels/rmsnorm.py:39",
              launches=serve_launches["rmsnorm"] + launched("rmsnorm")
              + t_rms["kernel"] + moe_launches["rmsnorm"]
-             + ed_launches["rmsnorm"] + vlm_launches["rmsnorm"],
+             + ed_launches["rmsnorm"] + vlm_launches["rmsnorm"]
+             + mesh_launches["rmsnorm"],
              launches_by_path={"serving": serve_launches["rmsnorm"],
                                "ssm_serving": launched("rmsnorm"),
                                **t_rms["by_path"],
                                "moe_serving": moe_launches["rmsnorm"],
                                "encdec_serving": ed_launches["rmsnorm"],
-                               "vlm_serving": vlm_launches["rmsnorm"]},
+                               "vlm_serving": vlm_launches["rmsnorm"],
+                               "mesh_train": mesh_launches["rmsnorm"]},
              backward=t_rms["backward"],
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
              ms_cold_l2=rms["ms_cold_l2"],
@@ -5348,7 +6040,8 @@ def main() -> int:
              + launched("flash_attention") + t_fla["kernel"]
              + moe_launches["flash_attention"]
              + ed_launches["flash_attention"]
-             + vlm_launches["flash_attention"],
+             + vlm_launches["flash_attention"]
+             + mesh_launches["flash_attention"],
              launches_by_path={"serving": serve_launches["flash_attention"],
                                "ssm_serving": launched("flash_attention"),
                                **t_fla["by_path"],
@@ -5357,7 +6050,9 @@ def main() -> int:
                                "encdec_serving":
                                    ed_launches["flash_attention"],
                                "vlm_serving":
-                                   vlm_launches["flash_attention"]},
+                                   vlm_launches["flash_attention"],
+                               "mesh_train":
+                                   mesh_launches["flash_attention"]},
              backward=t_fla["backward"],
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
              ms_cold_l2=fla["ms_cold_l2"], tflops=fla["tflops"],
@@ -5383,8 +6078,11 @@ def main() -> int:
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/ops.py:38",
-             launches=sum(t_fla["backward"]["kernel_launches"].values()),
-             launches_by_path=t_fla["backward"]["kernel_launches"],
+             launches=sum(t_fla["backward"]["kernel_launches"].values())
+             + mesh_launches["flash_attention_bwd"],
+             launches_by_path={
+                 **t_fla["backward"]["kernel_launches"],
+                 "mesh_train": mesh_launches["flash_attention_bwd"]},
              backward=None, **{key: fla_bwd["qwen3_layer"][key] for key in (
                  "shape", "max_abs_err", "ms", "plain_ms", "recompute_ms",
                  "bound_ms", "bound_by", "library_ms", "tflops",

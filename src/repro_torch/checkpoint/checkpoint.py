@@ -14,6 +14,13 @@ Leaves are named by their paths in JAX's leaf order (dict keys sorted;
 dir + rename) and optionally asynchronous (the manager copies tensors to
 host numpy first, so the training loop never blocks on disk). Restore
 rebuilds a template's tree, as tensors on each template leaf's device.
+
+On a mesh every rank calls ``CheckpointManager.save`` with its blocks and
+their ``shardings`` (:class:`repro_torch.launch.sharding.NamedSharding`
+trees): the leaves are gathered whole and rank 0 writes them, as the JAX
+package's ``np.asarray`` of a global array does. ``shardings=`` on
+restore gives each rank its block of every leaf, on the mesh that saved
+or on any other.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils import tree_leaves_with_path, tree_map, tree_unflatten
 
@@ -88,13 +96,14 @@ def save_checkpoint(directory: str, step: int, tree: Any, *,
 
 
 def load_checkpoint(directory: str, *, step: int | None = None,
-                    template: Any | None = None):
+                    template: Any | None = None, shardings: Any | None = None):
     """Load the latest (or given) step. Returns (step, tree, extras).
 
     ``template``: a tree whose structure the restored leaves are put into,
     each as a tensor on its template leaf's device (names alone do not
     determine structure). Without one the tree is a dict of path -> numpy
-    array.
+    array. ``shardings``: a matching tree of ``NamedSharding``; each leaf
+    is then this rank's block under it (elastic restore onto a new mesh).
     """
     steps = _steps(directory)
     if not steps:
@@ -118,7 +127,16 @@ def load_checkpoint(directory: str, *, step: int | None = None,
         arr = torch.from_numpy(data[_key_str(p)])
         leaves.append(arr.to(like.device) if isinstance(like, torch.Tensor)
                       else arr)
-    return step, tree_unflatten(template, leaves), manifest["extras"]
+    tree = tree_unflatten(template, leaves)
+    if shardings is not None:
+        tree = tree_map(lambda x, sh: sh.local(x), tree, shardings)
+    return step, tree, manifest["extras"]
+
+
+def _lead() -> bool:
+    """Whether this process writes (rank 0, or no process group)."""
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -133,7 +151,16 @@ class CheckpointManager:
         self._error: BaseException | None = None
         os.makedirs(directory, exist_ok=True)
 
-    def save(self, step: int, tree: Any, *, extras: dict | None = None):
+    def save(self, step: int, tree: Any, *, extras: dict | None = None,
+             shardings: Any | None = None):
+        """Write ``tree`` as step ``step``. ``shardings``: ``tree`` holds
+        this rank's blocks under them; every rank calls this, the leaves
+        are gathered whole, and rank 0 writes."""
+        if shardings is not None:
+            from repro_torch.launch.sharding import gather_tree
+            tree = gather_tree(tree, shardings)
+            if not _lead():
+                return
         # snapshot to host first so training can proceed
         host_tree = tree_map(_host, tree)
         self.wait()
@@ -163,9 +190,16 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore(self, template=None, *, step=None):
+    def restore(self, template=None, *, step=None, shardings=None):
+        """``load_checkpoint`` of this directory. ``shardings``: every rank
+        calls this and gets its blocks, once rank 0's pending save is on
+        disk."""
         self.wait()
-        return load_checkpoint(self.directory, step=step, template=template)
+        if shardings is not None and dist.is_available() \
+                and dist.is_initialized():
+            dist.barrier()
+        return load_checkpoint(self.directory, step=step, template=template,
+                               shardings=shardings)
 
     def latest_step(self) -> int | None:
         steps = _steps(self.directory)

@@ -91,17 +91,19 @@ def psum_mean(tree, axis_name: str, weight=None, *, mesh):
     eq. (8) over ``data``, eq. (14) over ``pod``. Unweighted it is the
     all-reduced sum over the axis's size; with this rank's ``weight`` (a
     number or 0-d tensor) it is the all-reduced ``x * weight`` over the
-    all-reduced weight. float32; the inputs are left as they are."""
+    all-reduced weight. Accumulated in float32, each leaf returned in its
+    own dtype, as the reference's ``psum`` of the leaf gives it; the inputs
+    are left as they are."""
     group = mesh.get_group(axis_name)
     if weight is None:
         n = float(dist.get_world_size(group))
-        return tree_map(lambda x: _all_sum(x, group) / n, tree)
+        return tree_map(lambda x: (_all_sum(x, group) / n).to(x.dtype), tree)
     leaves = tree_leaves(tree)
     w = torch.as_tensor(weight, dtype=torch.float32,
                         device=leaves[0].device if leaves else None)
     total_w = _all_sum(w, group)
-    return tree_map(lambda x: _all_sum(x.to(torch.float32) * w, group)
-                    / total_w, tree)
+    return tree_map(lambda x: (_all_sum(x.to(torch.float32) * w, group)
+                               / total_w).to(x.dtype), tree)
 
 
 def hierarchical_sync(tree, level, *, mesh, edge_axis: str = "data",

@@ -1,7 +1,8 @@
 from repro_torch.models.config import (MLAConfig, MoEConfig, ModelConfig,
                                        SSMConfig)
-from repro_torch.models.model import (SHAPES, Model, ShapeSpec, build_model,
-                                      shape_applicable)
+from repro_torch.models.model import (SHAPES, Model, ShapeDtype, ShapeSpec,
+                                      build_model, shape_applicable)
 
 __all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "SSMConfig", "Model",
-           "ShapeSpec", "SHAPES", "build_model", "shape_applicable"]
+           "ShapeDtype", "ShapeSpec", "SHAPES", "build_model",
+           "shape_applicable"]

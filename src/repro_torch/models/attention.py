@@ -9,6 +9,17 @@ backward kernel from the saved output and logsumexp
 (``kernels/flash_attention.py``). The encoder-decoder's
 cross-attention reads the k and v of :func:`cross_kv`
 (``models/encdec.py``).
+
+On a mesh whose ``model`` axis divides the query heads
+(:func:`pjit_hints.attention_split`) a layer computes its local heads: q
+(and k, v when the kv heads divide too) column-parallel, the flash kernel
+on the local heads, the output row-parallel with one all-reduce. kv heads
+that do not divide are computed whole and repeated to the query heads,
+and each rank keeps its block (as the JAX package's TP kv-replication).
+A decode cache split over ``model`` on its head dim (as
+``launch.sharding.cache_shardings`` places it) is read in place: each
+rank's scores over its head-dim block are summed over ``model``, its
+block of the output gathered.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.models import pjit_hints
 from repro_torch.models.layers import (apply_rope, dense, dense_init,
                                        rms_norm_heads)
 
@@ -32,17 +44,26 @@ def cached_attention(q, k_cache, v_cache, length):
     """Single-step decode attention against a (possibly padded) KV cache.
 
     q: (B, 1, Hq, hd); caches: (B, S_max, Hkv, hd); ``length``: valid
-    prefix (B,)."""
+    prefix (B,). Caches of ``hd / m`` columns are this rank's block of the
+    head dim over ``model`` (m ranks): the scores are the sum over
+    ``model`` of each block's, and the rank's block of the output is
+    gathered."""
     b, _, hq, hd = q.shape
-    _, s_max, hkv, _ = k_cache.shape
+    _, s_max, hkv, hd_c = k_cache.shape
     g = hq // hkv
     qr = q.reshape(b, hkv, g, hd) * hd ** -0.5
+    if hd_c != hd:
+        qr = qr[..., pjit_hints.block_of(hd)]
     s = torch.einsum("bhgd,bkhd->bhgk", _f32(qr), _f32(k_cache))
+    if hd_c != hd:
+        s = pjit_hints.reduce_from_model(s)
     mask = torch.arange(s_max, device=q.device)[None, :] < length[:, None]
     s = torch.where(mask[:, None, None], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", _f32(p.to(v_cache.dtype)),
                        _f32(v_cache))
+    if hd_c != hd:
+        out = pjit_hints.gather_from_model(out, -1)
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
@@ -64,12 +85,27 @@ def attention_init(gen: torch.Generator, cfg):
     return p
 
 
-def _project_qkv(params, cfg, x, positions, *, rope: bool = True):
+def local_kv(t, cfg):
+    """Under a head split whose kv heads do not divide ``model``: the whole
+    (B, S, Hkv, hd) ``t`` repeated to the query heads, this rank's block of
+    them (a rank's query heads then use one kv head each)."""
+    t = t.repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=2)
+    return pjit_hints.local_block(t, 2)
+
+
+def _project_qkv(params, cfg, x, positions, *, rope: bool = True,
+                 whole_kv: bool = False):
+    """q, k, v of ``x``: this rank's heads under a head split (k and v
+    repeated to the local query heads when the kv heads do not split,
+    unless ``whole_kv``)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = dense(params["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(params["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    split = pjit_hints.attention_split(cfg)
+    q = dense(params["wq"], x).reshape(b, s, -1, hd)
+    k = dense(params["wk"], x).reshape(b, s, -1, hd)
+    v = dense(params["wv"], x).reshape(b, s, -1, hd)
+    if split and not whole_kv and not pjit_hints.heads_split(cfg.n_kv_heads):
+        k, v = local_kv(k, cfg), local_kv(v, cfg)
     if cfg.qk_norm:
         q = rms_norm_heads(q, params["q_norm"])
         k = rms_norm_heads(k, params["k_norm"])
@@ -87,19 +123,38 @@ def attention(params, cfg, x, *, causal: bool = True, rope: bool = True):
     Pallas kernel or ``blocked_attention``), so the port has no such
     flag."""
     b, s, _ = x.shape
+    split = pjit_hints.attention_split(cfg)
+    if split:
+        x = pjit_hints.copy_to_model(x)
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(params, cfg, x, positions, rope=rope)
     out = ops.flash_attention(q, k, v, causal=causal)
-    return dense(params["wo"], out.reshape(b, s, -1))
+    return out_proj(params, out.reshape(b, s, -1), split)
 
 
-def cross_kv(params, cfg, enc_out):
+def out_proj(params, out, split: bool):
+    """The output projection: row-parallel (this rank's heads' rows, then
+    the sum over ``model``) under a head split."""
+    y = dense(params["wo"], out)
+    return pjit_hints.reduce_from_model(y) if split else y
+
+
+def cross_kv(params, cfg, enc_out, *, whole: bool = False):
     """The cross-attention k and v (B, S_enc, Hkv, hd) of the encoder
-    output."""
+    output: this rank's heads under a head split (as ``_project_qkv``
+    gives them), all heads with ``whole`` (a decode cache's)."""
     b, s, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = dense(params["wk"], enc_out).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(params["wv"], enc_out).reshape(b, s, cfg.n_kv_heads, hd)
+    split = pjit_hints.attention_split(cfg)
+    kv_split = split and pjit_hints.heads_split(cfg.n_kv_heads)
+    if split:
+        enc_out = pjit_hints.copy_to_model(enc_out)
+    k = dense(params["wk"], enc_out).reshape(b, s, -1, hd)
+    v = dense(params["wv"], enc_out).reshape(b, s, -1, hd)
+    if whole and kv_split:
+        k, v = (pjit_hints.gather_from_model(t, 2) for t in (k, v))
+    elif split and not (whole or kv_split):
+        k, v = local_kv(k, cfg), local_kv(v, cfg)
     return k, v
 
 
@@ -110,13 +165,35 @@ def attention_decode(params, cfg, x, cache, *, rope: bool = True):
     a new array); returns (out, cache with ``length + 1``)."""
     b = x.shape[0]
     length = cache["length"]
-    q, k, v = _project_qkv(params, cfg, x, length[:, None], rope=rope)
+    split = pjit_hints.attention_split(cfg)
+    q, k, v = _project_qkv(params, cfg, x, length[:, None], rope=rope,
+                           whole_kv=True)
+    if split and pjit_hints.heads_split(cfg.n_kv_heads):
+        k, v = (pjit_hints.gather_from_model(t, 2) for t in (k, v))
+    hd, cols = k.shape[-1], cache["k"].shape[-1]
+    if cols != hd:                  # this rank's block of the head dim
+        k, v = (t[..., pjit_hints.block_of(hd)] for t in (k, v))
     rows = torch.arange(b, device=x.device)
     cache["k"][rows, length.long()] = k[:, 0].to(cache["k"].dtype)
     cache["v"][rows, length.long()] = v[:, 0].to(cache["v"].dtype)
-    out = cached_attention(q, cache["k"], cache["v"], length + 1)
+    out = decode_attend(params, cfg, q, cache["k"], cache["v"], length + 1)
     new_cache = {"k": cache["k"], "v": cache["v"], "length": length + 1}
-    return dense(params["wo"], out.reshape(b, 1, -1)), new_cache
+    return out, new_cache
+
+
+def decode_attend(params, cfg, q, k_cache, v_cache, length):
+    """A decode step's attention output (B, 1, d) from its q (B, 1, H, hd),
+    this rank's heads under a head split, against the cache: the query
+    heads gathered whole for :func:`cached_attention`, then the output
+    projection (row-parallel on this rank's heads)."""
+    b = q.shape[0]
+    split = pjit_hints.attention_split(cfg)
+    if split:
+        q = pjit_hints.gather_from_model(q, 2)
+    out = cached_attention(q, k_cache, v_cache, length)
+    if split:
+        out = out[:, :, pjit_hints.block_of(cfg.n_heads)]
+    return out_proj(params, out.reshape(b, 1, -1), split)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -17,6 +17,11 @@ The activation dtype follows the frames, not ``cfg.dtype``: the encoder
 casts its positions to the frames' dtype, the decoder its token
 embeddings to the encoder output's, and a decode step runs in the
 embedding table's dtype (bfloat16 in a serving copy), as in JAX.
+
+On a mesh the attention layers (self and cross) and the MLPs split over
+``model`` as the decoder-only layers do (``models/attention.py``,
+``models/layers.py``); the vocab-parallel embedding, read-out and loss
+likewise.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ from functools import partial
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import pjit_hints
 from repro_torch.models.attention import (attention, attention_decode,
-                                          attention_init, cached_attention,
-                                          cross_kv)
+                                          attention_init, cross_kv,
+                                          decode_attend, out_proj)
 from repro_torch.models.layers import (apply_norm, cross_entropy, dense,
                                        embed, embedding_init, mlp, mlp_init,
                                        norm_init, sinusoidal_positions,
@@ -48,9 +54,27 @@ def _an(cfg, p, x):
 def _cross_attn(params, cfg, x, kv):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    split = pjit_hints.attention_split(cfg)
+    if split:
+        x = pjit_hints.copy_to_model(x)
+    q = dense(params["wq"], x).reshape(b, s, -1, hd)
     out = ops.flash_attention(q, kv[0], kv[1], causal=False)
-    return dense(params["wo"], out.reshape(b, s, -1))
+    return out_proj(params, out.reshape(b, s, -1), split)
+
+
+def _mlp(layer, cfg, x):
+    return mlp(layer["ffn"], x, kind=cfg.mlp_type,
+               split=pjit_hints.mlp_split(cfg))
+
+
+def _embed(params, cfg, tokens):
+    return embed(params["embed"], tokens,
+                 split=pjit_hints.vocab_split(cfg.vocab_size))
+
+
+def _logits(params, cfg, x):
+    return unembed(params["embed"], x,
+                   split=pjit_hints.vocab_split(cfg.vocab_size))
 
 
 def enc_block_init(gen: torch.Generator, cfg):
@@ -100,8 +124,7 @@ def encode(params, cfg, frames):
     for layer in layer_slices(params["enc_blocks"], cfg.n_encoder_layers):
         x = x + attention(layer["attn"], cfg, _an(cfg, layer["norm1"], x),
                           causal=False, rope=False)
-        x = x + mlp(layer["ffn"], _an(cfg, layer["norm2"], x),
-                    kind=cfg.mlp_type)
+        x = x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
     return _an(cfg, params["enc_norm"], x)
 
 
@@ -109,7 +132,7 @@ def encdec_forward(params, cfg, frames, tokens):
     """Teacher-forced forward: logits (B, S_dec, V) in the frames' dtype."""
     enc = encode(params, cfg, frames)
     s = tokens.shape[1]
-    x = embed(params["embed"], tokens).to(enc.dtype)
+    x = _embed(params, cfg, tokens).to(enc.dtype)
     x = x + params["pos_embed"][:s].to(x.dtype)
     for layer in layer_slices(params["dec_blocks"], cfg.n_layers):
         x = x + attention(layer["self_attn"], cfg,
@@ -118,10 +141,9 @@ def encdec_forward(params, cfg, frames, tokens):
         kv = cross_kv(layer["cross_attn"], cfg, enc)
         x = x + _cross_attn(layer["cross_attn"], cfg,
                             _an(cfg, layer["norm_x"], x), kv)
-        x = x + mlp(layer["ffn"], _an(cfg, layer["norm2"], x),
-                    kind=cfg.mlp_type)
+        x = x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
     x = _an(cfg, params["dec_norm"], x)
-    return unembed(params["embed"], x)
+    return _logits(params, cfg, x)
 
 
 def encdec_loss(params, cfg, batch):
@@ -129,7 +151,8 @@ def encdec_loss(params, cfg, batch):
     -> the mean next-token cross entropy."""
     tokens = batch["tokens"]
     logits = encdec_forward(params, cfg, batch["frames"], tokens[:, :-1])
-    return cross_entropy(logits, tokens[:, 1:], batch.get("loss_mask"))
+    return cross_entropy(logits, tokens[:, 1:], batch.get("loss_mask"),
+                         split=pjit_hints.vocab_split(cfg.vocab_size))
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +172,7 @@ def encdec_decode_init(params, cfg, frames, max_len: int,
     cross = {"k": torch.empty(kv_shape, dtype=dtype, device=dev),
              "v": torch.empty(kv_shape, dtype=dtype, device=dev)}
     for i, layer in enumerate(layer_slices(params["dec_blocks"], n)):
-        k, v = cross_kv(layer["cross_attn"], cfg, enc)
+        k, v = cross_kv(layer["cross_attn"], cfg, enc, whole=True)
         cross["k"][i].copy_(k)
         cross["v"][i].copy_(v)
     self_shape = (n, b, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -169,7 +192,7 @@ def encdec_decode_step(params, cfg, cache, tokens):
     hd = cfg.resolved_head_dim
     pos = cache["position"]
     sc, cc = cache["self"], cache["cross"]
-    x = embed(params["embed"], tokens[:, None])
+    x = _embed(params, cfg, tokens[:, None])
     x = x + params["pos_embed"][pos.long()][:, None].to(x.dtype)
     enc_len = torch.full((b,), cc["k"].shape[2], dtype=torch.int32,
                          device=tokens.device)
@@ -183,13 +206,11 @@ def encdec_decode_step(params, cfg, cache, tokens):
         lengths.append(new["length"])
         ca = layer["cross_attn"]
         q = dense(ca["wq"], _an(cfg, layer["norm_x"], x)).reshape(
-            b, 1, cfg.n_heads, hd)
-        out = cached_attention(q, cc["k"][i], cc["v"][i], enc_len)
-        x = x + dense(ca["wo"], out.reshape(b, 1, -1))
-        x = x + mlp(layer["ffn"], _an(cfg, layer["norm2"], x),
-                    kind=cfg.mlp_type)
+            b, 1, -1, hd)
+        x = x + decode_attend(ca, cfg, q, cc["k"][i], cc["v"][i], enc_len)
+        x = x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
     x = _an(cfg, params["dec_norm"], x)
-    logits = unembed(params["embed"], x)
+    logits = _logits(params, cfg, x)
     new_self = {"k": sc["k"], "v": sc["v"], "length": torch.stack(lengths)}
     return logits[:, 0], {"cross": cc, "self": new_self,
                           "position": pos + 1}

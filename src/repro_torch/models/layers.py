@@ -12,6 +12,12 @@ RMSNorm with a scale goes through the ``rmsnorm`` kernel
 (:func:`repro_torch.kernels.ops.rmsnorm`), which computes exactly
 ``apply_norm``'s function for that case; LayerNorm, the scale-less norm
 and the per-head ``rms_norm_heads`` are other functions and stay plain.
+
+On a mesh (:mod:`repro_torch.models.pjit_hints` installed) the layers that
+split over ``model`` take ``split=True``: ``mlp`` column-parallel in and
+row-parallel out, one all-reduce after; ``embed``, ``unembed`` and
+``cross_entropy`` vocab-parallel. A ``dense`` whose bias is whole beside a
+column block of its weight adds the bias's block.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import pjit_hints
 
 
 def _randn(gen: torch.Generator, *shape: int) -> torch.Tensor:
@@ -35,9 +42,13 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
 
 
 def dense(params, x):
-    y = x @ params["w"].to(x.dtype)
+    w = params["w"]
+    y = x @ w.to(x.dtype)
     if "b" in params:
-        y = y + params["b"].to(x.dtype)
+        b = params["b"]
+        if b.shape[-1] != w.shape[-1]:     # a column block of the weight
+            b = b[pjit_hints.block_of(b.shape[-1])]
+        y = y + b.to(x.dtype)
     return y
 
 
@@ -45,12 +56,26 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int):
     return {"table": _randn(gen, vocab, d) * 0.02}
 
 
-def embed(params, ids):
-    return params["table"][ids]
+def embed(params, ids, *, split: bool = False):
+    """The table's rows of ``ids``. ``split``: the table is this rank's
+    block of vocab rows; ids outside it read zeros, and the ranks' rows are
+    summed over ``model`` (one non-zero term each, so exact)."""
+    table = params["table"]
+    if not split:
+        return table[ids]
+    n = table.shape[0]
+    local = ids.long() - pjit_hints.model_rank() * n
+    mine = (local >= 0) & (local < n)
+    rows = torch.where(mine[..., None], table[torch.where(mine, local, 0)],
+                       0)
+    return pjit_hints.reduce_from_model(rows)
 
 
-def unembed(params, x):
-    """Tied read-out: logits = x @ table^T in the activation dtype."""
+def unembed(params, x, *, split: bool = False):
+    """Tied read-out: logits = x @ table^T in the activation dtype.
+    ``split``: this rank's vocab block of the logits."""
+    if split:
+        x = pjit_hints.copy_to_model(x)
     return x @ params["table"].to(x.dtype).T
 
 
@@ -106,14 +131,19 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, *,
             "wo": dense_init(gen, d_ff, d)}
 
 
-def mlp(params, x, *, kind: str = "swiglu"):
+def mlp(params, x, *, kind: str = "swiglu", split: bool = False):
+    """``split``: ``wi``/``wg`` hold this rank's FFN columns and ``wo`` the
+    matching rows; the output is the all-reduce of the partial products."""
+    if split:
+        x = pjit_hints.copy_to_model(x)
     if kind == "swiglu":
         h = torch.nn.functional.silu(dense(params["wg"], x)) \
             * dense(params["wi"], x)
     else:
         h = torch.nn.functional.gelu(dense(params["wi"], x),
                                      approximate="tanh")
-    return dense(params["wo"], h)
+    y = dense(params["wo"], h)
+    return pjit_hints.reduce_from_model(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +232,52 @@ class CrossEntropyFn(torch.autograd.Function):
         return grad.reshape(logits.shape), None
 
 
-def cross_entropy(logits, labels, mask=None):
+class VocabParallelCrossEntropyFn(torch.autograd.Function):
+    """:class:`CrossEntropyFn` of logits split over ``model`` by vocab
+    blocks (this rank's block starts at ``lo``): each chunk's row max and
+    sum of exponentials, and the gold logit (read on the rank that holds
+    it, zeros elsewhere), are all-reduced over ``model``; the backward is
+    local."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo):
+        vocab = logits.shape[-1]
+        flat = logits.reshape(-1, vocab)
+        local = labels.reshape(-1).long() - lo
+        mine = (local >= 0) & (local < vocab)
+        idx = torch.where(mine, local, 0)[:, None]
+        logz = torch.empty(flat.shape[0], dtype=torch.float32,
+                           device=logits.device)
+        for a, b in _ce_chunks(flat.shape[0], vocab):
+            part = flat[a:b].to(torch.float32)
+            top = pjit_hints.reduce_from_model_max(
+                torch.amax(part, dim=-1))
+            total = pjit_hints.reduce_from_model(
+                torch.sum(torch.exp(part - top[:, None]), dim=-1))
+            logz[a:b] = torch.log(total) + top
+        gold = torch.where(mine, torch.gather(flat, -1, idx)[:, 0]
+                           .to(torch.float32), 0)
+        gold = pjit_hints.reduce_from_model(gold)
+        ctx.save_for_backward(logits, idx, mine, logz)
+        return (logz - gold).reshape(labels.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, mine, logz = ctx.saved_tensors
+        vocab = logits.shape[-1]
+        flat = logits.reshape(-1, vocab)
+        g = g.reshape(-1, 1).to(torch.float32)
+        grad = torch.empty_like(flat)
+        for a, b in _ce_chunks(flat.shape[0], vocab):
+            part = torch.exp(flat[a:b].to(torch.float32)
+                             - logz[a:b, None]) * g[a:b]
+            part.scatter_add_(-1, idx[a:b],
+                              torch.where(mine[a:b, None], -g[a:b], 0))
+            grad[a:b] = part.to(grad.dtype)
+        return grad.reshape(logits.shape), None, None
+
+
+def cross_entropy(logits, labels, mask=None, *, split: bool = False):
     """Mean next-token CE in float32. logits (..., V), labels (...) int.
 
     The per-token losses come from :class:`CrossEntropyFn` (float32
@@ -211,8 +286,13 @@ def cross_entropy(logits, labels, mask=None):
     package selects the gold logit with an iota-compare and masked sum,
     for vocab-sharded logits; on one card the two are bit-equal (one
     non-zero plus zeros is exact), and the gather's backward needs no
-    (..., V) one-hot."""
-    nll = CrossEntropyFn.apply(logits, labels)
+    (..., V) one-hot. ``split``: the logits are this rank's vocab block
+    (:class:`VocabParallelCrossEntropyFn`)."""
+    if split:
+        nll = VocabParallelCrossEntropyFn.apply(
+            logits, labels, pjit_hints.model_rank() * logits.shape[-1])
+    else:
+        nll = CrossEntropyFn.apply(logits, labels)
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

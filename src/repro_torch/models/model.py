@@ -15,6 +15,28 @@ from repro_torch.models.config import ModelConfig
 
 
 @dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and dtype without its data (``jax.ShapeDtypeStruct``'s
+    counterpart)."""
+    shape: tuple
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def _shapes(fn):
+    """The tree ``fn()`` returns, as :class:`ShapeDtype` leaves, computed
+    on fake tensors (no memory, no arithmetic)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.utils import tree_map
+    with FakeTensorMode():
+        tree = fn()
+    return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), tree)
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
     seq_len: int
@@ -115,6 +137,31 @@ class Model:
         return transformer.lm_decode_step(params, self.cfg, cache, tokens)
 
     # -- shapes -------------------------------------------------------------
+
+    def param_specs(self):
+        """The float32 params' tree as :class:`ShapeDtype` leaves."""
+        return _shapes(lambda: self.init(torch.Generator()))
+
+    def decode_specs(self, shape: ShapeSpec, *,
+                     batch_override: int | None = None,
+                     dtype=torch.bfloat16):
+        """(cache specs, token spec) of a decode step at ``shape``: the
+        cache ``decode_init`` builds for ``batch_override`` or the shape's
+        batch and ``shape.seq_len`` positions (an encoder-decoder's from
+        frames of that batch), as :class:`ShapeDtype` leaves."""
+        cfg = self.cfg
+        b = batch_override or shape.global_batch
+
+        def build():
+            batch = {"tokens": torch.zeros(b, 1, dtype=torch.int32)}
+            params = None
+            if self._encdec:
+                params = self.init(torch.Generator())
+                batch["frames"] = torch.zeros(
+                    b, cfg.encoder_seq_len, cfg.d_model, dtype=dtype)
+            return self.decode_init(params, batch, shape.seq_len, dtype)
+
+        return _shapes(build), ShapeDtype((b,), torch.int32)
 
     def batch_specs(self, shape: ShapeSpec, *,
                     batch_override: int | None = None) -> dict:

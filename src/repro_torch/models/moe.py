@@ -5,9 +5,14 @@ Tokens are ranked into per-expert slots via a stable sort; over-capacity
 (token, expert) pairs are dropped (their residual path passes through
 untouched, plus any shared experts). The expert FFNs run as one batched
 product over the (E, capacity, d) buffer; the JAX package computes it as
-an einsum outside any Pallas kernel, so here it is ``torch.bmm``. One
-card holds every expert, so the JAX package's sharding hints
-(``pjit_hints.shard_experts``) have no counterpart.
+an einsum outside any Pallas kernel, so here it is ``torch.bmm``.
+
+On a mesh the layer computes on the global batch, as the JAX package's
+does (its capacity and load-balancing loss are functions of every
+token): each rank gathers the batch ranks' tokens
+(``pjit_hints.gather_batch``), runs the whole layer with every expert
+(gathered over ``model``; expert parallelism is not ported), and keeps its
+own rows of the output.
 
 Router in float32; the Switch-style load-balancing loss is returned to
 the caller.
@@ -26,6 +31,7 @@ import math
 
 import torch
 
+from repro_torch.models import pjit_hints
 from repro_torch.models.layers import dense, dense_init, mlp, mlp_init
 
 
@@ -103,7 +109,10 @@ def route(params, cfg, tokens):
 
 
 def moe_apply(params, cfg, x):
-    """x: (B, S, d) -> (y, aux_loss)."""
+    """x: (B, S, d) -> (y, aux_loss). On a mesh: this rank's rows of the
+    global batch's y, and the global batch's aux_loss."""
+    b_local = x.shape[0]
+    x = pjit_hints.gather_batch(x)
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -135,4 +144,4 @@ def moe_apply(params, cfg, x):
 
     if m.n_shared:
         y = y + mlp(params["shared"], tokens, kind=cfg.mlp_type)
-    return y.reshape(b, s, d), aux
+    return pjit_hints.batch_rows(y.reshape(b, s, d), b_local), aux

@@ -12,6 +12,12 @@ shared attention+MLP block (run after every ``hybrid_attn_period``
 layers). A VLM's forward takes ``prefix_embeds`` (B, P, d), the stub
 vision frontend's patch embeddings, prepended to the token embeddings;
 its decode takes none (the JAX package's decode drops the prefix too).
+
+On a mesh each rank runs this code on its rows of the batch with the
+layout :mod:`repro_torch.models.pjit_hints` decides: attention heads, MLP
+columns and the vocab split over ``model`` where they divide it (the
+logits, and a decode step's, are then this rank's vocab block); MoE,
+MLA and SSM layers compute whole on every ``model`` rank.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from repro_torch.models.attention import (attention, attention_decode,
 from repro_torch.models.layers import (apply_norm, cross_entropy, dense,
                                        dense_init, embed, embedding_init,
                                        mlp, mlp_init, norm_init, unembed)
+from repro_torch.models import pjit_hints
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (init_ssm_cache, ssm_apply, ssm_decode,
                                     ssm_init)
@@ -132,7 +139,8 @@ def dense_block_init(gen: torch.Generator, cfg):
 def dense_block_apply(params, cfg, x):
     x = x + _attn(params["attn"], cfg, _apply_norm(cfg, params["norm1"], x))
     h = _apply_norm(cfg, params["norm2"], x)
-    return x + mlp(params["ffn"], h, kind=cfg.mlp_type)
+    return x + mlp(params["ffn"], h, kind=cfg.mlp_type,
+                   split=pjit_hints.mlp_split(cfg))
 
 
 def block_apply(params, cfg, x, aux):
@@ -227,17 +235,27 @@ def _run_stack(params, cfg, x):
 
 
 def _read_out(params, cfg, x):
+    """Logits of the last hidden states: this rank's vocab block when the
+    vocab splits over ``model``."""
     x = _apply_norm(cfg, params["final_norm"], x)
+    split = pjit_hints.vocab_split(cfg.vocab_size)
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
-    return dense(params["unembed"], x)
+        return unembed(params["embed"], x, split=split)
+    return dense(params["unembed"],
+                 pjit_hints.copy_to_model(x) if split else x)
+
+
+def _embed(params, cfg, tokens):
+    x = embed(params["embed"], tokens,
+              split=pjit_hints.vocab_split(cfg.vocab_size))
+    return x.to(activation_dtype(cfg))
 
 
 def lm_forward(params, cfg, tokens, *, prefix_embeds=None):
     """tokens: (B, S) integer; ``prefix_embeds`` (B, P, d), a VLM's patch
     embeddings, prepended in the activation dtype. Returns (logits
     (B, P + S, V), aux_loss scalar)."""
-    x = embed(params["embed"], tokens).to(activation_dtype(cfg))
+    x = _embed(params, cfg, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     for dp in params.get("dense_blocks", ()):
@@ -258,7 +276,8 @@ def lm_loss(params, cfg, batch):
     logits, aux = lm_forward(params, cfg, inputs, prefix_embeds=prefix)
     if prefix is not None:
         logits = logits[:, prefix.shape[1]:]
-    loss = cross_entropy(logits, labels, batch.get("loss_mask"))
+    loss = cross_entropy(logits, labels, batch.get("loss_mask"),
+                         split=pjit_hints.vocab_split(cfg.vocab_size))
     return loss + 0.01 * aux
 
 
@@ -310,7 +329,8 @@ def dense_block_decode(params, cfg, x, layer_cache):
                           _apply_norm(cfg, params["norm1"], x), layer_cache)
     x = x + h
     h = _apply_norm(cfg, params["norm2"], x)
-    return x + mlp(params["ffn"], h, kind=cfg.mlp_type), new
+    return x + mlp(params["ffn"], h, kind=cfg.mlp_type,
+                   split=pjit_hints.mlp_split(cfg)), new
 
 
 def _block_decode(params, cfg, x, layer_cache):
@@ -344,8 +364,9 @@ def _restacked(stack: dict, news: list) -> dict:
 def lm_decode_step(params, cfg, cache, tokens):
     """One decode step. tokens: (B,) integer -> (logits (B, V), cache). The
     cache's k, v, MLA latents, SSM state and conv buffer are updated in
-    place."""
-    x = embed(params["embed"], tokens[:, None]).to(activation_dtype(cfg))
+    place. On a mesh the logits are this rank's vocab block when the vocab
+    splits."""
+    x = _embed(params, cfg, tokens[:, None])
     period = _shared_period(cfg)
     news, shared_news, dense_news = [], [], []
     for dp, dc in zip(params.get("dense_blocks", ()),

@@ -137,11 +137,16 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update, apply_)
 
 
-def clip_by_global_norm(opt: Optimizer, max_norm: float) -> Optimizer:
+def clip_by_global_norm(opt: Optimizer, max_norm: float, *,
+                        norm: Callable = tree_global_norm) -> Optimizer:
+    """Scale the gradients by ``min(1, max_norm / |g|)``. ``norm`` computes
+    |g| of a gradient tree (or list); a rank of a mesh passes one that
+    counts each distinct block once and sums over the ranks
+    (``launch.sharding.global_norm_fn``)."""
     def clip_scale(grads):
-        norm = tree_global_norm(grads)
-        return torch.clamp_max(torch.full_like(norm, max_norm)
-                               / torch.clamp_min(norm, 1e-12), 1.0)
+        norm_ = norm(grads)
+        return torch.clamp_max(torch.full_like(norm_, max_norm)
+                               / torch.clamp_min(norm_, 1e-12), 1.0)
 
     def update(grads, state, params, step):
         scale = clip_scale(grads)

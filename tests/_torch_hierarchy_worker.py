@@ -51,10 +51,26 @@ def run(rank: int, store: str, out: str) -> None:
         flat = {f"{case}/{leaf}": (t["a"] if leaf == "a" else t["b"][0])
                 for case, t in res.items() for leaf in ("a", "b")}
         dtypes = sorted({str(x.dtype) for x in flat.values()})
-        flat = {k: x.numpy() for k, x in flat.items()}
+        # the same means of the tree in bfloat16 (the syncs unweighted):
+        # each leaf stays bfloat16
+        half = {"a": tree["a"].to(torch.bfloat16),
+                "b": [tree["b"][0].to(torch.bfloat16)]}
+        low = {}
+        for axis in ("data", "pod"):
+            low[f"mean_{axis}"] = psum_mean(half, axis, mesh=mesh)
+            low[f"wmean_{axis}"] = psum_mean(half, axis, w, mesh=mesh)
+        for name in LEVELS:
+            low[f"sync_{name}"] = hierarchical_sync(
+                half, int(SyncLevel[name]), mesh=mesh)
+        low = {f"bf16_{case}/{leaf}": (t["a"] if leaf == "a" else t["b"][0])
+               for case, t in low.items() for leaf in ("a", "b")}
+        bf16_dtypes = sorted({str(x.dtype) for x in low.values()})
+        flat.update(low)
+        flat = {k: x.float().numpy() for k, x in flat.items()}
         plain = make_test_mesh((2, 2), device_type="cpu")
         np.savez(f"{out}/rank{rank}.npz", **flat,
                  dtypes=np.array(dtypes),
+                 bf16_dtypes=np.array(bf16_dtypes),
                  batch_axes=np.array(batch_axes(mesh)),
                  n_pods=np.array(n_pods(mesh)),
                  plain_batch_axes=np.array(batch_axes(plain)),

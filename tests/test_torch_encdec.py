@@ -296,7 +296,7 @@ def test_decode_steps_and_greedy_tokens_match_jax():
         logits, jcache = jmodel.decode_step(jparams, jcache, jtok)
         jtok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         jout.append(np.asarray(jtok))
-    step = make_serve_step(model)
+    step = make_serve_step(model).step_fn
     ttok = torch.argmax(got, dim=-1).to(torch.int32)
     tout = [ttok.numpy()]
     for _ in range(7):

@@ -35,6 +35,7 @@ JAX_SIDE = r"""
 import sys
 import numpy as np
 import jax
+import jax.numpy as jnp
 from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 from repro.core.hierarchy import SyncLevel, hierarchical_sync, psum_mean
@@ -62,8 +63,18 @@ for axis in ("data", "pod"):
 for name in LEVELS:
     cases[f"sync_{name}"] = sharded(lambda t, wt: hierarchical_sync(
         t, int(SyncLevel[name]), weight=wt))
-np.savez(sys.argv[1], **{f"{c}/{leaf}": np.asarray(t[leaf])
-                         for c, t in cases.items() for leaf in ("a", "b")})
+data = {k: jnp.asarray(v, jnp.bfloat16) for k, v in data.items()}
+for axis in ("data", "pod"):
+    cases[f"bf16_mean_{axis}"] = sharded(lambda t, wt: psum_mean(t, axis))
+    cases[f"bf16_wmean_{axis}"] = sharded(
+        lambda t, wt: psum_mean(t, axis, wt))
+for name in LEVELS:
+    cases[f"bf16_sync_{name}"] = sharded(lambda t, wt: hierarchical_sync(
+        t, int(SyncLevel[name])))
+np.savez(sys.argv[1], **{f"{c}/{leaf}": np.asarray(t[leaf], np.float32)
+                         for c, t in cases.items() for leaf in ("a", "b")},
+         **{f"{c}/{leaf}/dtype": str(t[leaf].dtype)
+            for c, t in cases.items() for leaf in ("a", "b")})
 """
 
 
@@ -177,3 +188,30 @@ def test_mesh_helpers(runs):
         assert r["plain_batch_axes"].tolist() == ["data"]
         assert int(r["plain_n_pods"]) == 1
         assert int(r["pod_size"]) == int(r["data_size"]) == 2
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at each |x| (8 bits of significand)."""
+    x = np.abs(np.asarray(x, np.float32))
+    exp = np.floor(np.log2(np.maximum(x, np.finfo(np.float32).tiny)))
+    return np.exp2(exp - 7)
+
+
+@pytest.mark.parametrize("case", MEAN_CASES + SYNC_CASES)
+def test_bf16_leaves_match_jax_within_an_ulp(runs, case):
+    """A bfloat16 tree's means stay bfloat16 (accumulated in float32, cast
+    back once) and lie within one bfloat16 ulp of JAX's ``psum_mean`` /
+    ``hierarchical_sync`` of the same bfloat16 tree under ``shard_map``
+    (JAX's unweighted means keep bfloat16; a float32 weight promotes its
+    weighted ones to float32, which the ulp bound covers; the syncs run
+    unweighted, since JAX's ``lax.switch`` refuses branches of bfloat16 and
+    float32)."""
+    ranks, jax_side = runs
+    for r in ranks:
+        assert r["bf16_dtypes"].tolist() == ["torch.bfloat16"]
+    for leaf in LEAVES:
+        got = stacked(ranks, f"bf16_{case}", leaf)
+        want = jax_side[f"bf16_{case}/{leaf}"]
+        if case.startswith(("mean_", "sync_")):
+            assert str(jax_side[f"bf16_{case}/{leaf}/dtype"]) == "bfloat16"
+        assert np.all(np.abs(got - want) <= bf16_ulp(want)), case

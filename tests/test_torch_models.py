@@ -396,7 +396,7 @@ def test_decode_steps_and_greedy_tokens_match_jax():
         logits, jcache = model.decode_step(params, jcache, jtok)
         jtok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         jout.append(np.asarray(jtok))
-    step = make_serve_step(tmodel)
+    step = make_serve_step(tmodel).step_fn
     ttok = torch.argmax(got, dim=-1).to(torch.int32)
     tout = [ttok.numpy()]
     for _ in range(7):
@@ -496,7 +496,7 @@ def test_ssm_decode_steps_and_greedy_tokens_match_jax(arch):
         logits, jcache = model.decode_step(params, jcache, jtok)
         jtok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         jout.append(np.asarray(jtok))
-    step = make_serve_step(tmodel)
+    step = make_serve_step(tmodel).step_fn
     ttok = torch.argmax(got, dim=-1).to(torch.int32)
     tout = [ttok.numpy()]
     for _ in range(7):
@@ -795,7 +795,7 @@ def test_moe_decode_steps_and_greedy_tokens_match_jax(arch):
         logits, jcache = model.decode_step(params, jcache, jtok)
         jtok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         jout.append(np.asarray(jtok))
-    step = make_serve_step(tmodel)
+    step = make_serve_step(tmodel).step_fn
     ttok = torch.argmax(got, dim=-1).to(torch.int32)
     tout = [ttok.numpy()]
     for _ in range(7):
