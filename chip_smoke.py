@@ -3206,6 +3206,15 @@ DISPATCH_OPS = {"index_copy_fwd": ("aten::index_copy_", None),
 TRAIN_TOL, SYNC_TOL, GRAD_TOL_F32 = 1e-4, 1e-6, 1e-5
 
 
+def no_remat(cfg):
+    """``cfg`` with ``remat="none"``: the train phases 21-29 pin it, so
+    that their launch counts (one a forward) and times stay comparable
+    with the runs before the port had ``remat`` (its default is JAX's
+    "block"); phase 30 measures "block" against "none"."""
+    import dataclasses
+    return dataclasses.replace(cfg, remat="none")
+
+
 class StepClock:
     """The ``clock`` of a train step: a CUDA event at each mark; after a
     synchronize, ``split()`` gives the milliseconds from each mark to the
@@ -3537,7 +3546,7 @@ def train_lm_path(dev) -> dict:
     from repro_torch.core import TopKCompressor
     from repro_torch.models import build_model
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = no_remat(get_config(TRAIN_ARCH))
     model = build_model(cfg)
     need = max(TRAIN_SYNC_STEPS, TRAIN_HIER_STEPS) + 1
     data, data_s = train_data(
@@ -3620,8 +3629,8 @@ def train_ssm_path(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(SSM_TRAIN_ARCH),
-                              n_layers=SSM_TRAIN_LAYERS)
+    cfg = no_remat(dataclasses.replace(get_config(SSM_TRAIN_ARCH),
+                                       n_layers=SSM_TRAIN_LAYERS))
     model = build_model(cfg)
     data, data_s = train_data(model, (SSM_TRAIN_STEPS + 1)
                               * SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, dev)
@@ -3822,7 +3831,7 @@ def train_card_vs_cpu(dev, configs=None,
         configs = [(get_config(arch).reduced(dtype="float32"), False)
                    for arch in (TRAIN_ARCH, SSM_TRAIN_ARCH)]
     for cfg, drop in configs:
-        model = build_model(cfg)
+        model = build_model(no_remat(cfg))
         cpu_params = model.init(torch.Generator().manual_seed(3))
         draw = np.random.default_rng(4)
         cpu_batch = {key: torch.tensor(
@@ -4676,7 +4685,7 @@ def train_moe_path(dev) -> dict:
     from repro_torch.models import SHAPES, build_model, moe
 
     full = get_config(MOE_ARCH)
-    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    cfg = no_remat(dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS))
     model = build_model(cfg)
     data, data_s = train_data(model, (MOE_TRAIN_STEPS + 1)
                               * MOE_TRAIN_BATCH, TRAIN_SEQ, dev)
@@ -4703,7 +4712,7 @@ def train_encdec_path(dev) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
-    model = build_model(get_config(ENCDEC_ARCH))
+    model = build_model(no_remat(get_config(ENCDEC_ARCH)))
     data, data_s = train_data(model, (ENCDEC_TRAIN_STEPS + 1)
                               * ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ, dev)
     run = train_run(dev, model, data, phase="train_encdec_sync",
@@ -4726,7 +4735,7 @@ def train_vlm_path(dev) -> dict:
     from repro_torch.core import TopKCompressor
     from repro_torch.models import build_model
 
-    model = build_model(get_config(VLM_ARCH))
+    model = build_model(no_remat(get_config(VLM_ARCH)))
     need = max(VLM_TRAIN_STEPS, VLM_TRAIN_HIER_STEPS) + 1
     data, data_s = train_data(model, need * max(
         VLM_TRAIN_BATCH, TRAIN_PODS * TRAIN_PER_POD), TRAIN_SEQ, dev)
@@ -4844,7 +4853,7 @@ def mesh_plan(device: str = "cuda") -> dict:
 def mesh_config(plan: dict, f32: bool = False):
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = get_config(plan["arch"])
+    cfg = no_remat(get_config(plan["arch"]))
     if plan["reduced"]:
         cfg = cfg.reduced(dtype="bfloat16")
     if f32:
@@ -5449,6 +5458,389 @@ def mesh_path(dev, plan: dict | None = None) -> dict:
                      for ra in a) for key in per_step}
 
 
+# ---- 30: the dry run against the card's own step ----
+
+DRYRUN_PEAK_RTOL = 0.15      # the predicted peak against the measured one
+DRYRUN_DECODE_LEN = SERVE_PROMPT + SERVE_NEW     # phase 10's cache
+DRYRUN_HOST_CALLS = 200
+
+
+def dryrun_host_us(x, scale, q, k, v) -> dict:
+    """Host microseconds a call (``DRYRUN_HOST_CALLS`` enqueues, no
+    synchronize between them) of rmsnorm at phase 10's decode shape and
+    flash's forward at a small one: the wrapper alone (the call before
+    the kernels became operators), through its ``torch.ops.repro_torch``
+    operator, and through ``ops`` (the model's entry point)."""
+    import torch
+    from repro_torch.kernels import flash_attention, ops, rmsnorm
+    calls = {
+        "rmsnorm": {"wrapper": lambda: rmsnorm.rmsnorm(x, scale),
+                    "operator": lambda: rmsnorm.rmsnorm_op(x, scale, 1e-6),
+                    "ops": lambda: ops.rmsnorm(x, scale)},
+        "flash_attention": {
+            "wrapper": lambda: flash_attention.flash_attention(q, k, v),
+            "operator": lambda: flash_attention.flash_attention_fwd(q, k, v),
+            "ops": lambda: ops.flash_attention(q, k, v)}}
+    out = {}
+    with torch.inference_mode():
+        for kernel, fns in calls.items():
+            out[kernel] = {}
+            for route, fn in fns.items():
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DRYRUN_HOST_CALLS):
+                    fn()
+                out[kernel][route] = (1e6 * (time.perf_counter() - t0)
+                                      / DRYRUN_HOST_CALLS)
+                torch.cuda.synchronize()
+    return out
+
+
+def dryrun_train_side(dev, model, batch) -> dict:
+    """The card's side of phase 30 (a) and (b) for one ``remat``: a step's
+    FLOPs under ``FlopCounterMode``, two timed steps after a warm-up one
+    (s each, and the peak bytes above what the process held beside the
+    step's own tensors), from seed 0's float32 params."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec
+    from repro_torch.utils import tree_leaves
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_SYNC_BATCH, "train")
+    bundle = make_train_step(model, shape, device=dev)
+    params, opt, step = bundle.init_state(
+        model.init(torch.Generator(device=dev).manual_seed(0)))
+    params, opt, step, loss0 = bundle.step_fn(params, opt, step, batch)
+    torch.cuda.synchronize()
+    args = [t for t in tree_leaves((params, opt, batch)) + [step]]
+    arg_bytes = sum({t.untyped_storage().data_ptr():
+                     t.untyped_storage().nbytes() for t in args}.values())
+    torch.cuda.empty_cache()
+    other = torch.cuda.memory_allocated() - arg_bytes
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        params, opt, step, loss = bundle.step_fn(params, opt, step, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - other
+    with FlopCounterMode(display=False) as fc:
+        bundle.step_fn(params, opt, step, batch)
+    torch.cuda.synchronize()
+    del params, opt
+    torch.cuda.empty_cache()
+    return dict(flops=fc.get_total_flops(), s=times, peak=peak,
+                arg_bytes=arg_bytes, other=other, first_loss=float(loss0),
+                loss=float(loss))
+
+
+# (f): one cell of each family that phases 24-27 train, as they cut it:
+# (arch, layers or None for the whole model, rows, sequence)
+REMAT_CELLS = ((MOE_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, TRAIN_SEQ),
+               (SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, SSM_TRAIN_BATCH,
+                SSM_TRAIN_SEQ),
+               (ENCDEC_ARCH, None, ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ),
+               (VLM_ARCH, None, VLM_TRAIN_BATCH, TRAIN_SEQ))
+REMAT_KERNELS = ("flash_attention", "rmsnorm", "ssd_state_scan")
+
+
+def remat_launches() -> dict:
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    return dict(flash_attention=flash_attention.LAUNCHES,
+                flash_attention_bwd=flash_attention.BWD_LAUNCHES,
+                rmsnorm=rmsnorm.LAUNCHES, ssd_state_scan=ssd_scan.LAUNCHES)
+
+
+def remat_close(got, want, zero_scale: float | None) -> tuple[float, bool]:
+    """``grad_close`` at ``TRAIN_TOL`` of two gradients of one leaf; a leaf
+    whose exact gradient is zero (``zero_grad_scales``) is held at the
+    larger of its weight's scale and its own largest value: both sides are
+    rounding noise, in bf16 above ``TRAIN_TOL`` of that scale."""
+    import torch
+    if zero_scale is None:
+        return grad_close(got, want, TRAIN_TOL)
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs()
+    scale = max(zero_scale, float(want.abs().max()))
+    return float(err.max()), bool(torch.isfinite(got).all()
+                                  and (err <= TRAIN_TOL * scale).all())
+
+
+def remat_families(dev) -> dict:
+    """Phase 30 (f): ``remat="block"``, every family's default, against
+    "none" on the card for one cell of each family that phases 24-27 train
+    with "none" pinned (``REMAT_CELLS``: deepseek cut to
+    ``MOE_TRAIN_LAYERS``, mamba2 to ``SSM_TRAIN_LAYERS``, whisper and
+    internvl2 whole, at those phases' batches; float32 params, bf16
+    activations). One loss-and-gradients call each from the same params
+    and batch ("block" first, after an untimed warm-up call): the loss bit for bit, the gradients within
+    ``TRAIN_TOL`` (``remat_close``), and each kernel's launches: every forward
+    kernel the family runs launches more often under "block" (its
+    recomputation), flash's backward as often. Returns the launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_unflatten
+
+    smi = nvidia_smi_line()
+    total = dict.fromkeys(remat_launches(), 0)
+    failed = []
+    for arch, layers, rows, seq in REMAT_CELLS:
+        base = get_config(arch)
+        if layers is not None:
+            base = dataclasses.replace(base, n_layers=layers)
+        assert base.remat == "block"
+        params = build_model(base).init(
+            torch.Generator(device=dev).manual_seed(0))
+        batch, _ = train_data(build_model(base), rows, seq, dev)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        # one untimed call first: a process's first call at a family's
+        # shapes pays its set-up (40x the step for deepseek alone)
+        _loss_and_grads(build_model(dataclasses.replace(base, remat="none")),
+                        params, batch, 1.0, lambda _: None)
+        runs = {}
+        for remat in ("block", "none"):
+            model = build_model(dataclasses.replace(base, remat=remat))
+            flash_attention.LAUNCHES = flash_attention.BWD_LAUNCHES = 0
+            rmsnorm.LAUNCHES = ssd_scan.LAUNCHES = 0
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, grads = _loss_and_grads(model, params, batch, 1.0,
+                                          lambda _: None)
+            torch.cuda.synchronize()
+            runs[remat] = dict(loss=loss, grads=grads,
+                               s=time.perf_counter() - t0,
+                               peak=torch.cuda.max_memory_allocated() - held,
+                               launches=remat_launches())
+        blk, non = runs["block"], runs["none"]
+        scales = zero_grad_scales(base, tree_unflatten(params, non["grads"]))
+        pairs = [remat_close(a, b, z)
+                 for a, b, z in zip(blk["grads"], non["grads"], scales)]
+        bitwise = all(bool(torch.equal(a, b))
+                      for a, b in zip(blk["grads"], non["grads"]))
+        lb, ln = blk["launches"], non["launches"]
+        recomputed = all(lb[k] > ln[k] for k in REMAT_KERNELS if ln[k])
+        checks = dict(loss_bitwise=bool(torch.equal(blk["loss"],
+                                                    non["loss"])),
+                      grads_within_tol=all(ok for _, ok in pairs),
+                      forward_recomputed=recomputed and any(ln.values()),
+                      backward_as_often=(lb["flash_attention_bwd"]
+                                         == ln["flash_attention_bwd"]))
+        emit("dryrun_remat_family", arch=arch, n_layers=base.n_layers,
+             rows=rows, seq=seq, dtype=base.dtype, param_dtype="float32",
+             loss_block=float(blk["loss"]), loss_none=float(non["loss"]),
+             grad_max_err=max(e for e, _ in pairs), grad_tol=TRAIN_TOL,
+             grads_bitwise=bitwise, s_block=blk["s"], s_none=non["s"],
+             time_ratio=blk["s"] / non["s"], peak_block=blk["peak"],
+             peak_none=non["peak"], peak_ratio=blk["peak"] / non["peak"],
+             launches_block=lb, launches_none=ln, checks=checks,
+             nvidia_smi=smi)
+        if not all(checks.values()):
+            failed.append((arch, checks))
+        for k in total:
+            total[k] += lb[k] + ln[k]
+        del params, batch, runs, blk, non, pairs
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"dryrun_remat_family: {failed}")
+    return total
+
+
+def dryrun_path(dev) -> dict:
+    """Phase 30: the port's dry run (``launch/dryrun.py``) against the
+    card. (a) The one-rank count of phase 22's cell (qwen3-0.6b, train_4k
+    at batch 4, sync, float32 params, bf16 activations, ``remat="block"``)
+    on fake tensors against a real step: the FLOPs equal, the predicted
+    peak within ``DRYRUN_PEAK_RTOL`` of the measured one, the H100
+    roofline terms and max(term) over the measured step. (b) The same
+    with ``remat="none"``: the first loss bit for bit and the gradients
+    within ``TRAIN_TOL``; both times and peaks. (c) The count check of
+    phase 9's prefill (4 x 4096) and of a phase-10 decode step. (d) The
+    production-mesh dry run of qwen3-0.6b train_4k (a process of its own:
+    it holds a fake process group of 256 ranks). (e) The custom
+    operators' host cost a call. (f) ``remat_families``: "block" against
+    "none" for the MoE, SSM, encoder-decoder and VLM families. Returns the
+    kernels' launches."""
+    import dataclasses
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import H100, roofline_terms
+    from repro_torch.launch.steps import _loss_and_grads
+    from repro_torch.models import ShapeSpec, build_model
+
+    smi = nvidia_smi_line()
+    cfg = get_config(TRAIN_ARCH)
+    assert cfg.remat == "block" and cfg.dtype == "bfloat16"
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_SYNC_BATCH, "train")
+    data, _ = train_data(build_model(cfg), TRAIN_SYNC_BATCH, TRAIN_SEQ, dev)
+    batch = {k: v.to(dev) for k, v in data.items()}
+
+    # (a) and (b): the fake counts, then the card's steps
+    flash_attention.LAUNCHES = flash_attention.BWD_LAUNCHES = 0
+    rmsnorm.LAUNCHES = 0
+    sides = {}
+    for remat in ("block", "none"):
+        c = dataclasses.replace(cfg, remat=remat)
+        t0 = time.perf_counter()
+        fake = dryrun.count_train_step(c, shape)["step"]
+        fake_s = time.perf_counter() - t0
+        card = dryrun_train_side(dev, build_model(c), batch)
+        step_s = min(card["s"])
+        terms = roofline_terms(fake.cost(), fake.collectives.stats(),
+                               n_chips=1, model_flops=dryrun.
+                               _train_flops_estimate(c, shape))
+        sides[remat] = dict(
+            fake_flops=fake.flops, card_flops=card["flops"],
+            fake_bytes=fake.bytes, fake_s=fake_s,
+            predicted_peak=fake.peak_bytes,
+            predicted_arguments=fake.argument_bytes,
+            measured_peak=card["peak"], measured_arguments=card["arg_bytes"],
+            peak_rel_err=(fake.peak_bytes - card["peak"]) / card["peak"],
+            s_per_step=card["s"], first_loss=card["first_loss"],
+            roofline={k: getattr(terms, k) for k in (
+                "compute_s", "memory_s", "collective_s", "dominant",
+                "flops_ratio")},
+            roofline_fraction=max(terms.compute_s, terms.memory_s,
+                                  terms.collective_s) / step_s)
+    launched = dict(flash_attention=flash_attention.LAUNCHES,
+                    flash_attention_bwd=flash_attention.BWD_LAUNCHES,
+                    rmsnorm=rmsnorm.LAUNCHES)
+
+    # (b) gradients: both remats from the same params and batch
+    grads = {}
+    for remat in ("block", "none"):
+        model = build_model(dataclasses.replace(cfg, remat=remat))
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        loss, g = _loss_and_grads(model, params, batch, 1.0, lambda _: None)
+        grads[remat] = (loss, g)
+        del params
+    (lb, gb), (ln, gn) = grads["block"], grads["none"]
+    grad_err = max(grad_close(a, b, TRAIN_TOL)[0] for a, b in zip(gb, gn))
+    grads_ok = all(grad_close(a, b, TRAIN_TOL)[1] for a, b in zip(gb, gn))
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(gb, gn))
+    del grads, gb, gn
+    torch.cuda.empty_cache()
+    a, b = sides["block"], sides["none"]
+    emit("dryrun_train", arch=cfg.name, batch=TRAIN_SYNC_BATCH,
+         seq=TRAIN_SEQ, dtype=cfg.dtype, param_dtype="float32",
+         hw=H100, nvidia_smi=smi, block=a, none=b,
+         loss_block=float(lb), loss_none=float(ln),
+         loss_bitwise=bool(torch.equal(lb, ln)), grad_max_err=grad_err,
+         grad_tol=TRAIN_TOL, grads_bitwise=bitwise,
+         remat_time_ratio=min(a["s_per_step"]) / min(b["s_per_step"]),
+         remat_peak_ratio=a["measured_peak"] / b["measured_peak"],
+         peak_rtol=DRYRUN_PEAK_RTOL, launches=launched)
+    for remat, side in sides.items():
+        if side["fake_flops"] != side["card_flops"]:
+            raise AssertionError(f"dryrun_train: remat={remat}: the fake "
+                                 f"count {side['fake_flops']} != the card's "
+                                 f"{side['card_flops']}")
+    if abs(a["peak_rel_err"]) > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dryrun_train: predicted peak "
+                             f"{a['predicted_peak']} vs measured "
+                             f"{a['measured_peak']}")
+    if not (torch.equal(lb, ln) and grads_ok):
+        raise AssertionError(f"dryrun_train: remat changes the loss "
+                             f"({float(lb)!r} vs {float(ln)!r}) or the "
+                             f"gradients (max error {grad_err})")
+    if not all(launched.values()):
+        raise AssertionError(f"dryrun_train: a kernel was not launched: "
+                             f"{launched}")
+
+    # (c) prefill and decode: the fake count against the card's
+    model = build_model(cfg)
+    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
+    pre_batch = {"tokens": torch.zeros(PREFILL_BATCH, PREFILL_SEQ + 1,
+                                       dtype=torch.int32, device=dev)}
+    prompts = torch.zeros(SERVE_REQUESTS, 1, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        cache = model.decode_init(params, {"tokens": prompts},
+                                  DRYRUN_DECODE_LEN)
+        with FlopCounterMode(display=False) as fc:
+            model.logits(params, pre_batch)
+        card_prefill = fc.get_total_flops()
+        with FlopCounterMode(display=False) as fc:
+            model.decode_step(params, cache, prompts[:, 0])
+        card_decode = fc.get_total_flops()
+    del params, cache
+    torch.cuda.empty_cache()
+    with FakeTensorMode(), torch.inference_mode():
+        fparams = model.init_serving(torch.Generator())
+        _, f_pre = dryrun.count_call(model.logits, fparams, {
+            "tokens": torch.zeros(PREFILL_BATCH, PREFILL_SEQ + 1,
+                                  dtype=torch.int32)})
+        ftok = torch.zeros(SERVE_REQUESTS, 1, dtype=torch.int32)
+        fcache = model.decode_init(fparams, {"tokens": ftok},
+                                   DRYRUN_DECODE_LEN)
+        _, f_dec = dryrun.count_call(model.decode_step, fparams, fcache,
+                                     ftok[:, 0])
+    counts = dict(prefill=[f_pre.flops, card_prefill],
+                  decode=[f_dec.flops, card_decode])
+    emit("dryrun_serve", arch=cfg.name, prefill=[PREFILL_BATCH, PREFILL_SEQ],
+         decode=[SERVE_REQUESTS, DRYRUN_DECODE_LEN], flops_fake_card=counts,
+         prefill_bytes=f_pre.bytes, decode_bytes=f_dec.bytes,
+         nvidia_smi=smi)
+    if any(f != c for f, c in counts.values()):
+        raise AssertionError(f"dryrun_serve: fake and card counts differ: "
+                             f"{counts}")
+
+    # (d) the production mesh, in a process of its own
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             TRAIN_ARCH, "--shape", "train_4k", "--mesh", "single",
+             "--out", tmp], capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT)
+        mesh_s = time.perf_counter() - t0
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(("OK", "FAIL"))]
+        path = Path(tmp) / f"{TRAIN_ARCH}__train_4k__single__sync.json"
+        record = json.loads(path.read_text()) if path.exists() else None
+    import importlib.util
+    emit("dryrun_mesh", line=lines, seconds=mesh_s, rc=proc.returncode,
+         torch=torch.__version__, fake_collectives_module=importlib.util.
+         find_spec("torch.distributed._tools.fake_collectives") is not None,
+         record={k: record[k] for k in ("mesh", "per_device_bytes",
+                                        "flops_per_partition",
+                                        "bytes_per_partition", "roofline",
+                                        "probe")} if record else None,
+         stderr=proc.stderr[-2000:] if proc.returncode else "")
+    if proc.returncode != 0 or record is None:
+        raise AssertionError("dryrun_mesh: the production-mesh dry run "
+                             "failed")
+
+    # (e) the operators' host cost a call
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.randn(SERVE_REQUESTS, 1024, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    scale = torch.ones(1024, device=dev)
+    q = torch.randn(1, 128, 2, 128, generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    host = dryrun_host_us(x, scale, q, q[:, :, :1].contiguous(),
+                          q[:, :, :1].contiguous())
+    emit("dryrun_host", us_per_call=host, calls=DRYRUN_HOST_CALLS,
+         rmsnorm_shape=list(x.shape), flash_shape=[1, 128, 2, 128],
+         nvidia_smi=smi)
+    del x, scale, q
+    torch.cuda.empty_cache()
+
+    # (f) remat on the other families' train paths
+    families = remat_families(dev)
+    return {k: launched.get(k, 0) + families[k] for k in families}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5954,6 +6346,9 @@ def main() -> int:
 
     # ---- 29. the model zoo over a mesh of ranks on the one card ----
     mesh_launches = mesh_path(dev)
+
+    # ---- 30. the dry run against the card's own step ----
+    dryrun_path(dev)
 
     no_train = {name: 0 for name in train_paths}
     t_rms, t_fla, t_scan = (train_entry(k, bwd, train_paths)

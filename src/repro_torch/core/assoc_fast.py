@@ -905,7 +905,8 @@ class FastAssociationEngine:
                 best = masked.min()
                 p = torch.where(masked == best, sh.flat_order,
                                 _I64_BIG).argmin()
-                pairs.append((best, sh.flat_order[p]))
+                # a 1-element index: a 0-d one is read on the host
+                pairs.append((best, sh.flat_order[p.reshape(1)][0]))
             return fold(pairs)
 
         def best_exchange(pairs: torch.Tensor):
@@ -958,6 +959,7 @@ class FastAssociationEngine:
         exchange_s = 0.0
         while moves < max_moves:
             best, order = best_transfer()
+            # hfellint: disable=HFEL003 -- the round's one host sync
             best_v, order_v = torch.stack([best.double(),
                                            order.double()]).tolist()
             if math.isfinite(best_v):
@@ -974,11 +976,13 @@ class FastAssociationEngine:
                 pairs = prng.randint(sub, (exchange_samples, 2), 0, n)
                 exchange_rounds += 1
                 best, e = best_exchange(pairs.to(dev))
+                # hfellint: disable=HFEL003 -- the round's one host sync
                 best_v, e_v = torch.stack([best.double(),
                                            e.double()]).tolist()
                 exchange_s += time.perf_counter() - te
                 if not math.isfinite(best_v):
                     break
+                # hfellint: disable=HFEL003 -- the proposal lies on the host
                 dn, dm = pairs[int(e_v)].tolist()
                 t_src, t_dst = int(assign[dn]), int(assign[dm])
                 move(dn, t_src, t_dst)

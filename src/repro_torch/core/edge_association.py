@@ -321,7 +321,7 @@ def _true_cost_terms(sc: Scenario, active: np.ndarray, assignment: np.ndarray,
     e, d, c = global_cost(dev, sc.srv, t(assignment), t(f),
                           t(np.maximum(np.asarray(beta), np.float32(1e-9))),
                           sc.lp)
-    return float(e), float(d), float(c)
+    return tuple(torch.stack([e, d, c]).tolist())     # one host sync
 
 
 def _gather_f_beta(masks: torch.Tensor, sols: ra.RASolution):

@@ -41,6 +41,7 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
@@ -358,6 +359,94 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+# The kernels' entry points as PyTorch operators: each dispatches by device
+# as above (its implementation calls this module's function, looked up at
+# call time), has a fake implementation that gives its outputs' shapes (so
+# fake tensors never run the plain version's score-sized float32 work), and
+# a FLOP formula for ``FlopCounterMode`` (the bound's count). They are
+# defined through a ``Library`` as ``rmsnorm``'s is.
+
+def _fwd_impl(q, k, v, causal, scale, return_lse):
+    if return_lse:
+        return flash_attention(q, k, v, causal=causal, scale=scale,
+                               return_lse=True)
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    return out, out.new_empty(0, dtype=torch.float32)
+
+
+def _bwd_impl(q, k, v, o, lse, g, causal, scale):
+    return flash_attention_backward(q, k, v, o, lse, g, causal=causal,
+                                    scale=scale)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float? scale, bool return_lse) -> (Tensor, Tensor)")
+_LIB.define("flash_attention_backward(Tensor q, Tensor k, Tensor v, "
+            "Tensor o, Tensor lse, Tensor g, bool causal, float? scale) "
+            "-> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_attention_fwd", _fwd_impl, "CompositeExplicitAutograd")
+_LIB.impl("flash_attention_backward", _bwd_impl, "CompositeExplicitAutograd")
+_fwd_op = torch.ops.repro_torch.flash_attention_fwd.default
+_bwd_op = torch.ops.repro_torch.flash_attention_backward.default
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd", lib=_LIB)
+def _(q, k, v, causal, scale, return_lse):
+    _check(q, k, v, 1, 1)
+    b, sq, hq, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, hq, sq) if return_lse else (0,),
+                        dtype=torch.float32))
+
+
+@torch.library.register_fake("repro_torch::flash_attention_backward",
+                             lib=_LIB)
+def _(q, k, v, o, lse, g, causal, scale):
+    _check(q, k, v, 1, 1)
+    _check_bwd(q, o, lse, g)
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """The (q, kv) pairs a head computes: all of them, or under the
+    top-left causal mask (kv_pos <= q_pos) sum over q rows of
+    min(row + 1, skv)."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + (sq - n) * skv
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """QK^T and PV over the visible pairs, 2 operations a multiply-add (the
+    softmax's exponentials are not counted): the bound's count."""
+    b, sq, hq, hd = q_shape
+    return 4 * b * hq * hd * visible_pairs(sq, k_shape[1], args[1])
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """The backward's five products (S, dP, dV, dK, dQ) over the visible
+    pairs: 5/2 of the forward's count."""
+    b, sq, hq, hd = q_shape
+    return 10 * b * hq * hd * visible_pairs(sq, k_shape[1], args[4])
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, block_q: int = 512,
+                        block_kv: int = 512,
+                        softmax_scale: float | None = None) -> torch.Tensor:
+    """The forward alone, with the JAX package's signature: q (B, Sq, Hq,
+    hd), k and v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd), through the
+    ``repro_torch::flash_attention_fwd`` operator (no gradient; for one,
+    call :func:`repro_torch.kernels.ops.flash_attention`)."""
+    _check(q, k, v, block_q, block_kv)
+    return _fwd_op(q, k, v, causal, softmax_scale, False)[0]
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention` with :func:`flash_attention_backward` as its
     backward; q, k, v, the output and the rows' logsumexp are saved, no
@@ -365,9 +454,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_kv, scale=None):
-        out, lse = flash_attention(q, k, v, causal=causal, block_q=block_q,
-                                   block_kv=block_kv, scale=scale,
-                                   return_lse=True)
+        _check(q, k, v, block_q, block_kv)
+        out, lse = _fwd_op(q, k, v, causal, scale, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         ctx.scale = scale
@@ -378,8 +466,7 @@ class FlashAttentionFn(torch.autograd.Function):
         global BACKWARD_CALLS
         q, k, v, o, lse = ctx.saved_tensors
         with torch.profiler.record_function("flash_attention_bwd"):
-            dq, dk, dv = flash_attention_backward(
-                q, k, v, o, lse, g.contiguous(), causal=ctx.causal,
-                scale=ctx.scale)
+            dq, dk, dv = _bwd_op(q, k, v, o, lse, g.contiguous(),
+                                 ctx.causal, ctx.scale)
         BACKWARD_CALLS += 1
         return dq, dk, dv, None, None, None, None

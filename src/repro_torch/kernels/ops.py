@@ -11,6 +11,14 @@ when an input needs a gradient the call goes through the kernel's
 backward dispatches the same way (its backward kernel on the card);
 rmsnorm's and the scan's backward is one plain PyTorch function on both
 devices. Without a gradient the call goes to the dispatch directly.
+
+The dispatches are PyTorch operators (``torch.ops.repro_torch.
+flash_attention_fwd``, ``flash_attention_backward``, ``rmsnorm``,
+``ssd_state_scan``; the Functions call them too): each has a fake
+implementation, so a step on fake tensors (``launch/dryrun.py``) sees the
+kernel's outputs without running the plain version, and a FLOP formula,
+so ``FlopCounterMode`` counts the kernel's work (the bound's count) on
+either device.
 """
 
 from __future__ import annotations
@@ -20,12 +28,14 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import ssd_scan as _ssd_scan
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.golden_section import golden_section_solve
 from repro_torch.kernels.hier_aggregate import hier_aggregate
 from repro_torch.utils import tree_leaves, tree_unflatten
 
-__all__ = ["flash_attention", "golden_section_solve", "hier_aggregate",
-           "hier_aggregate_tree", "rmsnorm", "ssd_state_scan"]
+__all__ = ["flash_attention", "flash_attention_fwd", "golden_section_solve",
+           "hier_aggregate", "hier_aggregate_tree", "rmsnorm",
+           "ssd_state_scan"]
 
 
 def _needs_grad(*tensors) -> bool:
@@ -41,8 +51,8 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
     if _needs_grad(q, k, v):
         return _flash.FlashAttentionFn.apply(q, k, v, causal, block_q,
                                              block_kv, scale)
-    return _flash.flash_attention(q, k, v, causal=causal, block_q=block_q,
-                                  block_kv=block_kv, scale=scale)
+    return flash_attention_fwd(q, k, v, causal=causal, block_q=block_q,
+                               block_kv=block_kv, softmax_scale=scale)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
@@ -50,7 +60,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     (:class:`rmsnorm.RMSNormFn`)."""
     if _needs_grad(x, scale):
         return _rmsnorm.RMSNormFn.apply(x, scale, eps)
-    return _rmsnorm.rmsnorm(x, scale, eps=eps)
+    return _rmsnorm.rmsnorm_op(x, scale, eps)
 
 
 def ssd_state_scan(states, decay, initial_state=None):
@@ -58,7 +68,7 @@ def ssd_state_scan(states, decay, initial_state=None):
     (:class:`ssd_scan.SSDStateScanFn`)."""
     if _needs_grad(states, decay, initial_state):
         return _ssd_scan.SSDStateScanFn.apply(states, decay, initial_state)
-    return _ssd_scan.ssd_state_scan(states, decay, initial_state)
+    return _ssd_scan.ssd_state_scan_op(states, decay, initial_state)
 
 
 def hier_aggregate_tree(trees: list, weights):

@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
@@ -122,6 +123,35 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return y
 
 
+# :func:`rmsnorm` as a PyTorch operator, ``repro_torch::rmsnorm``
+# (dispatching as above; a fake implementation for fake tensors, a FLOP
+# formula for ``FlopCounterMode``). It is defined through a ``Library``
+# rather than ``torch.library.custom_op``, whose Python wrapper costs
+# several times the host time a call.
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("rmsnorm(Tensor x, Tensor scale, float eps) -> Tensor")
+_LIB.impl("rmsnorm", lambda x, scale, eps: rmsnorm(x, scale, eps=eps),
+          "CompositeExplicitAutograd")
+rmsnorm_op = torch.ops.repro_torch.rmsnorm.default
+
+
+@torch.library.register_fake("repro_torch::rmsnorm", lib=_LIB)
+def _(x, scale, eps):
+    _check(x, scale)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.repro_torch.rmsnorm)
+def _(x_shape, *args, out_shape=None, **kwargs) -> int:
+    """4 operations an element (square, add, two multiplies): the bound's
+    count."""
+    n = 1
+    for d in x_shape:
+        n *= d
+    return 4 * n
+
+
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, *,
                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """The VJP of :func:`rmsnorm` at ``(x, scale)`` for the output
@@ -146,7 +176,7 @@ class RMSNormFn(torch.autograd.Function):
     def forward(ctx, x, scale, eps):
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
-        return rmsnorm(x, scale, eps=eps)
+        return rmsnorm_op(x, scale, eps)
 
     @staticmethod
     def backward(ctx, g):

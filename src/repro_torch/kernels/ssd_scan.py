@@ -29,6 +29,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 
@@ -113,6 +114,37 @@ def ssd_state_scan(states: torch.Tensor, decay: torch.Tensor,
     return entering, final
 
 
+# :func:`ssd_state_scan` as a PyTorch operator,
+# ``repro_torch::ssd_state_scan`` (dispatching as above; a fake
+# implementation for fake tensors, a FLOP formula for ``FlopCounterMode``),
+# defined through a ``Library`` as ``rmsnorm``'s is
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("ssd_state_scan(Tensor states, Tensor decay, "
+            "Tensor? initial_state) -> (Tensor, Tensor)")
+_LIB.impl("ssd_state_scan",
+          lambda states, decay, initial_state: ssd_state_scan(
+              states, decay, initial_state), "CompositeExplicitAutograd")
+ssd_state_scan_op = torch.ops.repro_torch.ssd_state_scan.default
+
+
+@torch.library.register_fake("repro_torch::ssd_state_scan", lib=_LIB)
+def _(states, decay, initial_state):
+    _check(states, decay, initial_state)
+    _, b, h, n, p = states.shape
+    return (torch.empty_like(states, memory_format=torch.contiguous_format),
+            states.new_empty((b, h, n, p)))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_state_scan)
+def _(states_shape, *args, out_shape=None, **kwargs) -> int:
+    """A multiply and an add per state element: the bound's count."""
+    n = 1
+    for d in states_shape:
+        n *= d
+    return 2 * n
+
+
 def ssd_state_scan_bwd(decay: torch.Tensor, entering: torch.Tensor,
                        g_entering: torch.Tensor, g_final: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -142,7 +174,7 @@ class SSDStateScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, states, decay, initial_state):
-        entering, final = ssd_state_scan(states, decay, initial_state)
+        entering, final = ssd_state_scan_op(states, decay, initial_state)
         ctx.save_for_backward(decay, entering)
         ctx.dtypes = (states.dtype, decay.dtype,
                       None if initial_state is None else initial_state.dtype)

@@ -2,13 +2,18 @@
 ``repro.models.config`` (which imports no JAX; the port keeps its own copy
 all the same, so it never imports the JAX package).
 
-The port's :class:`ModelConfig` holds the architecture fields and the
-activation ``dtype``. The JAX config's other fields steer its training
-and its kernels (``remat``, ``scan_layers``, ``attn_vjp``, the blocked
-attention's ``attn_block_q``/``attn_block_kv``, ``use_flash_kernel``);
-nothing in the port reads them, so it has none of them: its attention
-always runs the flash-attention kernel on the card, with a tile of its
-own.
+The port's :class:`ModelConfig` holds the architecture fields, the
+activation ``dtype`` and ``remat``, the JAX config's activation
+checkpointing: "none" keeps every layer's activations for the backward;
+"block" and "full" (the same in both packages) keep each stacked layer's
+input and recompute the layer in the backward, where the JAX package
+wraps the layer in ``jax.checkpoint`` (``torch.utils.checkpoint``). The
+JAX config's other fields steer its XLA lowering and its kernels
+(``scan_layers``, ``attn_vjp``, the blocked attention's
+``attn_block_q``/``attn_block_kv``, ``use_flash_kernel``); nothing in the
+port reads them, so it has none of them: its layers run eagerly one at a
+time, and its attention always runs the flash-attention kernel on the
+card (forward and backward), with a tile of its own.
 
 One :class:`ModelConfig` describes any of the assigned families:
 dense decoder-only LMs (olmo/qwen2/qwen3), MoE LMs (kimi-k2,
@@ -22,6 +27,9 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+REMAT_MODES = ("none", "block", "full")
 
 
 @dataclass(frozen=True)
@@ -91,6 +99,12 @@ class ModelConfig:
     n_vision_tokens: int = 0
 
     dtype: str = "bfloat16"        # activations (params stay float32)
+    remat: str = "block"           # none | block | full
+
+    def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                             f"{self.remat!r}")
 
     @property
     def resolved_head_dim(self) -> int:

@@ -6,6 +6,8 @@ package: ``frames`` arrive as precomputed post-conv frame embeddings
 runs full (non-causal) self-attention; the decoder adds learned positions
 and runs causal self-attention and cross-attention to the encoder output.
 LayerNorm with a bias, tanh GELU and a tied read-out, as Whisper has them.
+Each encoder and decoder layer runs under ``cfg.remat``'s checkpointing
+(:func:`transformer.maybe_remat`), as JAX's scan bodies do.
 
 Every attention over a whole sequence goes through
 :func:`ops.flash_attention` (the kernel on the card, its plain version on
@@ -40,7 +42,7 @@ from repro_torch.models.layers import (apply_norm, cross_entropy, dense,
                                        norm_init, sinusoidal_positions,
                                        unembed)
 from repro_torch.models.transformer import (cast_params, layer_slices,
-                                            stacked_init)
+                                            maybe_remat, stacked_init)
 
 
 def _norm(cfg, device):
@@ -121,11 +123,25 @@ def encode(params, cfg, frames):
     s = frames.shape[1]
     x = frames + sinusoidal_positions(s, cfg.d_model,
                                       frames.device).to(frames.dtype)
+    block = maybe_remat(cfg, _enc_block)
     for layer in layer_slices(params["enc_blocks"], cfg.n_encoder_layers):
-        x = x + attention(layer["attn"], cfg, _an(cfg, layer["norm1"], x),
-                          causal=False, rope=False)
-        x = x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
+        x = block(layer, cfg, x)
     return _an(cfg, params["enc_norm"], x)
+
+
+def _enc_block(layer, cfg, x):
+    x = x + attention(layer["attn"], cfg, _an(cfg, layer["norm1"], x),
+                      causal=False, rope=False)
+    return x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
+
+
+def _dec_block(layer, cfg, x, enc):
+    x = x + attention(layer["self_attn"], cfg, _an(cfg, layer["norm1"], x),
+                      causal=True, rope=False)
+    kv = cross_kv(layer["cross_attn"], cfg, enc)
+    x = x + _cross_attn(layer["cross_attn"], cfg,
+                        _an(cfg, layer["norm_x"], x), kv)
+    return x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
 
 
 def encdec_forward(params, cfg, frames, tokens):
@@ -134,14 +150,9 @@ def encdec_forward(params, cfg, frames, tokens):
     s = tokens.shape[1]
     x = _embed(params, cfg, tokens).to(enc.dtype)
     x = x + params["pos_embed"][:s].to(x.dtype)
+    block = maybe_remat(cfg, _dec_block)
     for layer in layer_slices(params["dec_blocks"], cfg.n_layers):
-        x = x + attention(layer["self_attn"], cfg,
-                          _an(cfg, layer["norm1"], x), causal=True,
-                          rope=False)
-        kv = cross_kv(layer["cross_attn"], cfg, enc)
-        x = x + _cross_attn(layer["cross_attn"], cfg,
-                            _an(cfg, layer["norm_x"], x), kv)
-        x = x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
+        x = block(layer, cfg, x, enc)
     x = _an(cfg, params["dec_norm"], x)
     return _logits(params, cfg, x)
 

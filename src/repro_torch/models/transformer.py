@@ -25,6 +25,7 @@ from __future__ import annotations
 from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import (attention, attention_decode,
                                           attention_init, init_kv_cache,
@@ -143,6 +144,12 @@ def dense_block_apply(params, cfg, x):
                    split=pjit_hints.mlp_split(cfg))
 
 
+# zamba2's weight-tied shared attention+MLP block, under the JAX package's
+# names: the dense block's structure and function
+shared_attn_init = dense_block_init
+shared_attn_apply = dense_block_apply
+
+
 def block_apply(params, cfg, x, aux):
     if cfg.family in SSM_FAMILIES:
         return x + ssm_apply(params["ssm"], cfg,
@@ -220,15 +227,30 @@ def lm_init(cfg, gen: torch.Generator, dtype: torch.dtype | None = None):
     return params
 
 
+def maybe_remat(cfg, fn):
+    """``fn`` under activation checkpointing when ``cfg.remat`` asks for it
+    and autograd records (the JAX package's ``_maybe_remat``): the
+    backward recomputes ``fn`` from its saved inputs instead of keeping
+    its activations. The layers draw no random numbers, so no RNG state
+    is stashed for the recomputation."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return partial(checkpoint, fn, use_reentrant=False,
+                   preserve_rng_state=False)
+
+
 def _run_stack(params, cfg, x):
     """Run the layer stack, one layer slice at a time, with zamba2's shared
-    block after every ``period`` layers. Returns (x, aux), aux summed over
-    the MoE layers."""
+    block after every ``period`` layers; each stacked layer under
+    :func:`maybe_remat`, as JAX's scan body (the leading dense layers and
+    the shared block are not, as in JAX). Returns (x, aux), aux summed
+    over the MoE layers."""
     aux = torch.zeros((), device=x.device)
     period = _shared_period(cfg)
+    block = maybe_remat(cfg, block_apply)
     for i, layer in enumerate(layer_slices(params["blocks"],
                                       _n_stack_layers(cfg))):
-        x, aux = block_apply(layer, cfg, x, aux)
+        x, aux = block(layer, cfg, x, aux)
         if period and (i + 1) % period == 0:
             x = dense_block_apply(params["shared_attn"], cfg, x)
     return x, aux

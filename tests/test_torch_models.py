@@ -116,7 +116,7 @@ def close(got, want, tol):
 
 # the JAX config's fields that steer its training and kernels; the port
 # reads none of them and has none of them
-JAX_ONLY_FIELDS = {"remat", "scan_layers", "attn_vjp", "attn_block_q",
+JAX_ONLY_FIELDS = {"scan_layers", "attn_vjp", "attn_block_q",
                    "attn_block_kv", "use_flash_kernel"}
 
 

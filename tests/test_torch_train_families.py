@@ -221,7 +221,12 @@ def test_moe_model_loss_and_gradients_with_drops_match_jax(arch,
         {"tokens": torch.tensor(toks)}, 1.0, lambda _: None)
     assert loss.item() == pytest.approx(float(want_loss), rel=LOSS_RTOL)
     n_moe = tcfg.n_layers - tcfg.moe.n_dense_layers
-    assert len(dispatches.kept) == n_moe
+    # remat="block" (both packages' default) dispatches each MoE layer
+    # twice: in the forward and in the backward's recomputation, alike
+    assert tcfg.remat == "block"
+    assert len(dispatches.kept) == 2 * n_moe
+    for fwd, again in zip(dispatches.kept[:n_moe], dispatches.kept[n_moe:]):
+        assert torch.equal(fwd, again)
     assert all((~k).sum() > 0 for k in dispatches.kept)
     got = tree_leaves(grads)
     assert len(got) == len(jax.tree.leaves(want))
