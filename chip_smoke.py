@@ -66,8 +66,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``schemes``: the paper's seven §V.A schemes (``evaluate_scheme``) on
    the card at the Fig. 3 points (N = 15, 30, 60 at K = 5) and the Fig. 4
    point K = 15 at N = 60, seed 0, as ``benchmarks/paper_cost.py`` runs
-   them (but comm_opt at (60, 15), ``SCHEME_SKIP``: it alone takes 2.5
-   minutes): each scheme's total cost over uniform's, true cost, seconds,
+   them (but comm_opt at (60, 15) and (60, 5), ``SCHEME_SKIP``: they
+   alone take 2.5 minutes and 47 s): each scheme's total cost over
+   uniform's, true cost, seconds,
    moves and launches; HFEL at most 1.001 x random and x uniform
    (asserted). ``schemes_card_vs_cpu``: the seven at (20, 5, 4) and (12,
    3, 5) on the card and the CPU: the same assignment and moves, costs
@@ -334,7 +335,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    the ``mesh=None`` step bit for bit (asserted), whose loss is (a)'s
    reference. Then four gloo ranks (``mesh_rank``): the collectives the
    backend carries on CUDA tensors; (a) ``sync``, ``fsdp`` over (data=2,
-   model=2) at 4096 x 2, 3 steps: s a step, each rank's peak (their sum
+   model=2) at 4096 x 2, 2 steps: s a step, each rank's peak (their sum
    under 75 GB, asserted), flash forward and backward 28 + 28 and rmsnorm
    57 launches a step on every rank (asserted), the first loss within
    ``MESH_LOSS_RTOL`` of (f)'s and the logits at every 256th position
@@ -345,21 +346,33 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    (asserted); (b) (a) at float32 and 2 layers, one step, the loss within
    1e-5 and the state within ``TRAIN_TOL`` of the one-rank step's
    (asserted); (c) ``hierarchical`` over (pod=2, data=2, model=1) at 2048
-   x 4, 4 steps, a cloud sync every 2: the pods' leaves equal bit for bit
-   after each (asserted), ms a sync; (d) serving over (data=2, model=2):
-   phase 10's 8 requests with 64-token prompts and 32 new tokens in
+   x 4, 2 steps and a cloud sync: the pods' leaves equal bit for bit
+   after it (asserted), ms a sync; (d) serving over (data=2, model=2):
+   phase 10's 8 requests with 16-token prompts and 8 new tokens in
    bf16 (ms a step, the share of greedy tokens equal to one rank's), then
-   at float32 and 2 layers the same greedy tokens and decode logits
-   within 1e-4 (asserted). Four ranks sharing one card measure the
-   mechanism and its cost, not the speed-up of four cards.
+   at float32 and 2 layers, with 32-token prompts and 16 new tokens, the
+   same greedy tokens and decode logits
+   within 1e-4 (asserted); (g) deepseek-v2-lite-16b at full width cut to
+   1 dense + 2 MoE layers, ``sync`` ``fsdp`` over (data=2, model=2) at
+   4096 x 2, 2 steps, its experts split over ``model``: every rank's
+   expert weights and buffer hold 32 of the 64 experts (shapes and bytes,
+   asserted), 3 flash, 3 flash backward and 7 rmsnorm launches a step
+   (asserted), the first loss within ``MESH_LOSS_RTOL`` and each MoE
+   layer's output within ``MESH_MOE_Y_RTOL`` (mean error over mean |y|)
+   of (f)'s 1-rank NCCL step on the same params and batch while a
+   control forward with the MoE combine's sum over ``model`` dropped
+   lands outside both (asserted), s a step, each rank's peak beside the
+   dry run's count of the same cell (``mesh_moe_predict``, a CPU process
+   of its own started before phase 27). Four ranks sharing one card
+   measure the mechanism and its cost, not the speed-up of four cards.
 
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
 with each path's, phases 16-19's, phase 28's and the HFEL scheme runs'
 beside them;
 rmsnorm, flash and the scan add their train paths' launches (phases 22,
 24 and 27) and a ``backward`` entry; rmsnorm and flash phases 25 and
-26's launches and phase 29's (a) (``mesh_train``, summed over the four
-ranks), rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
+26's launches and phase 29's (a) and (g) (``mesh_train``, summed over
+the four ranks), rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
 and ``hd112`` entries and one for each of whisper's two shapes and
 internvl2's layer), then ``flash_attention_bwd``, the backward kernel:
 its launches on each train path, phase 21b's qwen3 line and one entry for
@@ -2015,8 +2028,9 @@ SCHEMES = ("hfel", "comp_opt", "greedy", "random", "comm_opt", "uniform",
 SCHEME_POINTS = ((15, 5), (30, 5), (60, 5), (60, 15))
 # comm_opt is launch-bound (its nested bisection is some 40k small kernels
 # a batched solve, 1.5 s a move on the card): at (60, 15) it alone took
-# 157.7 s, so that one run is left out (PERF.md, PR 17; ROADMAP queue 2)
-SCHEME_SKIP = {(60, 15): ("comm_opt",)}
+# 157.7 s and at (60, 5) 47.4 s, so those two runs are left out (PERF.md;
+# ROADMAP queue 2); (15, 5), (30, 5) and phase 5c's points keep it
+SCHEME_SKIP = {(60, 15): ("comm_opt",), (60, 5): ("comm_opt",)}
 SCHEME_CHECK_POINTS = ((20, 5, 4), (12, 3, 5))    # card vs CPU, (N, K, seed)
 HFEL_BOUND = 1.001
 
@@ -3186,16 +3200,16 @@ BWD_LABELS = {"flash_attention": "flash_attention_bwd",
               "rmsnorm": "rmsnorm_bwd",
               "ssd_state_scan": "ssd_state_scan_bwd"}
 # the MoE dispatch's ops in a train step's profile (models/moe.py): the
-# scatter of token copies into the expert buffer (``index_copy_``, its
-# backward a row gather) and the gather out of the (E, C, d) buffer
-# (advanced indexing, its backward an accumulating ``index_put_`` into
-# zeros of that shape); (op, rank of its first input, or None). The rank
-# tells the MoE gather from the embedding lookup, the same ops on a 2-D
-# table.
-DISPATCH_OPS = {"index_copy_fwd": ("aten::index_copy_", None),
-                "index_copy_bwd": ("IndexCopyBackward0", None),
-                "gather_fwd": ("aten::index", 3),
-                "gather_bwd": ("aten::_index_put_impl_", 3)}
+# scatter of the tokens into the expert buffer, one ``index_copy_`` a
+# choice (its backward a row gather), and the gather out of the (E, C, d)
+# buffer (advanced indexing, its backward an accumulating ``index_put_``
+# into zeros of that shape); (op, rank of its first input or None, calls
+# a MoE layer and forward: "choice" top_k, "layer" one). The rank tells
+# the MoE gather from the embedding lookup, the same ops on a 2-D table.
+DISPATCH_OPS = {"index_copy_fwd": ("aten::index_copy_", None, "choice"),
+                "index_copy_bwd": ("IndexCopyBackward0", None, "choice"),
+                "gather_fwd": ("aten::index", 3, "layer"),
+                "gather_bwd": ("aten::_index_put_impl_", 3, "layer")}
 # card vs CPU of the train step (reduced float32 models): the loss,
 # gradients and moments at 1e-4 (atol 1e-4 x the leaf's largest value, the
 # CPU tests' bound for JAX parity); parameters after AdamW's first step the
@@ -3346,7 +3360,7 @@ def profile_train(phase: str, fn, shapes: bool = False) -> dict | None:
         labels = set(BWD_LABELS.values())
         for e in prof.key_averages(group_by_input_shape=True):
             on_host = "CPU" in str(e.device_type)
-            op = [name for name, (key, rank) in DISPATCH_OPS.items()
+            op = [name for name, (key, rank, _) in DISPATCH_OPS.items()
                   if e.key == key and (rank is None or (
                       e.input_shapes and len(e.input_shapes[0]) == rank))]
             if e.key in labels:
@@ -3499,15 +3513,17 @@ def train_run(dev, model, data, *, phase: str, mode: str, batch: int,
         raise AssertionError(f"{phase}: peak memory {peak} passes "
                              f"{TRAIN_PEAK_LIMIT}")
     if prof is not None and cfg.moe is not None:
-        # one of each dispatch op per MoE layer and forward: nothing else
-        # on the path matched DISPATCH_OPS' keys and ranks
-        want = (cfg.n_layers - cfg.moe.n_dense_layers) * bundle.n_pods
+        # top_k scatters and one gather per MoE layer and forward, with
+        # their backwards: nothing else on the path matched DISPATCH_OPS'
+        # keys and ranks
+        layers = (cfg.n_layers - cfg.moe.n_dense_layers) * bundle.n_pods
+        want = {op: layers * (cfg.moe.top_k if per == "choice" else 1)
+                for op, (_, _, per) in DISPATCH_OPS.items()}
         calls = {op: (prof["moe_dispatch"] or {}).get(op, {}).get("calls")
                  for op in DISPATCH_OPS}
-        if any(c != want for c in calls.values()):
+        if calls != want:
             raise AssertionError(f"{phase}: MoE dispatch op calls {calls} "
-                                 f"in the profiled step, expected {want} "
-                                 "each")
+                                 f"in the profiled step, expected {want}")
     return fields, (params, opt, step)
 
 
@@ -3648,9 +3664,13 @@ def grad_close(got, want, rtol: float,
     """Largest |got - want| and whether every entry is within rtol x
     (|want| elementwise + ``scale``, by default the leaf's largest
     |want|); with a ``scale`` given (a leaf whose exact value is zero,
-    ``zero_grad_scales``) |want| must lie within rtol x scale too."""
+    ``zero_grad_scales``) |want| must lie within rtol x scale too. On the
+    device the two share, else on the CPU (the same exact operations: the
+    same answer either way)."""
     import torch
-    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    got, want = got.detach().float(), want.detach().float()
+    if got.device != want.device:
+        got, want = got.cpu(), want.cpu()
     err = (got - want).abs()
     ok = scale is None or bool((want.abs() <= rtol * scale).all())
     scale = want.abs().max() if scale is None else scale
@@ -4805,7 +4825,7 @@ def train_entry(kernel: str, bwd: dict, paths: dict) -> dict:
 # ranks sharing one card measure the mechanism and its cost, not the
 # speed-up of four cards.
 MESH_ARCH = "qwen3-0.6b"
-MESH_SEQ, MESH_BATCH, MESH_STEPS = 4096, 2, 3        # (a), (b), (f)
+MESH_SEQ, MESH_BATCH, MESH_STEPS = 4096, 2, 2        # (a), (b), (f)
 # (a)'s bf16 first-step loss against the one-rank step's (relative), and
 # the max abs gap of its logits at every MESH_LOGIT_STRIDE-th position.
 # Each limit is the geometric mean of the sound reading and a control's:
@@ -4824,16 +4844,35 @@ MESH_F32_LAYERS = 2                                  # (b), (d)'s check
 # blocks (~7 GB) and one row's activations (~10 GB): ~70 GB for four, too
 # close to 75; at 2048 ~55 GB
 MESH_HIER_SEQ, MESH_HIER_BATCH = 2048, 4
-MESH_HIER_STEPS, MESH_HIER_PERIOD = 4, 2
+MESH_HIER_STEPS, MESH_HIER_PERIOD = 2, 2      # one cloud sync
 # (d): phase 10's 8 requests with their prompts cut from 256 to the first
-# 64 tokens: over gloo a step takes ~0.45 s (0.4326 s a decode step and
-# 0.5351 s a prompt step on an H100 80GB HBM3 at 700 W, PERF.md), so the
-# 287 steps of the whole requests took ~140 s; 95 steps take ~45 s
-MESH_SERVE_PROMPT = 64
-MESH_SERVE_F32 = (64, 16)          # (d)'s float32 check: prompt, new tokens
+# 16 tokens and 8 new ones: over gloo a step takes 0.45-0.7 s (0.4326 s a
+# decode step and 0.5351 s a prompt step on an H100 80GB HBM3 at 700 W,
+# PERF.md), so the 287 steps of the whole requests took ~140 s; 23 steps
+# take ~10-16 s
+MESH_SERVE_PROMPT, MESH_SERVE_NEW = 16, 8
+MESH_SERVE_F32 = (32, 16)          # (d)'s float32 check: prompt, new tokens
 MESH_LOGIT_ATOL = 1e-4
 MESH_PEAK_LIMIT = 75e9             # bytes: the ranks' peaks summed
 MESH_TIMEOUT_S = 600               # a collective's deadline in the ranks
+# (g): deepseek-v2-lite at full width (hf deepseek-ai/DeepSeek-V2-Lite),
+# its 27 layers cut to 1 dense + 2 MoE, over (data=2, model=2): each
+# `model` rank computes 32 of the 64 experts. By the dry run of this cell
+# (PERF.md) a rank peaks under 15 GB, so the four fit the card's 75 GB
+# together with room to spare; (f) runs its one-rank step alone first
+MESH_MOE_ARCH, MESH_MOE_LAYERS = MOE_ARCH, 3
+MESH_MOE_SEQ, MESH_MOE_BATCH, MESH_MOE_STEPS = 4096, 2, 2
+# (g)'s MoE layers' outputs in the first step's forward against the
+# one-rank step's, at every MESH_MOE_Y_STRIDE-th position: the mean
+# |error| over the mean |y| of a layer's rows. A mean, not a maximum: a
+# token whose top-k choice flips under the dense layer's tensor-parallel
+# rounding takes another expert's output, a large error at a few rows.
+# The limit is the geometric mean of the sound reading (at most 0.0281,
+# the second MoE layer) and the control's with the combine's sum over
+# `model` dropped (at least 0.233, the first) on an H100 80GB HBM3 at
+# 700.00 W (PERF.md)
+MESH_MOE_Y_STRIDE = 16
+MESH_MOE_Y_RTOL = 0.08
 
 
 def mesh_plan(device: str = "cuda") -> dict:
@@ -4844,10 +4883,14 @@ def mesh_plan(device: str = "cuda") -> dict:
                 f32_layers=MESH_F32_LAYERS, hier_seq=MESH_HIER_SEQ,
                 hier_batch=MESH_HIER_BATCH, hier_steps=MESH_HIER_STEPS,
                 hier_period=MESH_HIER_PERIOD,
-                serve=[SERVE_REQUESTS, MESH_SERVE_PROMPT, SERVE_NEW],
+                serve=[SERVE_REQUESTS, MESH_SERVE_PROMPT, MESH_SERVE_NEW],
                 serve_f32=list(MESH_SERVE_F32), lr=3e-4,
                 train_tol=TRAIN_TOL, logit_stride=MESH_LOGIT_STRIDE,
-                fault_layers=list(MESH_FAULT_LAYERS))
+                fault_layers=list(MESH_FAULT_LAYERS),
+                moe=dict(arch=MESH_MOE_ARCH, layers=MESH_MOE_LAYERS,
+                         seq=MESH_MOE_SEQ, batch=MESH_MOE_BATCH,
+                         steps=MESH_MOE_STEPS, y_stride=MESH_MOE_Y_STRIDE),
+                jobs=["a", "b", "c", "d", "g"])
 
 
 def mesh_config(plan: dict, f32: bool = False):
@@ -4862,6 +4905,26 @@ def mesh_config(plan: dict, f32: bool = False):
     return cfg
 
 
+def mesh_moe_config(plan: dict):
+    """(g)'s config: ``plan["moe"]``'s arch cut to its layers (reduced on
+    a CPU rehearsal), bf16 activations, ``remat="none"``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(plan["moe"]["arch"])
+    if plan["reduced"]:
+        cfg = cfg.reduced(dtype="bfloat16")
+    return no_remat(dataclasses.replace(cfg,
+                                        n_layers=plan["moe"]["layers"]))
+
+
+def mesh_moe_data(cfg, plan: dict, dev) -> list:
+    """(g)'s batches: ``plan["moe"]["steps"]`` whole batches of tokens."""
+    m = plan["moe"]
+    data = mesh_tokens(cfg, m["batch"] * m["steps"], m["seq"], dev, seed=31)
+    return [{"tokens": data[k * m["batch"]:(k + 1) * m["batch"]]}
+            for k in range(m["steps"])]
+
+
 def mesh_tokens(cfg, rows: int, seq: int, dev, seed: int = 29):
     """(rows, seq + 1) int32 tokens below the vocab from a numpy seed, the
     same in every process."""
@@ -4872,12 +4935,12 @@ def mesh_tokens(cfg, rows: int, seq: int, dev, seed: int = 29):
                         dtype=torch.int32, device=dev)
 
 
-def mesh_prompts(cfg, plan, dev):
+def mesh_prompts(cfg, plan, dev, p: int):
     """Phase 10's requests (the same numpy draws: the prefill batch first,
-    then the prompts), each prompt's first ``plan["serve"][1]`` tokens."""
+    then the prompts), each prompt's first ``p`` tokens."""
     import numpy as np
     import torch
-    n, p, _ = plan["serve"]
+    n = plan["serve"][0]
     rng = np.random.default_rng(0)
     rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ + 1))
     full = rng.integers(0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT))
@@ -4917,14 +4980,15 @@ def _zero_counts() -> None:
 
 
 def mesh_train_steps(bundle, params, batches, dev, *, period: int = 0,
-                     pod_equal=None) -> dict:
+                     pod_equal=None, state=None) -> dict:
     """``bundle``'s steps on ``batches`` (whole batches; each rank takes its
-    rows) from whole ``params``: s a step, the loss, each step's kernel
-    launches on this rank, the peak memory; after each cloud sync the
-    seconds it took and ``pod_equal(params)``."""
+    rows) from whole ``params`` (or from ``state``, the rank's (params,
+    opt_state, step)): s a step, the loss, each step's kernel launches on
+    this rank, the peak memory; after each cloud sync the seconds it took
+    and ``pod_equal(params)``."""
     import torch
-    p, o, step = bundle.init_state(params)
-    del params
+    p, o, step = state if state is not None else bundle.init_state(params)
+    del params, state
     _reset_peak(dev)
     rows = []
     for k, whole in enumerate(batches):
@@ -5192,11 +5256,8 @@ def mesh_job_d(mesh, plan, dev) -> dict:
     for case, f32 in (("bf16", False), ("f32", True)):
         cfg = mesh_config(plan, f32=f32)
         model = build_model(cfg)
-        prompts = mesh_prompts(cfg, plan, dev)
-        new = plan["serve"][2]
-        if f32:
-            prompts, new = prompts[:, :plan["serve_f32"][0]], \
-                plan["serve_f32"][1]
+        width, new = plan["serve_f32"] if f32 else plan["serve"][1:]
+        prompts = mesh_prompts(cfg, plan, dev, width)
         n, prompt = prompts.shape
         shape = ShapeSpec("serve_mesh", prompt + new, n, "decode")
         bundle = make_serve_step(model, mesh, shape)
@@ -5235,10 +5296,189 @@ def mesh_job_d(mesh, plan, dev) -> dict:
     return out
 
 
+class ExpertShapes:
+    """Wraps ``moe._expert_ffn`` while in use: each call's (E, C, d)
+    buffer shape and dtype, and each expert weight's shape and bytes, as
+    the layer computes with them."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = moe._expert_ffn
+
+        def recording(experts, buf, kind):
+            self.calls.append(dict(
+                buffer=list(buf.shape), buffer_dtype=str(buf.dtype),
+                weights={k: [list(v["w"].shape),
+                             v["w"].numel() * v["w"].element_size()]
+                         for k, v in sorted(experts.items())}))
+            return self.real(experts, buf, kind)
+
+        moe._expert_ffn = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._expert_ffn = self.real
+
+
+class MoEOutputs:
+    """Wraps the transformer's ``moe_apply`` while in use: each call's y
+    (this rank's rows) at every ``stride``-th position, float32, kept on
+    the device until :meth:`host` (no host sync inside a step)."""
+
+    def __init__(self, stride: int):
+        self.stride, self.ys = stride, []
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.real = transformer.moe_apply
+
+        def recording(params, cfg, x):
+            y, aux = self.real(params, cfg, x)
+            self.ys.append(y.detach()[:, ::self.stride].float())
+            return y, aux
+
+        transformer.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe_apply = self.real
+
+    def host(self, n: int) -> list:
+        """The first ``n`` calls' outputs on the CPU."""
+        return [y.cpu() for y in self.ys[:n]]
+
+
+class CombineSumDropped:
+    """A planted fault while in use: ``moe_apply``'s combine is not summed
+    over ``model`` (each rank keeps its experts' partial output). Only the
+    MoE layer's name is rebound; the dense layers' sums stay."""
+
+    def __enter__(self):
+        import types
+        from repro_torch.models import moe, pjit_hints
+        self.real = moe.pjit_hints
+        names = {k: getattr(pjit_hints, k) for k in dir(pjit_hints)
+                 if not k.startswith("__")}
+        names["reduce_from_model"] = lambda y: y
+        moe.pjit_hints = types.SimpleNamespace(**names)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.pjit_hints = self.real
+
+
+def mesh_moe_loss(bundle, model, mesh, blocks, batch) -> float:
+    """One forward's loss (no gradient) from this rank's parameter blocks
+    on its rows of ``batch``, the mean over the batch ranks."""
+    import torch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import pjit_hints
+    from repro_torch.utils import collectives as coll
+    from repro_torch.utils import (tree_leaves, tree_leaves_with_path,
+                                   tree_unflatten)
+    paths = [shd._key_str(p)
+             for p, _ in tree_leaves_with_path(bundle.params_spec)]
+    specs = [sh.spec for sh in shd._sharding_leaves(bundle.params_shardings)]
+    with torch.no_grad(), pjit_hints.hints_ctx(pjit_hints.from_mesh(mesh)):
+        used = tree_unflatten(blocks, pjit_hints.use_params(
+            tree_leaves(blocks), paths, specs, model.cfg))
+        loss = model.loss(used, batch).float()
+    data = mesh.get_group("data")
+    return float(coll.all_reduce(loss, data) / coll.size(data))
+
+
+def mesh_job_g(mesh, plan, dev, out: str) -> dict:
+    """(g) deepseek-v2-lite at full width cut to 1 dense + 2 MoE layers,
+    ``sync`` fsdp over (data=2, model=2): the planted control (the MoE
+    combine's sum over ``model`` dropped) first, one forward; then
+    ``plan["moe"]["steps"]`` steps, recording the expert buffers and
+    weights each layer computes with. The MoE layers' outputs of the
+    control and of the first step's forward (``MoEOutputs``), with the
+    global batch rows they belong to, to ``out/g_y<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves
+
+    cfg = mesh_moe_config(plan)
+    model = build_model(cfg)
+    m = plan["moe"]
+    shape = ShapeSpec("train_mesh_moe", m["seq"], m["batch"], "train")
+    bundle = make_train_step(model, shape, mesh=mesh, lr=plan["lr"],
+                             device=dev)
+    batches = mesh_moe_data(cfg, plan, dev)
+    state = bundle.init_state(model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    moe_layers = cfg.n_layers - cfg.moe.n_dense_layers
+    t0 = time.perf_counter()
+    with CombineSumDropped(), MoEOutputs(m["y_stride"]) as control_y:
+        control = mesh_moe_loss(bundle, model, mesh, state[0],
+                                bundle.local_batch(batches[0]))
+    control_s = time.perf_counter() - t0
+    _zero_counts()
+    with ExpertShapes() as shapes, MoEOutputs(m["y_stride"]) as ys:
+        res, (p, o, _) = mesh_train_steps(bundle, None, batches, dev,
+                                          state=state)
+    del state
+    whole = batches[0]["tokens"]
+    index = torch.arange(whole.shape[0], device=dev)[:, None] \
+        .expand(whole.shape).contiguous()
+    rows = bundle.local_batch({"tokens": index})["tokens"][:, 0]
+    torch.save(dict(rows=rows.cpu(), sound=ys.host(moe_layers),
+                    control=control_y.host(moe_layers)),
+               f"{out}/g_y{dist.get_rank()}.pt")
+    res.update(control_loss=control, control_s=control_s,
+               expert_calls=shapes.calls[:cfg.n_layers
+                                         - cfg.moe.n_dense_layers],
+               n_expert_calls=len(shapes.calls),
+               local_param_bytes=sum(x.numel() * x.element_size()
+                                     for x in tree_leaves(p)),
+               local_opt_bytes=sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(o)))
+    del p, o
+    return res
+
+
+def mesh_moe_predict(rank: int, world: int, out: str, plan: dict) -> None:
+    """The dry run's count of (g)'s step (``dryrun.count_train_step``) on
+    rank 0 of a (data=2, model=2) mesh of fake ranks, in a process of its
+    own on the CPU at ``CPU_SIDE_NICE``: the predicted peak, arguments and
+    FLOPs of a rank, to ``out/moe_predict.json``."""
+    sys.path.insert(0, str(SRC))
+    os.nice(CPU_SIDE_NICE)
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import ShapeSpec
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+        m = plan["moe"]
+        t0 = time.perf_counter()
+        c = dryrun.count_train_step(
+            mesh_moe_config(plan),
+            ShapeSpec("train_mesh_moe", m["seq"], m["batch"], "train"),
+            mesh=mesh)["step"]
+        with open(f"{out}/moe_predict.json", "w") as f:
+            json.dump(dict(peak=c.peak_bytes, arguments=c.argument_bytes,
+                           flops=c.flops, wire_bytes=float(c.collectives.wire),
+                           seconds=time.perf_counter() - t0), f)
+    finally:
+        dist.destroy_process_group()
+
+
 def mesh_rank(rank: int, world: int, out: str, plan: dict) -> None:
     """One of phase 29's four gloo ranks on the card: the collectives the
-    backend carries, then jobs (a) + (e), (b), (c) and (d); its fields to
-    ``out/rank<r>.json``."""
+    backend carries, then jobs (a) + (e), (b), (c), (d) and (g) (those of
+    ``plan["jobs"]``); its fields to ``out/rank<r>.json``."""
     sys.path.insert(0, str(SRC))
     import datetime
     import torch
@@ -5262,7 +5502,10 @@ def mesh_rank(rank: int, world: int, out: str, plan: dict) -> None:
         for job, fn in (("a", lambda: mesh_job_a(mesh, plan, dev, out)),
                         ("b", lambda: mesh_job_b(mesh, plan, dev)),
                         ("c", lambda: mesh_job_c(plan, dev)),
-                        ("d", lambda: mesh_job_d(mesh, plan, dev))):
+                        ("d", lambda: mesh_job_d(mesh, plan, dev)),
+                        ("g", lambda: mesh_job_g(mesh, plan, dev, out))):
+            if job not in plan["jobs"]:
+                continue
             t0 = time.perf_counter()
             fields[job] = fn()
             fields[job]["job_s"] = time.perf_counter() - t0
@@ -5290,42 +5533,84 @@ def mesh_one_rank(rank: int, world: int, out: str, plan: dict) -> None:
                             world_size=world)
     try:
         from repro_torch.launch.mesh import make_test_mesh
-        from repro_torch.launch.steps import make_train_step
-        from repro_torch.models import ShapeSpec, build_model
-        from repro_torch.utils import tree_leaves, tree_map
         mesh = make_test_mesh((1, 1), ("data", "model"),
                               device_type=dev.type)
-        cfg = mesh_config(plan)
-        model = build_model(cfg)
-        shape = ShapeSpec("train_mesh", plan["seq"], plan["batch"], "train")
-        batch = {"tokens": mesh_tokens(cfg, plan["batch"] * plan["steps"],
-                                       plan["seq"], dev)[:plan["batch"]]}
-        params = model.init(torch.Generator(device=dev).manual_seed(0))
-        runs = {}
-        for name, kw in (("none", {}), ("mesh", {"mesh": mesh})):
-            bundle = make_train_step(model, shape, lr=plan["lr"],
-                                     device=dev, **kw)
-            p, o, step = bundle.init_state(tree_map(torch.clone, params))
-            _dev_sync(dev)
-            t0 = time.perf_counter()
-            p, o, step, loss = bundle.step_fn(p, o, step, batch)
-            _dev_sync(dev)
-            runs[name] = (time.perf_counter() - t0, loss,
-                          tree_leaves(p) + tree_leaves(o))
-        loss_none = float(runs["none"][1])
-        s_none, s_mesh = runs["none"][0], runs["mesh"][0]
-        same = bool(torch.equal(runs["none"][1], runs["mesh"][1])) and all(
-            torch.equal(a, b) for a, b in zip(runs["none"][2],
-                                              runs["mesh"][2]))
-        del runs
-        with torch.no_grad():      # (a)'s reference logits
-            ref = model.logits(params, batch)[:, ::plan["logit_stride"]]
-            torch.save(ref.float().cpu(), f"{out}/logits.pt")
-        with open(f"{out}/one_rank.json", "w") as f:
-            json.dump(dict(backend=dist.get_backend(), bitwise=same,
-                           loss=loss_none, s_none=s_none, s_mesh=s_mesh), f)
+        if "a" in plan["jobs"]:
+            mesh_one_rank_a(mesh, out, plan, dev)
+        if "g" in plan["jobs"]:
+            mesh_one_rank_g(mesh, out, plan, dev)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_one_rank_g(mesh, out: str, plan: dict, dev) -> None:
+    """(g)'s one-rank reference: its first step on the 1-rank NCCL mesh
+    from the same params and batch; the loss, s and peak to
+    ``out/one_rank_moe.json``, the MoE layers' outputs (``MoEOutputs``)
+    to ``out/one_rank_moe_y.pt``."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    cfg = mesh_moe_config(plan)
+    model = build_model(cfg)
+    m = plan["moe"]
+    bundle = make_train_step(model, ShapeSpec("train_mesh_moe", m["seq"],
+                                              m["batch"], "train"),
+                             mesh=mesh, lr=plan["lr"], device=dev)
+    batch = mesh_moe_data(cfg, plan, dev)[0]
+    state = bundle.init_state(model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    _reset_peak(dev)
+    _dev_sync(dev)
+    t0 = time.perf_counter()
+    with MoEOutputs(m["y_stride"]) as ys:
+        _, _, _, loss = bundle.step_fn(*state, batch)
+    _dev_sync(dev)
+    res = dict(loss=float(loss), s=time.perf_counter() - t0, peak=_peak(dev))
+    del state
+    torch.save(ys.host(cfg.n_layers - cfg.moe.n_dense_layers),
+               f"{out}/one_rank_moe_y.pt")
+    with open(f"{out}/one_rank_moe.json", "w") as f:
+        json.dump(res, f)
+
+
+def mesh_one_rank_a(mesh, out: str, plan: dict, dev) -> None:
+    """(f) proper: (a)'s step on the 1-rank mesh against ``mesh=None``, and
+    (a)'s reference logits."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves, tree_map
+    cfg = mesh_config(plan)
+    model = build_model(cfg)
+    shape = ShapeSpec("train_mesh", plan["seq"], plan["batch"], "train")
+    batch = {"tokens": mesh_tokens(cfg, plan["batch"] * plan["steps"],
+                                   plan["seq"], dev)[:plan["batch"]]}
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    runs = {}
+    for name, kw in (("none", {}), ("mesh", {"mesh": mesh})):
+        bundle = make_train_step(model, shape, lr=plan["lr"],
+                                 device=dev, **kw)
+        p, o, step = bundle.init_state(tree_map(torch.clone, params))
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        p, o, step, loss = bundle.step_fn(p, o, step, batch)
+        _dev_sync(dev)
+        runs[name] = (time.perf_counter() - t0, loss,
+                      tree_leaves(p) + tree_leaves(o))
+    loss_none = float(runs["none"][1])
+    s_none, s_mesh = runs["none"][0], runs["mesh"][0]
+    same = bool(torch.equal(runs["none"][1], runs["mesh"][1])) and all(
+        torch.equal(a, b) for a, b in zip(runs["none"][2],
+                                          runs["mesh"][2]))
+    del runs
+    with torch.no_grad():      # (a)'s reference logits
+        ref = model.logits(params, batch)[:, ::plan["logit_stride"]]
+        torch.save(ref.float().cpu(), f"{out}/logits.pt")
+    with open(f"{out}/one_rank.json", "w") as f:
+        json.dump(dict(backend=dist.get_backend(), bitwise=same,
+                       loss=loss_none, s_none=s_none, s_mesh=s_mesh), f)
 
 
 def spawn_mesh(fn, world: int, out: str, plan: dict) -> float:
@@ -5338,14 +5623,37 @@ def spawn_mesh(fn, world: int, out: str, plan: dict) -> float:
     return time.perf_counter() - t0
 
 
-def mesh_path(dev, plan: dict | None = None) -> dict:
+def start_moe_predict(plan: dict) -> dict:
+    """:func:`mesh_moe_predict` for ``plan`` in a process of its own: its
+    process context ``ctx`` and output ``dir`` (a ``TemporaryDirectory``)."""
+    import torch.multiprocessing as mp
+    tmp = tempfile.TemporaryDirectory()
+    ctx = mp.start_processes(mesh_moe_predict, args=(1, tmp.name, plan),
+                             nprocs=1, join=False, start_method="spawn")
+    return dict(ctx=ctx, dir=tmp)
+
+
+def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
+              dryrun: dict | None = None) -> dict:
     """Phase 29: (f) first (its ``mesh=None`` step is (a)'s one-rank
-    reference), then (a)-(e) on four ranks. Emits ``mesh_train``,
-    ``mesh_restore``, ``mesh_train_f32``, ``mesh_hier``, ``mesh_serve``
-    and ``mesh_one_rank``; asserts each check. Returns each kernel's
-    launches in (a) summed over the ranks."""
+    reference; its 1-rank NCCL step (g)'s), then the jobs of
+    ``plan["jobs"]`` ((a)-(e), (g)) on four ranks; (g)'s count by the dry
+    run from ``predict`` (:func:`start_moe_predict`, started here if
+    None). Emits ``mesh_train``, ``mesh_restore``, ``mesh_train_f32``,
+    ``mesh_hier``, ``mesh_serve``, ``mesh_one_rank`` and ``mesh_moe``;
+    asserts each check. (a)'s and (g)'s lines name the CPU processes
+    (``predict``, and ``dryrun``, :func:`start_dryrun_mesh`'s) still
+    running when the phase starts, at ``CPU_SIDE_NICE``: they may slow its
+    times. Returns each kernel's launches in (a) and (g) summed over the
+    ranks."""
     import torch
     plan = plan or mesh_plan(dev.type)
+    if predict is None and "g" in plan["jobs"]:
+        predict = start_moe_predict(plan)
+    beside = [name for name, alive in (
+        ("dryrun_mesh", dryrun is not None and dryrun["proc"].poll() is None),
+        ("moe_predict", predict is not None
+         and predict["ctx"].processes[0].is_alive())) if alive]
     held = 0
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5353,14 +5661,46 @@ def mesh_path(dev, plan: dict | None = None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(f"{tmp}/one")
         one_s = spawn_mesh(mesh_one_rank, 1, f"{tmp}/one", plan)
-        with open(f"{tmp}/one/one_rank.json") as f:
-            one = json.load(f)
         four_s = spawn_mesh(mesh_rank, 4, tmp, plan)
+        if predict is not None:
+            while not predict["ctx"].join():
+                pass
+            with predict["dir"] as out, \
+                    open(f"{out}/moe_predict.json") as f:
+                predicted = json.load(f)
         ranks = []
         for r in range(4):
             with open(f"{tmp}/rank{r}.json") as f:
                 ranks.append(json.load(f))
+        outs = {}
+        if "g" in plan["jobs"]:
+            outs["g_y"] = [torch.load(f"{tmp}/g_y{r}.pt") for r in range(4)]
+            outs["one_moe_y"] = torch.load(f"{tmp}/one/one_rank_moe_y.pt")
+            outs["predict"] = predicted
+        for name, path in (("one", "one/one_rank.json"),
+                           ("one_moe", "one/one_rank_moe.json")):
+            if os.path.exists(f"{tmp}/{path}"):
+                with open(f"{tmp}/{path}") as f:
+                    outs[name] = json.load(f)
     smi = nvidia_smi_line() if dev.type == "cuda" else "cpu"
+    checks, launches = {}, {}
+    if "a" in plan["jobs"]:
+        checks, launches = mesh_report(outs["one"], ranks, plan, smi, one_s,
+                                       four_s, held, beside)
+    if "g" in plan["jobs"]:
+        g_checks, g_launches = mesh_moe_report(
+            outs["one_moe"], outs["predict"], ranks, plan, smi,
+            outs["g_y"], outs["one_moe_y"], beside)
+        checks.update(g_checks)
+        launches = {k: launches.get(k, 0) + v for k, v in g_launches.items()}
+    emit("mesh_checks", **checks)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 29 failed: {checks}")
+    return launches
+
+
+def mesh_report(one, ranks, plan, smi, one_s, four_s, held, beside=()):
+    """(a)-(f)'s lines and checks; (a)'s launches summed over the ranks."""
     emit("mesh_one_rank", card=smi, backend=one["backend"],
          bitwise=one["bitwise"], loss=one["loss"], s_mesh_none=one["s_none"],
          s_mesh_1x1=one["s_mesh"], spawn_to_join_s=one_s)
@@ -5395,7 +5735,8 @@ def mesh_path(dev, plan: dict | None = None) -> dict:
          peak_total=sum(peaks), peak_limit=MESH_PEAK_LIMIT,
          local_param_bytes=[ra["local_param_bytes"] for ra in a],
          job_s=[ra["job_s"] for ra in a], spawn_to_join_s=four_s,
-         parent_reserved_bytes=held)
+         parent_reserved_bytes=held, beside_cpu_processes=list(beside),
+         their_nice=CPU_SIDE_NICE)
     rest = [r["a"]["restore"] for r in ranks]
     emit("mesh_restore", **rest[0],
          bitwise_all_ranks=all(x["reassembled_bitwise"] and x["blocks_bitwise"]
@@ -5451,11 +5792,96 @@ def mesh_path(dev, plan: dict | None = None) -> dict:
                           == 2 * r["d"][k]["n_layers"] + 1
                           and r["d"][k]["flash_launches"] == 0
                           for r in ranks for k in ("bf16", "f32")))
-    emit("mesh_checks", **checks)
-    if not all(checks.values()):
-        raise AssertionError(f"phase 29 failed: {checks}")
-    return {key: sum(sum(row["launches"][key] for row in ra["rows"])
-                     for ra in a) for key in per_step}
+    return checks, {key: sum(sum(row["launches"][key] for row in ra["rows"])
+                             for ra in a) for key in per_step}
+
+def moe_y_errs(got: dict, one_y: list, key: str) -> list:
+    """Each MoE layer's mean |error| over mean |y| of a rank's recorded
+    outputs (``got[key]``) against the one-rank step's on the same rows."""
+    errs = []
+    for y, ref in zip(got[key], one_y):
+        ref = ref[got["rows"]]
+        errs.append(float((y - ref).abs().mean() / ref.abs().mean()))
+    return errs
+
+
+def mesh_moe_report(one, predict, ranks, plan, smi, ys, one_y, beside=()):
+    """(g)'s line and checks: the first loss against the one-rank step's,
+    the MoE layers' outputs against its (``moe_y_errs``), the control's
+    loss and outputs, each rank's expert blocks and buffer (E/2 experts),
+    launches, s a step and each rank's peak beside the dry run's; its
+    launches summed over the ranks."""
+    cfg = mesh_moe_config(plan)
+    m, e = plan["moe"], cfg.moe.n_experts
+    g = [r["g"] for r in ranks]
+    per_step = train_launches_per_forward(cfg)
+    per_step = {"flash_attention": per_step["flash_attention"],
+                "flash_attention_bwd": per_step["flash_attention"],
+                "rmsnorm": per_step["rmsnorm"]}
+    first = g[0]["rows"][0]["loss"]
+    loss_rel = abs(first - one["loss"]) / abs(one["loss"])
+    control_rel = abs(g[0]["control_loss"] - one["loss"]) / abs(one["loss"])
+    y_sound = [moe_y_errs(y, one_y, "sound") for y in ys]
+    y_control = [moe_y_errs(y, one_y, "control") for y in ys]
+    # each weight's bytes as a block of E/2 experts, from the config
+    d, f = cfg.d_model, cfg.moe.d_expert
+    want_w = {"wi": [e // 2, d, f], "wg": [e // 2, d, f],
+              "wo": [e // 2, f, d]}
+    half = all(c["buffer"][0] == e // 2 and c["buffer"][2] == d
+               and all(c["weights"][k] == [w, 4 * math.prod(w)]
+                       for k, w in want_w.items())
+               for rg in g for c in rg["expert_calls"])
+    moe_layers = cfg.n_layers - cfg.moe.n_dense_layers
+    peaks = [rg["peak"] for rg in g]
+    emit("mesh_moe", card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+         moe_layers=moe_layers, n_experts=e, mesh={"data": 2, "model": 2},
+         sharding="fsdp", backend="gloo", ranks_on_one_card=4,
+         seq=m["seq"], global_batch=m["batch"], steps=m["steps"],
+         dtype=cfg.dtype, param_dtype="float32",
+         s_per_step=[[row["s"] for row in rg["rows"]] for rg in g],
+         s_per_step_median=[rg["s_median"] for rg in g],
+         losses=[row["loss"] for row in g[0]["rows"]],
+         first_loss_one_rank=one["loss"], one_rank_s=one["s"],
+         one_rank_peak=one["peak"], first_loss_rel_err=loss_rel,
+         loss_rtol=MESH_LOSS_RTOL, control_loss=g[0]["control_loss"],
+         control_rel_err=control_rel, control_s=g[0]["control_s"],
+         moe_y_rel_err_per_rank_layer=y_sound,
+         moe_y_control_rel_err_per_rank_layer=y_control,
+         moe_y_rtol=MESH_MOE_Y_RTOL, moe_y_stride=m["y_stride"],
+         expert_calls=g[0]["expert_calls"],
+         expert_calls_per_rank=[rg["n_expert_calls"] for rg in g],
+         weights_expected={k: [w, 4 * math.prod(w)]
+                           for k, w in want_w.items()},
+         launches_per_step_per_rank=[rg["rows"][-1]["launches"] for rg in g],
+         launches_expected=per_step, peak_per_rank=peaks,
+         peak_total=sum(peaks), peak_limit=MESH_PEAK_LIMIT,
+         predicted_peak=predict["peak"],
+         predicted_arguments=predict["arguments"],
+         predicted_flops=predict["flops"],
+         predicted_wire_bytes=predict["wire_bytes"],
+         predict_s=predict["seconds"],
+         peak_rel_err=[(predict["peak"] - pk) / pk if pk else None
+                       for pk in peaks],
+         local_param_bytes=[rg["local_param_bytes"] for rg in g],
+         local_opt_bytes=[rg["local_opt_bytes"] for rg in g],
+         job_s=[rg["job_s"] for rg in g], beside_cpu_processes=list(beside),
+         their_nice=CPU_SIDE_NICE)
+    checks = dict(
+        moe_first_loss=loss_rel <= MESH_LOSS_RTOL,
+        moe_control_caught=control_rel > MESH_LOSS_RTOL,
+        moe_y=all(len(e) == moe_layers and max(e) <= MESH_MOE_Y_RTOL
+                  for e in y_sound),
+        moe_y_control_caught=all(min(e) > MESH_MOE_Y_RTOL
+                                 for e in y_control),
+        moe_half_experts=half and all(
+            rg["n_expert_calls"] == moe_layers * m["steps"] for rg in g),
+        moe_launches=all(row["launches"] == per_step
+                         for rg in g for row in rg["rows"]),
+        moe_peak=sum(peaks) <= MESH_PEAK_LIMIT,
+        moe_finite=all(math.isfinite(row["loss"]) for rg in g
+                       for row in rg["rows"]))
+    return checks, {key: sum(sum(row["launches"][key] for row in rg["rows"])
+                             for rg in g) for key in per_step}
 
 
 # ---- 30: the dry run against the card's own step ----
@@ -5536,13 +5962,19 @@ def dryrun_train_side(dev, model, batch) -> dict:
                 loss=float(loss))
 
 
-# (f): one cell of each family that phases 24-27 train, as they cut it:
-# (arch, layers or None for the whole model, rows, sequence)
-REMAT_CELLS = ((MOE_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, TRAIN_SEQ),
-               (SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, SSM_TRAIN_BATCH,
-                SSM_TRAIN_SEQ),
-               (ENCDEC_ARCH, None, ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ),
-               (VLM_ARCH, None, VLM_TRAIN_BATCH, TRAIN_SEQ))
+# (f): cells of the families that phases 24-27 train; (arch, the config's
+# depth fields, rows, sequence): the MoE and SSM families as those phases
+# cut them (their recomputed forwards re-run the routing and the scan),
+# whisper's checkpointed encoder and decoder blocks (cross attention's
+# flash forward and backward recomputed) and internvl2's LM under its
+# prefix, each cut to 4 layers a stack to pay for phase 29 (g)
+REMAT_CELLS = ((MOE_ARCH, {"n_layers": MOE_TRAIN_LAYERS}, MOE_TRAIN_BATCH,
+                TRAIN_SEQ),
+               (SSM_TRAIN_ARCH, {"n_layers": SSM_TRAIN_LAYERS},
+                SSM_TRAIN_BATCH, SSM_TRAIN_SEQ),
+               (ENCDEC_ARCH, {"n_layers": 4, "n_encoder_layers": 4},
+                ENCDEC_TRAIN_BATCH, ENCDEC_DEC_SEQ),
+               (VLM_ARCH, {"n_layers": 4}, VLM_TRAIN_BATCH, TRAIN_SEQ))
 REMAT_KERNELS = ("flash_attention", "rmsnorm", "ssd_state_scan")
 
 
@@ -5570,11 +6002,11 @@ def remat_close(got, want, zero_scale: float | None) -> tuple[float, bool]:
 
 def remat_families(dev) -> dict:
     """Phase 30 (f): ``remat="block"``, every family's default, against
-    "none" on the card for one cell of each family that phases 24-27 train
-    with "none" pinned (``REMAT_CELLS``: deepseek cut to
-    ``MOE_TRAIN_LAYERS``, mamba2 to ``SSM_TRAIN_LAYERS``, whisper and
-    internvl2 whole, at those phases' batches; float32 params, bf16
-    activations). One loss-and-gradients call each from the same params
+    "none" on the card for the cells that phases 24 and 27 train with
+    "none" pinned (``REMAT_CELLS``: deepseek cut to ``MOE_TRAIN_LAYERS``,
+    mamba2 to ``SSM_TRAIN_LAYERS``, whisper to 4 + 4 layers, internvl2 to
+    4, at those phases' batches; float32 params, bf16 activations). One
+    loss-and-gradients call each from the same params
     and batch ("block" first, after an untimed warm-up call): the loss bit for bit, the gradients within
     ``TRAIN_TOL`` (``remat_close``), and each kernel's launches: every forward
     kernel the family runs launches more often under "block" (its
@@ -5590,10 +6022,8 @@ def remat_families(dev) -> dict:
     smi = nvidia_smi_line()
     total = dict.fromkeys(remat_launches(), 0)
     failed = []
-    for arch, layers, rows, seq in REMAT_CELLS:
-        base = get_config(arch)
-        if layers is not None:
-            base = dataclasses.replace(base, n_layers=layers)
+    for arch, depth, rows, seq in REMAT_CELLS:
+        base = dataclasses.replace(get_config(arch), **depth)
         assert base.remat == "block"
         params = build_model(base).init(
             torch.Generator(device=dev).manual_seed(0))
@@ -5633,7 +6063,7 @@ def remat_families(dev) -> dict:
                       forward_recomputed=recomputed and any(ln.values()),
                       backward_as_often=(lb["flash_attention_bwd"]
                                          == ln["flash_attention_bwd"]))
-        emit("dryrun_remat_family", arch=arch, n_layers=base.n_layers,
+        emit("dryrun_remat_family", arch=arch, depth=depth,
              rows=rows, seq=seq, dtype=base.dtype, param_dtype="float32",
              loss_block=float(blk["loss"]), loss_none=float(non["loss"]),
              grad_max_err=max(e for e, _ in pairs), grad_tol=TRAIN_TOL,
@@ -5653,7 +6083,47 @@ def remat_families(dev) -> dict:
     return total
 
 
-def dryrun_path(dev) -> dict:
+# the CPU processes that phase 29's ranks share the host with run at this
+# niceness, so that the ranks' timed steps take the cores first
+CPU_SIDE_NICE = 10
+
+# runs launch/dryrun.py's CLI at CPU_SIDE_NICE and writes the seconds it
+# took to argv[1] (argv[2:] are the CLI's arguments)
+_DRYRUN_TIMED = """
+import os, runpy, sys, time
+t0 = time.perf_counter()
+os.nice(int(os.environ["CPU_SIDE_NICE"]))
+out, sys.argv = sys.argv[1], [sys.argv[0]] + sys.argv[2:]
+try:
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+finally:
+    with open(out, "w") as f:
+        f.write(repr(time.perf_counter() - t0))
+"""
+
+
+def start_dryrun_mesh() -> dict:
+    """Phase 30 (d)'s production-mesh dry run of qwen3-0.6b train_4k
+    (``launch/dryrun.py``, CPU only), started in a process of its own at
+    ``CPU_SIDE_NICE``: its ``proc`` and output ``dir`` (a
+    ``TemporaryDirectory``); the process writes the seconds it took to
+    ``dir/seconds``."""
+    import atexit
+    tmp = tempfile.TemporaryDirectory()
+    # its output to files: a pipe nobody reads until phase 30 could fill
+    with open(f"{tmp.name}/stdout", "w") as out, \
+            open(f"{tmp.name}/stderr", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_TIMED, f"{tmp.name}/seconds",
+             "--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh",
+             "single", "--out", tmp.name], stdout=out, stderr=err,
+            env=dict(os.environ, PYTHONPATH=str(SRC),
+                     CPU_SIDE_NICE=str(CPU_SIDE_NICE)), cwd=ROOT)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return dict(proc=proc, dir=tmp)
+
+
+def dryrun_path(dev, mesh_run: dict | None = None) -> dict:
     """Phase 30: the port's dry run (``launch/dryrun.py``) against the
     card. (a) The one-rank count of phase 22's cell (qwen3-0.6b, train_4k
     at batch 4, sync, float32 params, bf16 activations, ``remat="block"``)
@@ -5664,9 +6134,10 @@ def dryrun_path(dev) -> dict:
     within ``TRAIN_TOL``; both times and peaks. (c) The count check of
     phase 9's prefill (4 x 4096) and of a phase-10 decode step. (d) The
     production-mesh dry run of qwen3-0.6b train_4k (a process of its own:
-    it holds a fake process group of 256 ranks). (e) The custom
+    it holds a fake process group of 256 ranks; ``mesh_run``, from
+    :func:`start_dryrun_mesh`, when it was started earlier). (e) The custom
     operators' host cost a call. (f) ``remat_families``: "block" against
-    "none" for the MoE, SSM, encoder-decoder and VLM families. Returns the
+    "none" for the MoE and SSM families. Returns the
     kernels' launches."""
     import dataclasses
     import torch
@@ -5726,8 +6197,8 @@ def dryrun_path(dev) -> dict:
         grads[remat] = (loss, g)
         del params
     (lb, gb), (ln, gn) = grads["block"], grads["none"]
-    grad_err = max(grad_close(a, b, TRAIN_TOL)[0] for a, b in zip(gb, gn))
-    grads_ok = all(grad_close(a, b, TRAIN_TOL)[1] for a, b in zip(gb, gn))
+    pairs = [grad_close(a, b, TRAIN_TOL) for a, b in zip(gb, gn)]
+    grad_err, grads_ok = max(e for e, _ in pairs), all(ok for _, ok in pairs)
     bitwise = all(bool(torch.equal(a, b)) for a, b in zip(gb, gn))
     del grads, gb, gn
     torch.cuda.empty_cache()
@@ -5795,21 +6266,29 @@ def dryrun_path(dev) -> dict:
         raise AssertionError(f"dryrun_serve: fake and card counts differ: "
                              f"{counts}")
 
-    # (d) the production mesh, in a process of its own
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             TRAIN_ARCH, "--shape", "train_4k", "--mesh", "single",
-             "--out", tmp], capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=str(SRC)), cwd=ROOT)
-        mesh_s = time.perf_counter() - t0
+    # (d) the production mesh, in a process of its own (started before
+    # phase 27: it runs on the CPU alone)
+    run = mesh_run or start_dryrun_mesh()
+    with run["dir"] as tmp:
+        try:
+            run["proc"].wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            run["proc"].kill()
+            run["proc"].wait()
+        # the dry run's own seconds, as its process counted them
+        seconds = Path(f"{tmp}/seconds")
+        mesh_s = float(seconds.read_text()) if seconds.exists() else None
+        proc = subprocess.CompletedProcess(
+            run["proc"].args, run["proc"].returncode,
+            Path(f"{tmp}/stdout").read_text(),
+            Path(f"{tmp}/stderr").read_text())
         lines = [ln for ln in proc.stdout.splitlines()
                  if ln.startswith(("OK", "FAIL"))]
         path = Path(tmp) / f"{TRAIN_ARCH}__train_4k__single__sync.json"
         record = json.loads(path.read_text()) if path.exists() else None
     import importlib.util
     emit("dryrun_mesh", line=lines, seconds=mesh_s, rc=proc.returncode,
+         started_before_phase_27=mesh_run is not None, nice=CPU_SIDE_NICE,
          torch=torch.__version__, fake_collectives_module=importlib.util.
          find_spec("torch.distributed._tools.fake_collectives") is not None,
          record={k: record[k] for k in ("mesh", "per_device_bytes",
@@ -6337,6 +6816,11 @@ def main() -> int:
                                              (vlm_prefill, vlm_serve)))
 
     # ---- 27. training the MoE/MLA, encoder-decoder and VLM families ----
+    # the CPU-only dry runs of phases 29 (g) and 30 (d) start here, so that
+    # they run beside this phase's one process and not beside phase 29's
+    # four ranks, whose steps the host paces
+    dryrun_mesh = start_dryrun_mesh()
+    moe_predict = start_moe_predict(mesh_plan(dev.type))
     train_kernels(dev)
     train_paths = dict(train_lm=train_lm, train_ssm=train_ssm,
                        train_moe=train_moe_path(dev),
@@ -6345,10 +6829,10 @@ def main() -> int:
     train_families_card_vs_cpu(dev)
 
     # ---- 29. the model zoo over a mesh of ranks on the one card ----
-    mesh_launches = mesh_path(dev)
+    mesh_launches = mesh_path(dev, predict=moe_predict, dryrun=dryrun_mesh)
 
     # ---- 30. the dry run against the card's own step ----
-    dryrun_path(dev)
+    dryrun_path(dev, dryrun_mesh)
 
     no_train = {name: 0 for name in train_paths}
     t_rms, t_fla, t_scan = (train_entry(k, bwd, train_paths)

@@ -7,21 +7,44 @@ untouched, plus any shared experts). The expert FFNs run as one batched
 product over the (E, capacity, d) buffer; the JAX package computes it as
 an einsum outside any Pallas kernel, so here it is ``torch.bmm``.
 
-On a mesh the layer computes on the global batch, as the JAX package's
-does (its capacity and load-balancing loss are functions of every
-token): each rank gathers the batch ranks' tokens
-(``pjit_hints.gather_batch``), runs the whole layer with every expert
-(gathered over ``model``; expert parallelism is not ported), and keeps its
-own rows of the output.
+On a mesh the layer is laid out as the JAX package's specs lay it out:
+the router and the shared experts run on the rank's own (batch-sharded)
+tokens; the capacity, the slots and the load-balancing loss are those of
+the global batch; and the (E, C, d) buffer and the expert weights are
+split over ``model`` when E divides it (``pjit_hints.shard_experts``: E
+over ``model``, C and d replicated). A rank
+
+1. routes its own tokens (float32 router, top k, gate), and takes the
+   load-balancing loss from the prob sums summed over the batch axes
+   (``pjit_hints.batch_mean``) and every batch rank's first choices;
+2. gathers the expert ids, not the activations, over the batch axes
+   (``pjit_hints.gather_batch``) and computes every pair's slot in
+   global token order, so the same pairs drop as on one card;
+3. fills only its own experts' rows of the buffer, (E/M, C, d) on a
+   ``model`` axis of M, from the gathered tokens a choice at a time
+   (pairs of other ranks' experts and dropped pairs go to a spare row;
+   no (T*k, d) tensor is built);
+4. runs its experts' FFNs on that block (``pjit_hints.use_params`` gives
+   it the expert weights' E/M block, moved there from the FFN-width split
+   JAX's rules store them in);
+5. combines its own tokens only, each pair of another rank's expert
+   contributing zero, and sums the partial outputs over ``model``
+   (Megatron's ``reduce_from_model``; ``copy_to_model`` on the tokens
+   and the gate sums their partial gradients back);
+6. adds the shared experts on its own tokens.
+
+Without a mesh, on a ``model`` axis of one, or when E does not divide
+``model`` (the JAX package then replicates the experts), the buffer holds
+every expert and nothing is summed over ``model``.
 
 Router in float32; the Switch-style load-balancing loss is returned to
 the caller.
 
 No step synchronises with the host, so a layer's launches queue up
 behind the previous layer's: the dropped pairs are written to a spare
-slot row that is sliced off (instead of being selected by a boolean
-mask, whose size the host would have to read), and read back as zeros
-by a ``where``; the first choices' counts come from ``index_add_``, not
+row that is sliced off (instead of being selected by a boolean mask,
+whose size the host would have to read), and read back as zeros by a
+``where``; the first choices' counts come from ``index_add_``, not
 ``bincount``.
 """
 
@@ -61,7 +84,8 @@ def moe_init(gen: torch.Generator, cfg):
 
 
 def _expert_ffn(experts, buf, kind: str):
-    """buf: (E, C, d) -> (E, C, d) through the per-expert FFNs."""
+    """buf: (E, C, d) -> (E, C, d) through the per-expert FFNs (E this
+    rank's experts)."""
     def matmul(w, x):           # w: (E, a, b), x: (E, C, a)
         return torch.bmm(x, w.to(x.dtype))
 
@@ -109,10 +133,8 @@ def route(params, cfg, tokens):
 
 
 def moe_apply(params, cfg, x):
-    """x: (B, S, d) -> (y, aux_loss). On a mesh: this rank's rows of the
-    global batch's y, and the global batch's aux_loss."""
-    b_local = x.shape[0]
-    x = pjit_hints.gather_batch(x)
+    """x: (B, S, d), this rank's rows on a mesh -> (y, aux_loss): y of the
+    same rows, aux_loss the global batch's."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -120,28 +142,56 @@ def moe_apply(params, cfg, x):
     tokens = x.reshape(t, d)
     probs, gate, ids = route(params, cfg, tokens)
 
+    # every batch rank's expert ids in global token order: the global
+    # capacity, slots and first-choice counts
+    all_ids = pjit_hints.gather_batch(ids)                       # (Tg, k)
+    t_all = all_ids.shape[0]
+
     # load-balancing auxiliary loss (Switch-style)
-    me = torch.mean(probs, dim=0)                                # (E,)
+    me = pjit_hints.batch_mean(probs)                            # (E,)
     first = torch.zeros(e, device=x.device).index_add_(
-        0, ids[:, 0], torch.ones(t, device=x.device))
-    aux = e * torch.sum(me * (first / t))
+        0, all_ids[:, 0], torch.ones(t_all, device=x.device))
+    aux = e * torch.sum(me * (first / t_all))
 
-    cap = capacity(cfg, t)
-    flat_ids = ids.reshape(-1)
-    slot, kept = dispatch(ids, cap)
-    # scatter into the expert buffer, the dropped pairs to spare slot `cap`
-    rows = flat_ids * (cap + 1) + torch.where(kept, slot, cap)
-    buf = x.new_zeros(e * (cap + 1), d)
-    buf.index_copy_(0, rows, tokens.repeat_interleave(k, dim=0))
-    buf = buf.view(e, cap + 1, d)[:, :cap]
+    cap = capacity(cfg, t_all)
+    slot, kept = dispatch(all_ids, cap)
+    # this rank's experts: E/M of them on a ``model`` axis of M dividing E
+    split = pjit_hints.experts_split(e) and pjit_hints.model_active()
+    block = pjit_hints.block_of(e) if split else slice(0, e)
+    lo, n_loc = block.start, block.stop - block.start
+    local = all_ids - lo
+    use = kept.view(t_all, k) & (local >= 0) & (local < n_loc)
+    # scatter into this rank's experts' buffer a choice at a time; the
+    # other ranks' and the dropped pairs to the spare last row
+    spare = n_loc * cap
+    rows = torch.where(use, local * cap + slot.view(t_all, k), spare)
+    src = pjit_hints.gather_batch(
+        pjit_hints.copy_to_model(tokens) if split else tokens)  # (Tg, d)
+    buf = src.new_zeros(spare + 1, d)
+    for rows_j in rows.t().contiguous():
+        buf.index_copy_(0, rows_j, src)
+    del src
+    out_buf = _expert_ffn(params["experts"], buf[:spare].view(n_loc, cap, d),
+                          cfg.mlp_type)
 
-    out_buf = _expert_ffn(params["experts"], buf, cfg.mlp_type)
-
-    gathered = out_buf[flat_ids, torch.clamp_max(slot, cap - 1)]  # (Tk, d)
-    gathered = torch.where(kept[:, None], gathered, 0)
+    # combine this rank's tokens: a pair of another rank's expert, or a
+    # dropped one, reads a clamped row and contributes zero
+    own_slot = pjit_hints.batch_rows(slot.view(t_all, k), t).reshape(-1)
+    own_use = pjit_hints.batch_rows(use, t).reshape(-1)
+    own_lid = (torch.clamp(ids - lo, 0, n_loc - 1) if split else ids) \
+        .reshape(-1)
+    gathered = out_buf[own_lid, torch.clamp_max(own_slot, cap - 1)]  # (Tk, d)
+    gathered = torch.where(own_use[:, None], gathered, 0)
+    if split:
+        gate = pjit_hints.copy_to_model(gate)
+    # split: each rank's partial sum stays float32 until the sum over
+    # ``model``, so y is rounded once, as on one card
     y = torch.sum((gathered * gate.reshape(-1, 1).to(gathered.dtype))
-                  .reshape(t, k, d), dim=1)
+                  .reshape(t, k, d), dim=1,
+                  dtype=torch.float32 if split else None)
+    if split:
+        y = pjit_hints.reduce_from_model(y).to(x.dtype)
 
     if m.n_shared:
         y = y + mlp(params["shared"], tokens, kind=cfg.mlp_type)
-    return pjit_hints.batch_rows(y.reshape(b, s, d), b_local), aux
+    return y.reshape(b, s, d), aux

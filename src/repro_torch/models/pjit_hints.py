@@ -22,9 +22,10 @@ the layout is decided by the same rules and carried out by hand:
   activation enters a split region, ``reduce_from_model`` (an all-reduce,
   its backward the identity) after a row-parallel product,
   ``gather_from_model`` / ``local_block`` between a split and a
-  replicated layout, ``gather_batch`` for the MoE layer's global token
-  set, and :func:`use_params`, which gathers each parameter block to the
-  layout its layer computes with and reduces its gradient back.
+  replicated layout, ``gather_batch`` and ``batch_mean`` for the MoE
+  layer's global expert ids, tokens and load-balancing loss, and
+  :func:`use_params`, which gathers each parameter block to the layout
+  its layer computes with and reduces its gradient back.
 """
 
 from __future__ import annotations
@@ -307,8 +308,38 @@ def gather_batch(x):
     """The global batch: every batch rank's ``x`` (B_local, ...) joined
     along dim 0 in the batch axes' order; the gradient reduce-scattered
     back. For a layer whose result depends on the whole batch (the MoE
-    capacity and load-balancing loss)."""
+    layer's expert ids, for the global capacity and slots, and the tokens
+    its experts' buffer takes)."""
     return _GatherBatch.apply(x) if batch_active() else x
+
+
+class _SumBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.groups = [_group(a) for a in _HINTS.batch_axes]
+        for group in ctx.groups:
+            x = coll.all_reduce(x, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for group in ctx.groups:
+            g = coll.all_reduce(g, group)
+        return g
+
+
+def batch_mean(x):
+    """The mean over the global batch's rows of a tensor of which this rank
+    holds its rows ``x`` (B_local, ...): the rows' sums summed over the
+    batch axes, the same on every batch rank; the gradient summed back over
+    them (each rank's loss holds the whole mean, as :func:`gather_batch`'s
+    reduce-scatter sums it). ``torch.mean(x, 0)`` without batch ranks."""
+    if not batch_active():
+        return torch.mean(x, dim=0)
+    n = x.shape[0]
+    for a in _HINTS.batch_axes:
+        n *= coll.size(_group(a))
+    return _SumBatch.apply(torch.sum(x, dim=0)) / n
 
 
 def batch_rows(x, n_local: int):
@@ -327,43 +358,62 @@ def batch_rows(x, n_local: int):
 # Parameters: a rank's blocks -> the layout its layers compute with
 # ---------------------------------------------------------------------------
 
-def param_use(path: str, cfg) -> tuple[bool, bool]:
+def param_use(path: str, cfg) -> tuple[bool, bool, int | None]:
     """How the layer at ``path`` (a params tree path joined by ``/``) uses
-    its leaf on this mesh: (keep_model, partial). ``keep_model``: the layer
+    its leaf on this mesh: (keep_model, partial, dim). ``keep_model``: the layer
     computes with this rank's block along ``model`` (column- or
     row-parallel weights, a vocab-parallel table). Otherwise the leaf is
     gathered whole, and ``partial`` says whether its gradient on this rank
     is a part of the whole (the leaf is used inside a split region:
     qk-norm scales, biases sliced to the local columns, k/v projections
     of kv heads that do not split), so it is summed over ``model``, or
-    the whole (a replicated region: norms, MoE, MLA, SSM)."""
+    the whole (a replicated region: norms, the MoE router and shared
+    experts, MLA, SSM). ``dim``: where the kept block lies on another dim
+    than the one the leaf is stored split on, that dim (negative), else
+    None. The experts' weights keep their block of E experts (dim -3)
+    where JAX's ``shard_experts`` splits E over ``model``; JAX's rules
+    store them with their FFN width over ``model`` (the ``wi``/``wg``/
+    ``wo`` rules match before ``experts/.*?/w$``)."""
     parts = path.split("/")
     if path.endswith("embed/table") or path.endswith("unembed/w"):
-        return vocab_split(cfg.vocab_size), False
-    if any(p in parts for p in ("experts", "router", "ssm")) \
-            or "ffn/shared" in path:
-        return False, False
+        return vocab_split(cfg.vocab_size), False, None
+    if "experts" in parts:
+        split = experts_split(cfg.moe.n_experts)
+        return split, False, -3 if split else None
+    if any(p in parts for p in ("router", "ssm")) or "ffn/shared" in path:
+        return False, False, None
     if any(p in parts for p in ("attn", "self_attn", "cross_attn")):
         if not attention_split(cfg):
-            return False, False
+            return False, False, None
         if path.endswith(("wq/w", "wo/w")):
-            return True, False
+            return True, False, None
         if path.endswith(("wk/w", "wv/w")):
-            return heads_split(cfg.n_kv_heads), True
-        return False, True                # q_norm, k_norm, biases
+            return heads_split(cfg.n_kv_heads), True, None
+        return False, True, None          # q_norm, k_norm, biases
     if "ffn" in parts and parts[-1] == "w":
-        return mlp_split(cfg), False
-    return False, False
+        return mlp_split(cfg), False, None
+    return False, False, None
 
 
 class _Use(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, spec, keep_model, partial):
-        from repro_torch.launch.sharding import _gather
+    def forward(ctx, x, spec, keep_model, partial, dim):
+        from repro_torch.launch.sharding import _gather, spec_axes
         ctx.spec, ctx.keep_model, ctx.partial = spec, keep_model, partial
         ctx.hints, ctx.rank = _HINTS, model_rank()
         out = _gather(x, _HINTS.mesh, spec,
                       keep=("model",) if keep_model else ())
+        ctx.moved = None
+        if keep_model and dim is not None:
+            # the layer computes with its model block on another dim than
+            # the stored one: move it there by an all-to-all
+            stored, dim = spec_axes(spec).get("model"), dim % x.ndim
+            assert stored is not None and stored != dim, (
+                f"a block kept on dim {dim} needs the leaf stored split "
+                f"over model on another dim; its spec is {spec}")
+            ctx.moved = (stored, dim)
+            out = coll.all_to_all(out, _group(_HINTS.model_axis), dim,
+                                  stored)
         return out.view_as(out) if out is x else out
 
     @staticmethod
@@ -373,7 +423,9 @@ class _Use(torch.autograd.Function):
         on = spec_axes(ctx.spec)
         if h.model_axis and h.model_size > 1:
             group = h.mesh.get_group(h.model_axis)
-            if "model" in on and not ctx.keep_model:
+            if ctx.moved is not None:
+                g = coll.all_to_all(g, group, *ctx.moved)
+            elif "model" in on and not ctx.keep_model:
                 d = on["model"]
                 if ctx.partial:
                     g = coll.reduce_scatter(g, group, d)
@@ -388,17 +440,19 @@ class _Use(torch.autograd.Function):
                 g = coll.reduce_scatter(g, group, on[a])
             else:
                 g = coll.all_reduce(g, group)
-        return g.contiguous(), None, None, None
+        return g.contiguous(), None, None, None, None
 
 
 def use_params(leaves: list, paths: list, specs: list, cfg) -> list:
     """Each parameter block (``leaves``, this rank's blocks under ``specs``,
     at tree ``paths``) in the layout its layer computes with: gathered
     over ``data`` (fsdp), and over ``model`` unless the layer splits it
-    (:func:`param_use`). The gradient that flows back into a block is the
+    (:func:`param_use`); an expert weight's ``model`` block moved from its
+    FFN width to its experts by an all-to-all over ``model``. The gradient that flows back into a block is the
     block of the whole batch's gradient: reduce-scattered over each axis
     the block was gathered over, all-reduced over each batch axis it is
-    replicated on, and over ``model`` where partial. The whole tree is
+    replicated on, and over ``model`` where partial (an expert weight's
+    moved back by the reverse all-to-all). The whole tree is
     gathered before the forward (no layer-by-layer gather: qwen3-0.6b's
     gathered float32 blocks are 1.2 GB a rank at model = 2)."""
     h = _HINTS
@@ -406,6 +460,5 @@ def use_params(leaves: list, paths: list, specs: list, cfg) -> list:
         return list(leaves)
     out = []
     for x, path, spec in zip(leaves, paths, specs):
-        keep, partial = param_use(path, cfg)
-        out.append(_Use.apply(x, tuple(spec), keep, partial))
+        out.append(_Use.apply(x, tuple(spec), *param_use(path, cfg)))
     return out

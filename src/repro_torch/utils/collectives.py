@@ -1,7 +1,7 @@
-"""Collectives over one process group, along one tensor dim.
+"""Collectives over one process group, along tensor dims.
 
 The mesh code (``launch.sharding``, ``models.pjit_hints``,
-``core.hierarchy``) moves tensors between ranks through these four
+``core.hierarchy``) moves tensors between ranks through these
 functions. Each returns its input unchanged on a group of one rank (so a
 one-rank mesh computes the bits of no mesh), sums in float32 whatever the
 input dtype and casts back, and moves bfloat16 and float16 as float32
@@ -58,6 +58,27 @@ def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.to(x.dtype).movedim(0, dim)
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """``x`` split along ``split_dim`` into one block a rank (block i to
+    rank i), and the blocks this rank receives joined along ``cat_dim`` in
+    group-rank order: a tensor split over the group on ``cat_dim`` becomes
+    one split on ``split_dim``."""
+    n = size(group)
+    if n == 1:
+        return x
+    s, c = split_dim % x.ndim, cat_dim % x.ndim
+    src = x.movedim(s, 0)
+    src = (src.to(torch.float32) if x.dtype in _WIDE else src).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    # (n, block, *rest): rank i's block; n joins the cat dim as its major
+    out = out.view(n, src.shape[0] // n, *src.shape[1:])
+    at = 1 + [d for d in range(x.ndim) if d != s].index(c)
+    out = out.movedim(0, at).flatten(at, at + 1)
+    return out.to(x.dtype).movedim(0, s)
 
 
 def probe(group, device) -> dict:

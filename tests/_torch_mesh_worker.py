@@ -124,6 +124,119 @@ def serve_prompts(arch: str = "qwen3-0.6b"):
                             .astype(np.int32))
 
 
+MOE_BATCH, MOE_SEQ = 4, 16
+
+
+def moe_config(arch: str, cf: float):
+    """The reduced config of ``arch`` at capacity factor ``cf``."""
+    import dataclasses
+    cfg = config(arch)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def moe_inputs(arch: str, cf: float):
+    """(whole MoE layer params of ``moe_init`` from seed 3, x, ct): x the
+    layer's (MOE_BATCH, MOE_SEQ, d) input and ct a cotangent of y, float32
+    normals from a numpy seed."""
+    import torch
+    from repro_torch.models import moe
+    cfg = moe_config(arch, cf)
+    params = moe.moe_init(torch.Generator().manual_seed(3), cfg)
+    r = np.random.default_rng(17)
+    x, ct = (r.normal(size=(MOE_BATCH, MOE_SEQ, cfg.d_model))
+             .astype(np.float32) for _ in range(2))
+    return params, x, ct
+
+
+def moe_case(mesh, arch: str, cf: float, fault: bool = False) -> dict:
+    """``moe_apply`` of one reduced MoE layer over the mesh, its params
+    placed as a model's (paths under ``ffn/``) and gathered to the layout
+    the layer computes with, each batch rank on its rows of x: the whole
+    y, the aux loss, every pair's ``kept`` (global token order), the
+    gradients of sum(y * ct) + aux (whole leaves, then x), and each rank's
+    rows of its buffer and expert leaves. ``fault``: the combine's sum over
+    ``model`` dropped (forward only)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import ShapeDtype, moe, pjit_hints
+    from repro_torch.utils import (tree_leaves, tree_leaves_with_path,
+                                   tree_map, tree_unflatten)
+    from repro_torch.utils import collectives as coll
+
+    cfg = moe_config(arch, cf)
+    whole, x, ct = moe_inputs(arch, cf)
+    spec = tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), whole)
+    p_shard = shd.param_shardings(spec, mesh)
+    blocks = shd.shard_tree(whole, p_shard)
+    paths = ["ffn/" + shd._key_str(p) for p, _ in tree_leaves_with_path(spec)]
+    specs = [sh.spec for sh in shd._sharding_leaves(p_shard)]
+    rows = shd.batch_shardings({"x": ShapeDtype(x.shape, torch.float32)},
+                               mesh)["x"]
+    xl = rows.local(torch.tensor(x)).requires_grad_()
+    ctl = rows.local(torch.tensor(ct))
+    n_batch = coll.size(mesh.get_group("data"))
+
+    seen, kept = [], []
+    ffn, dispatch, reduce = moe._expert_ffn, moe.dispatch, \
+        pjit_hints.reduce_from_model
+
+    def recording_ffn(experts, buf, kind):
+        seen.append([buf.shape[0]] + [experts[k]["w"].shape[0]
+                                      for k in sorted(experts)])
+        return ffn(experts, buf, kind)
+
+    def recording_dispatch(ids, cap):
+        slot, keep = dispatch(ids, cap)
+        kept.append(keep)
+        return slot, keep
+
+    moe._expert_ffn, moe.dispatch = recording_ffn, recording_dispatch
+    if fault:
+        pjit_hints.reduce_from_model = lambda y: y
+    leaves = [b.detach().requires_grad_() for b in tree_leaves(blocks)]
+    try:
+        with pjit_hints.hints_ctx(pjit_hints.from_mesh(mesh)):
+            used = pjit_hints.use_params(leaves, paths, specs, cfg)
+            y, aux = moe.moe_apply(tree_unflatten(whole, used), cfg, xl)
+            grads = None if fault else torch.autograd.grad(
+                (y * ctl).sum() + aux / n_batch, leaves + [xl])
+    finally:
+        moe._expert_ffn, moe.dispatch = ffn, dispatch
+        pjit_hints.reduce_from_model = reduce
+    data = mesh.get_group("data")
+    out = {"y": coll.all_gather(y.detach(), data, 0).numpy(),
+           "aux": np.array(float(aux)), "kept": kept[0].numpy(),
+           "rows": coll.all_gather(torch.tensor([seen]), dist.group.WORLD,
+                                   0).numpy()}
+    if grads is not None:
+        whole_g = shd.gather_tree(tree_unflatten(whole, list(grads[:-1])),
+                                  p_shard)
+        out.update(flat(whole_g, "grad/"))
+        out["grad_x"] = coll.all_gather(grads[-1], data, 0).numpy()
+    return out
+
+
+def all_to_all_case(mesh) -> dict:
+    """A bf16 (4, 6) tensor split over ``model`` on dim 1 moved to a split
+    on dim 0 by ``collectives.all_to_all``, and back: on every rank,
+    whether each is its block of the whole (and still bf16)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.utils import collectives as coll
+    group = mesh.get_group("model")
+    r = dist.get_rank(group)
+    full = torch.arange(24, dtype=torch.bfloat16).reshape(4, 6)
+    moved = coll.all_to_all(full[:, 3 * r:3 * r + 3], group, 0, 1)
+    back = coll.all_to_all(moved, group, 1, 0)
+    ok = torch.tensor([[torch.equal(moved, full[2 * r:2 * r + 2]),
+                        torch.equal(back, full[:, 3 * r:3 * r + 3]),
+                        moved.dtype == back.dtype == torch.bfloat16]],
+                      dtype=torch.int32)
+    return {"ok": coll.all_gather(ok, dist.group.WORLD, 0).numpy()}
+
+
 def restore_case(mesh, other, directory: str) -> dict:
     """qwen3's params placed by fsdp on ``mesh``, written by rank 0 as whole
     leaves, restored onto ``other`` (another mesh of the same ranks):

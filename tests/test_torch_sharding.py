@@ -391,7 +391,9 @@ def test_layers_compute_in_jax_specs(monkeypatch, arch, mesh):
     """What each layer computes with on a rank (``param_use``'s
     ``keep_model``, ``attention_split``, ``mlp_split``, ``vocab_split``)
     is split over ``model`` exactly where JAX's ``shard_*`` spec of that
-    layer's activation names ``model`` on a model axis above one."""
+    layer's activation names ``model`` on a model axis above one: the
+    expert weights where ``shard_experts`` splits E, the MoE router and
+    shared experts never (they run on the rank's own tokens)."""
     need_jax()
     cfg = tget(arch)
     model_size = sizes(mesh).get("model", 1)
@@ -414,7 +416,10 @@ def test_layers_compute_in_jax_specs(monkeypatch, arch, mesh):
             got = thints.param_use(key, cfg)
             if key.endswith(("embed/table", "unembed/w")):
                 want = (vocab, False)
-            elif any(p in parts for p in ("experts", "router", "ssm")) \
+            elif "experts" in parts:
+                want = (on_model("shard_experts", (cfg.moe.n_experts, 1,
+                                                   cfg.d_model), 0), False)
+            elif any(p in parts for p in ("router", "ssm")) \
                     or "ffn/shared" in key:
                 want = (False, False)
             elif any(p in parts for p in ("attn", "self_attn",
@@ -430,7 +435,47 @@ def test_layers_compute_in_jax_specs(monkeypatch, arch, mesh):
                 assert thints.mlp_split(cfg) == want[0], key
             else:
                 want = (False, False)
-            assert got == want, key
+            dim = -3 if "experts" in parts and want[0] else None
+            assert got == (*want, dim), key
+
+
+MOE_ARCHS = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("size", SIZES)
+def test_expert_weights_compute_split_on_e(arch, mesh, size):
+    """JAX's rules store an expert weight by the FFN rules (``wi``/``wg``
+    and ``wo`` match before ``experts/.*?/w$``): its ``model`` split, where
+    it has one, lies on the FFN width, never on E. ``param_use`` names E
+    (dim -3 of the stacked leaf) for every expert weight where the
+    experts split, the dim JAX's ``shard_experts`` splits the buffer on,
+    and no dim for any other leaf."""
+    need_jax()
+    cfg = tget(arch) if size == "full" else tget(arch).reduced()
+    n_expert_leaves = 0
+    with thints.hints_ctx(thints.from_mesh(sizes(mesh))):
+        split = thints.experts_split(cfg.moe.n_experts)
+        uses = {tsh._key_str(path): thints.param_use(tsh._key_str(path), cfg)
+                for path, _ in tree_leaves_with_path(
+                    tbuild(cfg).param_specs())}
+    for path, leaf in tree_leaves_with_path(tbuild(cfg).param_specs()):
+        key = tsh._key_str(path)
+        nd = len(leaf.shape)
+        got = uses[key][2]
+        if "experts" not in key.split("/"):
+            assert got is None, key
+            continue
+        n_expert_leaves += 1
+        assert got == (-3 if split else None), key
+        spec = norm(jsh.param_pspec(key, leaf.shape, jmesh(mesh)), nd)
+        assert spec[nd - 3] is None, (key, spec)
+        width = nd - 1 if key.split("/")[-2] in ("wi", "wg") else nd - 2
+        if sizes(mesh).get("model", 1) > 1 and \
+                leaf.shape[width] % sizes(mesh)["model"] == 0:
+            assert spec[width] == "model", (key, spec)
+    assert n_expert_leaves == 3
 
 
 def test_split_predicates_follow_the_rules():

@@ -5,7 +5,7 @@ the JAX package on the CPU in float32.
 - The MoE layer's gradient where pairs drop (capacity factor 0.5): the
   port drops the same (token, expert) pairs as JAX's sort-based slots
   (asserted present), a dropped pair's token copy gets exactly zero
-  gradient (its ``index_copy_`` row is the spare slot that is sliced off,
+  gradient (its ``index_copy_`` row is the spare row that is sliced off,
   as JAX's ``.at[].set(mode="drop")`` discards it), and the gradients of
   ``moe_apply``'s output and of the whole reduced model's loss match
   JAX's.
@@ -90,19 +90,28 @@ def jax_kept(ids, cap):
 
 class CopyGrads:
     """Wraps ``Tensor.index_copy_`` to keep the gradient that reaches the
-    source of each call (``moe_apply``'s token copies, one row per (token,
-    choice) pair)."""
+    source of each call (``moe_apply`` copies the tokens once per choice:
+    the row of token t in call j is pair (t, j)'s copy). ``pairs()``: those
+    gradients in pair order, (T * k, d)."""
 
     def __init__(self, monkeypatch):
-        self.grads = []
+        self.grads = {}
         original = torch.Tensor.index_copy_
 
         def index_copy_(buf, dim, index, source):
             if source.requires_grad:
-                source.register_hook(self.grads.append)
+                source = source.view_as(source)     # this call's own node
+                j = len(self.grads)
+                self.grads[j] = None
+                source.register_hook(
+                    lambda g, j=j: self.grads.__setitem__(j, g))
             return original(buf, dim, index, source)
 
         monkeypatch.setattr(torch.Tensor, "index_copy_", index_copy_)
+
+    def pairs(self):
+        grads = [self.grads[j] for j in range(len(self.grads))]
+        return torch.stack(grads, 1).reshape(-1, grads[0].shape[-1])
 
 
 class Dispatches:
@@ -167,7 +176,8 @@ def test_moe_gradient_with_dropped_pairs_matches_jax(arch, monkeypatch):
     np.testing.assert_array_equal(
         kept.numpy(), jax_kept(jids, tmoe.capacity(tcfg, t)))
     assert (~kept).sum() > 0 and kept.sum() > 0
-    (copy_grad,) = copies.grads           # (T * k, d), pair order
+    assert len(copies.grads) == tcfg.moe.top_k    # a call per choice
+    copy_grad = copies.pairs()            # (T * k, d), pair order
     assert bool((copy_grad[~kept] == 0).all())
     assert bool((copy_grad[kept].abs().sum(-1) > 0).all())
 
