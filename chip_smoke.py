@@ -54,8 +54,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    client-axis ``splits``; kernel, plain and ``torch.mv`` times at the
    cloud and edge shapes, bytes, bound and the kernel's share of it.
 5. ``card_vs_cpu``: the engine on the card and on the CPU (plain version)
-   land on the same stable point for ``make_scenario(60, 5)``.
-5b. ``exchange_card_vs_cpu``: ``make_scenario(60, 5)`` from the nearest
+   land on the same stable point for ``make_scenario(40, 5)``
+   (``CHECK_FIXTURE``).
+5b. ``exchange_card_vs_cpu``: ``make_scenario(40, 5)`` from the nearest
    start with exchanges, card and CPU: the same stable point, moves and
    exchanges applied (at least one).
 5c. ``solvers_card_vs_cpu``: each plain-solver scheme kind on one (8, 30)
@@ -66,13 +67,13 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``schemes``: the paper's seven §V.A schemes (``evaluate_scheme``) on
    the card at the Fig. 3 points (N = 15, 30, 60 at K = 5) and the Fig. 4
    point K = 15 at N = 60, seed 0, as ``benchmarks/paper_cost.py`` runs
-   them (but comm_opt at (60, 15) and (60, 5), ``SCHEME_SKIP``: they
-   alone take 2.5 minutes and 47 s): each scheme's total cost over
-   uniform's, true cost, seconds,
-   moves and launches; HFEL at most 1.001 x random and x uniform
-   (asserted). ``schemes_card_vs_cpu``: the seven at (20, 5, 4) and (12,
-   3, 5) on the card and the CPU: the same assignment and moves, costs
-   within 2e-4 (asserted).
+   them (but comm_opt, ``SCHEME_SKIP``: at (60, 15), (60, 5) and (30, 5)
+   it alone takes 2.5 minutes, 47 s and 17 s; it runs at (15, 5), 18 s):
+   each scheme's total cost over uniform's, true cost, seconds, moves and
+   launches; HFEL at most 1.001 x random and x uniform
+   (asserted). ``schemes_card_vs_cpu``: the seven at (12, 3, 5) and all
+   but comm_opt at (20, 5, 4) (``SCHEME_CHECK_SKIP``) on the card and the CPU: the same
+   assignment and moves, costs within 2e-4 (asserted).
 6. ``train_path``: HFEL training (Algorithm 1) on the card from phase 4's
    stable assignment: MNIST-sized data over the 1000 devices, the MLP,
    L = 10 and I = 5, 3 HFEL rounds then 3 FedAvg rounds from the same
@@ -213,7 +214,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    state) at sequence 4096, random weights from seed 0, tokens from one
    ``TokenPipeline`` draw: ``sync`` at batch 4 for 3 steps, then
    ``hierarchical`` with 2 pods x 2 sequences, a cloud sync every 2 steps
-   under ``TopKCompressor(0.01)``, 4 steps. Each line: s a step split into
+   under ``TopKCompressor(0.01)``, 2 steps. Each line: s a step split into
    forward, backward and optimizer (CUDA events at the step's marks), the
    cloud syncs' seconds, tokens/s, peak memory (asserted under 75 GB), the
    loss at every step (asserted finite), the launches of flash, rmsnorm
@@ -277,7 +278,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``encdec_serve_profile``. (d) ``vlm_prefill_path``: full-size internvl2
    (24 layers) on 4 x (256 random prefix embeddings + 3840 tokens): 24
    flash and 49 rmsnorm a forward (asserted); ``vlm_serve_path``: 8
-   requests of 256 + 32 tokens (no flash, 49 rmsnorm a step, asserted),
+   requests of 64 + 32 tokens (no flash, 49 rmsnorm a step, asserted),
    then ``vlm_decode_32k``: ``serve_shape`` at decode_32k (128 requests, a
    32,768-position cache): ms a step, peak memory (asserted under 75 GB),
    the cache's bytes (asserted). (e) ``encdec_card_vs_cpu`` and
@@ -297,7 +298,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``sync`` steps (96 flash a forward, no rmsnorm). (c)
    ``train_vlm_sync`` and ``train_vlm_hierarchical``: internvl2-1b whole
    on 4 x (256 bf16 image tokens + 4096 tokens), 3 ``sync`` steps, then 2
-   pods x 2 for 4 steps with a TopK(0.01) cloud sync every 2 (24 flash and
+   pods x 2 for 2 steps with a TopK(0.01) cloud sync every 2 (24 flash and
    49 rmsnorm a forward). (d) ``train_families_card_vs_cpu``: phase 21's
    check on the reduced deepseek at capacity factor 0.5 (pairs dropped in
    every MoE layer, asserted), kimi-k2 at head dim 112, whisper and
@@ -366,6 +367,39 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    of its own started before phase 27). Four ranks sharing one card
    measure the mechanism and its cost, not the speed-up of four cards.
 
+30. The dry run against the card (``dryrun_path``): the one-rank fake
+   count of phase 22's step against the card's (FLOPs equal, peak within
+   ``DRYRUN_PEAK_RTOL``), remat "block" against "none", the serve counts,
+   the production-mesh dry run, the operators' host cost, and remat on
+   the other families' train cells.
+
+31. The JAX package's configurations the card had not run. (a)
+   ``kernel``: rmsnorm at qwen2-7b's d 3584 and qwen3-32b's d 5120 (16
+   and 24 held vectors) in bf16 and float32, bit for bit, timed; flash's
+   forward and backward at head dim 128 at qwen2-7b's layer (4 x 4096,
+   28/4 heads), qwen3-32b's (1 x 4096, 64/8) and qwen3-0.6b's heads at 1
+   x 32,768 (held on one kv head's group: a head's float32 scores are 4.3
+   GB there), and olmo-1b's train layer (4 x 4096, 16/16), the backward
+   also at zamba2's (2 x 2048, 32/32 heads of 80), each with its bound, SDPA's device time and the backward's
+   launch plan, the same bits twice. (b) ``zoo_prefill_path`` and
+   ``zoo_serve_path``: olmo-1b, qwen2-7b (prefill 4 x 4096, 8 requests of
+   64 + 16) and qwen3-32b (1 x 4096, 4 of 32 + 16) at full width through
+   phases 9 and 10's code, launches from the config (olmo: no rmsnorm),
+   peaks under 75 GB, decode within phase 10's bound of the prefill; then
+   each reduced in float32, card against CPU. (c) ``zoo_train_*``: olmo-1b
+   whole (4 x 4096, 3 steps) and qwen2-7b cut to 4 layers (2 x 4096, 2
+   steps), ``zoo_dryrun``: each one's one-rank fake count (a CPU process
+   started before phase 27) against the card's step, the FLOPs equal and
+   the peak within ``DRYRUN_PEAK_RTOL``; ``train_hybrid_sync``: zamba2-2.7b
+   cut to 12 layers (two applications of the shared block) at 2 x 2048;
+   ``zoo_train_card_vs_cpu``: reduced qwen2-7b, qwen3-32b and zamba2 (4
+   layers, the shared block twice). (d) ``long_context``: the serve CLI at
+   long_500k for mamba2-1.3b and zamba2-2.7b: the cache's bytes (asserted
+   equal to ``cache_bytes``), peak, ms a decode step, finite logits, no
+   flash or scan launch. (e) ``prefill_32k``: one qwen3-0.6b step at 1 x
+   32,768 with remat "block": launches asserted (flash twice a layer
+   forward, once backward). Then ``seconds``: each phase's seconds.
+
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
 with each path's, phases 16-19's, phase 28's and the HFEL scheme runs'
 beside them;
@@ -376,7 +410,9 @@ the four ranks), rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
 and ``hd112`` entries and one for each of whisper's two shapes and
 internvl2's layer), then ``flash_attention_bwd``, the backward kernel:
 its launches on each train path, phase 21b's qwen3 line and one entry for
-each other train shape,
+each other train shape, phase 31's paths (``dense_zoo_serving``,
+``dense_zoo_train``, ``train_hybrid``, ``long_context``, ``prefill_32k``)
+and shapes,
 the raw ``nvidia-smi`` line, and as the last line ``{"ok": true,
 "device": {...}}``.
 """
@@ -407,6 +443,10 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 PIN_RTOL = 2e-4          # cost, deadline, f (tests/test_assoc_sharded.py)
+# phases 5 and 5b's card-vs-CPU scenario (N, K, seed): at (60, 5, 0) the
+# CPU's plain engine took 20.8 and 30.0 s; at (40, 5, 0) it takes about
+# half, and the exchange descent still applies one exchange (asserted)
+CHECK_FIXTURE = (40, 5, 0)
 BETA_ATOL = 1e-7
 FLIP_COST_RTOL = 2e-2
 
@@ -536,6 +576,7 @@ SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 256, 32
 # activation of 28 layers to bfloat16 (2^-8 relative) at other places, the
 # bf16 analogue of tests/test_models.py's 2e-3 float32 bound
 SERVE_GAP_ATOL, SERVE_GAP_RTOL = 0.1, 0.05
+SERVE_PEAK_LIMIT = 75e9  # bytes, the acceptance bound on the card's 80 GB
 CARD_VS_CPU_TOL = 1e-4   # reduced float32 model: kernels vs plain versions
 # mamba2-1.3b serving: decode_32k's batch of 128 (its float32 state, 13.2
 # GB, fits one card), a prompt of two chunks of 256, and greedy tokens; the
@@ -967,17 +1008,30 @@ def sdpa(q, k, v, causal: bool) -> tuple[float, str]:
             name + ") on kv repeated beforehand")
 
 
+def kv_group(shape: tuple, group: int | None) -> tuple:
+    """Index slices of kv head ``group``'s GQA group in (B, S, H, hd)
+    tensors of ``shape`` (B, Sq, Skv, Hq, Hkv, hd): (its q heads, its kv
+    head); whole slices when ``group`` is None."""
+    if group is None:
+        return slice(None), slice(None)
+    g = shape[3] // shape[4]
+    return slice(group * g, (group + 1) * g), slice(group, group + 1)
+
+
 def flash_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
                fault_libs: dict | None = None, flush=None,
-               report: str | None = None) -> dict:
+               report: str | None = None, group: int | None = None) -> dict:
     """The flash kernel on random inputs of ``shape`` (B, Sq, Skv, Hq, Hkv,
     hd) against its plain version in float32 under ``FLASH_TOL``, and the
     rows' logsumexp it writes for the backward under ``FLASH_LSE_ATOL``
     (raises otherwise); ``fault_libs``' planted faults must fail one of
-    the two. With
-    ``flush``, warm and L2-cold times, the plain version's and SDPA's, the
-    bound and its share, TFLOP/s and ``report`` (ptxas). Returns the
-    ``kernel`` line's fields for the caller to emit."""
+    the two. With ``group``, the kernel runs on the whole shape and is
+    held on kv head ``group``'s GQA group (the plain version on q, k and
+    v sliced to it: at S = 32,768 a head's float32 scores are 4.3 GB). With
+    ``flush``, warm and L2-cold times, the plain version's (on the group
+    where one is given) and SDPA's, the bound and its share, TFLOP/s and
+    ``report`` (ptxas). Returns the ``kernel`` line's fields for the caller
+    to emit."""
     import torch
     from repro_torch.kernels import flash_attention, ref
     b, sq, skv, hq, hkv, hd = shape
@@ -989,15 +1043,20 @@ def flash_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
     got, lse = flash_attention.flash_attention(q, k, v, causal=causal,
                                                return_lse=True)
     await_card("kernel", guard)
-    want, want_lse = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                             causal=causal, return_lse=True)
+    qh, kh = kv_group(shape, group)
+    qc, kc, vc = q[:, :, qh], k[:, :, kh], v[:, :, kh]
+    want, want_lse = ref.flash_attention_ref(
+        qc.float(), kc.float(), vc.float(), causal=causal, return_lse=True)
     tname = str(dtype).removeprefix("torch.")
     want_abs = None if dtype == torch.float32 else ref.flash_attention_ref(
-        q.float(), k.float(), v.float().abs(), causal=causal)
-    measures, ok = flash_error(got, want, want_abs, tname)
-    lse_measures, lse_ok = lse_error(lse, want_lse)
+        qc.float(), kc.float(), vc.float().abs(), causal=causal)
+    measures, ok = flash_error(got[:, :, qh], want, want_abs, tname)
+    lse_measures, lse_ok = lse_error(lse[:, qh], want_lse)
     fields = dict(kernel="flash_attention", case=case, shape=list(shape),
                   dtype=tname, causal=causal, **measures, **lse_measures)
+    if group is not None:
+        fields["checked"] = (f"kv head {group}'s group: q heads "
+                             f"[{qh.start}, {qh.stop}) of {hq}")
     if not (ok and lse_ok):
         emit("kernel", **fields)
         raise AssertionError(f"flash_attention {case} disagrees with its "
@@ -1028,7 +1087,9 @@ def flash_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
                 lambda: flash_attention.flash_attention(
                     q, k, v, causal=causal), 10, flush, guard=guard),
             plain_ms=cuda_ms(lambda: ref.flash_attention_ref(
-                q, k, v, causal=causal), reps=3),
+                qc, kc, vc, causal=causal), reps=3),
+            plain_shape=list(shape) if group is None else
+            [b, sq, skv, qh.stop - qh.start, 1, hd],
             library_ms=lib_ms, library=lib_name,
             library_share=lib_ms / k_ms, operations=ops, bytes=nbytes,
             peak_flops=PEAK_BF16_FLOPS, bound_ms=b_ms, bound_by=b_by,
@@ -1065,15 +1126,16 @@ def bwd_error(got, want, mags, dtype: str) -> tuple[dict, bool]:
 
 def flash_bwd_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
                    scale=None, v_cols=None, fault_libs=None,
-                   timed: bool = False) -> dict:
+                   timed: bool = False, group: int | None = None) -> dict:
     """The backward kernel on random inputs of ``shape`` (B, Sq, Skv, Hq,
     Hkv, hd), with o and lse from the forward kernel, against its plain
     version in float32 under ``FLASH_BWD_TOL``, and that lse against the
     plain forward's under ``FLASH_LSE_ATOL`` (raises otherwise; v and the
     cotangent zero past ``v_cols``, as MLA pads them); ``fault_libs``'
-    planted faults must fail there. With ``timed``: the kernel's ms and
-    the library call's backward's (SDPA's autograd backward at the same
-    scale), each the median of ``BWD_TIMING_RUNS`` device-time runs taken
+    planted faults must fail there. ``group``: held on kv head
+    ``group``'s GQA group alone, as :func:`flash_case`. With ``timed``:
+    the kernel's ms and the library call's backward's (SDPA's autograd
+    backward at the same scale), each the median of ``BWD_TIMING_RUNS`` device-time runs taken
     in turns, with every run and the spread; the bound (and at v's useful
     columns); the launch plan; and that two runs give the same bits
     (raises otherwise). Returns the line's fields."""
@@ -1097,17 +1159,24 @@ def flash_bwd_case(gen, case: str, shape: tuple, dtype, causal: bool, *,
     got = fa.flash_attention_backward(q, k, v, o, lse, g, causal=causal,
                                       scale=scale)
     await_card("kernel", guard)
+    qh, kh = kv_group(shape, group)
+    part = [x[:, :, h] for x, h in zip((q, k, v, o), (qh, kh, kh, qh))]
     want, mags = ref.flash_attention_bwd_ref(
-        *(x.float() for x in (q, k, v, o, lse, g)), causal=causal,
-        scale=scale, magnitudes=True)
+        *(x.float() for x in (*part, lse[:, qh], g[:, :, qh])),
+        causal=causal, scale=scale, magnitudes=True)
     tname = str(dtype).removeprefix("torch.")
-    measures, ok = bwd_error(got, want, mags, tname)
-    lse_measures, lse_ok = lse_error(lse, ref.flash_attention_ref(
-        q.float(), k.float(), v.float(), causal=causal, scale=scale,
+    measures, ok = bwd_error([x[:, :, h] for x, h in zip(got, (qh, kh, kh))],
+                             want, mags, tname)
+    lse_measures, lse_ok = lse_error(lse[:, qh], ref.flash_attention_ref(
+        *(x.float() for x in part[:3]), causal=causal, scale=scale,
         return_lse=True)[1])
     fields = dict(kernel="flash_attention_bwd", case=case, shape=list(shape),
                   dtype=tname, causal=causal, scale=scale, v_cols=v_cols,
                   **measures, **lse_measures)
+    if group is not None:
+        fields["checked"] = (f"kv head {group}'s group: q heads "
+                             f"[{qh.start}, {qh.stop}) of {hq}")
+    del part
     if not (ok and lse_ok):
         emit("kernel", **fields)
         raise AssertionError(f"flash_attention_bwd {case} disagrees with "
@@ -1561,9 +1630,25 @@ def profile_decode(model, params, prompts, max_len: int,
               for name, us, cnt in rows[:8]])
 
 
-def serving_paths(dev) -> dict:
-    """Phases 9 and 10: the prefill and serve paths of full-size
-    qwen3-0.6b on the card. Returns the kernels' launch counts."""
+def serving_paths(dev, arch: str = "qwen3-0.6b", *,
+                  batch: int = PREFILL_BATCH, requests: int = SERVE_REQUESTS,
+                  prompt: int = SERVE_PROMPT, new: int = SERVE_NEW,
+                  phases: tuple = ("prefill_path", "serve_path"),
+                  f32_layers: int | None = None, **extra) -> dict:
+    """Phases 9 and 10 (and 31b): the prefill and serve paths of the
+    full-size dense ``arch`` on the card: ``Model.logits`` on ``batch`` x
+    ``PREFILL_SEQ`` tokens, then ``requests`` requests of a ``prompt``-token
+    prompt and ``new`` greedy tokens through ``serve_shape``, each kernel's
+    launches asserted against :func:`train_launches_per_forward`'s backward
+    calls (a forward without autograd recomputes nothing), the
+    init's, prefill's and serve's peaks under ``SERVE_PEAK_LIMIT``;
+    the bf16 decode within ``SERVE_GAP_*`` of the prefill (asserted), or
+    with ``f32_layers`` reported, the path held instead in float32 at that
+    depth (:func:`decode_vs_prefill_f32`, as phase 14 holds mamba2's);
+    lines named ``phases``, with ``extra``. Returns the kernels' launch
+    counts."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1571,62 +1656,72 @@ def serving_paths(dev) -> dict:
     from repro_torch.launch.serve import serve_shape
     from repro_torch.models import ShapeSpec, build_model
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     model = build_model(cfg)
     # the copy the server keeps, built a layer at a time
-    params, init_s, _, n_params, param_bytes = init_timed(model, dev)
+    params, init_s, init_peak, n_params, param_bytes = init_timed(model, dev)
     rng = np.random.default_rng(0)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size,
-                                     (PREFILL_BATCH, PREFILL_SEQ + 1)),
-                        device=dev)
-    batch = {"tokens": toks}
-    per_fwd = (cfg.n_layers, 2 * cfg.n_layers + 1)   # flash, rmsnorm
+                                     (batch, PREFILL_SEQ + 1)), device=dev)
+    # flash and rmsnorm in one forward (a decode step launches no flash);
+    # qwen3's qk-norm is the plain rms_norm_heads and olmo's LayerNorms
+    # the plain apply_norm: they launch no rmsnorm
+    per = train_launches_per_forward(cfg)
+    per_fwd = (per["flash_attention"][1], per["rmsnorm"][1])
 
     # ---- 9. prefill ----
     with torch.inference_mode():
-        times, counts, peak, logits = timed_forwards(model, params, batch)
+        times, counts, peak, logits = timed_forwards(model, params,
+                                                     {"tokens": toks})
         launched = (counts["flash_attention"], counts["rmsnorm"])
-        ok = (tuple(logits.shape) == (PREFILL_BATCH, PREFILL_SEQ,
-                                      cfg.vocab_size)
+        ok = (tuple(logits.shape) == (batch, PREFILL_SEQ, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()))
-        emit("prefill_path", arch=cfg.name, n_layers=cfg.n_layers,
-             n_params=n_params, param_bytes=param_bytes, init_s=init_s,
-             batch=PREFILL_BATCH, seq=PREFILL_SEQ, dtype=cfg.dtype,
-             s_per_forward=times, mean_s=sum(times) / len(times),
-             tokens_per_s=PREFILL_BATCH * PREFILL_SEQ / min(times),
+        emit(phases[0], arch=cfg.name, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, n_params=n_params, param_bytes=param_bytes,
+             init_s=init_s, init_peak_bytes=init_peak, batch=batch,
+             seq=PREFILL_SEQ, dtype=cfg.dtype, s_per_forward=times,
+             mean_s=sum(times) / len(times),
+             tokens_per_s=batch * PREFILL_SEQ / min(times),
              launches_flash=launched[0], launches_rmsnorm=launched[1],
              launches_expected=[PREFILL_REPS * n for n in per_fwd],
              max_memory_allocated=peak,
              logits_bytes=logits.numel() * logits.element_size(),
-             logits_std=float(logits[0, :64].float().std()), finite=ok)
+             logits_std=float(logits[0, :64].float().std()), finite=ok,
+             **extra)
         if launched != tuple(PREFILL_REPS * n for n in per_fwd):
-            raise AssertionError(f"prefill launches {launched}, expected "
-                                 f"{PREFILL_REPS} x {per_fwd}")
+            raise AssertionError(f"{cfg.name} prefill launches {launched}, "
+                                 f"expected {PREFILL_REPS} x {per_fwd}")
         if not ok:
-            raise AssertionError("prefill logits are not finite or of the "
-                                 "wrong shape")
+            raise AssertionError(f"{cfg.name} prefill logits are not finite "
+                                 "or of the wrong shape")
+        if max(peak, init_peak) > SERVE_PEAK_LIMIT:
+            raise AssertionError(f"{cfg.name} prefill peak {peak} or init "
+                                 f"peak {init_peak} passes "
+                                 f"{SERVE_PEAK_LIMIT}")
         del logits
-        profile_forward(model, params, batch)
+        profile_forward(model, params, {"tokens": toks},
+                        phase=phases[0].replace("_path", "_profile"))
     prefill_launches = launched
-    del batch, toks
+    del toks
 
     # ---- 10. serve: prefill the prompts, feed them, decode greedily ----
     prompts = torch.tensor(rng.integers(0, cfg.vocab_size,
-                                        (SERVE_REQUESTS, SERVE_PROMPT)),
+                                        (requests, prompt)),
                            dtype=torch.int32, device=dev)
-    shape = ShapeSpec("serve_smoke", seq_len=SERVE_PROMPT + SERVE_NEW,
-                      global_batch=SERVE_REQUESTS, kind="decode")
+    shape = ShapeSpec("serve_smoke", seq_len=prompt + new,
+                      global_batch=requests, kind="decode")
     flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pad = torch.zeros(SERVE_REQUESTS, 1, dtype=torch.int32, device=dev)
+        pad = torch.zeros(requests, 1, dtype=torch.int32, device=dev)
         prefill = model.logits(params, {"tokens": torch.cat([prompts, pad],
                                                             1)})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
     at_prefill = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
-    res = serve_shape(cfg, shape, SERVE_NEW, device=dev, params=params,
+    res = serve_shape(cfg, shape, new, device=dev, params=params,
                       prompts=prompts, keep_prompt_logits=True)
     steps = res.prompt_steps + res.decode_steps
     decode = (flash_attention.LAUNCHES - at_prefill[0],
@@ -1635,33 +1730,100 @@ def serving_paths(dev) -> dict:
     gap = (dec - pre).abs()
     within = bool((gap <= SERVE_GAP_ATOL + SERVE_GAP_RTOL * pre.abs()).all())
     first = int((res.tokens[:, 0] == pre[:, -1].argmax(-1)).sum())
-    emit("serve_path", arch=cfg.name, requests=SERVE_REQUESTS,
-         prompt=SERVE_PROMPT, new_tokens=SERVE_NEW, cache_len=shape.seq_len,
-         prefill_s=prefill_s, prompt_steps=res.prompt_steps,
+    emit(phases[1], arch=cfg.name, requests=requests, prompt=prompt,
+         new_tokens=new, cache_len=shape.seq_len, prefill_s=prefill_s,
+         prompt_steps=res.prompt_steps,
          prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
          decode_steps=res.decode_steps,
          decode_ms_per_step=res.ms_per_decode_step,
-         decode_tokens_per_s=SERVE_REQUESTS / (res.ms_per_decode_step / 1e3),
+         decode_tokens_per_s=requests / (res.ms_per_decode_step / 1e3),
          tokens_per_s=res.tokens_per_s,
          launches_prefill=list(at_prefill),
          launches_decode_flash=decode[0],
          rmsnorm_per_step=decode[1] / steps,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
          max_gap=float(gap.max()), mean_gap=float(gap.mean()),
          max_abs_prefill_logit=float(pre.abs().max()),
          gap_bound=[SERVE_GAP_ATOL, SERVE_GAP_RTOL], gap_within=within,
-         first_token_equal=first, tokens=res.tokens[:2, :8].tolist())
+         gap_asserted=f32_layers is None, first_token_equal=first,
+         tokens=res.tokens[:2, :8].tolist(), **extra)
     if at_prefill != per_fwd or decode != (0, per_fwd[1] * steps):
-        raise AssertionError(f"serve launches: prefill {at_prefill}, decode "
-                             f"{decode}; expected {per_fwd} and (0, "
-                             f"{per_fwd[1]} x {steps})")
-    if not (within and torch.isfinite(dec).all()
-            and tuple(res.tokens.shape) == (SERVE_REQUESTS, SERVE_NEW)):
-        raise AssertionError("decode logits leave the bound around the "
-                             "prefill logits")
-    profile_decode(model, params, prompts, SERVE_PROMPT + SERVE_NEW)
+        raise AssertionError(f"{cfg.name} serve launches: prefill "
+                             f"{at_prefill}, decode {decode}; expected "
+                             f"{per_fwd} and (0, {per_fwd[1]} x {steps})")
+    if not ((within or f32_layers) and torch.isfinite(dec).all()
+            and tuple(res.tokens.shape) == (requests, new)):
+        raise AssertionError(f"{cfg.name} decode logits leave the bound "
+                             "around the prefill logits")
+    if torch.cuda.max_memory_allocated() > SERVE_PEAK_LIMIT:
+        raise AssertionError(f"{cfg.name} serve peak passes "
+                             f"{SERVE_PEAK_LIMIT}")
+    del prefill, pre, dec, gap, res
+    profile_decode(model, params, prompts, prompt + new,
+                   phase=phases[1].replace("_path", "_profile"))
+    if f32_layers:
+        del params
+        torch.cuda.empty_cache()
+        decode_vs_prefill_f32(
+            dev, dataclasses.replace(cfg, n_layers=f32_layers,
+                                     dtype="float32"),
+            phase="zoo_decode_vs_prefill_f32", requests=ZOO_F32_REQUESTS,
+            prompt=ZOO_F32_PROMPT, bound=SSM_GAP_F32,
+            full_layers=cfg.n_layers)
     return {"flash_attention": prefill_launches[0] + at_prefill[0]
             + decode[0],
             "rmsnorm": prefill_launches[1] + at_prefill[1] + decode[1]}
+
+
+# phase 31b's float32 decode-vs-prefill check at a depth cut: requests,
+# prompt; its bound is SSM_GAP_F32 (tests/test_models.py's 2e-3)
+ZOO_F32_REQUESTS, ZOO_F32_PROMPT = 4, 32
+
+
+def decode_vs_prefill_f32(dev, cfg, *, phase: str, requests: int,
+                          prompt: int, bound: float, routing: bool = False,
+                          **extra) -> None:
+    """Float32 ``cfg`` (random weights from seed 0): decode logits over
+    ``prompt`` prompt positions of ``requests`` requests against
+    ``Model.logits``, asserted within ``bound`` (absolute and relative);
+    with ``routing``, the MoE routing differences between the two
+    (reported). Phase 25e holds deepseek-v2-lite so, 31b the dense zoo
+    at a depth cut (phase 14's check for mamba2)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
+    b, p = requests, prompt
+    prompts = torch.tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (b, p)), dtype=torch.int32, device=dev)
+    pad = torch.zeros(b, 1, dtype=torch.int32, device=dev)
+    record = RoutingRecorder if routing else contextlib.nullcontext
+    with torch.inference_mode(), record() as pre_rec:
+        prefill = model.logits(params, {"tokens": torch.cat([prompts, pad],
+                                                            1)})
+    with record() as dec_rec:
+        res = serve(model, params, prompts, 1, keep_prompt_logits=True)
+    if routing:
+        extra["routing"] = routing_gap(cfg, pre_rec.calls, dec_rec.calls,
+                                       b, p)
+    gap = (res.prompt_logits - prefill).abs()
+    within = bool((gap <= bound + bound * prefill.abs()).all())
+    emit(phase, arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+         requests=b, prompt=p, bound=[bound, bound], within=within,
+         max_gap=float(gap.max()), mean_gap=float(gap.mean()),
+         max_abs_prefill_logit=float(prefill.abs().max()),
+         first_token_equal=int((res.tokens[:, 0]
+                                == prefill[:, -1].argmax(-1)).sum()),
+         max_memory_allocated=torch.cuda.max_memory_allocated(), **extra)
+    if not (within and torch.isfinite(res.prompt_logits).all()):
+        raise AssertionError(f"{cfg.name} float32 decode at {cfg.n_layers} "
+                             f"layers leaves {bound} of the prefill")
 
 
 def serve_card_vs_cpu(dev, arch: str = "qwen3-0.6b", n_tokens: int = 33,
@@ -2028,10 +2190,15 @@ SCHEMES = ("hfel", "comp_opt", "greedy", "random", "comm_opt", "uniform",
 SCHEME_POINTS = ((15, 5), (30, 5), (60, 5), (60, 15))
 # comm_opt is launch-bound (its nested bisection is some 40k small kernels
 # a batched solve, 1.5 s a move on the card): at (60, 15) it alone took
-# 157.7 s and at (60, 5) 47.4 s, so those two runs are left out (PERF.md;
-# ROADMAP queue 2); (15, 5), (30, 5) and phase 5c's points keep it
-SCHEME_SKIP = {(60, 15): ("comm_opt",), (60, 5): ("comm_opt",)}
+# 157.7 s, at (60, 5) 47.4 s and at (30, 5) 17.0 s, so those runs are left
+# out (PERF.md; ROADMAP queue 2); it runs at the cheapest Fig. 3 point,
+# (15, 5), 17.8 s
+SCHEME_SKIP = {(60, 15): ("comm_opt",), (60, 5): ("comm_opt",),
+               (30, 5): ("comm_opt",)}
 SCHEME_CHECK_POINTS = ((20, 5, 4), (12, 3, 5))    # card vs CPU, (N, K, seed)
+# and the card-vs-CPU check leaves it out at (20, 5, 4) (26.6 s on the card,
+# 12.7 s on the CPU): it runs on both at (12, 3, 5)
+SCHEME_CHECK_SKIP = {(20, 5, 4): ("comm_opt",)}
 HFEL_BOUND = 1.001
 
 
@@ -2152,16 +2319,18 @@ def exchange_batch_kernel(dev, main_sc, assignment, iters: dict,
 
 
 def exchange_card_vs_cpu(dev) -> None:
-    """``make_scenario(60, 5, 0)`` with exchanges from the nearest start on
-    the card and on the CPU: the same stable point, moves and exchanges."""
+    """``make_scenario(*CHECK_FIXTURE)`` with exchanges from the nearest
+    start on the card and on the CPU: the same stable point, moves and
+    exchanges (at least one)."""
     import numpy as np
     from repro_torch.core.assoc_fast import FastAssociationEngine
     from repro_torch.core.scenario import make_scenario
-    sc60 = make_scenario(60, 5, seed=0, device="cpu")
+    n, k, seed = CHECK_FIXTURE
+    sc = make_scenario(n, k, seed=seed, device="cpu")
     out = {}
     for where in (dev, "cpu"):
         t0 = time.perf_counter()
-        eng = FastAssociationEngine(sc60, device=where)
+        eng = FastAssociationEngine(sc, device=where)
         out[where] = (eng.run("nearest"), eng.last_counts,
                       time.perf_counter() - t0)
     (card, c_counts, card_s), (cpu, p_counts, cpu_s) = out[dev], out["cpu"]
@@ -2170,13 +2339,13 @@ def exchange_card_vs_cpu(dev) -> None:
             and c_counts == p_counts
             and math.isclose(card.total_cost, cpu.total_cost,
                              rel_tol=PIN_RTOL))
-    emit("exchange_card_vs_cpu", fixture=[60, 5, 0], init="nearest",
+    emit("exchange_card_vs_cpu", fixture=list(CHECK_FIXTURE), init="nearest",
          counts_card=c_counts, counts_cpu=p_counts,
          total_cost_card=card.total_cost, total_cost_cpu=cpu.total_cost,
          same=bool(same), card_s=card_s, cpu_s=cpu_s)
     if not same or c_counts["exchanges"] < 1:
-        raise AssertionError("card and CPU disagree with exchanges on "
-                             "(60, 5, 0), or none applied")
+        raise AssertionError(f"card and CPU disagree with exchanges on "
+                             f"{CHECK_FIXTURE}, or none applied")
 
 
 # solve_paper's bound across devices: the JAX solver's own jit-vs-eager
@@ -2284,6 +2453,8 @@ def schemes(dev) -> dict:
         sc = make_scenario(n, k, seed=seed, device="cpu")
         diffs, secs = {}, {}
         for scheme in SCHEMES:
+            if scheme in SCHEME_CHECK_SKIP.get((n, k, seed), ()):
+                continue
             got = {}
             for where in ("card", "cpu"):
                 t0 = time.perf_counter()
@@ -2302,6 +2473,7 @@ def schemes(dev) -> dict:
                 / cpu.true_cost,
                 bitwise_total=card.total_cost == cpu.total_cost)
         emit("schemes_card_vs_cpu", fixture=[n, k, seed], seconds=secs,
+             left_out=list(SCHEME_CHECK_SKIP.get((n, k, seed), ())),
              **diffs)
         bad = [s for s, d in diffs.items()
                if not (d["same_assignment"] and d["moves"][0] == d["moves"][1]
@@ -3190,8 +3362,10 @@ def sharded_path(dev, main_sc, main_res, ex, scale, live) -> dict:
 
 TRAIN_ARCH, TRAIN_SEQ = "qwen3-0.6b", 4096       # train_4k's sequence
 TRAIN_SYNC_BATCH, TRAIN_SYNC_STEPS = 4, 3        # train_4k's 256, cut to 4
-TRAIN_PODS, TRAIN_PER_POD, TRAIN_HIER_STEPS = 2, 2, 4
-TRAIN_EDGE_PERIOD, TRAIN_TOPK = 2, 0.01          # two cloud syncs
+# hierarchical: 2 steps and one cloud sync (4 steps and two syncs took
+# 11.3-16.5 s of the whole script)
+TRAIN_PODS, TRAIN_PER_POD, TRAIN_HIER_STEPS = 2, 2, 2
+TRAIN_EDGE_PERIOD, TRAIN_TOPK = 2, 0.01          # one cloud sync
 TRAIN_PEAK_LIMIT = 75e9   # bytes; past it the batch is halved (PERF.md)
 SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS = "mamba2-1.3b", 8   # depth 8 of 48
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 2048, 2
@@ -3263,6 +3437,7 @@ def train_flops(cfg, params, batch: int, seq: int) -> float:
     (``pos_embed`` is added, not multiplied); its encoder and cross
     attention see every pair, its decoder's self attention the causal
     ones. MLA's products run over its q/k and v widths, not the padding.
+    zamba2's shared block multiplies the positions once an application.
     An untied embedding table is a lookup, not a product."""
     from repro_torch.utils import tree_leaves_with_path
     positions = seq + (cfg.n_vision_tokens if cfg.family == "vlm" else 0)
@@ -3282,6 +3457,8 @@ def train_flops(cfg, params, batch: int, seq: int) -> float:
                 return float(frames)
         if moe is not None and "experts" in path:
             return positions * moe.top_k / moe.n_experts
+        if path[0] == "shared_attn":
+            return float(positions * (cfg.n_layers // cfg.hybrid_attn_period))
         return float(positions)
 
     matmul = sum(6.0 * leaf.numel() * uses(path) * batch
@@ -3309,18 +3486,31 @@ def train_flops(cfg, params, batch: int, seq: int) -> float:
 
 
 def train_launches_per_forward(cfg) -> dict:
-    """Each kernel's launches in one training forward, by family (each
-    launch has one backward call): flash once per attention (whisper:
-    encoder, decoder self and cross), rmsnorm at every parametric RMS
-    norm (two a layer and the final one; none under LayerNorm), the scan
-    once per SSM layer."""
+    """Each kernel's (launches, backward calls) in one training forward,
+    by family: flash once per attention (whisper: encoder, decoder self
+    and cross; zamba2: each application of its shared block), rmsnorm at
+    every parametric RMS norm (two a layer, two an application of
+    zamba2's shared block, and the final one; none under LayerNorm, as
+    olmo's), the scan once per SSM layer; one backward call a launch.
+    Under ``remat`` a dense or SSM stack's layers run again in the
+    backward's recompute: every launch but the final norm's counts twice.
+    An inference forward (no autograd, no recompute) launches the backward
+    calls' number."""
+    apps = (cfg.n_layers // cfg.hybrid_attn_period
+            if cfg.family == "hybrid" and cfg.hybrid_attn_period else 0)
     flash = {"dense": cfg.n_layers, "vlm": cfg.n_layers,
-             "moe": cfg.n_layers, "ssm": 0,
+             "moe": cfg.n_layers, "ssm": 0, "hybrid": apps,
              "encdec": cfg.n_encoder_layers + 2 * cfg.n_layers}[cfg.family]
-    return {"flash_attention": flash,
-            "rmsnorm": 0 if cfg.norm_type == "layernorm"
-            else 2 * cfg.n_layers + 1,
-            "ssd_state_scan": cfg.n_layers if cfg.family == "ssm" else 0}
+    per = {"flash_attention": flash,
+           "rmsnorm": 0 if cfg.norm_type == "layernorm"
+           else 2 * (cfg.n_layers + apps) + 1,
+           "ssd_state_scan": cfg.n_layers if cfg.family in ("ssm", "hybrid")
+           else 0}
+    if cfg.remat == "none":
+        return {name: (n, n) for name, n in per.items()}
+    assert cfg.family in ("dense", "ssm"), cfg.family
+    return {name: (2 * n - (name == "rmsnorm" and n > 0), n)
+            for name, n in per.items()}
 
 
 def profile_train(phase: str, fn, shapes: bool = False) -> dict | None:
@@ -3460,8 +3650,8 @@ def train_run(dev, model, data, *, phase: str, mode: str, batch: int,
     bwd_kernel = {name: flash_attention.BWD_LAUNCHES
                   if name == "flash_attention" else 0 for name in mods}
     forwards = steps * bundle.n_pods
-    expected = {name: (forwards * n, forwards * n)
-                for name, n in train_launches_per_forward(cfg).items()}
+    expected = {name: (forwards * n, forwards * b)
+                for name, (n, b) in train_launches_per_forward(cfg).items()}
     prof = profile_train(phase + "_profile", lambda: bundle.step_fn(
         params, opt, step.clone(), batches[steps]),
         shapes=cfg.moe is not None)
@@ -3554,7 +3744,7 @@ def train_lm_path(dev) -> dict:
     """Phases 22 and 23: full-width qwen3-0.6b (bf16 activations, float32
     params and AdamW state) at sequence 4096: ``sync`` at batch 4 for 3
     steps, then ``hierarchical`` with 2 pods x 2 sequences, a cloud sync
-    every 2 steps under ``TopKCompressor(0.01)``, 4 steps; then the
+    every 2 steps under ``TopKCompressor(0.01)``, 2 steps; then the
     hierarchical train state through ``CheckpointManager`` and back, bit
     for bit. Returns the launches of the kernels and backwards."""
     import torch
@@ -4232,48 +4422,6 @@ def moe_serve_path(dev, model, params) -> dict:
     return {"flash_attention": launched[0], "rmsnorm": launched[1]}
 
 
-def moe_decode_vs_prefill_f32(dev) -> None:
-    """Phase 25e: full-width deepseek-v2-lite cut to ``MOE_F32_LAYERS``
-    layers, float32, a capacity factor of 64: decode logits over the
-    prompt against ``Model.logits``, asserted within ``MOE_GAP_F32``, with
-    the routing differences between the two (reported)."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve
-    from repro_torch.models import build_model
-
-    full = get_config(MOE_ARCH)
-    cfg = dataclasses.replace(
-        full, n_layers=MOE_F32_LAYERS, dtype="float32",
-        moe=dataclasses.replace(full.moe, capacity_factor=64.0))
-    model = build_model(cfg)
-    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
-    b, p = MOE_F32_REQUESTS, MOE_F32_PROMPT
-    prompts = torch.tensor(np.random.default_rng(4).integers(
-        0, cfg.vocab_size, (b, p)), dtype=torch.int32, device=dev)
-    pad = torch.zeros(b, 1, dtype=torch.int32, device=dev)
-    with torch.inference_mode(), RoutingRecorder() as pre_rec:
-        prefill = model.logits(params, {"tokens": torch.cat([prompts, pad],
-                                                            1)})
-    with RoutingRecorder() as dec_rec:
-        res = serve(model, params, prompts, 1, keep_prompt_logits=True)
-    routing = routing_gap(cfg, pre_rec.calls, dec_rec.calls, b, p)
-    gap = (res.prompt_logits - prefill).abs()
-    within = bool((gap <= MOE_GAP_F32 + MOE_GAP_F32 * prefill.abs()).all())
-    emit("moe_decode_vs_prefill", arch=cfg.name, n_layers=cfg.n_layers,
-         dtype=cfg.dtype, capacity_factor=64.0, requests=b, prompt=p,
-         bound=[MOE_GAP_F32, MOE_GAP_F32], within=within,
-         max_gap=float(gap.max()), mean_gap=float(gap.mean()),
-         max_abs_prefill_logit=float(prefill.abs().max()), routing=routing,
-         max_memory_allocated=torch.cuda.max_memory_allocated())
-    if not (within and torch.isfinite(res.prompt_logits).all()):
-        raise AssertionError(f"{cfg.name} float32 decode leaves "
-                             f"{MOE_GAP_F32} of the prefill")
-
-
 ENCDEC_ARCH, VLM_ARCH = "whisper-large-v3", "internvl2-1b"
 # whisper: 4 requests of 1500 frames (30 s of audio) and 448 tokens, its
 # published decoder context; 8 served requests from the start of
@@ -4283,9 +4431,11 @@ ENCDEC_BATCH, ENCDEC_DEC_SEQ = 4, 448
 WHISPER_PROMPT = (50258, 50259, 50360, 50364)
 ENCDEC_SERVE_REQUESTS, ENCDEC_SERVE_NEW = 8, 32
 # internvl2: 256 vision tokens before the text, 4 x 4096 positions in all;
-# 8 served requests of 256 + 32 tokens (as qwen3's phase 10); decode_32k's
-# 128 requests over a 32,768-position cache, 8 new tokens each
+# 8 served requests of 64 + 32 tokens (phase 10's 256-token prompt fed a
+# token a step took 13 s); decode_32k's 128 requests over a 32,768-position
+# cache, 8 new tokens each
 VLM_PREFIX, VLM_PREFILL_TEXT = 256, PREFILL_SEQ - 256
+VLM_SERVE_PROMPT = 64
 VLM_DECODE_32K_NEW = 8
 VLM_PEAK_LIMIT = 75e9     # bytes, the acceptance bound on the card's 80 GB
 
@@ -4536,7 +4686,7 @@ def vlm_prefill_path(dev):
 
 
 def vlm_serve_path(dev, model, params) -> dict:
-    """Phase 26d: internvl2-1b serves 8 requests of 256 + 32 tokens (its
+    """Phase 26d: internvl2-1b serves 8 requests of 64 + 32 tokens (its
     decode takes no vision prefix, as in the JAX package): ms a step,
     launches (no flash, 49 rmsnorm a step, asserted), the bf16 gap to the
     prefill logits without a prefix (reported), a profiled step; then
@@ -4553,7 +4703,7 @@ def vlm_serve_path(dev, model, params) -> dict:
     from repro_torch.utils import tree_leaves
 
     cfg = model.cfg
-    b, p, new = SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW
+    b, p, new = SERVE_REQUESTS, VLM_SERVE_PROMPT, SERVE_NEW
     per_step = 2 * cfg.n_layers + 1
     prompts = torch.tensor(np.random.default_rng(5).integers(
         0, cfg.vocab_size, (b, p)), dtype=torch.int32, device=dev)
@@ -4660,7 +4810,7 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 4, 4, 3
 ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 4, 3
 # 27c: internvl2-1b whole: 256 image tokens before 4096 text tokens; sync
 # at batch 4, then hierarchical at TRAIN_PODS x TRAIN_PER_POD
-VLM_TRAIN_BATCH, VLM_TRAIN_STEPS, VLM_TRAIN_HIER_STEPS = 4, 3, 4
+VLM_TRAIN_BATCH, VLM_TRAIN_STEPS, VLM_TRAIN_HIER_STEPS = 4, 3, 2
 # 27d: the reduced deepseek at a capacity factor where every MoE layer
 # drops pairs (asserted); the reduced kimi-k2 at its own head dim 112
 TRAIN_DROP_CF, KIMI_HEAD_DIM = 0.5, 112
@@ -4748,7 +4898,7 @@ def train_vlm_path(dev) -> dict:
     151,655) on 256 bf16 image tokens before 4096 text tokens: ``sync`` at
     batch 4 for 3 steps, then ``hierarchical`` with 2 pods x 2 sequences
     (the prefix split with its tokens), a ``TopKCompressor(0.01)`` cloud
-    sync every 2 steps, 4 steps: 24 flash and 49 rmsnorm launches a
+    sync every 2 steps, 2 steps: 24 flash and 49 rmsnorm launches a
     forward. Returns the path's launches."""
     import torch
     from repro_torch.configs import get_config
@@ -5634,7 +5784,7 @@ def start_moe_predict(plan: dict) -> dict:
 
 
 def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
-              dryrun: dict | None = None) -> dict:
+              cpu_side: dict | None = None) -> dict:
     """Phase 29: (f) first (its ``mesh=None`` step is (a)'s one-rank
     reference; its 1-rank NCCL step (g)'s), then the jobs of
     ``plan["jobs"]`` ((a)-(e), (g)) on four ranks; (g)'s count by the dry
@@ -5642,18 +5792,18 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
     None). Emits ``mesh_train``, ``mesh_restore``, ``mesh_train_f32``,
     ``mesh_hier``, ``mesh_serve``, ``mesh_one_rank`` and ``mesh_moe``;
     asserts each check. (a)'s and (g)'s lines name the CPU processes
-    (``predict``, and ``dryrun``, :func:`start_dryrun_mesh`'s) still
-    running when the phase starts, at ``CPU_SIDE_NICE``: they may slow its
-    times. Returns each kernel's launches in (a) and (g) summed over the
-    ranks."""
+    (``predict``, and ``cpu_side``'s, name -> :func:`start_cpu_side`'s
+    run) still running when the phase starts, at ``CPU_SIDE_NICE``: they
+    may slow its times. Returns each kernel's launches in (a) and (g)
+    summed over the ranks."""
     import torch
     plan = plan or mesh_plan(dev.type)
     if predict is None and "g" in plan["jobs"]:
         predict = start_moe_predict(plan)
-    beside = [name for name, alive in (
-        ("dryrun_mesh", dryrun is not None and dryrun["proc"].poll() is None),
-        ("moe_predict", predict is not None
-         and predict["ctx"].processes[0].is_alive())) if alive]
+    beside = [name for name, run in (cpu_side or {}).items()
+              if run["proc"].poll() is None]
+    if predict is not None and predict["ctx"].processes[0].is_alive():
+        beside.append("moe_predict")
     held = 0
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -5815,9 +5965,9 @@ def mesh_moe_report(one, predict, ranks, plan, smi, ys, one_y, beside=()):
     m, e = plan["moe"], cfg.moe.n_experts
     g = [r["g"] for r in ranks]
     per_step = train_launches_per_forward(cfg)
-    per_step = {"flash_attention": per_step["flash_attention"],
-                "flash_attention_bwd": per_step["flash_attention"],
-                "rmsnorm": per_step["rmsnorm"]}
+    per_step = {"flash_attention": per_step["flash_attention"][0],
+                "flash_attention_bwd": per_step["flash_attention"][1],
+                "rmsnorm": per_step["rmsnorm"][0]}
     first = g[0]["rows"][0]["loss"]
     loss_rel = abs(first - one["loss"]) / abs(one["loss"])
     control_rel = abs(g[0]["control_loss"] - one["loss"]) / abs(one["loss"])
@@ -5923,17 +6073,19 @@ def dryrun_host_us(x, scale, q, k, v) -> dict:
     return out
 
 
-def dryrun_train_side(dev, model, batch) -> dict:
-    """The card's side of phase 30 (a) and (b) for one ``remat``: a step's
-    FLOPs under ``FlopCounterMode``, two timed steps after a warm-up one
-    (s each, and the peak bytes above what the process held beside the
-    step's own tensors), from seed 0's float32 params."""
+def dryrun_train_side(dev, model, batch, shape=None) -> dict:
+    """The card's side of phase 30 (a) and (b) for one ``remat`` (and of
+    31c's cells, at their ``shape``): a step's FLOPs under
+    ``FlopCounterMode``, two timed steps after a warm-up one (s each, and
+    the peak bytes above what the process held beside the step's own
+    tensors), from seed 0's float32 params."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import ShapeSpec
     from repro_torch.utils import tree_leaves
-    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_SYNC_BATCH, "train")
+    shape = shape or ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_SYNC_BATCH,
+                               "train")
     bundle = make_train_step(model, shape, device=dev)
     params, opt, step = bundle.init_state(
         model.init(torch.Generator(device=dev).manual_seed(0)))
@@ -6102,25 +6254,44 @@ finally:
 """
 
 
-def start_dryrun_mesh() -> dict:
-    """Phase 30 (d)'s production-mesh dry run of qwen3-0.6b train_4k
-    (``launch/dryrun.py``, CPU only), started in a process of its own at
-    ``CPU_SIDE_NICE``: its ``proc`` and output ``dir`` (a
-    ``TemporaryDirectory``); the process writes the seconds it took to
-    ``dir/seconds``."""
+def start_cpu_side(code: str, *args: str) -> dict:
+    """``python -c code args`` (``{dir}`` in an argument stands for the
+    output directory) in a process of its own, its stdout and stderr to
+    files there (a pipe nobody reads until the result is wanted could
+    fill): its ``proc`` and output ``dir`` (a ``TemporaryDirectory``). The
+    code sets its own niceness from ``CPU_SIDE_NICE`` in its
+    environment."""
     import atexit
     tmp = tempfile.TemporaryDirectory()
-    # its output to files: a pipe nobody reads until phase 30 could fill
     with open(f"{tmp.name}/stdout", "w") as out, \
             open(f"{tmp.name}/stderr", "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-c", _DRYRUN_TIMED, f"{tmp.name}/seconds",
-             "--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh",
-             "single", "--out", tmp.name], stdout=out, stderr=err,
-            env=dict(os.environ, PYTHONPATH=str(SRC),
-                     CPU_SIDE_NICE=str(CPU_SIDE_NICE)), cwd=ROOT)
+            [sys.executable, "-c", code,
+             *(a.format(dir=tmp.name) for a in args)], stdout=out,
+            stderr=err, env=dict(os.environ, PYTHONPATH=str(SRC),
+                                 CPU_SIDE_NICE=str(CPU_SIDE_NICE)), cwd=ROOT)
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return dict(proc=proc, dir=tmp)
+
+
+def finish_cpu_side(run: dict, timeout: float = 600) -> int:
+    """Wait for :func:`start_cpu_side`'s process, killed after
+    ``timeout`` seconds; its return code."""
+    try:
+        run["proc"].wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        run["proc"].kill()
+        run["proc"].wait()
+    return run["proc"].returncode
+
+
+def start_dryrun_mesh() -> dict:
+    """Phase 30 (d)'s production-mesh dry run of qwen3-0.6b train_4k
+    (``launch/dryrun.py``, CPU only) through :func:`start_cpu_side`; the
+    process writes the seconds it took to ``dir/seconds``."""
+    return start_cpu_side(_DRYRUN_TIMED, "{dir}/seconds", "--arch",
+                          TRAIN_ARCH, "--shape", "train_4k", "--mesh",
+                          "single", "--out", "{dir}")
 
 
 def dryrun_path(dev, mesh_run: dict | None = None) -> dict:
@@ -6270,11 +6441,7 @@ def dryrun_path(dev, mesh_run: dict | None = None) -> dict:
     # phase 27: it runs on the CPU alone)
     run = mesh_run or start_dryrun_mesh()
     with run["dir"] as tmp:
-        try:
-            run["proc"].wait(timeout=600)
-        except subprocess.TimeoutExpired:
-            run["proc"].kill()
-            run["proc"].wait()
+        finish_cpu_side(run)
         # the dry run's own seconds, as its process counted them
         seconds = Path(f"{tmp}/seconds")
         mesh_s = float(seconds.read_text()) if seconds.exists() else None
@@ -6320,6 +6487,367 @@ def dryrun_path(dev, mesh_run: dict | None = None) -> dict:
     return {k: launched.get(k, 0) + families[k] for k in families}
 
 
+# ---- 31: the JAX package's configurations the card had not run ----
+# (a) the kernel instantiations those paths launch: rmsnorm at qwen2-7b's
+# d 3584 (16 held vectors a lane in bf16) on its prefill rows and at
+# qwen3-32b's d 5120 (24) on its 1 x 4096; flash forward and backward at
+# head dim 128 at qwen2-7b's layer (GQA 28/4, group 7), qwen3-32b's (64/8,
+# group 8), qwen3-32b's heads at 512 positions (where ``bwd_plan`` splits
+# the group of 8 over 8 blocks; at the layers it splits nothing) and
+# qwen3-0.6b's heads at S = 32,768, held on one kv head's group
+# (``flash_case``'s ``group``), and olmo-1b's train layer (MHA 16/16 at hd
+# 128, group 1); the backward alone at zamba2's train layer (31c's 2 x
+# 2048, 32/32 heads of 80 in bf16): (case, (B, Sq, Skv, Hq, Hkv, hd),
+# group or None)
+ZOO_RMSNORM = (("qwen2_7b_prefill", PREFILL_BATCH * PREFILL_SEQ, 3584),
+               ("qwen3_32b_prefill", PREFILL_SEQ, 5120))
+ZOO_FLASH = (("qwen2_7b_layer", (4, 4096, 4096, 28, 4, 128), None),
+             ("qwen3_32b_layer", (1, 4096, 4096, 64, 8, 128), None),
+             ("qwen3_32b_split", (1, 512, 512, 64, 8, 128), None),
+             ("seq_32k", (1, 32_768, 32_768, 16, 8, 128), 7),
+             ("olmo_1b_layer", (4, 4096, 4096, 16, 16, 128), None))
+ZOO_FLASH_BWD = ZOO_FLASH + (
+    ("zamba2_train_layer", (2, 2048, 2048, 32, 32, 80), None),)
+# (b) serving at full width: (arch, prefill batch of PREFILL_SEQ, requests,
+# prompt, new tokens, the depth of the float32 decode-vs-prefill check or
+# None). qwen3-32b's 65.5 GB of bf16 weights leave no room for 4 x 4097 x
+# 151,936 bf16 logits (5.0 GB) beside the 16,384 x 25,600 MLP
+# intermediates (0.84 GB each): its prefill batch is 1. olmo-1b's bf16
+# decode holds phase 10's bound (0.0859 at most on an H100); qwen2-7b's
+# 28 bf16 layers do not (0.119 against 0.1 + 0.05 |prefill|), as mamba2's
+# 48 did not (PERF.md), and neither do qwen3-32b's 64 (0.148): their bf16
+# gap is reported and the path held in float32 at 8 full-width layers
+ZOO_SERVE = (("olmo-1b", 4, 8, 64, 16, None), ("qwen2-7b", 4, 8, 64, 16, 8),
+             ("qwen3-32b", 1, 4, 32, 16, 8))
+# (c) training at full width, float32 params and AdamW, bf16 activations,
+# remat "none" as phases 21-29: (arch, layers or None for all, batch at
+# TRAIN_SEQ, steps); olmo-1b whole, qwen2-7b cut to 4 of 28 layers (~2.0 G
+# params, 32 GB with its moments)
+ZOO_TRAIN = (("olmo-1b", None, 4, 3), ("qwen2-7b", 4, 2, 2))
+# zamba2-2.7b cut to 12 of 54 layers: two applications of the shared
+# block, whose gradient sums them; (arch, layers, batch, seq, steps)
+HYBRID_TRAIN = ("zamba2-2.7b", 12, 2, 2048, 2)
+# (d) long_500k through the serve CLI: greedy tokens a request
+LONG_ARCHS, LONG_NEW = ("mamba2-1.3b", "zamba2-2.7b"), 8
+# (e) prefill_32k: one qwen3-0.6b sync step, remat "block" (the config's
+# default), its 32 sequences cut to 1
+PREFILL_32K_ARCH, PREFILL_32K_BATCH = "qwen3-0.6b", 1
+
+_ZOO_DRYRUN = """
+import dataclasses, json, os, sys, time
+os.nice(int(os.environ["CPU_SIDE_NICE"]))
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.models import ShapeSpec
+out = {}
+for arch, layers, batch, seq in json.loads(sys.argv[2]):
+    cfg = dataclasses.replace(get_config(arch), remat="none",
+                              **({"n_layers": layers} if layers else {}))
+    t0 = time.perf_counter()
+    c = dryrun.count_train_step(cfg, ShapeSpec(f"train_{seq}", seq, batch,
+                                               "train"))["step"]
+    out[arch] = dict(flops=c.flops, bytes=c.bytes, peak=c.peak_bytes,
+                     arguments=c.argument_bytes,
+                     seconds=time.perf_counter() - t0)
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def start_zoo_dryrun() -> dict:
+    """31c's one-rank dry runs of ``ZOO_TRAIN``'s cells (``dryrun.
+    count_train_step`` on fake tensors, CPU only) through
+    :func:`start_cpu_side`, started before phase 27 as phase 30 (d)'s; the
+    counts land in ``dir/counts.json``."""
+    cells = [[arch, layers, batch, TRAIN_SEQ]
+             for arch, layers, batch, _ in ZOO_TRAIN]
+    return start_cpu_side(_ZOO_DRYRUN, "{dir}/counts.json",
+                          json.dumps(cells))
+
+
+def zoo_kernels(dev, ptxas: dict) -> dict:
+    """Phase 31a: rmsnorm bit for bit against its plain version at d 3584
+    and 5120 in bf16 and float32 (warm and L2-cold ms, the bytes bound,
+    ``F.rms_norm``'s ms, the instantiation's registers and spills), then
+    flash's forward under ``FLASH_TOL`` and its backward under
+    ``FLASH_BWD_TOL`` (the same bits twice) at ``ZOO_FLASH``'s shapes
+    (the backward at ``ZOO_FLASH_BWD``'s), each with its bound, SDPA's
+    device time and the backward's launch plan. Returns the lines by
+    kernel and case."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(31)
+    flush = l2_flush(dev)
+    out = {"rmsnorm": {}, "flash_attention": {}, "flash_attention_bwd": {}}
+    for case, rows, d in ZOO_RMSNORM:
+        for dtype in (torch.bfloat16, torch.float32):
+            name = f"{case}_{str(dtype).removeprefix('torch.')}"
+            fields, _, _ = rmsnorm_case(gen, name, rows, d, dtype, flush,
+                                        ptxas["rmsnorm"], timed=True)
+            emit("kernel", **fields)
+            out["rmsnorm"][name] = fields
+    report = ptxas["flash_attention"].get("bf16,HD=128")
+    for case, shape, group in ZOO_FLASH:
+        fields = flash_case(gen, case, shape, torch.bfloat16, True,
+                            flush=flush, report=report, group=group)
+        emit("kernel", **fields)
+        out["flash_attention"][case] = fields
+        torch.cuda.empty_cache()
+    for case, shape, group in ZOO_FLASH_BWD:
+        fields = flash_bwd_case(gen, case, shape, torch.bfloat16, True,
+                                timed=True, group=group)
+        fields["ptxas"] = {key: r for key, r in
+                           ptxas["flash_attention_bwd"].items()
+                           if key.endswith(f" bf16,HD={shape[5]}")}
+        emit("kernel", **fields)
+        out["flash_attention_bwd"][case] = fields
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_serving(dev) -> dict:
+    """Phase 31b: olmo-1b, qwen2-7b and qwen3-32b at full width through
+    :func:`serving_paths` (``ZOO_SERVE``'s shapes; each peak asserted under
+    ``SERVE_PEAK_LIMIT``), then each reduced in float32, card against CPU
+    (``serve_card_vs_cpu``). Returns the kernels' launches."""
+    import torch
+    from repro_torch.models import SHAPES
+    smi = nvidia_smi_line()
+    total = {"flash_attention": 0, "rmsnorm": 0}
+    for arch, batch, requests, prompt, new, f32_layers in ZOO_SERVE:
+        torch.cuda.empty_cache()
+        got = serving_paths(
+            dev, arch, batch=batch, requests=requests, prompt=prompt, new=new,
+            phases=("zoo_prefill_path", "zoo_serve_path"),
+            f32_layers=f32_layers, nvidia_smi=smi,
+            reduced=dict(prefill=[[batch, PREFILL_SEQ], [
+                SHAPES["prefill_32k"].global_batch,
+                SHAPES["prefill_32k"].seq_len]]))
+        for key in total:
+            total[key] += got[key]
+    torch.cuda.empty_cache()
+    for arch, *_ in ZOO_SERVE:
+        serve_card_vs_cpu(dev, arch, phase="zoo_serve_card_vs_cpu")
+    return total
+
+
+def zoo_train(dev, dry: dict) -> dict:
+    """Phase 31c: ``ZOO_TRAIN``'s dense cells and ``HYBRID_TRAIN`` through
+    :func:`train_run` (``sync``; the peak under ``TRAIN_PEAK_LIMIT``
+    asserted there); each dense cell's one-rank dry run (``dry``, from
+    :func:`start_zoo_dryrun`) against the card's own step: the FLOPs equal,
+    the peak within ``DRYRUN_PEAK_RTOL``; then phase 21's card-against-CPU
+    check on reduced qwen2-7b, qwen3-32b and zamba2 at 4 layers with the
+    shared block after every 2 (two applications). Returns the
+    ``path_launches`` of the dense and hybrid paths."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import SHAPES, ShapeSpec, build_model
+
+    smi = nvidia_smi_line()
+    full_batch = SHAPES["train_4k"].global_batch
+    dense, cards = {}, {}
+    for arch, layers, batch, steps in ZOO_TRAIN:
+        full = get_config(arch)
+        cfg = no_remat(full if layers is None
+                       else dataclasses.replace(full, n_layers=layers))
+        model = build_model(cfg)
+        data, data_s = train_data(model, (steps + 1) * batch, TRAIN_SEQ, dev)
+        label = f"zoo_train_{arch}"
+        dense[label] = train_run(
+            dev, model, data, phase=label, mode="sync", batch=batch,
+            steps=steps, reduced=dict(
+                n_layers=[cfg.n_layers, full.n_layers],
+                batch=[batch, full_batch]),
+            data_s=data_s, nvidia_smi=smi)[0]
+        step_batch = {k: v[:batch].to(dev) for k, v in data.items()}
+        del data
+        torch.cuda.empty_cache()
+        cards[arch] = dryrun_train_side(
+            dev, model, step_batch,
+            ShapeSpec(f"train_{TRAIN_SEQ}", TRAIN_SEQ, batch, "train"))
+        cards[arch]["n_layers"] = cfg.n_layers
+        del step_batch
+        torch.cuda.empty_cache()
+
+    arch, layers, batch, seq, steps = HYBRID_TRAIN
+    full = get_config(arch)
+    cfg = no_remat(dataclasses.replace(full, n_layers=layers))
+    model = build_model(cfg)
+    data, data_s = train_data(model, (steps + 1) * batch, seq, dev)
+    hybrid = train_run(
+        dev, model, data, phase="train_hybrid_sync", mode="sync",
+        batch=batch, steps=steps,
+        reduced=dict(n_layers=[layers, full.n_layers],
+                     batch=[batch, full_batch],
+                     seq=[seq, SHAPES["train_4k"].seq_len]),
+        shared_block_applications=layers // cfg.hybrid_attn_period,
+        data_s=data_s, nvidia_smi=smi)[0]
+    del data
+    torch.cuda.empty_cache()
+
+    # the dry run's counts against the card's steps
+    with dry["dir"] as tmp:
+        rc = finish_cpu_side(dry)
+        path = Path(tmp) / "counts.json"
+        counts = json.loads(path.read_text()) if path.exists() else {}
+        stderr = Path(f"{tmp}/stderr").read_text()[-2000:]
+    failed = []
+    for arch, layers, batch, _ in ZOO_TRAIN:
+        fake, card = counts.get(arch), cards[arch]
+        line = dict(arch=arch, n_layers=card["n_layers"], batch=batch,
+                    seq=TRAIN_SEQ,
+                    remat="none", card_flops=card["flops"],
+                    measured_peak=card["peak"],
+                    measured_arguments=card["arg_bytes"],
+                    s_per_step=card["s"], peak_rtol=DRYRUN_PEAK_RTOL,
+                    nvidia_smi=smi)
+        if fake is None:
+            emit("zoo_dryrun", **line, rc=rc, stderr=stderr)
+            failed.append(arch)
+            continue
+        rel = (fake["peak"] - card["peak"]) / card["peak"]
+        ok = fake["flops"] == card["flops"] and abs(rel) <= DRYRUN_PEAK_RTOL
+        emit("zoo_dryrun", **line, fake_flops=fake["flops"],
+             fake_bytes=fake["bytes"], predicted_peak=fake["peak"],
+             predicted_arguments=fake["arguments"], peak_rel_err=rel,
+             fake_s=fake["seconds"], flops_equal=fake["flops"]
+             == card["flops"], within=ok)
+        if not ok:
+            failed.append(arch)
+    if failed:
+        raise AssertionError(f"zoo_dryrun: the fake count and the card's "
+                             f"step disagree for {failed}")
+
+    train_card_vs_cpu(dev, [
+        (get_config("qwen2-7b").reduced(dtype="float32"), False),
+        (get_config("qwen3-32b").reduced(dtype="float32"), False),
+        (get_config(HYBRID_TRAIN[0]).reduced(dtype="float32", n_layers=4,
+                                             hybrid_attn_period=2), False)],
+        phase="zoo_train_card_vs_cpu")
+    return dict(dense=path_launches(**dense),
+                hybrid=path_launches(train_hybrid_sync=hybrid))
+
+
+def long_context(dev) -> dict:
+    """Phase 31d: ``repro_torch.launch.serve.main`` at ``long_500k`` (one
+    request, a 524,288-position cache, a 1-token prompt and ``LONG_NEW``
+    greedy tokens from seed 0's serving copy) for mamba2-1.3b and
+    zamba2-2.7b: the cache's float bytes (asserted equal to
+    ``cache_bytes``) and the bytes its allocation took, the card's free
+    bytes before (above ``cache_bytes``: ``serve_shape``'s refusal not
+    triggered), peak (asserted under ``SERVE_PEAK_LIMIT``), ms a decode
+    step, finite logits at every step (asserted), and the kernels'
+    launches (no flash, no scan in decode: asserted). Returns the launches
+    summed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import SHAPES, Model
+    from repro_torch.models.transformer import activation_dtype
+    from repro_torch.utils import tree_leaves
+    shape = SHAPES["long_500k"]
+    smi = nvidia_smi_line()
+    mods = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+            "ssd_state_scan": ssd_scan}
+    total = dict.fromkeys(mods, 0)
+    init, step = Model.decode_init, Model.decode_step
+    for arch in LONG_ARCHS:
+        cfg = get_config(arch)
+        need = serve_cli.cache_bytes(cfg, shape.global_batch, shape.seq_len,
+                                     activation_dtype(cfg))
+        seen = dict(cache_bytes=None, allocated=None, finite=[])
+
+        def recording_init(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            cache = init(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            seen["allocated"] = torch.cuda.memory_allocated() - before
+            seen["cache_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in tree_leaves(cache)
+                                      if t.is_floating_point())
+            return cache
+
+        def recording_step(self, *args, **kwargs):
+            logits, cache = step(self, *args, **kwargs)
+            seen["finite"].append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods.values():
+            mod.LAUNCHES = 0
+        Model.decode_init, Model.decode_step = recording_init, recording_step
+        try:
+            t0 = time.perf_counter()
+            res = serve_cli.main(["--arch", arch, "--shape", shape.name,
+                                  "--new-tokens", str(LONG_NEW)])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        finally:
+            Model.decode_init, Model.decode_step = init, step
+        launched = {k: m.LAUNCHES for k, m in mods.items()}
+        peak = torch.cuda.max_memory_allocated()
+        checks = dict(
+            cache_bytes=seen["cache_bytes"] == need,
+            refusal_not_triggered=need <= free,
+            finite=len(seen["finite"]) == LONG_NEW and all(seen["finite"]),
+            no_flash=launched["flash_attention"] == 0,
+            no_scan=launched["ssd_state_scan"] == 0,
+            peak=peak <= SERVE_PEAK_LIMIT,
+            tokens=tuple(res.tokens.shape) == (shape.global_batch, LONG_NEW))
+        emit("long_context", arch=arch, shape=shape.name,
+             requests=shape.global_batch, cache_len=shape.seq_len,
+             prompt=1, new_tokens=LONG_NEW, cache_bytes=seen["cache_bytes"],
+             cache_bytes_expected=need, cache_allocated=seen["allocated"],
+             free_before=free, max_memory_allocated=peak,
+             peak_limit=SERVE_PEAK_LIMIT, wall_s=wall_s,
+             prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+             decode_steps=res.decode_steps,
+             decode_ms_per_step=res.ms_per_decode_step,
+             launches=launched, tokens=res.tokens.tolist(), checks=checks,
+             nvidia_smi=smi)
+        if not all(checks.values()):
+            raise AssertionError(f"long_context {arch}: {checks}")
+        for k in total:
+            total[k] += launched[k]
+        del res
+        torch.cuda.empty_cache()
+    return total
+
+
+def prefill_32k_path(dev) -> dict:
+    """Phase 31e: one ``sync`` step of qwen3-0.6b at ``prefill_32k``'s
+    sequence of 32,768 tokens, batch ``PREFILL_32K_BATCH`` (of 32), with
+    the config's ``remat="block"``: s a step split forward / backward /
+    optimizer, peak (the bf16 logits alone are 32,768 x 151,936 x 2 B = 10
+    GB), a finite loss, and the launches asserted
+    (:func:`train_launches_per_forward` under remat). Returns
+    ``path_launches``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import SHAPES, build_model
+
+    cfg = get_config(PREFILL_32K_ARCH)
+    assert cfg.remat == "block"
+    shape = SHAPES["prefill_32k"]
+    model = build_model(cfg)
+    data, data_s = train_data(model, 2 * PREFILL_32K_BATCH, shape.seq_len,
+                              dev)
+    run = train_run(
+        dev, model, data, phase="prefill_32k", mode="sync",
+        batch=PREFILL_32K_BATCH, steps=1, shape=shape.name, remat=cfg.remat,
+        reduced=dict(batch=[PREFILL_32K_BATCH, shape.global_batch]),
+        data_s=data_s, nvidia_smi=nvidia_smi_line())[0]
+    del data
+    torch.cuda.empty_cache()
+    return path_launches(prefill_32k=run)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6330,6 +6858,8 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.core import resource_allocation as ra
@@ -6337,7 +6867,7 @@ def main() -> int:
     from repro_torch.core.cost_model import RAConstants
     from repro_torch.core.edge_association import (GroupSolver,
                                                    initial_assignment)
-    from repro_torch.configs import CONFIG
+    from repro_torch.configs import CONFIG, get_config
     from repro_torch.core.scenario import make_scenario
     from repro_torch.data import make_mnist_like
     from repro_torch.fl import FederatedTrainer, train_federated
@@ -6346,6 +6876,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    # each phase's seconds, from the start of the run to its end
+    t_start, seconds = time.perf_counter(), {}
+
+    def done(phase: str) -> None:
+        seconds[phase] = time.perf_counter() - t_start - sum(
+            seconds.values())
 
     # ---- 1. card ----
     smi = nvidia_smi_line()
@@ -6384,6 +6921,7 @@ def main() -> int:
     for kname, b in built.items():
         emit("build", kernel=kname, seconds=build_s, nvcc_seconds=b.seconds,
              library=str(b.path.relative_to(ROOT)), ptxas=ptxas[kname])
+    done("1-2 card, build")
 
     # ---- 3. kernel vs plain version on the card ----
     dev = torch.device("cuda")
@@ -6492,6 +7030,8 @@ def main() -> int:
              profile=profile, paths=ref.golden_section_paths(rmask),
              groups_not_bitwise=groups_not_bitwise(got, want), **err)
 
+    done("3 golden_section kernel")
+
     # ---- 4. the main path on the card ----
     golden_section.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
@@ -6587,31 +7127,38 @@ def main() -> int:
         emit("kernel", **fields)
     del u, w, got, want, err
 
-    # ---- 5. card vs CPU on (60, 5, 0) ----
-    sc60 = make_scenario(60, 5, seed=0, device="cpu")
+    done("4, 4b, 3c main path, exchanges, hier_aggregate")
+
+    # ---- 5. card vs CPU on CHECK_FIXTURE ----
+    n_check, k_check, seed_check = CHECK_FIXTURE
+    sc_check = make_scenario(n_check, k_check, seed=seed_check, device="cpu")
     t0 = time.perf_counter()
-    on_card = FastAssociationEngine(sc60).run("nearest", exchange_samples=0)
+    on_card = FastAssociationEngine(sc_check).run("nearest",
+                                                  exchange_samples=0)
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    on_cpu = FastAssociationEngine(sc60, device="cpu").run(
+    on_cpu = FastAssociationEngine(sc_check, device="cpu").run(
         "nearest", exchange_samples=0)
     cpu_s = time.perf_counter() - t0
     same = (np.array_equal(on_card.assignment, on_cpu.assignment)
             and on_card.n_adjustments == on_cpu.n_adjustments
             and math.isclose(on_card.total_cost, on_cpu.total_cost,
                              rel_tol=PIN_RTOL))
-    emit("card_vs_cpu", fixture=[60, 5, 0], moves_card=on_card.n_adjustments,
+    emit("card_vs_cpu", fixture=list(CHECK_FIXTURE),
+         moves_card=on_card.n_adjustments,
          moves_cpu=on_cpu.n_adjustments, total_cost_card=on_card.total_cost,
          total_cost_cpu=on_cpu.total_cost, same_assignment=bool(np.array_equal(
              on_card.assignment, on_cpu.assignment)),
          card_s=card_s, cpu_s=cpu_s)
     if not same:
-        raise AssertionError("card and CPU engines disagree on (60, 5, 0)")
+        raise AssertionError(f"card and CPU engines disagree on "
+                             f"{CHECK_FIXTURE}")
 
     # ---- 5b. exchanges card vs CPU; 5c. the §V.A schemes ----
     exchange_card_vs_cpu(dev)
     solvers_card_vs_cpu(dev)
     scheme_runs = schemes(dev)
+    done("5-5c card vs CPU, solvers, schemes")
 
     # ---- 6. HFEL training on the card from phase 4's stable assignment ----
     n_local, n_edge = CONFIG.local_iters, CONFIG.edge_iters
@@ -6745,22 +7292,27 @@ def main() -> int:
     if not (params_close and acc_gap <= one_sample + 1e-9):
         raise AssertionError("card and CPU training disagree on (30, 5, 0)")
 
+    done("6-7 HFEL training")
+
     # ---- 16-20. association at scale and under churn, the live loop ----
     compact_run = compact_path(dev)
     scale = scale_path(dev)
     live = live_path(dev)
     live_big = live_scale(dev)
     compact_card_vs_cpu(dev)
+    done("16-20 scale, churn, live loop")
 
     # ---- 28. the sharded sweep against phases 4, 4b, 17 and 18, and
     # Algorithm 1's collectives over spawned ranks ----
     sharded = sharded_path(dev, main_sc, res, ex, scale, live)
     collectives(dev)
+    done("28 sharded sweep, collectives")
 
     # ---- 8-11. serving: kernels, prefill and serve paths, card vs CPU ----
     serving = serving_kernels(dev, fault_libs, ptxas)
     serve_launches = serving_paths(dev)
     serve_card_vs_cpu(dev)
+    done("8-11 serving")
 
     # ---- 12-15. SSM and hybrid serving ----
     ssm = ssm_kernels(dev, ptxas["flash_attention"])
@@ -6769,6 +7321,7 @@ def main() -> int:
     ssm_launches.append(ssm_serve_path(dev))
     for arch in ("mamba2-1.3b", "zamba2-2.7b"):   # 64 positions, 2 chunks
         serve_card_vs_cpu(dev, arch, n_tokens=65, phase="ssm_card_vs_cpu")
+    done("12-15 SSM serving")
 
     def launched(kernel):
         return sum(run.get(kernel, 0) for run in ssm_launches)
@@ -6781,6 +7334,7 @@ def main() -> int:
     train_card_vs_cpu(dev)
     train_lm = train_lm_path(dev)
     train_ssm = train_ssm_path(dev)
+    done("21-24 LM training")
 
     # ---- 25. MoE + MLA serving: deepseek-v2-lite-16b ----
     torch.cuda.empty_cache()
@@ -6792,9 +7346,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_card_vs_cpu(dev, MOE_ARCH, phase="moe_card_vs_cpu")
     serve_card_vs_cpu(dev, "kimi-k2-1t-a32b", phase="moe_card_vs_cpu")
-    moe_decode_vs_prefill_f32(dev)
+    moe_full = get_config(MOE_ARCH)
+    decode_vs_prefill_f32(
+        dev, dataclasses.replace(
+            moe_full, n_layers=MOE_F32_LAYERS, dtype="float32",
+            moe=dataclasses.replace(moe_full.moe, capacity_factor=64.0)),
+        phase="moe_decode_vs_prefill", requests=MOE_F32_REQUESTS,
+        prompt=MOE_F32_PROMPT, bound=MOE_GAP_F32, routing=True,
+        capacity_factor=64.0)
     moe_launches = {k: moe_prefill[k] + moe_serve[k]
                     for k in ("flash_attention", "rmsnorm")}
+    done("25 MoE serving")
 
     # ---- 26. encoder-decoder and VLM serving: whisper-large-v3 and
     # internvl2-1b; flash at head dim 112 ----
@@ -6814,6 +7376,7 @@ def main() -> int:
                                   for k in ("flash_attention", "rmsnorm")}
                                  for run in ((ed_prefill, ed_serve),
                                              (vlm_prefill, vlm_serve)))
+    done("26 encoder-decoder, VLM serving")
 
     # ---- 27. training the MoE/MLA, encoder-decoder and VLM families ----
     # the CPU-only dry runs of phases 29 (g) and 30 (d) start here, so that
@@ -6821,18 +7384,41 @@ def main() -> int:
     # four ranks, whose steps the host paces
     dryrun_mesh = start_dryrun_mesh()
     moe_predict = start_moe_predict(mesh_plan(dev.type))
+    zoo_dry = start_zoo_dryrun()
     train_kernels(dev)
     train_paths = dict(train_lm=train_lm, train_ssm=train_ssm,
                        train_moe=train_moe_path(dev),
                        train_encdec=train_encdec_path(dev),
                        train_vlm=train_vlm_path(dev))
     train_families_card_vs_cpu(dev)
+    done("27 family training")
 
     # ---- 29. the model zoo over a mesh of ranks on the one card ----
-    mesh_launches = mesh_path(dev, predict=moe_predict, dryrun=dryrun_mesh)
+    mesh_launches = mesh_path(dev, predict=moe_predict, cpu_side=dict(
+        dryrun_mesh=dryrun_mesh, zoo_dryrun=zoo_dry))
+    done("29 mesh")
 
     # ---- 30. the dry run against the card's own step ----
     dryrun_path(dev, dryrun_mesh)
+    done("30 dry run")
+
+    # ---- 31. the JAX package's configurations the card had not run:
+    # their kernel instantiations, olmo-1b, qwen2-7b and qwen3-32b served
+    # and trained at full width, zamba2 trained, long_500k, prefill_32k ----
+    torch.cuda.empty_cache()
+    zoo_k = zoo_kernels(dev, ptxas)
+    done("31a zoo kernels")
+    zoo_serve = zoo_serving(dev)
+    done("31b zoo serving")
+    zoo_tr = zoo_train(dev, zoo_dry)
+    done("31c zoo training")
+    long_run = long_context(dev)
+    done("31d long_500k")
+    train_paths.update(dense_zoo_train=zoo_tr["dense"],
+                       train_hybrid=zoo_tr["hybrid"],
+                       prefill_32k=prefill_32k_path(dev))
+    done("31e prefill_32k")
+    emit("seconds", phases=seconds, total=time.perf_counter() - t_start)
 
     no_train = {name: 0 for name in train_paths}
     t_rms, t_fla, t_scan = (train_entry(k, bwd, train_paths)
@@ -6890,14 +7476,17 @@ def main() -> int:
              launches=serve_launches["rmsnorm"] + launched("rmsnorm")
              + t_rms["kernel"] + moe_launches["rmsnorm"]
              + ed_launches["rmsnorm"] + vlm_launches["rmsnorm"]
-             + mesh_launches["rmsnorm"],
+             + mesh_launches["rmsnorm"] + zoo_serve["rmsnorm"]
+             + long_run["rmsnorm"],
              launches_by_path={"serving": serve_launches["rmsnorm"],
                                "ssm_serving": launched("rmsnorm"),
                                **t_rms["by_path"],
                                "moe_serving": moe_launches["rmsnorm"],
                                "encdec_serving": ed_launches["rmsnorm"],
                                "vlm_serving": vlm_launches["rmsnorm"],
-                               "mesh_train": mesh_launches["rmsnorm"]},
+                               "mesh_train": mesh_launches["rmsnorm"],
+                               "dense_zoo_serving": zoo_serve["rmsnorm"],
+                               "long_context": long_run["rmsnorm"]},
              backward=t_rms["backward"],
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
              ms_cold_l2=rms["ms_cold_l2"],
@@ -6911,7 +7500,11 @@ def main() -> int:
              d896={case: {key: f[key] for key in (
                  "shape", "held_vectors", "max_abs_err", "ms", "ms_cold_l2",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "ptxas")}
-                 for case, f in ed_kernels["rmsnorm"].items()}),
+                 for case, f in ed_kernels["rmsnorm"].items()},
+             **{f"d{f['shape'][1]}_{f['dtype']}": {key: f[key] for key in (
+                 "shape", "held_vectors", "max_abs_err", "ms", "ms_cold_l2",
+                 "plain_ms", "bound_ms", "bound_by", "library_ms", "ptxas")}
+                for f in zoo_k["rmsnorm"].values()}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:103",
@@ -6920,7 +7513,8 @@ def main() -> int:
              + moe_launches["flash_attention"]
              + ed_launches["flash_attention"]
              + vlm_launches["flash_attention"]
-             + mesh_launches["flash_attention"],
+             + mesh_launches["flash_attention"]
+             + zoo_serve["flash_attention"] + long_run["flash_attention"],
              launches_by_path={"serving": serve_launches["flash_attention"],
                                "ssm_serving": launched("flash_attention"),
                                **t_fla["by_path"],
@@ -6931,7 +7525,11 @@ def main() -> int:
                                "vlm_serving":
                                    vlm_launches["flash_attention"],
                                "mesh_train":
-                                   mesh_launches["flash_attention"]},
+                                   mesh_launches["flash_attention"],
+                               "dense_zoo_serving":
+                                   zoo_serve["flash_attention"],
+                               "long_context":
+                                   long_run["flash_attention"]},
              backward=t_fla["backward"],
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
              ms_cold_l2=fla["ms_cold_l2"], tflops=fla["tflops"],
@@ -6953,7 +7551,12 @@ def main() -> int:
                  "shape", "causal", "max_abs_err", "ms", "ms_cold_l2",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops")}
                 for case in ("whisper_encoder", "whisper_cross",
-                             "internvl2_layer")}),
+                             "internvl2_layer")},
+             **{case: {key: f.get(key) for key in (
+                 "shape", "checked", "max_abs_err", "ms", "ms_cold_l2",
+                 "plain_ms", "plain_shape", "bound_ms", "bound_by",
+                 "library_ms", "tflops")}
+                for case, f in zoo_k["flash_attention"].items()}),
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/ops.py:38",
@@ -6969,13 +7572,20 @@ def main() -> int:
              **{case: {key: line.get(key) for key in (
                  "shape", "causal", "max_abs_err", "ms", "bound_ms",
                  "bound_by", "bound_ms_v_cols", "library_ms", "tflops")}
-                for case, line in fla_bwd.items() if case != "qwen3_layer"}),
+                for case, line in fla_bwd.items() if case != "qwen3_layer"},
+             **{case: {key: line.get(key) for key in (
+                 "shape", "checked", "max_abs_err", "ms", "bound_ms",
+                 "bound_by", "library_ms", "tflops", "bitwise_repeatable")}
+                | {"split": line["plan"]["split"]}
+                for case, line in zoo_k["flash_attention_bwd"].items()}),
         dict(name="ssd_state_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:47",
-             launches=launched("ssd_state_scan") + t_scan["kernel"],
+             launches=launched("ssd_state_scan") + t_scan["kernel"]
+             + long_run["ssd_state_scan"],
              launches_by_path={"ssm_serving": launched("ssd_state_scan"),
-                               **t_scan["by_path"]},
+                               **t_scan["by_path"],
+                               "long_context": long_run["ssd_state_scan"]},
              backward=t_scan["backward"],
              max_abs_err=scan["max_abs_err"], ms=scan["ms"],
              plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],

@@ -65,6 +65,15 @@ def test_token_pipeline_is_bit_identical(index, count):
         np.testing.assert_array_equal(a, b)
 
 
+def test_token_pipeline_is_bit_identical_at_a_full_vocabulary():
+    # qwen3's vocabulary: the draw reads one CDF built once
+    need_jax()
+    args, kw = (151_936, 257, 2), dict(seed=0)
+    tp, jp = TokenPipeline(*args, **kw), JTokenPipeline(*args, **kw)
+    for _ in range(2):
+        np.testing.assert_array_equal(next(tp), next(jp))
+
+
 def test_token_pipeline_checks_the_batch_split():
     with pytest.raises(ValueError):
         TokenPipeline(10, 8, 3, process_count=2)

@@ -1,6 +1,7 @@
 """Port parity: LM training (``Model.loss``, its gradients, the ``sync``
 and ``hierarchical`` train steps with the cloud sync and its compressors,
-and the train CLI) on reduced qwen3-0.6b, olmo-1b, mamba2-1.3b,
+and the train CLI) on reduced qwen3-0.6b, olmo-1b, qwen2-7b (QKV bias),
+qwen3-32b (qk-norm, untied read-out), mamba2-1.3b,
 zamba2-2.7b, deepseek-v2-lite-16b and kimi-k2-1t-a32b (MoE; MLA in
 deepseek), whisper-large-v3 (encoder-decoder) and internvl2-1b (VLM) in
 float32 against the JAX package. The batch has ``Model.batch_specs``'
@@ -70,9 +71,9 @@ except ImportError:
 
 torch.set_num_threads(2)
 
-ARCHS = ["qwen3-0.6b", "olmo-1b", "mamba2-1.3b", "zamba2-2.7b",
-         "deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "whisper-large-v3",
-         "internvl2-1b"]
+ARCHS = ["qwen3-0.6b", "olmo-1b", "qwen2-7b", "qwen3-32b", "mamba2-1.3b",
+         "zamba2-2.7b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
+         "whisper-large-v3", "internvl2-1b"]
 LOSS_RTOL = 1e-5
 RTOL = 1e-4
 LR = 1e-2
