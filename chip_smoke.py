@@ -348,8 +348,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    1e-5 and the state within ``TRAIN_TOL`` of the one-rank step's
    (asserted); (c) ``hierarchical`` over (pod=2, data=2, model=1) at 2048
    x 4, 2 steps and a cloud sync: the pods' leaves equal bit for bit
-   after it (asserted), ms a sync; (d) serving over (data=2, model=2):
-   phase 10's 8 requests with 16-token prompts and 8 new tokens in
+   after it (asserted), ms a sync; (d) serving over (data=2, model=2) on
+   the rank's parameter blocks (each step gathers every layer's):
+   phase 10's 8 requests with 8-token prompts and 8 new tokens in
    bf16 (ms a step, the share of greedy tokens equal to one rank's), then
    at float32 and 2 layers, with 32-token prompts and 16 new tokens, the
    same greedy tokens and decode logits
@@ -364,8 +365,15 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    control forward with the MoE combine's sum over ``model`` dropped
    lands outside both (asserted), s a step, each rank's peak beside the
    dry run's count of the same cell (``mesh_moe_predict``, a CPU process
-   of its own started before phase 27). Four ranks sharing one card
-   measure the mechanism and its cost, not the speed-up of four cards.
+   of its own started before phase 27); (h) (a)'s steps under remat
+   "block" (each layer gathers its blocks in its forward and again in its
+   recompute): each step's loss equal to (a)'s bit for bit, 56 flash, 28
+   flash backward and 113 rmsnorm launches a step a rank, the gathered
+   bytes alive at once at most the leaves outside the stacked layers and
+   one layer gathered, none after, each rank's peak within
+   ``DRYRUN_PEAK_RTOL`` of the dry run's count (asserted). Four ranks
+   sharing one card measure the mechanism and its cost, not the speed-up
+   of four cards.
 
 30. The dry run against the card (``dryrun_path``): the one-rank fake
    count of phase 22's step against the card's (FLOPs equal, peak within
@@ -398,15 +406,30 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    equal to ``cache_bytes``), peak, ms a decode step, finite logits, no
    flash or scan launch. (e) ``prefill_32k``: one qwen3-0.6b step at 1 x
    32,768 with remat "block": launches asserted (flash twice a layer
-   forward, once backward). Then ``seconds``: each phase's seconds.
+   forward, once backward).
+
+32. kimi-k2-1t-a32b at full width cut to its leading dense layer and one
+   MoE layer (all 384 experts, top-8; 40 GB in bf16). (a) ``kernel``:
+   rmsnorm at d 7168 in bf16 (28 vectors a lane, past the 24 held: the
+   rest read twice) at the prefill's 8192 rows and a decode step's 8, bit
+   for bit, timed beside its bound and ``F.rms_norm``. (b)
+   ``kimi_prefill_path``, ``kimi_serve_path``: phases 9 and 10's code at
+   2 x 4096 and 8 requests of 64 + 16, init s and peak (each expert
+   weight cast as it is drawn), the profile split, launches from the
+   config and peaks under 75 GB (asserted), the MoE capacities and pairs
+   dropped; the bf16 decode gap reported, and ``kimi_decode_vs_prefill_
+   f32``: the path held in float32 at the same depth with 96 of the 384
+   experts and a capacity factor of 64, within 2e-3 (asserted). Then
+   ``seconds``: each phase's seconds.
 
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
 with each path's, phases 16-19's, phase 28's and the HFEL scheme runs'
 beside them;
 rmsnorm, flash and the scan add their train paths' launches (phases 22,
 24 and 27) and a ``backward`` entry; rmsnorm and flash phases 25 and
-26's launches and phase 29's (a) and (g) (``mesh_train``, summed over
-the four ranks), rmsnorm ``d2048`` and ``d896`` entries, flash ``hd192``
+26's launches, phase 29's (a), (g) and (h) (``mesh_train``, summed over
+the four ranks) and phase 32's (``kimi_serving``), rmsnorm ``d2048``,
+``d896`` and ``d7168`` entries, flash ``hd192``
 and ``hd112`` entries and one for each of whisper's two shapes and
 internvl2's layer), then ``flash_attention_bwd``, the backward kernel:
 its launches on each train path, phase 21b's qwen3 line and one entry for
@@ -1634,7 +1657,8 @@ def serving_paths(dev, arch: str = "qwen3-0.6b", *,
                   batch: int = PREFILL_BATCH, requests: int = SERVE_REQUESTS,
                   prompt: int = SERVE_PROMPT, new: int = SERVE_NEW,
                   phases: tuple = ("prefill_path", "serve_path"),
-                  f32_layers: int | None = None, **extra) -> dict:
+                  f32_layers: int | None = None, layers: int | None = None,
+                  f32_overrides: dict | None = None, **extra) -> dict:
     """Phases 9 and 10 (and 31b): the prefill and serve paths of the
     full-size dense ``arch`` on the card: ``Model.logits`` on ``batch`` x
     ``PREFILL_SEQ`` tokens, then ``requests`` requests of a ``prompt``-token
@@ -1644,9 +1668,12 @@ def serving_paths(dev, arch: str = "qwen3-0.6b", *,
     init's, prefill's and serve's peaks under ``SERVE_PEAK_LIMIT``;
     the bf16 decode within ``SERVE_GAP_*`` of the prefill (asserted), or
     with ``f32_layers`` reported, the path held instead in float32 at that
-    depth (:func:`decode_vs_prefill_f32`, as phase 14 holds mamba2's);
-    lines named ``phases``, with ``extra``. Returns the kernels' launch
-    counts."""
+    depth (:func:`decode_vs_prefill_f32`, as phase 14 holds mamba2's,
+    with ``f32_overrides`` of the config); ``layers`` cuts the config's
+    depth; for a MoE config the serve line also holds how the prefill's
+    and the decode's routing differ (``routing_gap``: capacities, pairs
+    dropped); lines named ``phases``, with ``extra``. Returns the kernels'
+    launch counts."""
     import dataclasses
 
     import numpy as np
@@ -1656,17 +1683,23 @@ def serving_paths(dev, arch: str = "qwen3-0.6b", *,
     from repro_torch.launch.serve import serve_shape
     from repro_torch.models import ShapeSpec, build_model
 
+    import contextlib
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg)
     # the copy the server keeps, built a layer at a time
     params, init_s, init_peak, n_params, param_bytes = init_timed(model, dev)
+    record = RoutingRecorder if cfg.moe is not None else \
+        contextlib.nullcontext
     rng = np.random.default_rng(0)
     toks = torch.tensor(rng.integers(0, cfg.vocab_size,
                                      (batch, PREFILL_SEQ + 1)), device=dev)
-    # flash and rmsnorm in one forward (a decode step launches no flash);
+    # flash and rmsnorm in one forward (a decode step launches no flash;
+    # an inference forward recomputes nothing, whatever the remat);
     # qwen3's qk-norm is the plain rms_norm_heads and olmo's LayerNorms
     # the plain apply_norm: they launch no rmsnorm
-    per = train_launches_per_forward(cfg)
+    per = train_launches_per_forward(no_remat(cfg))
     per_fwd = (per["flash_attention"][1], per["rmsnorm"][1])
 
     # ---- 9. prefill ----
@@ -1712,7 +1745,7 @@ def serving_paths(dev, arch: str = "qwen3-0.6b", *,
                       global_batch=requests, kind="decode")
     flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
-    with torch.inference_mode():
+    with torch.inference_mode(), record() as pre_rec:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pad = torch.zeros(requests, 1, dtype=torch.int32, device=dev)
@@ -1721,8 +1754,12 @@ def serving_paths(dev, arch: str = "qwen3-0.6b", *,
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
     at_prefill = (flash_attention.LAUNCHES, rmsnorm.LAUNCHES)
-    res = serve_shape(cfg, shape, new, device=dev, params=params,
-                      prompts=prompts, keep_prompt_logits=True)
+    with record() as dec_rec:
+        res = serve_shape(cfg, shape, new, device=dev, params=params,
+                          prompts=prompts, keep_prompt_logits=True)
+    if cfg.moe is not None:
+        extra["routing"] = routing_gap(cfg, pre_rec.calls, dec_rec.calls,
+                                       requests, prompt)
     steps = res.prompt_steps + res.decode_steps
     decode = (flash_attention.LAUNCHES - at_prefill[0],
               rmsnorm.LAUNCHES - at_prefill[1])
@@ -1764,12 +1801,16 @@ def serving_paths(dev, arch: str = "qwen3-0.6b", *,
     if f32_layers:
         del params
         torch.cuda.empty_cache()
+        over = dict(f32_overrides or {})
         decode_vs_prefill_f32(
             dev, dataclasses.replace(cfg, n_layers=f32_layers,
-                                     dtype="float32"),
-            phase="zoo_decode_vs_prefill_f32", requests=ZOO_F32_REQUESTS,
-            prompt=ZOO_F32_PROMPT, bound=SSM_GAP_F32,
-            full_layers=cfg.n_layers)
+                                     dtype="float32", **over),
+            phase=phases[1].replace("serve_path", "decode_vs_prefill_f32"),
+            requests=ZOO_F32_REQUESTS, prompt=ZOO_F32_PROMPT,
+            bound=SSM_GAP_F32, full_layers=get_config(arch).n_layers,
+            routing=cfg.moe is not None,
+            **({"n_experts": over["moe"].n_experts} if "moe" in over
+               else {}))
     return {"flash_attention": prefill_launches[0] + at_prefill[0]
             + decode[0],
             "rmsnorm": prefill_launches[1] + at_prefill[1] + decode[1]}
@@ -4996,11 +5037,11 @@ MESH_F32_LAYERS = 2                                  # (b), (d)'s check
 MESH_HIER_SEQ, MESH_HIER_BATCH = 2048, 4
 MESH_HIER_STEPS, MESH_HIER_PERIOD = 2, 2      # one cloud sync
 # (d): phase 10's 8 requests with their prompts cut from 256 to the first
-# 16 tokens and 8 new ones: over gloo a step takes 0.45-0.7 s (0.4326 s a
-# decode step and 0.5351 s a prompt step on an H100 80GB HBM3 at 700 W,
-# PERF.md), so the 287 steps of the whole requests took ~140 s; 23 steps
-# take ~10-16 s
-MESH_SERVE_PROMPT, MESH_SERVE_NEW = 16, 8
+# 8 tokens and 8 new ones: over gloo a step that gathers each layer's
+# blocks takes ~1.2 s (1.186 s a decode step on an H100 80GB HBM3 at 700
+# W, PERF.md; 0.43-0.54 s when the ranks kept the gathered tree), so the
+# 287 steps of the whole requests would take ~340 s; 15 steps take ~18 s
+MESH_SERVE_PROMPT, MESH_SERVE_NEW = 8, 8
 MESH_SERVE_F32 = (32, 16)          # (d)'s float32 check: prompt, new tokens
 MESH_LOGIT_ATOL = 1e-4
 MESH_PEAK_LIMIT = 75e9             # bytes: the ranks' peaks summed
@@ -5040,13 +5081,18 @@ def mesh_plan(device: str = "cuda") -> dict:
                 moe=dict(arch=MESH_MOE_ARCH, layers=MESH_MOE_LAYERS,
                          seq=MESH_MOE_SEQ, batch=MESH_MOE_BATCH,
                          steps=MESH_MOE_STEPS, y_stride=MESH_MOE_Y_STRIDE),
-                jobs=["a", "b", "c", "d", "g"])
+                jobs=["a", "h", "b", "c", "d", "g"])
 
 
-def mesh_config(plan: dict, f32: bool = False):
+def mesh_config(plan: dict, f32: bool = False, remat: bool = False):
+    """(a)'s config (``remat="none"``; the config's own ``"block"`` with
+    ``remat``, (h)'s), reduced on a CPU rehearsal; float32 at
+    ``plan["f32_layers"]`` layers with ``f32``."""
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = no_remat(get_config(plan["arch"]))
+    cfg = get_config(plan["arch"])
+    if not remat:
+        cfg = no_remat(cfg)
     if plan["reduced"]:
         cfg = cfg.reduced(dtype="bfloat16")
     if f32:
@@ -5173,17 +5219,11 @@ def mesh_forward(bundle, model, mesh, blocks, batch, stride: int,
     attention output is not all-reduced over ``model`` (a planted tensor
     parallel fault; the rank keeps its partial sum)."""
     import torch
-    from repro_torch.launch import sharding as shd
     from repro_torch.models import attention, pjit_hints
     from repro_torch.models.layers import dense
     from repro_torch.utils import collectives as coll
-    from repro_torch.utils import (tree_leaves, tree_leaves_with_path,
-                                   tree_unflatten)
 
     cfg = model.cfg
-    paths = [shd._key_str(p)
-             for p, _ in tree_leaves_with_path(bundle.params_spec)]
-    specs = [sh.spec for sh in shd._sharding_leaves(bundle.params_shardings)]
     real, calls = attention.out_proj, [0]
     fault = None if fault_layer is None else fault_layer % cfg.n_layers
 
@@ -5195,10 +5235,8 @@ def mesh_forward(bundle, model, mesh, blocks, batch, stride: int,
 
     attention.out_proj = out_proj
     try:
-        with torch.no_grad(), pjit_hints.hints_ctx(
-                pjit_hints.from_mesh(mesh)):
-            used = tree_unflatten(blocks, pjit_hints.use_params(
-                tree_leaves(blocks), paths, specs, cfg))
+        with torch.no_grad(), pjit_hints.hints_ctx(bundle.hints):
+            used = pjit_hints.use_tree(blocks, cfg)
             loss = model.loss(used, batch) if fault is not None else None
             calls[0] = 0
             logits = model.logits(used, batch)[:, ::stride].float()
@@ -5293,6 +5331,41 @@ def mesh_job_a(mesh, plan, dev, out) -> dict:
                           blocks_bitwise=bool(blocks), save_s=save_s,
                           restore_s=restore_s, to_mesh=[4, 1])
     del whole, again, got
+    return res
+
+
+def mesh_job_h(mesh, plan, dev) -> dict:
+    """(h) (a)'s steps under the config's ``remat="block"``: the same
+    mesh, params and batches, each stacked layer gathering its blocks in
+    its forward and again in its recompute. Each step's loss, launches
+    and s, the peak, and the most gathered parameter bytes alive at once
+    (``GatherMeter``) beside what the stacked layers and the other leaves
+    gather alone (``pjit_hints.gathered_alone``)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model, pjit_hints
+
+    cfg = mesh_config(plan, remat=True)
+    model = build_model(cfg)
+    shape = ShapeSpec("train_mesh", plan["seq"], plan["batch"], "train")
+    bundle = make_train_step(model, shape, mesh=mesh, lr=plan["lr"],
+                             device=dev)
+    data = mesh_tokens(cfg, plan["batch"] * plan["steps"], plan["seq"], dev)
+    batches = [{"tokens": data[k * plan["batch"]:(k + 1) * plan["batch"]]}
+               for k in range(plan["steps"])]
+    # the rank's state alone, as the dry run counts it (no whole params)
+    state = bundle.init_state(model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    _zero_counts()
+    with pjit_hints.GatherMeter() as meter:
+        res, (p, o, _) = mesh_train_steps(bundle, None, batches, dev,
+                                          state=state)
+        res["gathered_peak"], res["gathered_after"] = meter.peak, meter.live
+    del state, o
+    with pjit_hints.hints_ctx(bundle.hints):
+        outside, layers = pjit_hints.gathered_alone(p, cfg)
+    res.update(outside=outside, layer_max=max(layers), remat=cfg.remat)
+    del p
     return res
 
 
@@ -5412,8 +5485,7 @@ def mesh_job_d(mesh, plan, dev) -> dict:
         shape = ShapeSpec("serve_mesh", prompt + new, n, "decode")
         bundle = make_serve_step(model, mesh, shape)
         whole = model.init_serving(torch.Generator(device=dev).manual_seed(0))
-        params = bundle.compute_params(shd.shard_tree(
-            whole, bundle.params_shardings))
+        params = shd.shard_tree(whole, bundle.params_shardings)
         _zero_counts()
         _reset_peak(dev)
         res = serve(model, params, bundle.token_sharding.local(prompts), new,
@@ -5527,18 +5599,11 @@ def mesh_moe_loss(bundle, model, mesh, blocks, batch) -> float:
     """One forward's loss (no gradient) from this rank's parameter blocks
     on its rows of ``batch``, the mean over the batch ranks."""
     import torch
-    from repro_torch.launch import sharding as shd
     from repro_torch.models import pjit_hints
     from repro_torch.utils import collectives as coll
-    from repro_torch.utils import (tree_leaves, tree_leaves_with_path,
-                                   tree_unflatten)
-    paths = [shd._key_str(p)
-             for p, _ in tree_leaves_with_path(bundle.params_spec)]
-    specs = [sh.spec for sh in shd._sharding_leaves(bundle.params_shardings)]
-    with torch.no_grad(), pjit_hints.hints_ctx(pjit_hints.from_mesh(mesh)):
-        used = tree_unflatten(blocks, pjit_hints.use_params(
-            tree_leaves(blocks), paths, specs, model.cfg))
-        loss = model.loss(used, batch).float()
+    with torch.no_grad(), pjit_hints.hints_ctx(bundle.hints):
+        loss = model.loss(pjit_hints.use_tree(blocks, model.cfg),
+                          batch).float()
     data = mesh.get_group("data")
     return float(coll.all_reduce(loss, data) / coll.size(data))
 
@@ -5597,10 +5662,11 @@ def mesh_job_g(mesh, plan, dev, out: str) -> dict:
 
 
 def mesh_moe_predict(rank: int, world: int, out: str, plan: dict) -> None:
-    """The dry run's count of (g)'s step (``dryrun.count_train_step``) on
-    rank 0 of a (data=2, model=2) mesh of fake ranks, in a process of its
-    own on the CPU at ``CPU_SIDE_NICE``: the predicted peak, arguments and
-    FLOPs of a rank, to ``out/moe_predict.json``."""
+    """The dry run's count of (g)'s step and of (h)'s (those of
+    ``plan["jobs"]``; ``dryrun.count_train_step``) on rank 0 of a (data=2,
+    model=2) mesh of fake ranks, in a process of its own on the CPU at
+    ``CPU_SIDE_NICE``: the predicted peak, arguments and FLOPs of a rank,
+    to ``out/moe_predict.json`` ((h)'s under its key ``h``)."""
     sys.path.insert(0, str(SRC))
     os.nice(CPU_SIDE_NICE)
     import torch.distributed as dist
@@ -5612,15 +5678,23 @@ def mesh_moe_predict(rank: int, world: int, out: str, plan: dict) -> None:
     try:
         mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
         m = plan["moe"]
-        t0 = time.perf_counter()
-        c = dryrun.count_train_step(
-            mesh_moe_config(plan),
-            ShapeSpec("train_mesh_moe", m["seq"], m["batch"], "train"),
-            mesh=mesh)["step"]
+        cells = {}
+        if "g" in plan["jobs"]:
+            cells["g"] = (mesh_moe_config(plan), ShapeSpec(
+                "train_mesh_moe", m["seq"], m["batch"], "train"))
+        if "h" in plan["jobs"]:
+            cells["h"] = (mesh_config(plan, remat=True), ShapeSpec(
+                "train_mesh", plan["seq"], plan["batch"], "train"))
+        got = {}
+        for job, (cfg, shape) in cells.items():
+            t0 = time.perf_counter()
+            c = dryrun.count_train_step(cfg, shape, mesh=mesh)["step"]
+            got[job] = dict(peak=c.peak_bytes, arguments=c.argument_bytes,
+                            flops=c.flops,
+                            wire_bytes=float(c.collectives.wire),
+                            seconds=time.perf_counter() - t0)
         with open(f"{out}/moe_predict.json", "w") as f:
-            json.dump(dict(peak=c.peak_bytes, arguments=c.argument_bytes,
-                           flops=c.flops, wire_bytes=float(c.collectives.wire),
-                           seconds=time.perf_counter() - t0), f)
+            json.dump(dict(got.get("g", {}), h=got.get("h")), f)
     finally:
         dist.destroy_process_group()
 
@@ -5650,6 +5724,7 @@ def mesh_rank(rank: int, world: int, out: str, plan: dict) -> None:
                               device_type=dev.type)
         fields["carries"] = coll.probe(dist.group.WORLD, dev)
         for job, fn in (("a", lambda: mesh_job_a(mesh, plan, dev, out)),
+                        ("h", lambda: mesh_job_h(mesh, plan, dev)),
                         ("b", lambda: mesh_job_b(mesh, plan, dev)),
                         ("c", lambda: mesh_job_c(plan, dev)),
                         ("d", lambda: mesh_job_d(mesh, plan, dev)),
@@ -5798,7 +5873,7 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
     summed over the ranks."""
     import torch
     plan = plan or mesh_plan(dev.type)
-    if predict is None and "g" in plan["jobs"]:
+    if predict is None and {"g", "h"} & set(plan["jobs"]):
         predict = start_moe_predict(plan)
     beside = [name for name, run in (cpu_side or {}).items()
               if run["proc"].poll() is None]
@@ -5823,10 +5898,11 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
             with open(f"{tmp}/rank{r}.json") as f:
                 ranks.append(json.load(f))
         outs = {}
+        if predict is not None:
+            outs["predict"] = predicted
         if "g" in plan["jobs"]:
             outs["g_y"] = [torch.load(f"{tmp}/g_y{r}.pt") for r in range(4)]
             outs["one_moe_y"] = torch.load(f"{tmp}/one/one_rank_moe_y.pt")
-            outs["predict"] = predicted
         for name, path in (("one", "one/one_rank.json"),
                            ("one_moe", "one/one_rank_moe.json")):
             if os.path.exists(f"{tmp}/{path}"):
@@ -5837,6 +5913,11 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
     if "a" in plan["jobs"]:
         checks, launches = mesh_report(outs["one"], ranks, plan, smi, one_s,
                                        four_s, held, beside)
+    if "h" in plan["jobs"]:
+        h_checks, h_launches = mesh_remat_report(
+            ranks, plan, smi, outs["predict"]["h"], beside)
+        checks.update(h_checks)
+        launches = {k: launches.get(k, 0) + v for k, v in h_launches.items()}
     if "g" in plan["jobs"]:
         g_checks, g_launches = mesh_moe_report(
             outs["one_moe"], outs["predict"], ranks, plan, smi,
@@ -5944,6 +6025,66 @@ def mesh_report(one, ranks, plan, smi, one_s, four_s, held, beside=()):
                           for r in ranks for k in ("bf16", "f32")))
     return checks, {key: sum(sum(row["launches"][key] for row in ra["rows"])
                              for ra in a) for key in per_step}
+
+def mesh_remat_report(ranks, plan, smi, predict, beside=()):
+    """(h)'s line and checks: each step's loss bit-equal to (a)'s on every
+    rank, the launches of ``train_launches_per_forward`` under remat a
+    step a rank, the most gathered bytes alive at once at most the leaves
+    outside the stacked trees and one stacked layer gathered, none alive
+    after; each rank's peak within ``DRYRUN_PEAK_RTOL`` of the dry run's
+    count of the cell (``predict``); its launches summed over the
+    ranks."""
+    cfg = mesh_config(plan, remat=True)
+    h = [r["h"] for r in ranks]
+    per = train_launches_per_forward(cfg)
+    per_step = {"flash_attention": per["flash_attention"][0],
+                "flash_attention_bwd": per["flash_attention"][1],
+                "rmsnorm": per["rmsnorm"][0]}
+    losses = [[row["loss"] for row in rh["rows"]] for rh in h]
+    want = [row["loss"] for row in ranks[0]["a"]["rows"]] \
+        if "a" in ranks[0] else None
+    bound = [rh["outside"] + rh["layer_max"] for rh in h]
+    peaks = [rh["peak"] for rh in h]
+    emit("mesh_train_remat", card=smi, arch=cfg.name, remat=cfg.remat,
+         mesh={"data": 2, "model": 2}, sharding="fsdp", backend="gloo",
+         ranks_on_one_card=4, seq=plan["seq"], global_batch=plan["batch"],
+         steps=plan["steps"], dtype=cfg.dtype, losses=losses[0],
+         losses_remat_none=want,
+         s_per_step=[[row["s"] for row in rh["rows"]] for rh in h],
+         s_per_step_median=[rh["s_median"] for rh in h],
+         launches_per_step_per_rank=[rh["rows"][-1]["launches"] for rh in h],
+         launches_expected=per_step,
+         gathered_peak_per_rank=[rh["gathered_peak"] for rh in h],
+         gathered_bound_per_rank=bound,
+         gathered_outside=[rh["outside"] for rh in h],
+         gathered_layer_max=[rh["layer_max"] for rh in h],
+         gathered_after=[rh["gathered_after"] for rh in h],
+         peak_per_rank=peaks, peak_total=sum(peaks),
+         peak_limit=MESH_PEAK_LIMIT, predicted_peak=predict["peak"],
+         predicted_arguments=predict["arguments"],
+         predicted_flops=predict["flops"],
+         predicted_wire_bytes=predict["wire_bytes"],
+         predict_s=predict["seconds"],
+         peak_rel_err=[(predict["peak"] - pk) / pk if pk else None
+                       for pk in peaks], peak_rtol=DRYRUN_PEAK_RTOL,
+         job_s=[rh["job_s"] for rh in h], beside_cpu_processes=list(beside),
+         their_nice=CPU_SIDE_NICE)
+    checks = dict(
+        remat_peak_predicted=all(
+            abs(predict["peak"] - pk) <= DRYRUN_PEAK_RTOL * pk
+            for pk in peaks),
+        remat_loss_bitwise=want is not None
+        and all(ls == want for ls in losses),
+        remat_launches=all(row["launches"] == per_step
+                           for rh in h for row in rh["rows"]),
+        remat_gathered=all(0 < rh["gathered_peak"] <= b and
+                           rh["gathered_after"] == 0
+                           for rh, b in zip(h, bound)),
+        remat_peak=sum(peaks) <= MESH_PEAK_LIMIT,
+        remat_finite=all(math.isfinite(x) for ls in losses for x in ls))
+    return checks, {key: sum(sum(row["launches"][key] for row in rh["rows"])
+                             for rh in h) for key in per_step}
+
 
 def moe_y_errs(got: dict, one_y: list, key: str) -> list:
     """Each MoE layer's mean |error| over mean |y| of a rank's recorded
@@ -6848,6 +6989,80 @@ def prefill_32k_path(dev) -> dict:
     return path_launches(prefill_32k=run)
 
 
+# ---- 32: kimi-k2-1t-a32b at full width on the card ----
+
+# kimi-k2 (the JAX package's paper-table config: 61 layers, d 7168, 64/8
+# heads of 112, 384 experts of width 2048 with top-8, one shared expert,
+# a leading dense layer of FFN 18,432, vocab 163,840) cut to its leading
+# dense layer and one MoE layer, every width kept: 19.9 G parameters, 40
+# GB in bf16. Prefill 2 x 4096 (half phase 9's batch: the two bf16 2 x
+# 4096 x 163,840 logits alone are 2.7 GB); 8 served requests of 64 + 16
+KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 2
+KIMI_PREFILL_BATCH = 2
+KIMI_REQUESTS, KIMI_PROMPT, KIMI_NEW = 8, 64, 16
+# the float32 decode-vs-prefill hold at the same 2 layers: 384 float32
+# experts alone are 67.6 GB, so it keeps 96 of them (top-8 kept; every
+# width kept) and a capacity factor of 64 (no pair drops, as phase 25e)
+KIMI_F32_EXPERTS, KIMI_F32_CAPACITY = 96, 64.0
+# the rmsnorm kernel at d 7168 in bf16: 28 vectors of 8 a lane, past
+# HELD_VECTORS' largest (24), so it reads the rest twice: at the
+# prefill's rows and a decode step's
+KIMI_RMSNORM = (("kimi_prefill", KIMI_PREFILL_BATCH * PREFILL_SEQ),
+                ("kimi_decode", KIMI_REQUESTS))
+
+
+def kimi_rmsnorm(dev, ptxas: dict) -> dict:
+    """Phase 32a: the rmsnorm kernel at kimi-k2's d_model 7168 in bf16
+    (the read-the-rest-twice path, run in float32 only before), bit for
+    bit against its plain version at ``KIMI_RMSNORM``'s rows, each timed
+    beside its bound and ``F.rms_norm``'s time, with its instantiation's
+    registers and spills. Returns {case: fields} for the kernels line."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(32)
+    flush = l2_flush(dev)
+    out = {}
+    for case, rows in KIMI_RMSNORM:
+        fields, _, _ = rmsnorm_case(gen, case, rows, 7168, torch.bfloat16,
+                                    flush, ptxas, timed=True)
+        emit("kernel", **fields)
+        out[case] = fields
+    return out
+
+
+def kimi_serving(dev) -> dict:
+    """Phase 32b: kimi-k2 at full width cut to ``KIMI_LAYERS`` (1 dense + 1
+    MoE layer, all 384 experts) through :func:`serving_paths`: init
+    seconds and peak (``Model.init_serving``, each expert weight cast as
+    it is drawn), prefill tokens/s with the launches derived from the
+    config (asserted), its profile split, the served requests' ms a decode
+    step, the MoE capacities and pairs dropped, the first tokens, each
+    peak under ``SERVE_PEAK_LIMIT`` (asserted); the bf16 decode-vs-prefill
+    gap reported and the path held in float32 at the same depth
+    (``KIMI_F32_*``). Phase 25d holds reduced kimi-k2's card against the
+    CPU. Returns the kernels' launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    torch.cuda.empty_cache()
+    moe = get_config(KIMI_ARCH).moe
+    got = serving_paths(
+        dev, KIMI_ARCH, batch=KIMI_PREFILL_BATCH, requests=KIMI_REQUESTS,
+        prompt=KIMI_PROMPT, new=KIMI_NEW,
+        phases=("kimi_prefill_path", "kimi_serve_path"),
+        layers=KIMI_LAYERS, f32_layers=KIMI_LAYERS,
+        f32_overrides={"moe": dataclasses.replace(
+            moe, n_experts=KIMI_F32_EXPERTS,
+            capacity_factor=KIMI_F32_CAPACITY)},
+        nvidia_smi=nvidia_smi_line(),
+        reduced=dict(n_layers=[KIMI_LAYERS, get_config(KIMI_ARCH).n_layers],
+                     prefill=[[KIMI_PREFILL_BATCH, PREFILL_SEQ],
+                              [PREFILL_BATCH, PREFILL_SEQ]],
+                     f32_experts=[KIMI_F32_EXPERTS, moe.n_experts]))
+    torch.cuda.empty_cache()
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7418,6 +7633,13 @@ def main() -> int:
                        train_hybrid=zoo_tr["hybrid"],
                        prefill_32k=prefill_32k_path(dev))
     done("31e prefill_32k")
+
+    # ---- 32. kimi-k2-1t-a32b at full width, cut to 1 dense + 1 MoE layer:
+    # rmsnorm at d 7168 in bf16, then its serving path ----
+    torch.cuda.empty_cache()
+    rms7168 = kimi_rmsnorm(dev, ptxas["rmsnorm"])
+    kimi = kimi_serving(dev)
+    done("32 kimi-k2 serving")
     emit("seconds", phases=seconds, total=time.perf_counter() - t_start)
 
     no_train = {name: 0 for name in train_paths}
@@ -7477,7 +7699,7 @@ def main() -> int:
              + t_rms["kernel"] + moe_launches["rmsnorm"]
              + ed_launches["rmsnorm"] + vlm_launches["rmsnorm"]
              + mesh_launches["rmsnorm"] + zoo_serve["rmsnorm"]
-             + long_run["rmsnorm"],
+             + long_run["rmsnorm"] + kimi["rmsnorm"],
              launches_by_path={"serving": serve_launches["rmsnorm"],
                                "ssm_serving": launched("rmsnorm"),
                                **t_rms["by_path"],
@@ -7486,7 +7708,8 @@ def main() -> int:
                                "vlm_serving": vlm_launches["rmsnorm"],
                                "mesh_train": mesh_launches["rmsnorm"],
                                "dense_zoo_serving": zoo_serve["rmsnorm"],
-                               "long_context": long_run["rmsnorm"]},
+                               "long_context": long_run["rmsnorm"],
+                               "kimi_serving": kimi["rmsnorm"]},
              backward=t_rms["backward"],
              max_abs_err=rms["max_abs_err"], ms=rms["ms"],
              ms_cold_l2=rms["ms_cold_l2"],
@@ -7501,6 +7724,10 @@ def main() -> int:
                  "shape", "held_vectors", "max_abs_err", "ms", "ms_cold_l2",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "ptxas")}
                  for case, f in ed_kernels["rmsnorm"].items()},
+             d7168={case: {key: f[key] for key in (
+                 "shape", "dtype", "held_vectors", "max_abs_err", "ms",
+                 "ms_cold_l2", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "ptxas")} for case, f in rms7168.items()},
              **{f"d{f['shape'][1]}_{f['dtype']}": {key: f[key] for key in (
                  "shape", "held_vectors", "max_abs_err", "ms", "ms_cold_l2",
                  "plain_ms", "bound_ms", "bound_by", "library_ms", "ptxas")}
@@ -7514,7 +7741,8 @@ def main() -> int:
              + ed_launches["flash_attention"]
              + vlm_launches["flash_attention"]
              + mesh_launches["flash_attention"]
-             + zoo_serve["flash_attention"] + long_run["flash_attention"],
+             + zoo_serve["flash_attention"] + long_run["flash_attention"]
+             + kimi["flash_attention"],
              launches_by_path={"serving": serve_launches["flash_attention"],
                                "ssm_serving": launched("flash_attention"),
                                **t_fla["by_path"],
@@ -7529,7 +7757,8 @@ def main() -> int:
                                "dense_zoo_serving":
                                    zoo_serve["flash_attention"],
                                "long_context":
-                                   long_run["flash_attention"]},
+                                   long_run["flash_attention"],
+                               "kimi_serving": kimi["flash_attention"]},
              backward=t_fla["backward"],
              max_abs_err=fla["max_abs_err"], ms=fla["ms"],
              ms_cold_l2=fla["ms_cold_l2"], tflops=fla["tflops"],

@@ -29,12 +29,15 @@ Per rank it counts (:func:`count_call`):
   layout (``contiguous()``, a ``reshape`` that cannot view: ``clone`` to
   the contiguous format) counts zero too, as XLA chooses its layouts
   itself; so the count does not depend on whether a dim of size 1 (a
-  probe's one layer) left a view contiguous;
+  probe's one layer) left a view contiguous. Under ``inference_mode`` (a
+  decode step) such a ``reshape`` or ``flatten`` arrives whole, as a view
+  operator: where its output has a storage of its own, it is that copy;
 * collectives with :class:`launch.roofline.CollectiveCounter`;
 * memory: the arguments' bytes (the rank's blocks of parameters and
-  optimizer state and its rows of the batch; for a decode step the
-  parameters as the rank computes with them, its cache blocks and its
-  tokens) and the peak of live tensor bytes over the step.
+  optimizer state and its rows of the batch; for a decode step its
+  parameter blocks, its cache blocks and its tokens) and the peak of live
+  tensor bytes over the step, each stacked layer's gathered blocks among
+  them while that layer runs (``pjit_hints.use_layer``).
 
 Eager runs every layer, so the full-depth count is exact (XLA's cost
 analysis counts a scanned loop's body once, which is why the JAX package
@@ -46,9 +49,9 @@ bytes) exactly.
 
 Modes: ``sync`` and ``hierarchical`` (HFEL pod-local training; the cloud
 sync is also counted and amortised over ``edge_period`` steps). Decode
-shapes count ``make_serve_step``'s step instead of the train step (the
-parameters gathered once to the layout the rank computes with, outside
-the step, as the port's serving does).
+shapes count ``make_serve_step``'s step instead of the train step (on
+the rank's parameter blocks, which the step gathers a layer at a time,
+as the JAX package's serve step does).
 """
 
 from __future__ import annotations
@@ -159,7 +162,20 @@ class Traffic(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.is_view or func.namespace == "prim" or \
+        if func.is_view:
+            # an operator that views where it can (``flatten``,
+            # ``reshape``: under ``inference_mode`` they arrive whole, not
+            # as their ``clone`` and view) copies where it cannot: that
+            # copy is a layout copy (no bytes) whose output is live memory
+            seen = {id(t.untyped_storage())
+                    for t in tree_flatten((args, kwargs))[0]
+                    if isinstance(t, torch.Tensor)}
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor) and \
+                        id(t.untyped_storage()) not in seen:
+                    self.track(t)
+            return out
+        if func.namespace == "prim" or \
                 func._overloadpacket.__name__ in _NO_TRAFFIC:
             return out
         tensors_out = [t for t in tree_flatten(out)[0]
@@ -288,8 +304,7 @@ def count_serve_step(cfg, shape, *, mesh=None, sharding_mode: str = "fsdp",
             cache = _blank(cache_spec)
             tokens = torch.zeros(b, dtype=torch.int32)
         else:
-            params = bundle.compute_params(
-                _blank(bundle.params_spec, bundle.params_shardings))
+            params = _blank(bundle.params_spec, bundle.params_shardings)
             cache = _blank(cache_spec, bundle.cache_shardings)
             tokens = torch.zeros(bundle.token_sharding.shard_shape((b,)),
                                  dtype=torch.int32)

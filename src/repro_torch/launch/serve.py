@@ -81,8 +81,9 @@ def serve(model: Model, params, prompts: torch.Tensor, new_tokens: int, *,
     encodes once.
 
     With a mesh's ``bundle`` (``make_serve_step(model, mesh, shape)``),
-    every rank calls this with ``params`` in its compute layout
-    (``bundle.compute_params``) and its rows of ``prompts`` and ``frames``
+    every rank calls this with its blocks of ``params``
+    (``bundle.params_shardings``; each step gathers them a layer at a
+    time) and its rows of ``prompts`` and ``frames``
     (``bundle.token_sharding``); the result holds every request's tokens
     and logits (gathered over the batch axes)."""
     bundle = bundle or make_serve_step(model)
@@ -201,9 +202,9 @@ def _serve_rank(mesh, args) -> None:
     dev = resolve_device(args.device)
     model = build_model(cfg)
     bundle = make_serve_step(model, mesh, shape)
-    params = model.init_serving(torch.Generator(device=dev).manual_seed(0))
-    params = bundle.compute_params(shd.shard_tree(params,
-                                                  bundle.params_shardings))
+    params = shd.shard_tree(
+        model.init_serving(torch.Generator(device=dev).manual_seed(0)),
+        bundle.params_shardings)
     prompts = bundle.token_sharding.local(
         torch.zeros(shape.global_batch, 1, dtype=torch.int32, device=dev))
     frames = None

@@ -24,10 +24,14 @@ pod).
 On a mesh each rank holds its blocks of the parameters and optimizer
 state (``launch.sharding``: ``params_shardings``, ``opt_shardings``; in
 hierarchical mode ``("pod", *inner)``, a rank holding its pod's copy) and
-its rows of the batch (``batch_shardings``). The step gathers each block
-to the layout its layer computes with (``pjit_hints.use_params``), runs
-the model under the mesh's hints (tensor parallelism over ``model``),
-and reduces each gradient back to the rank's block; the loss of a rank is
+its rows of the batch (``batch_shardings``). The step runs the model on
+its blocks under the mesh's hints (tensor parallelism over ``model``):
+the leaves outside the stacked layers are gathered to the layout their
+layers compute with before the forward (``pjit_hints.use_tree``), each
+stacked layer's slice inside that layer's step and its recompute
+(``pjit_hints.use_layer``), as GSPMD gathers inside JAX's scan body; each
+gradient is reduced back to the rank's block inside the backward of the
+layer that used it; the loss of a rank is
 the mean over its rows, scaled by 1/(batch ranks) for the gradient. The
 clip's norm sums each distinct block once over the ranks (a pod's ranks
 in hierarchical mode). The cloud sync is ``core.hierarchy.psum_mean`` over
@@ -40,8 +44,10 @@ released once used, so beside the parameters, moments and gradients it
 holds a few copies of one leaf, not of the tree.
 
 Serving (``make_serve_step``) is one greedy decode step, on one card or
-over a mesh: the cache placed by ``cache_shardings``, the tokens by
-``token_sharding``.
+over a mesh: the params the rank's blocks under ``params_shardings`` (each
+step gathers them a layer at a time, as JAX's serve step, jitted with the
+blocks' ``in_shardings``, does), the cache placed by ``cache_shardings``,
+the tokens by ``token_sharding``.
 """
 
 from __future__ import annotations
@@ -84,7 +90,12 @@ class TrainStepBundle:
     from the whole params), ``batch`` is this rank's rows
     (``local_batch``), the loss the mean over every rank's rows, and the
     ``*_shardings`` trees (:class:`launch.sharding.NamedSharding` leaves)
-    place each leaf; without one they are None."""
+    place each leaf; without one they are None. ``loss_and_grads(params,
+    batch, clock=None) -> (loss, grads)`` is a mesh step's forward and
+    backward without the update: this rank's loss (the mean over its rows)
+    and the gradient of each of its blocks (``tree_leaves`` order);
+    ``hints`` (:class:`pjit_hints.ShardingHints`) the layout the step
+    computes under, its blocks' specs among them."""
 
     step_fn: Callable
     cloud_sync_fn: Callable | None
@@ -99,6 +110,8 @@ class TrainStepBundle:
     params_shardings: Any = None
     opt_shardings: Any = None
     batch_shardings: Any = None
+    loss_and_grads: Callable | None = None
+    hints: Any = None
 
     def init_state(self, params) -> tuple[Any, Any, torch.Tensor]:
         """(params, opt_state, step 0) to start from ``params`` (one
@@ -271,11 +284,13 @@ def _mesh_train_step(model, shape, mesh, *, mode, sharding_mode, lr,
         raise ValueError(f"batch {b} does not split over {n_batch} batch "
                          "ranks")
 
-    hints = pjit_hints.from_mesh(mesh, inside_pod_vmap=hierarchical)
     inner = _inner(p_shard) if hierarchical else p_shard
     pairs = tree_leaves_with_path(params_spec)
     paths = [shd._key_str(p) for p, _ in pairs]
     specs = [sh.spec for sh in shd._sharding_leaves(inner)]
+    hints = pjit_hints.with_params(
+        pjit_hints.from_mesh(mesh, inside_pod_vmap=hierarchical), paths,
+        specs)
     # the clip's norm: over every rank (sync) or a pod's (hierarchical)
     norm_axes = tuple(a for a in sizes if a != "pod" or not hierarchical)
     opt = make_optimizer(lr, norm=shd.global_norm_fn(inner, mesh,
@@ -291,24 +306,28 @@ def _mesh_train_step(model, shape, mesh, *, mode, sharding_mode, lr,
                 loss = coll.all_reduce(loss, mesh.get_group(a))
         return loss / n_batch
 
+    def loss_and_grads(mine, batch, clock=None):
+        clock = clock or _no_clock
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(mine)]
+        clock("forward")
+        with pjit_hints.hints_ctx(hints):
+            loss = model.loss(pjit_hints.use_tree(
+                tree_unflatten(mine, leaves), model.cfg), batch)
+            clock("backward")
+            grads = list(torch.autograd.grad(loss * scale, leaves))
+        return loss.detach(), grads
+
     def step_fn(params, opt_state, step, batch, clock=None):
         clock = clock or _no_clock
         mine, state = params, opt_state
         if hierarchical:                 # this rank's pod's copy
             mine = tree_map(lambda x: x[0], params)
             state = tree_map(lambda x: x[0], opt_state)
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(mine)]
-        clock("forward")
-        with pjit_hints.hints_ctx(hints):
-            used = pjit_hints.use_params(leaves, paths, specs, model.cfg)
-            loss = model.loss(tree_unflatten(mine, used), batch)
-            clock("backward")
-            grads = list(torch.autograd.grad(loss * scale, leaves))
-        del used, leaves
+        loss, grads = loss_and_grads(mine, batch, clock)
         clock("optimizer")
         opt.apply_(grads, state, mine, step)
         clock("end")
-        return params, opt_state, step + 1, reported(loss.detach())
+        return params, opt_state, step + 1, reported(loss)
 
     cloud_sync_fn = None
     if hierarchical:
@@ -330,23 +349,26 @@ def _mesh_train_step(model, shape, mesh, *, mode, sharding_mode, lr,
                            n_pods if hierarchical else 1, dev, mesh=mesh,
                            params_spec=params_spec, opt_spec=opt_spec,
                            params_shardings=p_shard, opt_shardings=o_shard,
-                           batch_shardings=b_shard)
+                           batch_shardings=b_shard,
+                           loss_and_grads=loss_and_grads, hints=hints)
 
 
 @dataclass
 class ServeStepBundle:
     """What ``make_serve_step`` builds. ``step_fn(params, cache, tokens)
     -> (next_tokens int32, cache)``: one greedy decode step (the cache
-    updated in place). On a mesh ``params`` is the layout a rank computes
-    with (``compute_params`` of its blocks, gathered once: serving does not
-    change them), ``cache`` its blocks under ``cache_shardings`` and
+    updated in place). On a mesh ``params`` is this rank's blocks under
+    ``params_shardings`` (each step gathers the leaves outside the stacked
+    layers, then each layer's slice as it reaches it; none stays gathered
+    between steps), ``cache`` its blocks under ``cache_shardings`` and
     ``tokens`` its rows under ``token_sharding``. ``decode_fn`` is the
     same step returning the whole logits (gathered over ``model``) instead
     of the tokens; ``init_cache`` builds a rank's cache blocks.
 
     ``params_spec`` and ``cache_spec`` are :class:`ShapeDtype` trees (the
     float32 params', and the cache's at the shape), the shardings
-    :class:`launch.sharding.NamedSharding` trees (None without a mesh)."""
+    :class:`launch.sharding.NamedSharding` trees (None without a mesh),
+    ``hints`` the layout a mesh's step computes under."""
 
     step_fn: Callable
     params_spec: Any
@@ -356,8 +378,8 @@ class ServeStepBundle:
     token_sharding: Any
     decode_fn: Callable = None
     init_cache: Callable = None
-    compute_params: Callable = None
     mesh: Any = None
+    hints: Any = None
 
 
 def _cache_compute_spec(path, spec, tokens_split: bool, axes) -> tuple:
@@ -401,13 +423,11 @@ def make_serve_step(model: Model, mesh=None, shape: ShapeSpec | None = None,
             return model.decode_init(params, batch, max_len, dtype=dtype)
 
         return ServeStepBundle(step_fn, params_spec, cache_spec, None, None,
-                               None, decode_fn, init_cache,
-                               lambda params: params)
+                               None, decode_fn, init_cache)
 
     if shape is None:
         raise ValueError("a mesh's serve step needs the shape it serves")
     cfg = model.cfg
-    hints = pjit_hints.from_mesh(mesh)
     p_shard = shd.param_shardings(params_spec, mesh, mode=sharding_mode)
     c_shard = shd.cache_shardings(cache_spec, mesh)
     tok_shard = shd.token_sharding(shape.global_batch, mesh)
@@ -416,24 +436,20 @@ def make_serve_step(model: Model, mesh=None, shape: ShapeSpec | None = None,
     compute = tree_unflatten(c_shard, [
         shd.NamedSharding(mesh, _cache_compute_spec(
             path, sh.spec, axes is not None, axes)) for path, sh in c_pairs])
-    p_pairs = tree_leaves_with_path(params_spec)
-    p_paths = [shd._key_str(p) for p, _ in p_pairs]
+    p_paths = [shd._key_str(p) for p, _ in tree_leaves_with_path(params_spec)]
     p_specs = [sh.spec for sh in shd._sharding_leaves(p_shard)]
+    hints = pjit_hints.with_params(pjit_hints.from_mesh(mesh), p_paths,
+                                   p_specs)
 
     def relayout(cache, src, dst):
         return tree_map(lambda x, a, b: shd.relayout(x, mesh, a.spec,
                                                      b.spec), cache, src, dst)
 
-    def compute_params(params):
-        """The layout a rank computes with, from its parameter blocks."""
-        with torch.no_grad(), pjit_hints.hints_ctx(hints):
-            return tree_unflatten(params, pjit_hints.use_params(
-                tree_leaves(params), p_paths, p_specs, cfg))
-
     def decode(params, cache, tokens):
         cache_c = relayout(cache, c_shard, compute)
         with pjit_hints.hints_ctx(hints):
-            logits, cache_c = model.decode_step(params, cache_c, tokens)
+            logits, cache_c = model.decode_step(
+                pjit_hints.use_tree(params, cfg), cache_c, tokens)
         return logits, relayout(cache_c, compute, c_shard)
 
     @torch.inference_mode()
@@ -463,12 +479,13 @@ def make_serve_step(model: Model, mesh=None, shape: ShapeSpec | None = None,
     @torch.inference_mode()
     def init_cache(params, batch, max_len, dtype):
         with pjit_hints.hints_ctx(hints):
-            cache = model.decode_init(params, batch, max_len, dtype=dtype)
+            cache = model.decode_init(pjit_hints.use_tree(params, cfg),
+                                      batch, max_len, dtype=dtype)
         batch_only = tree_map(lambda sh: shd.NamedSharding(mesh, tuple(
             e if e != "model" else None for e in sh.spec)), compute)
         # the cache is built for this rank's rows, whole over ``model``
         return relayout(cache, batch_only, c_shard)
 
     return ServeStepBundle(step_fn, params_spec, cache_spec, p_shard,
-                           c_shard, tok_shard, decode_fn, init_cache,
-                           compute_params, mesh)
+                           c_shard, tok_shard, decode_fn, init_cache, mesh,
+                           hints)

@@ -7,7 +7,9 @@ runs full (non-causal) self-attention; the decoder adds learned positions
 and runs causal self-attention and cross-attention to the encoder output.
 LayerNorm with a bias, tanh GELU and a tied read-out, as Whisper has them.
 Each encoder and decoder layer runs under ``cfg.remat``'s checkpointing
-(:func:`transformer.maybe_remat`), as JAX's scan bodies do.
+(:func:`transformer.maybe_remat`), as JAX's scan bodies do, and on a mesh
+gathers its slice of the rank's blocks inside it
+(:func:`pjit_hints.use_layer`).
 
 Every attention over a whole sequence goes through
 :func:`ops.flash_attention` (the kernel on the card, its plain version on
@@ -123,10 +125,19 @@ def encode(params, cfg, frames):
     s = frames.shape[1]
     x = frames + sinusoidal_positions(s, cfg.d_model,
                                       frames.device).to(frames.dtype)
-    block = maybe_remat(cfg, _enc_block)
+    block = maybe_remat(cfg, _enc_step)
     for layer in layer_slices(params["enc_blocks"], cfg.n_encoder_layers):
         x = block(layer, cfg, x)
     return _an(cfg, params["enc_norm"], x)
+
+
+def _enc_step(layer, cfg, x):
+    return _enc_block(pjit_hints.use_layer("enc_blocks", layer, cfg), cfg, x)
+
+
+def _dec_step(layer, cfg, x, enc):
+    return _dec_block(pjit_hints.use_layer("dec_blocks", layer, cfg), cfg, x,
+                      enc)
 
 
 def _enc_block(layer, cfg, x):
@@ -150,7 +161,7 @@ def encdec_forward(params, cfg, frames, tokens):
     s = tokens.shape[1]
     x = _embed(params, cfg, tokens).to(enc.dtype)
     x = x + params["pos_embed"][:s].to(x.dtype)
-    block = maybe_remat(cfg, _dec_block)
+    block = maybe_remat(cfg, _dec_step)
     for layer in layer_slices(params["dec_blocks"], cfg.n_layers):
         x = block(layer, cfg, x, enc)
     x = _an(cfg, params["dec_norm"], x)
@@ -183,6 +194,7 @@ def encdec_decode_init(params, cfg, frames, max_len: int,
     cross = {"k": torch.empty(kv_shape, dtype=dtype, device=dev),
              "v": torch.empty(kv_shape, dtype=dtype, device=dev)}
     for i, layer in enumerate(layer_slices(params["dec_blocks"], n)):
+        layer = pjit_hints.use_layer("dec_blocks", layer, cfg)
         k, v = cross_kv(layer["cross_attn"], cfg, enc, whole=True)
         cross["k"][i].copy_(k)
         cross["v"][i].copy_(v)
@@ -208,7 +220,9 @@ def encdec_decode_step(params, cfg, cache, tokens):
     enc_len = torch.full((b,), cc["k"].shape[2], dtype=torch.int32,
                          device=tokens.device)
     lengths = []
-    for i, layer in enumerate(layer_slices(params["dec_blocks"], cfg.n_layers)):
+    for i, layer in enumerate(layer_slices(params["dec_blocks"],
+                                           cfg.n_layers)):
+        layer = pjit_hints.use_layer("dec_blocks", layer, cfg)
         h, new = attention_decode(
             layer["self_attn"], cfg, _an(cfg, layer["norm1"], x),
             {"k": sc["k"][i], "v": sc["v"][i], "length": sc["length"][i]},

@@ -58,25 +58,29 @@ from repro_torch.models import pjit_hints
 from repro_torch.models.layers import dense, dense_init, mlp, mlp_init
 
 
-def _expert_init(gen: torch.Generator, n: int, d_in: int, d_out: int):
+def _expert_init(gen: torch.Generator, n: int, d_in: int, d_out: int,
+                 dtype: torch.dtype | None = None):
     """``n`` experts' ``dense_init`` matrices, drawn as one (n, d_in,
-    d_out) tensor."""
-    return {"w": torch.randn(n, d_in, d_out, generator=gen,
-                             device=gen.device).mul_(d_in ** -0.5)}
+    d_out) tensor, cast to ``dtype`` when given."""
+    w = torch.randn(n, d_in, d_out, generator=gen,
+                    device=gen.device).mul_(d_in ** -0.5)
+    return {"w": w if dtype is None else w.to(dtype)}
 
 
-def moe_init(gen: torch.Generator, cfg):
+def moe_init(gen: torch.Generator, cfg, dtype: torch.dtype | None = None):
+    """A MoE layer's params; a ``dtype`` casts each expert weight to it as
+    it is drawn (the same draws, in the same order)."""
     m = cfg.moe
     d = cfg.d_model
     e = m.n_experts
     p = {"router": dense_init(gen, d, e, scale=0.02)}
     if cfg.mlp_type == "swiglu":
-        p["experts"] = {"wi": _expert_init(gen, e, d, m.d_expert),
-                        "wg": _expert_init(gen, e, d, m.d_expert),
-                        "wo": _expert_init(gen, e, m.d_expert, d)}
+        p["experts"] = {"wi": _expert_init(gen, e, d, m.d_expert, dtype),
+                        "wg": _expert_init(gen, e, d, m.d_expert, dtype),
+                        "wo": _expert_init(gen, e, m.d_expert, d, dtype)}
     else:
-        p["experts"] = {"wi": _expert_init(gen, e, d, m.d_expert),
-                        "wo": _expert_init(gen, e, m.d_expert, d)}
+        p["experts"] = {"wi": _expert_init(gen, e, d, m.d_expert, dtype),
+                        "wo": _expert_init(gen, e, m.d_expert, d, dtype)}
     if m.n_shared:
         p["shared"] = mlp_init(gen, d, m.d_expert * m.n_shared,
                                kind=cfg.mlp_type)

@@ -26,17 +26,32 @@ the layout is decided by the same rules and carried out by hand:
   layer's global expert ids, tokens and load-balancing loss, and
   :func:`use_params`, which gathers each parameter block to the layout
   its layer computes with and reduces its gradient back.
+
+The parameters reach the model as the rank's blocks, as the JAX package's
+jitted steps take them (``in_shardings`` of the blocks; GSPMD inserts the
+gathers). A step installs the blocks' specs in its hints
+(:func:`with_params`); :func:`use_tree` gathers the leaves outside the
+stacked layer trees (:data:`STACKED`) once, before the forward, and each
+layer gathers its own slice of a stacked tree inside its step
+(:func:`use_layer`), as GSPMD gathers inside JAX's scan body: under
+``remat="block"`` a layer's gathered blocks die with its forward and are
+gathered again in its recompute, and its gradient is reduced back inside
+its backward.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import weakref
 from dataclasses import dataclass, field
 from typing import Any
 
 import torch
 
 from repro_torch.utils import collectives as coll
+from repro_torch.utils import (tree_leaves, tree_leaves_with_path, tree_map,
+                               tree_unflatten)
 
 
 @dataclass(frozen=True)
@@ -47,6 +62,10 @@ class ShardingHints:
     # the device mesh whose process groups the rank's collectives use; None
     # for hints built from axis sizes alone (spec choice, no computing)
     mesh: Any = field(default=None, compare=False)
+    # {params tree path: spec} of the rank's parameter blocks, which
+    # :func:`use_tree` and :func:`use_layer` gather; None where the caller
+    # hands the layers what they compute with
+    params: Any = field(default=None, compare=False)
 
 
 _HINTS: ShardingHints | None = None
@@ -70,6 +89,14 @@ def hints_ctx(hints: ShardingHints | None):
 
 def current() -> ShardingHints | None:
     return _HINTS
+
+
+def with_params(hints: ShardingHints, paths: list,
+                specs: list) -> ShardingHints:
+    """``hints`` carrying the specs of the rank's parameter blocks at tree
+    ``paths`` (joined by ``/``): a step that takes the blocks computes
+    under them."""
+    return dataclasses.replace(hints, params=dict(zip(paths, specs)))
 
 
 def _model_spec(n: int):
@@ -414,7 +441,11 @@ class _Use(torch.autograd.Function):
             ctx.moved = (stored, dim)
             out = coll.all_to_all(out, _group(_HINTS.model_axis), dim,
                                   stored)
-        return out.view_as(out) if out is x else out
+        if out is x:
+            return out.view_as(out)
+        if _METER is not None:
+            _METER.track(out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -448,13 +479,17 @@ def use_params(leaves: list, paths: list, specs: list, cfg) -> list:
     at tree ``paths``) in the layout its layer computes with: gathered
     over ``data`` (fsdp), and over ``model`` unless the layer splits it
     (:func:`param_use`); an expert weight's ``model`` block moved from its
-    FFN width to its experts by an all-to-all over ``model``. The gradient that flows back into a block is the
-    block of the whole batch's gradient: reduce-scattered over each axis
-    the block was gathered over, all-reduced over each batch axis it is
-    replicated on, and over ``model`` where partial (an expert weight's
-    moved back by the reverse all-to-all). The whole tree is
-    gathered before the forward (no layer-by-layer gather: qwen3-0.6b's
-    gathered float32 blocks are 1.2 GB a rank at model = 2)."""
+    FFN width to its experts by an all-to-all over ``model``. The gradient
+    that flows back into a block is the block of the whole batch's
+    gradient: reduce-scattered over each axis the block was gathered over,
+    all-reduced over each batch axis it is replicated on, and over
+    ``model`` where partial (an expert weight's moved back by the reverse
+    all-to-all). A step never calls it on the whole tree: :func:`use_tree`
+    calls it on the leaves outside the stacked trees, :func:`use_layer` on
+    one layer's slice, so a rank holds one stacked layer's gathered
+    blocks at a time beside the others (qwen3-0.6b's whole gathered
+    float32 tree is 1.2 GB a rank at model = 2, one of its 28 layers
+    0.03 GB)."""
     h = _HINTS
     if h is None or h.mesh is None or not (model_active() or batch_active()):
         return list(leaves)
@@ -462,3 +497,118 @@ def use_params(leaves: list, paths: list, specs: list, cfg) -> list:
     for x, path, spec in zip(leaves, paths, specs):
         out.append(_Use.apply(x, tuple(spec), *param_use(path, cfg)))
     return out
+
+
+# the params trees whose leaves stack the layers along a leading axis (a
+# transformer's ``blocks``, an encoder-decoder's ``enc_blocks`` and
+# ``dec_blocks``): each layer gathers its own slice
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def _path(path: tuple) -> str:
+    return "/".join(str(p) for p in path)
+
+
+def use_tree(params, cfg):
+    """The tree a step computes with, from this rank's parameter blocks
+    ``params`` under the hints' specs (:func:`with_params`): every leaf
+    outside the stacked trees gathered by :func:`use_params` (the
+    embedding and read-out, norms, a MoE model's leading dense layers,
+    zamba2's shared block: what JAX's scan body closes over or what lies
+    outside the scan); the stacked trees left as the rank's blocks, each
+    layer gathering its slice by :func:`use_layer`. ``params`` itself
+    without such hints."""
+    h = _HINTS
+    if h is None or h.params is None:
+        return params
+    pairs = tree_leaves_with_path(params)
+    outside = [i for i, (p, _) in enumerate(pairs) if p[0] not in STACKED]
+    leaves = [x for _, x in pairs]
+    paths = [_path(pairs[i][0]) for i in outside]
+    used = use_params([leaves[i] for i in outside], paths,
+                      [h.params[p] for p in paths], cfg)
+    for i, x in zip(outside, used):
+        leaves[i] = x
+    return tree_unflatten(params, leaves)
+
+
+def use_layer(name: str, layer, cfg):
+    """One layer's slice ``layer`` of the stacked tree ``name`` (this
+    rank's blocks) in the layout the layer computes with
+    (:func:`use_params` under each stacked leaf's spec less its layer
+    axis, which no rule splits); ``layer`` itself without a step's specs
+    in the hints. Called inside the function that ``maybe_remat`` wraps,
+    so the recompute gathers again and the backward reduces the layer's
+    gradient before the layer below runs."""
+    h = _HINTS
+    if h is None or h.params is None:
+        return layer
+    pairs = tree_leaves_with_path(layer)
+    paths = [f"{name}/{_path(p)}" for p, _ in pairs]
+    specs = [h.params[p] for p in paths]
+    assert all(not s or s[0] is None for s in specs), (
+        f"a stacked leaf of {name} is split on its layer axis: {specs}")
+    return tree_unflatten(layer, use_params(
+        [x for _, x in pairs], paths, [s[1:] for s in specs], cfg))
+
+
+def gathered_alone(params, cfg) -> tuple[int, list]:
+    """What this rank's blocks ``params`` gather alone under the installed
+    hints, no gradient: the bytes of the leaves outside the stacked trees
+    (:func:`use_tree`) and of each stacked layer's slice
+    (:func:`use_layer`), in :data:`STACKED`'s order (:class:`GatherMeter`:
+    a block used as it is stored counts nothing)."""
+    layers = []
+    with torch.no_grad():
+        with GatherMeter() as m:
+            used = use_tree(params, cfg)
+            outside = m.live
+        del used
+        for name in STACKED:
+            if name not in params:
+                continue
+            for i in range(tree_leaves(params[name])[0].shape[0]):
+                layer = tree_map(lambda t, i=i: t[i], params[name])
+                with GatherMeter() as m:
+                    used = use_layer(name, layer, cfg)
+                    layers.append(m.live)
+                del used
+    return outside, layers
+
+
+class GatherMeter:
+    """While in use (``with GatherMeter() as m``): the bytes of gathered
+    parameter blocks alive (each storage :func:`use_params` returns counts
+    from its gather until it is freed) and their peak, forward, recompute
+    and backward alike."""
+
+    def __init__(self):
+        self.live = self.peak = 0
+        self._refs: dict = {}
+
+    def track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._refs:
+            return
+        n = st.nbytes()
+
+        def freed(_ref, key=key, n=n):
+            self.live -= n
+            self._refs.pop(key, None)
+
+        self._refs[key] = weakref.ref(st, freed)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def __enter__(self):
+        global _METER
+        self._prev, _METER = _METER, self
+        return self
+
+    def __exit__(self, *exc):
+        global _METER
+        _METER = self._prev
+
+
+_METER: GatherMeter | None = None

@@ -96,8 +96,10 @@ def layer_slices(blocks, n: int) -> list:
 # Homogeneous block
 # ---------------------------------------------------------------------------
 
-def block_init(gen: torch.Generator, cfg):
-    """One layer of the stack, its structure fixed by ``cfg.family``."""
+def block_init(gen: torch.Generator, cfg, dtype: torch.dtype | None = None):
+    """One layer of the stack, its structure fixed by ``cfg.family``. A
+    ``dtype`` casts each expert weight of a MoE layer to it as it is drawn
+    (kimi-k2's three are 22.5 GB each in float32)."""
     if cfg.family in SSM_FAMILIES:
         return {"norm1": _norm_params(cfg, gen.device),
                 "ssm": ssm_init(gen, cfg)}
@@ -106,7 +108,7 @@ def block_init(gen: torch.Generator, cfg):
     return {"norm1": _norm_params(cfg, gen.device),
             "norm2": _norm_params(cfg, gen.device),
             "attn": _attn_init(gen, cfg),
-            "ffn": moe_init(gen, cfg)}
+            "ffn": moe_init(gen, cfg, dtype)}
 
 
 def _attn_init(gen: torch.Generator, cfg):
@@ -188,7 +190,10 @@ def stacked_init(make_layer, n: int):
     """``n`` layers from ``make_layer()``, called in order, stacked along a
     leading axis: each layer is written into preallocated stacked tensors
     as it is drawn, so at most one layer exists outside the stack (as
-    ``torch.stack`` of a list of them would give, bit for bit)."""
+    ``torch.stack`` of a list of them would give, bit for bit). A stack of
+    one layer is that layer with a leading axis, no copy."""
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), make_layer())
     stacked = None
     for i in range(n):
         layer = make_layer()
@@ -215,8 +220,8 @@ def lm_init(cfg, gen: torch.Generator, dtype: torch.dtype | None = None):
     if _n_dense_layers(cfg):
         params["dense_blocks"] = [cast(dense_block_init(gen, cfg))
                                   for _ in range(_n_dense_layers(cfg))]
-    params["blocks"] = stacked_init(lambda: cast(block_init(gen, cfg)),
-                                     _n_stack_layers(cfg))
+    params["blocks"] = stacked_init(
+        lambda: cast(block_init(gen, cfg, dtype)), _n_stack_layers(cfg))
     params["final_norm"] = _norm_params(cfg, gen.device)
     if _shared_period(cfg):
         params["shared_attn"] = cast(dense_block_init(gen, cfg))
@@ -244,16 +249,23 @@ def _run_stack(params, cfg, x):
     block after every ``period`` layers; each stacked layer under
     :func:`maybe_remat`, as JAX's scan body (the leading dense layers and
     the shared block are not, as in JAX). Returns (x, aux), aux summed
-    over the MoE layers."""
+    over the MoE layers. Each layer gathers its slice of a rank's blocks
+    inside the remat (:func:`pjit_hints.use_layer`)."""
     aux = torch.zeros((), device=x.device)
     period = _shared_period(cfg)
-    block = maybe_remat(cfg, block_apply)
+    block = maybe_remat(cfg, _stack_block)
     for i, layer in enumerate(layer_slices(params["blocks"],
                                       _n_stack_layers(cfg))):
         x, aux = block(layer, cfg, x, aux)
         if period and (i + 1) % period == 0:
             x = dense_block_apply(params["shared_attn"], cfg, x)
     return x, aux
+
+
+def _stack_block(layer, cfg, x, aux):
+    """A stacked layer's step: its slice gathered, then the layer."""
+    return block_apply(pjit_hints.use_layer("blocks", layer, cfg), cfg, x,
+                       aux)
 
 
 def _read_out(params, cfg, x):
@@ -387,7 +399,8 @@ def lm_decode_step(params, cfg, cache, tokens):
     """One decode step. tokens: (B,) integer -> (logits (B, V), cache). The
     cache's k, v, MLA latents, SSM state and conv buffer are updated in
     place. On a mesh the logits are this rank's vocab block when the vocab
-    splits."""
+    splits, and each layer gathers its slice of the rank's blocks as the
+    step reaches it (:func:`pjit_hints.use_layer`)."""
     x = _embed(params, cfg, tokens[:, None])
     period = _shared_period(cfg)
     news, shared_news, dense_news = [], [], []
@@ -397,7 +410,8 @@ def lm_decode_step(params, cfg, cache, tokens):
         dense_news.append(new)
     for i, layer in enumerate(layer_slices(params["blocks"],
                                       _n_stack_layers(cfg))):
-        x, new = _block_decode(layer, cfg, x, _slice(cache["stack"], i))
+        x, new = _block_decode(pjit_hints.use_layer("blocks", layer, cfg),
+                               cfg, x, _slice(cache["stack"], i))
         news.append(new)
         if period and (i + 1) % period == 0:
             x, new = dense_block_decode(

@@ -21,9 +21,15 @@ SERVE_PROMPT = 5
 SERVE_NEW = 4
 
 
-def config(arch: str):
+def config(arch: str, remat: str | None = None, overrides=None):
+    """The reduced float32 config of ``arch``; ``remat`` and ``overrides``
+    replace its fields (zamba2 at 4 layers, its shared block after every
+    2)."""
+    import dataclasses
     from repro_torch.configs import get_config
-    return get_config(arch).reduced(dtype="float32")
+    cfg = get_config(arch).reduced(dtype="float32")
+    return dataclasses.replace(cfg, remat=remat or cfg.remat,
+                               **(overrides or {}))
 
 
 def shape(batch: int = BATCH):
@@ -31,19 +37,21 @@ def shape(batch: int = BATCH):
     return ShapeSpec("train_test", SEQ, batch, "train")
 
 
-def params(arch: str):
-    """The whole float32 params from seed 0 (the same on every rank)."""
+def params(arch: str, **kw):
+    """The whole float32 params from seed 0 (the same on every rank) of
+    ``config(arch, **kw)``."""
     import torch
     from repro_torch.models import build_model
-    return build_model(config(arch)).init(torch.Generator().manual_seed(0))
+    return build_model(config(arch, **kw)).init(
+        torch.Generator().manual_seed(0))
 
 
-def batch(arch: str, seed: int = 0) -> dict:
-    """The whole batch of ``batch_specs``' keys: tokens below the vocab;
-    frames and prefix as float32 normals."""
+def batch(arch: str, seed: int = 0, **kw) -> dict:
+    """The whole batch of ``batch_specs``' keys of ``config(arch, **kw)``:
+    tokens below the vocab; frames and prefix as float32 normals."""
     import torch
     from repro_torch.models import build_model
-    model = build_model(config(arch))
+    model = build_model(config(arch, **kw))
     r = np.random.default_rng(seed)
     out = {}
     for key, (shp, _) in model.batch_specs(shape()).items():
@@ -109,8 +117,7 @@ def serve_case(mesh, arch: str = "qwen3-0.6b") -> dict:
     bundle = make_serve_step(model, mesh, shp)
     local = shard_tree(params(arch), bundle.params_shardings)
     prompts = serve_prompts(arch)
-    res = serve(model, bundle.compute_params(local),
-                bundle.token_sharding.local(prompts), SERVE_NEW,
+    res = serve(model, local, bundle.token_sharding.local(prompts), SERVE_NEW,
                 max_len=max_len, keep_prompt_logits=True, bundle=bundle)
     return {"tokens": res.tokens.numpy(),
             "logits": res.prompt_logits.numpy()}
@@ -300,5 +307,127 @@ def run(rank: int, world: int, store: str, out: str, mesh_shape: tuple,
             res = globals()[fn](mesh, **kwargs)
             if rank == 0:
                 np.savez(f"{out}/{name}.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The layer-wise gather (``test_torch_layer_gather``)
+# ---------------------------------------------------------------------------
+
+def gather_case(mesh, arch: str, remat: str, overrides=None) -> dict:
+    """One ``sync`` fsdp forward and backward of reduced ``arch`` under
+    ``remat`` over the mesh (the train step's ``loss_and_grads``, on the
+    batch of seed 0, each rank its rows): the loss (the mean over the
+    ranks), every whole gradient, and the gathered parameter bytes alive
+    (``GatherMeter``): their peak in the forward and in the backward, what
+    the leaves outside the stacked trees and each stacked layer gather
+    alone (``pjit_hints.gathered_alone``), and what is alive after."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model, pjit_hints
+    from repro_torch.utils import collectives as coll
+    from repro_torch.utils import tree_unflatten
+    kw = dict(remat=remat, overrides=overrides)
+    cfg = config(arch, **kw)
+    bundle = make_train_step(build_model(cfg), shape(), mesh=mesh, lr=LR,
+                             device="cpu")
+    blocks = shd.shard_tree(params(arch, **kw), bundle.params_shardings)
+    local = bundle.local_batch(batch(arch, **kw))
+    peaks = {}
+    with pjit_hints.GatherMeter() as meter:
+        def clock(part):
+            if part == "backward":
+                peaks["forward"], meter.peak = meter.peak, meter.live
+        loss, grads = bundle.loss_and_grads(blocks, local, clock)
+        peaks["backward"] = meter.peak
+        after = meter.live
+    with pjit_hints.hints_ctx(bundle.hints):
+        outside, layers = pjit_hints.gathered_alone(blocks, cfg)
+    data = mesh.get_group("data")
+    loss = coll.all_reduce(loss, data) / coll.size(data)
+    whole = shd.gather_tree(tree_unflatten(blocks, grads),
+                            bundle.params_shardings)
+    return {**flat(whole, "grad/"), "loss": np.array(float(loss)),
+            "peak_forward": np.array(peaks["forward"]),
+            "peak_backward": np.array(peaks["backward"]),
+            "alive_after": np.array(after), "outside": np.array(outside),
+            "layers": np.array(layers)}
+
+
+def serve_gather_case(mesh, arch: str = "qwen3-0.6b") -> dict:
+    """``serve_case`` over the mesh on the parameter blocks, under a
+    ``GatherMeter``: the tokens and prompt logits, the gathered bytes
+    alive after each step and the most alive during one, beside what the
+    leaves outside the stacked trees and each layer gather alone."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import ShapeSpec, build_model, pjit_hints
+    cfg = config(arch)
+    model = build_model(cfg)
+    max_len = SERVE_PROMPT + SERVE_NEW
+    bundle = make_serve_step(model, mesh, ShapeSpec("serve_test", max_len,
+                                                    SERVE_BATCH, "decode"))
+    local = shard_tree(params(arch), bundle.params_shardings)
+    after, peaks = [], []
+    with pjit_hints.GatherMeter() as meter:
+        def watched(fn):
+            def step(*args):
+                meter.peak = meter.live
+                out = fn(*args)
+                after.append(meter.live)
+                peaks.append(meter.peak)
+                return out
+            return step
+
+        bundle.step_fn = watched(bundle.step_fn)
+        bundle.decode_fn = watched(bundle.decode_fn)
+        res = serve(model, local,
+                    bundle.token_sharding.local(serve_prompts(arch)),
+                    SERVE_NEW, max_len=max_len, keep_prompt_logits=True,
+                    bundle=bundle)
+    with pjit_hints.hints_ctx(bundle.hints):
+        outside, layers = pjit_hints.gathered_alone(local, cfg)
+    return {"tokens": res.tokens.numpy(),
+            "logits": res.prompt_logits.numpy(),
+            "alive_after": np.array(after), "peaks": np.array(peaks),
+            "outside": np.array(outside), "layers": np.array(layers)}
+
+
+def dryrun_depths(rank: int, world: int, out: str, arch: str,
+                  depths: list) -> None:
+    """The dry run's count of a reduced ``arch`` sync fsdp step
+    (``remat="block"``) at each of ``depths`` layers, rank 0 of a (data=2,
+    model=2) mesh of fake ranks, in a process of its own: each depth's
+    peak and argument bytes a rank, and the bytes of one layer's blocks
+    and of it whole, to ``out/dryrun_depths.npz``."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.utils import tree_leaves_with_path
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_test_mesh((2, 2), ("data", "model"), device_type="cpu")
+        res = {}
+        for n in depths:
+            cfg = config(arch, overrides={"n_layers": n})
+            c = dryrun.count_train_step(cfg, shape(), mesh=mesh)["step"]
+            res[f"peak_{n}"] = np.array(c.peak_bytes)
+            res[f"arguments_{n}"] = np.array(c.argument_bytes)
+            spec = build_model(cfg).param_specs()
+            sh = shd.param_shardings(spec, mesh)
+            block = whole = 0
+            for (p, s), h in zip(tree_leaves_with_path(spec),
+                                 shd._sharding_leaves(sh)):
+                if p[0] == "blocks":
+                    block += 4 * int(np.prod(h.shard_shape(s.shape))) // n
+                    whole += 4 * int(np.prod(s.shape)) // n
+            res[f"layer_block_{n}"] = np.array(block)
+            res[f"layer_whole_{n}"] = np.array(whole)
+        np.savez(f"{out}/dryrun_depths.npz", **res)
     finally:
         dist.destroy_process_group()

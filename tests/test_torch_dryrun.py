@@ -288,3 +288,25 @@ def test_hillclimb_cli_writes_its_record(tmp_path, opt, sharding):
     assert res["opts"] == opt.split(",")
     assert res["sharding"] == sharding and res["mesh"] == "16x16"
     assert res["probe"]["extrapolation_exact"]
+
+
+@pytest.mark.parametrize("op,peak", [("reshape", 96), ("flatten", 96),
+                                     ("view", 0)])
+def test_inference_mode_copies_are_live_memory(op, peak):
+    """Under ``inference_mode`` (a decode step) a ``reshape`` or
+    ``flatten`` reaches the counter whole, as a view operator: where it
+    cannot view, its copy is live memory all the same (counting no bytes,
+    a layout copy), as without ``inference_mode``; where it views, no
+    memory."""
+    x = torch.zeros(4, 6)
+    fn = {"reshape": lambda: x.t().reshape(24),
+          "flatten": lambda: x.t().flatten(),
+          "view": lambda: x.reshape(24)}[op]
+    got = []
+    for inference in (False, True):
+        traffic = dryrun.Traffic()
+        with torch.inference_mode(inference), traffic:
+            y = fn()
+        got.append((traffic.bytes, traffic.peak))
+        del y
+    assert got == [(0, peak), (0, peak)]
