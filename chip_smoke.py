@@ -371,9 +371,20 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    flash backward and 113 rmsnorm launches a step a rank, the gathered
    bytes alive at once at most the leaves outside the stacked layers and
    one layer gathered, none after, each rank's peak within
-   ``DRYRUN_PEAK_RTOL`` of the dry run's count (asserted). Four ranks
-   sharing one card measure the mechanism and its cost, not the speed-up
-   of four cards.
+   ``DRYRUN_PEAK_RTOL`` of the dry run's count (asserted); (g) also
+   holds MLA to 8 of its 16 heads a rank (flash's q, ``wkv_b``'s and
+   ``wo``'s blocks, asserted); (i) mamba2-1.3b at full width cut to 4
+   layers, ``sync`` ``fsdp`` over (data=2, model=2) at 2048 x 2, 2
+   steps, each rank on 32 of the 64 SSM heads (every scan's x,
+   ``in_proj``'s columns and ``out_proj``'s rows, asserted), 5 rmsnorm
+   and 4 scan launches a step (the gated norm runs plain under the
+   split), the first loss within ``MESH_LOSS_RTOL`` of (f)'s 1-rank NCCL
+   step while a control forward whose gated norm takes its statistic
+   over the rank's columns alone lands outside it (asserted); then
+   mamba2 and deepseek (1 dense + 1 MoE layer) served in float32 over
+   (2, 2): one rank's greedy tokens and decode logits within 1e-4
+   (asserted). Four ranks sharing one card measure the mechanism and its
+   cost, not the speed-up of four cards.
 
 30. The dry run against the card (``dryrun_path``): the one-rank fake
    count of phase 22's step against the card's (FLOPs equal, peak within
@@ -443,6 +454,7 @@ the raw ``nvidia-smi`` line, and as the last line ``{"ok": true,
 from __future__ import annotations
 
 import cProfile
+import functools
 import json
 import math
 import os
@@ -5064,6 +5076,22 @@ MESH_MOE_SEQ, MESH_MOE_BATCH, MESH_MOE_STEPS = 4096, 2, 2
 # 700.00 W (PERF.md)
 MESH_MOE_Y_STRIDE = 16
 MESH_MOE_Y_RTOL = 0.08
+# (i): mamba2-1.3b at full width (hf state-spaces/mamba2-1.3b: d 2048, 64
+# SSM heads of 64), its 48 layers cut to 4, over (data=2, model=2): each
+# `model` rank computes 32 heads (its z, x and dt columns of in_proj, the
+# scan, out_proj's rows); its first loss held to (f)'s 1-rank NCCL step
+# at MESH_LOSS_RTOL, while a control forward whose gated norm takes its
+# statistic over the rank's columns alone lands outside it
+MESH_SSM_ARCH, MESH_SSM_LAYERS = "mamba2-1.3b", 4
+MESH_SSM_SEQ, MESH_SSM_BATCH, MESH_SSM_STEPS = 2048, 2, 2
+# then float32 serving over (2, 2) at 2 layers (deepseek: 1 dense + 1
+# MoE) of mamba2 and deepseek: phase 10's first 8 requests cut to 8
+# prompt tokens, 4 new, against one rank's (tokens equal, logits within
+# MESH_LOGIT_ATOL). A float32 deepseek step over gloo gathers its 64
+# experts' blocks, 3.58 s a step on an H100 80GB HBM3 at 700 W (PERF.md;
+# mamba2 0.35 s), so 11 steps, not the 23 of 16 + 8
+MESH_SPLIT_SERVE = ((MESH_SSM_ARCH, 2), (MOE_ARCH, 2))
+MESH_SPLIT_SERVE_SIZE = (8, 4)
 
 
 def mesh_plan(device: str = "cuda") -> dict:
@@ -5081,7 +5109,12 @@ def mesh_plan(device: str = "cuda") -> dict:
                 moe=dict(arch=MESH_MOE_ARCH, layers=MESH_MOE_LAYERS,
                          seq=MESH_MOE_SEQ, batch=MESH_MOE_BATCH,
                          steps=MESH_MOE_STEPS, y_stride=MESH_MOE_Y_STRIDE),
-                jobs=["a", "h", "b", "c", "d", "g"])
+                ssm=dict(arch=MESH_SSM_ARCH, layers=MESH_SSM_LAYERS,
+                         seq=MESH_SSM_SEQ, batch=MESH_SSM_BATCH,
+                         steps=MESH_SSM_STEPS,
+                         serve=[list(a) for a in MESH_SPLIT_SERVE],
+                         serve_size=list(MESH_SPLIT_SERVE_SIZE)),
+                jobs=["a", "h", "b", "c", "d", "g", "i"])
 
 
 def mesh_config(plan: dict, f32: bool = False, remat: bool = False):
@@ -5111,6 +5144,37 @@ def mesh_moe_config(plan: dict):
         cfg = cfg.reduced(dtype="bfloat16")
     return no_remat(dataclasses.replace(cfg,
                                         n_layers=plan["moe"]["layers"]))
+
+
+def mesh_ssm_config(plan: dict):
+    """(i)'s config: ``plan["ssm"]``'s arch cut to its layers (reduced on
+    a CPU rehearsal), bf16 activations, ``remat="none"``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(plan["ssm"]["arch"])
+    if plan["reduced"]:
+        cfg = cfg.reduced(dtype="bfloat16")
+    return no_remat(dataclasses.replace(cfg,
+                                        n_layers=plan["ssm"]["layers"]))
+
+
+def mesh_split_serve_config(plan: dict, arch: str, layers: int):
+    """(i)'s float32 serving config of ``arch`` at ``layers`` layers
+    (reduced on a CPU rehearsal)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if plan["reduced"]:
+        cfg = cfg.reduced()
+    return dataclasses.replace(cfg, dtype="float32", n_layers=layers)
+
+
+def mesh_ssm_data(cfg, plan: dict, dev) -> list:
+    """(i)'s batches: ``plan["ssm"]["steps"]`` whole batches of tokens."""
+    m = plan["ssm"]
+    data = mesh_tokens(cfg, m["batch"] * m["steps"], m["seq"], dev, seed=33)
+    return [{"tokens": data[k * m["batch"]:(k + 1) * m["batch"]]}
+            for k in range(m["steps"])]
 
 
 def mesh_moe_data(cfg, plan: dict, dev) -> list:
@@ -5162,17 +5226,18 @@ def _reset_peak(dev) -> None:
 
 
 def _counts() -> dict:
-    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
     return {"flash_attention": flash_attention.LAUNCHES,
             "flash_attention_bwd": flash_attention.BWD_LAUNCHES,
-            "rmsnorm": rmsnorm.LAUNCHES}
+            "rmsnorm": rmsnorm.LAUNCHES,
+            "ssd_state_scan": ssd_scan.LAUNCHES}
 
 
 def _zero_counts() -> None:
-    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
     flash_attention.LAUNCHES = flash_attention.BWD_LAUNCHES = 0
     flash_attention.BACKWARD_CALLS = rmsnorm.LAUNCHES = 0
-    rmsnorm.BACKWARD_CALLS = 0
+    rmsnorm.BACKWARD_CALLS = ssd_scan.LAUNCHES = ssd_scan.BACKWARD_CALLS = 0
 
 
 def mesh_train_steps(bundle, params, batches, dev, *, period: int = 0,
@@ -5463,59 +5528,116 @@ def mesh_job_c(plan, dev) -> dict:
     return res
 
 
-def mesh_job_d(mesh, plan, dev) -> dict:
-    """(d) serving over (data=2, model=2): phase 10's requests in bf16 (ms
-    a decode step, the share of greedy tokens equal to one rank's), then
-    at float32 and 2 layers the same greedy tokens and decode logits
-    within ``MESH_LOGIT_ATOL`` of one rank's."""
+def mesh_serve_case(mesh, model, prompts, new: int, dev, f32: bool) -> dict:
+    """One serve over the mesh on the rank's parameter blocks of
+    ``model``'s seed-0 serving params (``prompts`` whole, each rank its
+    rows; ``new`` tokens): ms a step, launches, the peak; on rank 0,
+    against one rank's serve of the whole params, the share of greedy
+    tokens equal and, with ``f32``, the decode (prompt) logits' max gap
+    against ``MESH_LOGIT_ATOL``."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_serve_step
-    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.models import ShapeSpec
+
+    cfg = model.cfg
+    n, prompt = prompts.shape
+    shape = ShapeSpec("serve_mesh", prompt + new, n, "decode")
+    bundle = make_serve_step(model, mesh, shape)
+    whole = model.init_serving(torch.Generator(device=dev).manual_seed(0))
+    params = shd.shard_tree(whole, bundle.params_shardings)
+    _zero_counts()
+    _reset_peak(dev)
+    res = serve(model, params, bundle.token_sharding.local(prompts), new,
+                max_len=prompt + new, keep_prompt_logits=f32,
+                bundle=bundle)
+    steps = res.prompt_steps + res.decode_steps
+    line = dict(arch=cfg.name, requests=n, prompt=prompt, new_tokens=new,
+                dtype=cfg.dtype, n_layers=cfg.n_layers,
+                decode_ms_per_step=res.ms_per_decode_step,
+                prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
+                rmsnorm_per_step=_counts()["rmsnorm"] / steps,
+                flash_launches=_counts()["flash_attention"],
+                peak=_peak(dev))
+    del params
+    if dist.get_rank() == 0:
+        one = serve(model, whole, prompts, new, max_len=prompt + new,
+                    keep_prompt_logits=f32)
+        same = (res.tokens == one.tokens)
+        line.update(tokens_equal_share=float(same.float().mean()),
+                    one_rank_decode_ms_per_step=one.ms_per_decode_step)
+        if f32:
+            gap = (res.prompt_logits - one.prompt_logits).abs()
+            line.update(max_abs_logit_err=float(gap.max()),
+                        logit_atol=MESH_LOGIT_ATOL,
+                        tokens_equal=bool(same.all()),
+                        logits_within=bool(gap.max() <= MESH_LOGIT_ATOL))
+    del whole
+    dist.barrier()
+    return line
+
+
+def mesh_job_d(mesh, plan, dev) -> dict:
+    """(d) serving over (data=2, model=2): phase 10's requests in bf16 (ms
+    a decode step, the share of greedy tokens equal to one rank's), then
+    at float32 and 2 layers the same greedy tokens and decode logits
+    within ``MESH_LOGIT_ATOL`` of one rank's."""
+    from repro_torch.models import build_model
 
     out = {}
     for case, f32 in (("bf16", False), ("f32", True)):
         cfg = mesh_config(plan, f32=f32)
-        model = build_model(cfg)
         width, new = plan["serve_f32"] if f32 else plan["serve"][1:]
-        prompts = mesh_prompts(cfg, plan, dev, width)
-        n, prompt = prompts.shape
-        shape = ShapeSpec("serve_mesh", prompt + new, n, "decode")
-        bundle = make_serve_step(model, mesh, shape)
-        whole = model.init_serving(torch.Generator(device=dev).manual_seed(0))
-        params = shd.shard_tree(whole, bundle.params_shardings)
-        _zero_counts()
-        _reset_peak(dev)
-        res = serve(model, params, bundle.token_sharding.local(prompts), new,
-                    max_len=prompt + new, keep_prompt_logits=f32,
-                    bundle=bundle)
-        steps = res.prompt_steps + res.decode_steps
-        line = dict(requests=n, prompt=prompt, new_tokens=new,
-                    dtype=cfg.dtype, n_layers=cfg.n_layers,
-                    decode_ms_per_step=res.ms_per_decode_step,
-                    prompt_ms_per_step=1e3 * res.prompt_s / res.prompt_steps,
-                    rmsnorm_per_step=_counts()["rmsnorm"] / steps,
-                    flash_launches=_counts()["flash_attention"],
-                    peak=_peak(dev))
-        del params
-        if dist.get_rank() == 0:
-            one = serve(model, whole, prompts, new, max_len=prompt + new,
-                        keep_prompt_logits=f32)
-            same = (res.tokens == one.tokens)
-            line.update(tokens_equal_share=float(same.float().mean()),
-                        one_rank_decode_ms_per_step=one.ms_per_decode_step)
-            if f32:
-                gap = (res.prompt_logits - one.prompt_logits).abs()
-                line.update(max_abs_logit_err=float(gap.max()),
-                            logit_atol=MESH_LOGIT_ATOL,
-                            tokens_equal=bool(same.all()),
-                            logits_within=bool(gap.max() <= MESH_LOGIT_ATOL))
-        del whole
-        dist.barrier()
-        out[case] = line
+        out[case] = mesh_serve_case(mesh, build_model(cfg),
+                                    mesh_prompts(cfg, plan, dev, width),
+                                    new, dev, f32)
     return out
+
+
+def mesh_job_i(mesh, plan, dev) -> dict:
+    """(i) mamba2-1.3b at full width cut to ``plan["ssm"]["layers"]``,
+    ``sync`` fsdp over (data=2, model=2), each ``model`` rank on its
+    heads: the planted control (the gated norm's sum over ``model``
+    dropped, :func:`norm_sum_dropped`) first, one forward; then
+    ``plan["ssm"]["steps"]`` steps, recording what each layer computes
+    with (``LayerShapes``); then the float32 serves of
+    ``plan["ssm"]["serve"]`` against one rank's
+    (:func:`mesh_serve_case`)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+
+    cfg = mesh_ssm_config(plan)
+    model = build_model(cfg)
+    m = plan["ssm"]
+    shape = ShapeSpec("train_mesh_ssm", m["seq"], m["batch"], "train")
+    bundle = make_train_step(model, shape, mesh=mesh, lr=plan["lr"],
+                             device=dev)
+    batches = mesh_ssm_data(cfg, plan, dev)
+    state = bundle.init_state(model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    t0 = time.perf_counter()
+    with norm_sum_dropped():
+        control = mesh_forward_loss(bundle, model, mesh, state[0],
+                                bundle.local_batch(batches[0]))
+    control_s = time.perf_counter() - t0
+    _zero_counts()
+    with LayerShapes() as heads:
+        res, _ = mesh_train_steps(bundle, None, batches, dev, state=state)
+    del state, bundle
+    res.update(control_loss=control, control_s=control_s,
+               layer_shapes=heads.distinct(),
+               n_scan_calls=len(heads.rec["scan_heads"]))
+    width, new = m["serve_size"]
+    res["serve"] = {}
+    for arch, layers in m["serve"]:
+        scfg = mesh_split_serve_config(plan, arch, layers)
+        res["serve"][arch] = mesh_serve_case(
+            mesh, build_model(scfg), mesh_prompts(scfg, plan, dev, width),
+            new, dev, True)
+    return res
 
 
 class ExpertShapes:
@@ -5544,6 +5666,66 @@ class ExpertShapes:
     def __exit__(self, *exc):
         from repro_torch.models import moe
         moe._expert_ffn = self.real
+
+
+class LayerShapes:
+    """While in use: the shapes each attention layer and Mamba2 block
+    computes with on this rank, a call a row: each flash call's q
+    (``ops.flash_attention``), the ``wo`` (and an MLA layer's ``wkv_b``)
+    block its output projection reads (``attention.out_proj``), each SSD
+    scan's x heads (``ssm.ssd_chunked``), each decode step's SSM state
+    heads (``transformer.ssm_decode``) and the ``in_proj`` and
+    ``out_proj`` a Mamba2 block computes with (``ssm.rank_params``)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import attention, ssm, transformer
+        rec = self.rec = dict(flash_q=[], wo=[], wkv_b=[], scan_heads=[],
+                              state_heads=[], in_proj=[], out_proj=[])
+
+        def flash(real, q, *a, **kw):
+            rec["flash_q"].append(list(q.shape))
+            return real(q, *a, **kw)
+
+        def out_proj(real, p, out, split):
+            rec["wo"].append(list(p["wo"]["w"].shape))
+            if "wkv_b" in p:
+                rec["wkv_b"].append(list(p["wkv_b"]["w"].shape))
+            return real(p, out, split)
+
+        def scan(real, x, *a, **kw):
+            rec["scan_heads"].append(x.shape[2])
+            return real(x, *a, **kw)
+
+        def decode(real, p, cfg, x, cache):
+            rec["state_heads"].append(cache["state"].shape[1])
+            return real(p, cfg, x, cache)
+
+        def params(real, p, cfg):
+            got = real(p, cfg)
+            rec["in_proj"].append(list(got[0]["in_proj"]["w"].shape))
+            rec["out_proj"].append(list(got[0]["out_proj"]["w"].shape))
+            return got
+
+        self.saved = []
+        for mod, name, fn in ((ops, "flash_attention", flash),
+                              (attention, "out_proj", out_proj),
+                              (ssm, "ssd_chunked", scan),
+                              (transformer, "ssm_decode", decode),
+                              (ssm, "rank_params", params)):
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+            setattr(mod, name, functools.partial(fn, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+    def distinct(self) -> dict:
+        """Each record's distinct values (a list of shapes or heads)."""
+        return {k: sorted({tuple(v) if isinstance(v, list) else v
+                           for v in vals}) for k, vals in self.rec.items()}
 
 
 class MoEOutputs:
@@ -5575,27 +5757,45 @@ class MoEOutputs:
         return [y.cpu() for y in self.ys[:n]]
 
 
-class CombineSumDropped:
-    """A planted fault while in use: ``moe_apply``'s combine is not summed
-    over ``model`` (each rank keeps its experts' partial output). Only the
-    MoE layer's name is rebound; the dense layers' sums stay."""
+class HintsRebound:
+    """A planted fault while in use: the model module ``module``'s
+    (``repro_torch.models.<module>``) ``pjit_hints`` is a copy with
+    ``names`` in place of its functions; every other module keeps the
+    real ones."""
+
+    def __init__(self, module: str, **names):
+        self.module, self.names = module, names
 
     def __enter__(self):
+        import importlib
         import types
-        from repro_torch.models import moe, pjit_hints
-        self.real = moe.pjit_hints
+        from repro_torch.models import pjit_hints
+        self.mod = importlib.import_module(
+            f"repro_torch.models.{self.module}")
+        self.real = self.mod.pjit_hints
         names = {k: getattr(pjit_hints, k) for k in dir(pjit_hints)
                  if not k.startswith("__")}
-        names["reduce_from_model"] = lambda y: y
-        moe.pjit_hints = types.SimpleNamespace(**names)
+        self.mod.pjit_hints = types.SimpleNamespace(**{**names,
+                                                       **self.names})
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.models import moe
-        moe.pjit_hints = self.real
+        self.mod.pjit_hints = self.real
 
 
-def mesh_moe_loss(bundle, model, mesh, blocks, batch) -> float:
+def combine_sum_dropped() -> HintsRebound:
+    """``moe_apply``'s combine not summed over ``model`` (each rank keeps
+    its experts' partial output); the dense layers' sums stay."""
+    return HintsRebound("moe", reduce_from_model=lambda y: y)
+
+
+def norm_sum_dropped() -> HintsRebound:
+    """The Mamba2 block's gated norm with its statistic over this rank's
+    columns of the row alone (its sum over ``model`` dropped)."""
+    return HintsRebound("ssm", sum_over_model=lambda x: x)
+
+
+def mesh_forward_loss(bundle, model, mesh, blocks, batch) -> float:
     """One forward's loss (no gradient) from this rank's parameter blocks
     on its rows of ``batch``, the mean over the batch ranks."""
     import torch
@@ -5633,12 +5833,13 @@ def mesh_job_g(mesh, plan, dev, out: str) -> dict:
         torch.Generator(device=dev).manual_seed(0)))
     moe_layers = cfg.n_layers - cfg.moe.n_dense_layers
     t0 = time.perf_counter()
-    with CombineSumDropped(), MoEOutputs(m["y_stride"]) as control_y:
-        control = mesh_moe_loss(bundle, model, mesh, state[0],
+    with combine_sum_dropped(), MoEOutputs(m["y_stride"]) as control_y:
+        control = mesh_forward_loss(bundle, model, mesh, state[0],
                                 bundle.local_batch(batches[0]))
     control_s = time.perf_counter() - t0
     _zero_counts()
-    with ExpertShapes() as shapes, MoEOutputs(m["y_stride"]) as ys:
+    with ExpertShapes() as shapes, MoEOutputs(m["y_stride"]) as ys, \
+            LayerShapes() as heads:
         res, (p, o, _) = mesh_train_steps(bundle, None, batches, dev,
                                           state=state)
     del state
@@ -5653,6 +5854,8 @@ def mesh_job_g(mesh, plan, dev, out: str) -> dict:
                expert_calls=shapes.calls[:cfg.n_layers
                                          - cfg.moe.n_dense_layers],
                n_expert_calls=len(shapes.calls),
+               layer_shapes=heads.distinct(),
+               n_flash_calls=len(heads.rec["flash_q"]),
                local_param_bytes=sum(x.numel() * x.element_size()
                                      for x in tree_leaves(p)),
                local_opt_bytes=sum(x.numel() * x.element_size()
@@ -5728,7 +5931,8 @@ def mesh_rank(rank: int, world: int, out: str, plan: dict) -> None:
                         ("b", lambda: mesh_job_b(mesh, plan, dev)),
                         ("c", lambda: mesh_job_c(plan, dev)),
                         ("d", lambda: mesh_job_d(mesh, plan, dev)),
-                        ("g", lambda: mesh_job_g(mesh, plan, dev, out))):
+                        ("g", lambda: mesh_job_g(mesh, plan, dev, out)),
+                        ("i", lambda: mesh_job_i(mesh, plan, dev))):
             if job not in plan["jobs"]:
                 continue
             t0 = time.perf_counter()
@@ -5764,8 +5968,34 @@ def mesh_one_rank(rank: int, world: int, out: str, plan: dict) -> None:
             mesh_one_rank_a(mesh, out, plan, dev)
         if "g" in plan["jobs"]:
             mesh_one_rank_g(mesh, out, plan, dev)
+        if "i" in plan["jobs"]:
+            mesh_one_rank_i(mesh, out, plan, dev)
     finally:
         dist.destroy_process_group()
+
+
+def mesh_one_rank_i(mesh, out: str, plan: dict, dev) -> None:
+    """(i)'s one-rank reference: its first step on the 1-rank NCCL mesh
+    from the same params and batch; the loss and s to
+    ``out/one_rank_ssm.json``."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    cfg = mesh_ssm_config(plan)
+    model = build_model(cfg)
+    m = plan["ssm"]
+    bundle = make_train_step(model, ShapeSpec("train_mesh_ssm", m["seq"],
+                                              m["batch"], "train"),
+                             mesh=mesh, lr=plan["lr"], device=dev)
+    batch = mesh_ssm_data(cfg, plan, dev)[0]
+    state = bundle.init_state(model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    _dev_sync(dev)
+    t0 = time.perf_counter()
+    _, _, _, loss = bundle.step_fn(*state, batch)
+    _dev_sync(dev)
+    with open(f"{out}/one_rank_ssm.json", "w") as f:
+        json.dump(dict(loss=float(loss), s=time.perf_counter() - t0), f)
 
 
 def mesh_one_rank_g(mesh, out: str, plan: dict, dev) -> None:
@@ -5904,7 +6134,8 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
             outs["g_y"] = [torch.load(f"{tmp}/g_y{r}.pt") for r in range(4)]
             outs["one_moe_y"] = torch.load(f"{tmp}/one/one_rank_moe_y.pt")
         for name, path in (("one", "one/one_rank.json"),
-                           ("one_moe", "one/one_rank_moe.json")):
+                           ("one_moe", "one/one_rank_moe.json"),
+                           ("one_ssm", "one/one_rank_ssm.json")):
             if os.path.exists(f"{tmp}/{path}"):
                 with open(f"{tmp}/{path}") as f:
                     outs[name] = json.load(f)
@@ -5924,6 +6155,11 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
             outs["g_y"], outs["one_moe_y"], beside)
         checks.update(g_checks)
         launches = {k: launches.get(k, 0) + v for k, v in g_launches.items()}
+    if "i" in plan["jobs"]:
+        i_checks, i_launches = mesh_ssm_report(outs["one_ssm"], ranks, plan,
+                                               smi, beside)
+        checks.update(i_checks)
+        launches = {k: launches.get(k, 0) + v for k, v in i_launches.items()}
     emit("mesh_checks", **checks)
     if not all(checks.values()):
         raise AssertionError(f"phase 29 failed: {checks}")
@@ -5939,7 +6175,7 @@ def mesh_report(one, ranks, plan, smi, one_s, four_s, held, beside=()):
     a = [r["a"] for r in ranks]
     per_step = {"flash_attention": cfg.n_layers,
                 "flash_attention_bwd": cfg.n_layers,
-                "rmsnorm": 2 * cfg.n_layers + 1}
+                "rmsnorm": 2 * cfg.n_layers + 1, "ssd_state_scan": 0}
     launches_ok = all(row["launches"] == per_step
                       for ra in a for row in ra["rows"])
     first = a[0]["rows"][0]["loss"]
@@ -6039,7 +6275,8 @@ def mesh_remat_report(ranks, plan, smi, predict, beside=()):
     per = train_launches_per_forward(cfg)
     per_step = {"flash_attention": per["flash_attention"][0],
                 "flash_attention_bwd": per["flash_attention"][1],
-                "rmsnorm": per["rmsnorm"][0]}
+                "rmsnorm": per["rmsnorm"][0],
+                "ssd_state_scan": per["ssd_state_scan"][0]}
     losses = [[row["loss"] for row in rh["rows"]] for rh in h]
     want = [row["loss"] for row in ranks[0]["a"]["rows"]] \
         if "a" in ranks[0] else None
@@ -6108,7 +6345,8 @@ def mesh_moe_report(one, predict, ranks, plan, smi, ys, one_y, beside=()):
     per_step = train_launches_per_forward(cfg)
     per_step = {"flash_attention": per_step["flash_attention"][0],
                 "flash_attention_bwd": per_step["flash_attention"][1],
-                "rmsnorm": per_step["rmsnorm"][0]}
+                "rmsnorm": per_step["rmsnorm"][0],
+                "ssd_state_scan": per_step["ssd_state_scan"][0]}
     first = g[0]["rows"][0]["loss"]
     loss_rel = abs(first - one["loss"]) / abs(one["loss"])
     control_rel = abs(g[0]["control_loss"] - one["loss"]) / abs(one["loss"])
@@ -6157,7 +6395,22 @@ def mesh_moe_report(one, predict, ranks, plan, smi, ys, one_y, beside=()):
          local_opt_bytes=[rg["local_opt_bytes"] for rg in g],
          job_s=[rg["job_s"] for rg in g], beside_cpu_processes=list(beside),
          their_nice=CPU_SIDE_NICE)
+    mla, heads = cfg.mla, cfg.n_heads // 2
+    want_mla = dict(
+        wkv_b=[[mla.kv_lora_rank,
+                heads * (mla.qk_nope_head_dim + mla.v_head_dim)]],
+        wo=[[heads * mla.v_head_dim, cfg.d_model]])
+    mla_half = all(
+        {q[2] for q in rg["layer_shapes"]["flash_q"]} == {heads}
+        and all(rg["layer_shapes"][k] == w for k, w in want_mla.items())
+        and rg["n_flash_calls"] == cfg.n_layers * m["steps"] for rg in g)
+    emit("mesh_moe_mla", card=smi, n_heads=cfg.n_heads, heads_per_rank=heads,
+         flash_q=g[0]["layer_shapes"]["flash_q"],
+         wkv_b=g[0]["layer_shapes"]["wkv_b"], wo=g[0]["layer_shapes"]["wo"],
+         expected=want_mla, flash_calls_per_rank=[rg["n_flash_calls"]
+                                                  for rg in g])
     checks = dict(
+        moe_mla_half_heads=mla_half,
         moe_first_loss=loss_rel <= MESH_LOSS_RTOL,
         moe_control_caught=control_rel > MESH_LOSS_RTOL,
         moe_y=all(len(e) == moe_layers and max(e) <= MESH_MOE_Y_RTOL
@@ -6173,6 +6426,71 @@ def mesh_moe_report(one, predict, ranks, plan, smi, ys, one_y, beside=()):
                        for row in rg["rows"]))
     return checks, {key: sum(sum(row["launches"][key] for row in rg["rows"])
                              for rg in g) for key in per_step}
+
+
+def mesh_ssm_report(one, ranks, plan, smi, beside=()):
+    """(i)'s lines and checks: the first loss against the one-rank step's
+    and the control's outside ``MESH_LOSS_RTOL``; every rank's scans on
+    half the SSM heads, ``out_proj``'s rows and ``in_proj``'s columns
+    those of its heads (with the whole B/C); the launches a step (the
+    rmsnorm kernel at each block's norm and the final one: the gated norm
+    runs plain under the split; one scan a layer); the peaks; then each
+    float32 serve's tokens and logits against one rank's. Its launches
+    summed over the ranks."""
+    cfg = mesh_ssm_config(plan)
+    m, s = plan["ssm"], cfg.ssm
+    i = [r["i"] for r in ranks]
+    d_inner = s.expand * cfg.d_model
+    h, gn = d_inner // s.head_dim, s.n_groups * s.state_size
+    per_step = {"flash_attention": 0, "flash_attention_bwd": 0,
+                "rmsnorm": cfg.n_layers + 1, "ssd_state_scan": cfg.n_layers}
+    want = dict(scan_heads=[h // 2], out_proj=[[d_inner // 2, cfg.d_model]],
+                in_proj=[[cfg.d_model, d_inner + 2 * gn + h // 2]])
+    first = i[0]["rows"][0]["loss"]
+    loss_rel = abs(first - one["loss"]) / abs(one["loss"])
+    control_rel = abs(i[0]["control_loss"] - one["loss"]) / abs(one["loss"])
+    peaks = [ri["peak"] for ri in i]
+    emit("mesh_ssm", card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+         ssm_heads=h, mesh={"data": 2, "model": 2}, sharding="fsdp",
+         backend="gloo", ranks_on_one_card=4, seq=m["seq"],
+         global_batch=m["batch"], steps=m["steps"], dtype=cfg.dtype,
+         param_dtype="float32",
+         s_per_step=[[row["s"] for row in ri["rows"]] for ri in i],
+         s_per_step_median=[ri["s_median"] for ri in i],
+         losses=[row["loss"] for row in i[0]["rows"]],
+         first_loss_one_rank=one["loss"], one_rank_s=one["s"],
+         first_loss_rel_err=loss_rel, loss_rtol=MESH_LOSS_RTOL,
+         control_loss=i[0]["control_loss"], control_rel_err=control_rel,
+         control_s=i[0]["control_s"], layer_shapes=i[0]["layer_shapes"],
+         layer_shapes_expected=want,
+         scan_calls_per_rank=[ri["n_scan_calls"] for ri in i],
+         launches_per_step_per_rank=[ri["rows"][-1]["launches"] for ri in i],
+         launches_expected=per_step, peak_per_rank=peaks,
+         peak_total=sum(peaks), peak_limit=MESH_PEAK_LIMIT,
+         job_s=[ri["job_s"] for ri in i], beside_cpu_processes=list(beside),
+         their_nice=CPU_SIDE_NICE)
+    serve = i[0]["serve"]
+    emit("mesh_split_serve", card=smi, mesh={"data": 2, "model": 2},
+         **{arch: line for arch, line in serve.items()},
+         peak_per_rank={arch: [ri["serve"][arch]["peak"] for ri in i]
+                        for arch in serve})
+    checks = dict(
+        ssm_first_loss=loss_rel <= MESH_LOSS_RTOL,
+        ssm_control_caught=control_rel > MESH_LOSS_RTOL,
+        ssm_half_heads=all(
+            all(ri["layer_shapes"][k] == w for k, w in want.items())
+            and ri["n_scan_calls"] == cfg.n_layers * m["steps"] for ri in i),
+        ssm_launches=all(row["launches"] == per_step
+                         for ri in i for row in ri["rows"]),
+        ssm_peak=sum(peaks) <= MESH_PEAK_LIMIT,
+        ssm_finite=all(math.isfinite(row["loss"]) for ri in i
+                       for row in ri["rows"]),
+        split_serve_tokens=all(line["tokens_equal"]
+                               for line in serve.values()),
+        split_serve_logits=all(line["logits_within"]
+                               for line in serve.values()))
+    return checks, {key: sum(sum(row["launches"][key] for row in ri["rows"])
+                             for ri in i) for key in per_step}
 
 
 # ---- 30: the dry run against the card's own step ----
@@ -7811,10 +8129,11 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:47",
              launches=launched("ssd_state_scan") + t_scan["kernel"]
-             + long_run["ssd_state_scan"],
+             + long_run["ssd_state_scan"] + mesh_launches["ssd_state_scan"],
              launches_by_path={"ssm_serving": launched("ssd_state_scan"),
                                **t_scan["by_path"],
-                               "long_context": long_run["ssd_state_scan"]},
+                               "long_context": long_run["ssd_state_scan"],
+                               "mesh_train": mesh_launches["ssd_state_scan"]},
              backward=t_scan["backward"],
              max_abs_err=scan["max_abs_err"], ms=scan["ms"],
              plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],

@@ -270,11 +270,22 @@ def _gather(x: torch.Tensor, mesh, spec, keep=()) -> torch.Tensor:
 def relayout(x: torch.Tensor, mesh, src, dst) -> torch.Tensor:
     """``x``, this rank's block under spec ``src``, as its block under
     ``dst``: gathered over the axes ``src`` splits on and ``dst`` does not
-    split on the same dim, then narrowed to ``dst``'s block. Returns ``x``
-    itself when the two agree."""
+    split on the same dim, then narrowed to ``dst``'s block; where the two
+    differ only by one axis moved from one dim to another, one all-to-all
+    over that axis (each rank sends the others their blocks, not the
+    whole). Returns ``x`` itself when the two agree."""
     src, dst = tuple(src), tuple(dst)
     if src == dst:
         return x
+    moved = [d for d, (s, t) in enumerate(zip(src, dst)) if s != t]
+    if len(moved) == 2:
+        a, b = moved
+        if dst[a] is None and src[b] is None:
+            a, b = b, a              # the axis moves from dim b to dim a
+        axes = _axes(src[b])
+        if src[a] is None and dst[b] is None and len(axes) == 1 \
+                and _axes(dst[a]) == axes:
+            return coll.all_to_all(x, mesh.get_group(axes[0]), a, b)
     keep = {a for d, (s, t) in enumerate(zip(src, dst))
             for a in _axes(s) if _axes(s) == _axes(t)}
     full = _gather(x, mesh, src, keep)

@@ -382,12 +382,16 @@ class ServeStepBundle:
     hints: Any = None
 
 
-def _cache_compute_spec(path, spec, tokens_split: bool, axes) -> tuple:
+def _cache_compute_spec(path, spec, tokens_split: bool, axes,
+                        ssm_split: bool = False) -> tuple:
     """The layout a rank decodes a cache leaf in: its batch dim (dim 0 of
     ``position`` and of an unstacked layer's cache, else dim 1) over the
     batch axes when the tokens split; a k or v cache's head dim over
     ``model`` as the cache places it (``cached_attention`` reads the
-    block); every other dim whole."""
+    block); an SSM state's heads (its dim -3) over ``model`` with
+    ``ssm_split`` (the block computes its local heads,
+    ``pjit_hints.ssm_split``); every other dim whole (the SSM conv
+    buffer, every channel, and MLA's latent cache)."""
     n = len(spec)
     out = [None] * n
     bdim = 0 if path[0] in ("dense", "position") else 1
@@ -395,6 +399,8 @@ def _cache_compute_spec(path, spec, tokens_split: bool, axes) -> tuple:
         out[bdim] = axes
     if n and path[-1] in ("k", "v") and spec[-1] == "model":
         out[-1] = "model"
+    if ssm_split and path[-1] == "state":
+        out[-3] = "model"
     return tuple(out)
 
 
@@ -432,14 +438,17 @@ def make_serve_step(model: Model, mesh=None, shape: ShapeSpec | None = None,
     c_shard = shd.cache_shardings(cache_spec, mesh)
     tok_shard = shd.token_sharding(shape.global_batch, mesh)
     axes = tok_shard.spec[0]
-    c_pairs = tree_leaves_with_path(c_shard)
-    compute = tree_unflatten(c_shard, [
-        shd.NamedSharding(mesh, _cache_compute_spec(
-            path, sh.spec, axes is not None, axes)) for path, sh in c_pairs])
     p_paths = [shd._key_str(p) for p, _ in tree_leaves_with_path(params_spec)]
     p_specs = [sh.spec for sh in shd._sharding_leaves(p_shard)]
     hints = pjit_hints.with_params(pjit_hints.from_mesh(mesh), p_paths,
                                    p_specs)
+    with pjit_hints.hints_ctx(hints):
+        ssm_split = pjit_hints.ssm_split(cfg)
+    c_pairs = tree_leaves_with_path(c_shard)
+    compute = tree_unflatten(c_shard, [
+        shd.NamedSharding(mesh, _cache_compute_spec(
+            path, sh.spec, axes is not None, axes, ssm_split))
+        for path, sh in c_pairs])
 
     def relayout(cache, src, dst):
         return tree_map(lambda x, a, b: shd.relayout(x, mesh, a.spec,

@@ -12,8 +12,12 @@ cross-attention reads the k and v of :func:`cross_kv`
 
 On a mesh whose ``model`` axis divides the query heads
 (:func:`pjit_hints.attention_split`) a layer computes its local heads: q
-(and k, v when the kv heads divide too) column-parallel, the flash kernel
-on the local heads, the output row-parallel with one all-reduce. kv heads
+(and k, v when the kv heads divide too, and an MLA layer's ``wkv_b``)
+column-parallel, the flash kernel on the local heads, the output
+row-parallel with one all-reduce. An MLA layer's latent (``wkv_a``,
+``kv_norm``) is computed whole on every rank, as the JAX package stores
+those leaves, and its absorbed decode reads the local heads' slices of
+``wkv_b`` against the whole latent cache. kv heads
 that do not divide are computed whole and repeated to the query heads,
 and each rank keeps its block (as the JAX package's TP kv-replication).
 A decode cache split over ``model`` on its head dim (as
@@ -228,10 +232,9 @@ def mla_init(gen: torch.Generator, cfg):
 def _mla_qkv(params, cfg, x, positions):
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
 
-    q = dense(params["wq"], x).reshape(b, s, h, qk_dim)
+    q = dense(params["wq"], x).reshape(b, s, -1, qk_dim)  # the rank's heads
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim,
                                      m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -252,12 +255,18 @@ def mla_attention(params, cfg, x):
     with zeros to the kernel's next head dim (``HEAD_DIMS``; 192 for
     deepseek-v2-lite, so only v is padded there) so one flash call (the
     kernel on the card) serves all three, scaled by MLA's ``(nope + rope)
-    ** -0.5``; the output is sliced back to ``v_head_dim``."""
+    ** -0.5``; the output is sliced back to ``v_head_dim``. Under a head
+    split ``wq``'s and ``wkv_b``'s column blocks give the rank's heads
+    (each block is whole heads: its columns are (heads, dims) in head
+    order) and ``wo``'s row block the output's partial sum."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
+    split = pjit_hints.attention_split(cfg)
+    if split:
+        x = pjit_hints.copy_to_model(x)
     positions = torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
+    h = q_nope.shape[2]
 
     kv = dense(params["wkv_b"], c_kv).reshape(
         b, s, h, m.qk_nope_head_dim + m.v_head_dim)
@@ -272,7 +281,7 @@ def mla_attention(params, cfg, x):
     out = ops.flash_attention(q_full, k_full, v_pad, causal=True,
                               scale=qk_dim ** -0.5)
     out = out[..., :m.v_head_dim]
-    return dense(params["wo"], out.reshape(b, s, -1))
+    return out_proj(params, out.reshape(b, s, -1), split)
 
 
 def mla_decode(params, cfg, x, cache):
@@ -281,12 +290,15 @@ def mla_decode(params, cfg, x, cache):
     query and its V half applied after the softmax, in float32 as in the
     JAX package. x: (B, 1, d). The new c_kv and k_rope are written into
     the cache in place at position ``length`` (the JAX package returns new
-    arrays); returns (out, cache with ``length + 1``)."""
+    arrays); returns (out, cache with ``length + 1``). Under a head split
+    the rank computes its heads' q_eff, scores, context and output from
+    its block of ``wkv_b`` and ``wo`` against the whole latent cache,
+    then sums the output over ``model``."""
     m = cfg.mla
     b = x.shape[0]
-    h = cfg.n_heads
     length = cache["length"]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, length[:, None])
+    h = q_nope.shape[2]
 
     rows = torch.arange(b, device=x.device)
     c_cache, r_cache = cache["c_kv"], cache["k_rope"]
@@ -314,7 +326,7 @@ def mla_decode(params, cfg, x, cache):
     out = torch.einsum("bhr,rhv->bhv", ctx, _f32(wv))
     out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype)
     new_cache = {"c_kv": c_cache, "k_rope": r_cache, "length": length + 1}
-    return dense(params["wo"], out), new_cache
+    return out_proj(params, out, pjit_hints.attention_split(cfg)), new_cache
 
 
 def init_mla_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

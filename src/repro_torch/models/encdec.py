@@ -229,10 +229,12 @@ def encdec_decode_step(params, cfg, cache, tokens):
             rope=False)
         x = x + h
         lengths.append(new["length"])
-        ca = layer["cross_attn"]
-        q = dense(ca["wq"], _an(cfg, layer["norm_x"], x)).reshape(
-            b, 1, -1, hd)
-        x = x + decode_attend(ca, cfg, q, cc["k"][i], cc["v"][i], enc_len)
+        # no name outlives the layer: the next layer gathers its blocks
+        # with this one's freed
+        q = dense(layer["cross_attn"]["wq"],
+                  _an(cfg, layer["norm_x"], x)).reshape(b, 1, -1, hd)
+        x = x + decode_attend(layer["cross_attn"], cfg, q, cc["k"][i],
+                              cc["v"][i], enc_len)
         x = x + _mlp(layer, cfg, _an(cfg, layer["norm2"], x))
     x = _an(cfg, params["dec_norm"], x)
     logits = _logits(params, cfg, x)

@@ -14,7 +14,8 @@ the layout is decided by the same rules and carried out by hand:
 * the ``shard_*`` functions give JAX's spec of a tensor from the logical
   size of the dim it decides;
 * the predicates ``heads_split``, ``ffn_split``, ``vocab_split`` and
-  ``experts_split`` read those specs, and the layers ask them before they
+  ``experts_split`` (and ``attention_split``, ``ssm_split``, ``mlp_split``
+  of a config) read those specs, and the layers ask them before they
   compute (column- or row-parallel products, vocab-parallel embedding and
   loss);
 * the autograd collectives below are Megatron's: ``copy_to_model`` (the
@@ -22,7 +23,9 @@ the layout is decided by the same rules and carried out by hand:
   activation enters a split region, ``reduce_from_model`` (an all-reduce,
   its backward the identity) after a row-parallel product,
   ``gather_from_model`` / ``local_block`` between a split and a
-  replicated layout, ``gather_batch`` and ``batch_mean`` for the MoE
+  replicated layout, ``sum_over_model`` for a statistic a split layer
+  reads whole (its backward sums too), ``gather_batch`` and
+  ``batch_mean`` for the MoE
   layer's global expert ids, tokens and load-balancing loss, and
   :func:`use_params`, which gathers each parameter block to the layout
   its layer computes with and reduces its gradient back.
@@ -194,9 +197,24 @@ def experts_split(n_experts: int) -> bool:
 
 
 def attention_split(cfg) -> bool:
-    """A (non-MLA) attention layer of ``cfg`` computes its local heads: q
-    column-parallel, the output row-parallel."""
-    return cfg.mla is None and heads_split(cfg.n_heads)
+    """An attention layer of ``cfg`` computes its local heads: q (and an
+    MLA layer's ``wkv_b``) column-parallel, the output row-parallel."""
+    return heads_split(cfg.n_heads)
+
+
+def ssm_heads(cfg) -> int:
+    """The SSM heads of a Mamba2 block of ``cfg``."""
+    return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+
+
+def ssm_split(cfg) -> bool:
+    """A Mamba2 block of ``cfg`` computes its local SSM heads: its z, x
+    and dt columns of ``in_proj``, the conv on their channels, the scan on
+    their heads, ``out_proj`` row-parallel. Its B/C stay whole on every
+    rank, which every head reads where there is one group (mamba2's and
+    zamba2's); a block of several groups computes whole."""
+    return (cfg.ssm is not None and cfg.ssm.n_groups == 1
+            and heads_split(ssm_heads(cfg)))
 
 
 def mlp_split(cfg) -> bool:
@@ -265,6 +283,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.group = _group(_HINTS.model_axis)
+        return coll.all_reduce(x, ctx.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return coll.all_reduce(g, ctx.group)
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim):
@@ -293,6 +322,15 @@ def reduce_from_model(x):
     """The sum over ``model`` of the ranks' partial ``x`` (after a
     row-parallel product); the gradient passes as it is."""
     return _ReduceFromModel.apply(x) if model_active() else x
+
+
+def sum_over_model(x):
+    """The sum over ``model`` of the ranks' partial ``x`` where what
+    follows stays split (a statistic each rank's block then reads): the
+    gradient is all-reduced too, each rank holding its own block's part
+    of it (Megatron's identity backward of :func:`reduce_from_model`
+    would drop the other ranks')."""
+    return _SumOverModel.apply(x) if model_active() else x
 
 
 def gather_from_model(x, dim: int):
@@ -393,9 +431,13 @@ def param_use(path: str, cfg) -> tuple[bool, bool, int | None]:
     gathered whole, and ``partial`` says whether its gradient on this rank
     is a part of the whole (the leaf is used inside a split region:
     qk-norm scales, biases sliced to the local columns, k/v projections
-    of kv heads that do not split), so it is summed over ``model``, or
-    the whole (a replicated region: norms, the MoE router and shared
-    experts, MLA, SSM). ``dim``: where the kept block lies on another dim
+    of kv heads that do not split, MLA's ``wkv_a`` and ``kv_norm``, and
+    every SSM leaf but ``out_proj``: ``in_proj`` and ``conv_w``, whose
+    stored blocks are not the rank's heads' columns, are gathered whole
+    and sliced, and the B/C columns serve only the local heads), so it is
+    summed over ``model``, or the whole (a replicated region: norms, the
+    MoE router and shared experts, an SSM block whose heads do not
+    split). ``dim``: where the kept block lies on another dim
     than the one the leaf is stored split on, that dim (negative), else
     None. The experts' weights keep their block of E experts (dim -3)
     where JAX's ``shard_experts`` splits E over ``model``; JAX's rules
@@ -407,16 +449,21 @@ def param_use(path: str, cfg) -> tuple[bool, bool, int | None]:
     if "experts" in parts:
         split = experts_split(cfg.moe.n_experts)
         return split, False, -3 if split else None
-    if any(p in parts for p in ("router", "ssm")) or "ffn/shared" in path:
+    if "router" in parts or "ffn/shared" in path:
         return False, False, None
+    if "ssm" in parts:
+        if not ssm_split(cfg):
+            return False, False, None
+        return (True, False, None) if path.endswith("out_proj/w") \
+            else (False, True, None)
     if any(p in parts for p in ("attn", "self_attn", "cross_attn")):
         if not attention_split(cfg):
             return False, False, None
-        if path.endswith(("wq/w", "wo/w")):
+        if path.endswith(("wq/w", "wo/w", "wkv_b/w")):
             return True, False, None
         if path.endswith(("wk/w", "wv/w")):
             return heads_split(cfg.n_kv_heads), True, None
-        return False, True, None          # q_norm, k_norm, biases
+        return False, True, None  # q/k norms, biases, wkv_a, kv_norm
     if "ffn" in parts and parts[-1] == "w":
         return mlp_split(cfg), False, None
     return False, False, None

@@ -14,6 +14,19 @@ Shapes: x (B, S, H, P) after the input projection's reshape, B/C
 (B, S, G, N) with H % G == 0 (head h reads group h // (H // G), as
 ``jnp.repeat`` maps it), dt (B, S, H), A (H,) negative. All SSD math runs
 in float32.
+
+On a mesh whose ``model`` axis divides the SSM heads, with one B/C group
+(:func:`pjit_hints.ssm_split`), a block computes its local heads, as the
+JAX package's rules store ``in_proj``, ``conv_w`` and ``out_proj`` split
+over ``model``: the rank's z, x and dt columns of ``in_proj`` and the B/C
+columns whole (:func:`rank_params` slices them from the gathered leaf,
+whose stored blocks are not head-aligned), the conv on the local x
+channels and B/C, the scan on the local heads, ``out_proj`` row-parallel
+with one all-reduce. The gated norm's statistic is the sum over ``model``
+of each rank's sum of squares (a (B, S) float32 all-reduce, summed again
+in the backward: :func:`pjit_hints.sum_over_model`). A decode step keeps
+the state on the local heads and the conv buffer whole: the rank's new x
+channels are gathered over ``model`` to shift it.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models import pjit_hints
 from repro_torch.models.layers import dense, dense_init
 
 _NEG = -1e30
@@ -58,9 +72,39 @@ def ssm_init(gen: torch.Generator, cfg):
     }
 
 
-def _split_proj(cfg, zxbcdt):
-    d_inner, h, gn = _dims(cfg)
+def _split_proj(zxbcdt, d_inner: int, h: int, gn: int):
     return torch.split(zxbcdt, [d_inner, d_inner + 2 * gn, h], dim=-1)
+
+
+def _cols(t, dim: int, parts):
+    """``t``'s ``(start, length)`` parts along ``dim``, joined."""
+    return torch.cat([t.narrow(dim, a, n) for a, n in parts], dim=dim)
+
+
+def rank_params(params, cfg):
+    """(params, d_inner, heads) a block computes with: ``params`` and the
+    whole dims without a split; under :func:`pjit_hints.ssm_split` this
+    rank's heads' parts of the whole leaves (``in_proj``'s z, x and dt
+    columns beside the whole B/C columns, ``conv_w``'s and ``conv_b``'s x
+    channels beside B/C, the heads' ``a_log``, ``d_skip`` and ``dt_bias``,
+    their rows' ``norm_scale``) and ``out_proj`` as it comes, the rank's
+    block of rows."""
+    d_inner, h, gn = _dims(cfg)
+    if not pjit_hints.ssm_split(cfg):
+        return params, d_inner, h
+    rows, heads = pjit_hints.block_of(d_inner), pjit_hints.block_of(h)
+    dl, hl = rows.stop - rows.start, heads.stop - heads.start
+    xbc = [(d_inner + rows.start, dl), (2 * d_inner, 2 * gn)]
+    conv = [(rows.start, dl), (d_inner, 2 * gn)]
+    local = dict(params)
+    local["in_proj"] = {"w": _cols(params["in_proj"]["w"], 1, [
+        (rows.start, dl), *xbc, (2 * (d_inner + gn) + heads.start, hl)])}
+    local["conv_w"] = _cols(params["conv_w"], 1, conv)
+    local["conv_b"] = _cols(params["conv_b"], 0, conv)
+    for k in ("a_log", "d_skip", "dt_bias"):
+        local[k] = params[k][heads]
+    local["norm_scale"] = params["norm_scale"][rows]
+    return local, dl, hl
 
 
 def _causal_conv(xbc, w, b):
@@ -126,20 +170,35 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, *, chunk: int, initial_state=None):
     return y.transpose(2, 3).reshape(bsz, seq, h, p), final
 
 
-def _gated_norm(params, y, z):
+def _gated_norm(params, y, z, split: bool = False):
     """Mamba2's gated RMSNorm before the output projection: RMSNorm of
     ``y * silu(z)`` with float32 statistics (eps 1e-6) and ``norm_scale``,
     in y's dtype, through the rmsnorm kernel (the same function as the JAX
-    package's inline norm)."""
-    return ops.rmsnorm(y * F.silu(z), params["norm_scale"], eps=1e-6)
+    package's inline norm). ``split``: y and z are this rank's columns of
+    the row; its statistic is the mean square of the whole row, each
+    rank's sum of squares summed over ``model`` (plain, as the JAX
+    package's norm: the kernel takes its statistic from its own row)."""
+    if not split:
+        return ops.rmsnorm(y * F.silu(z), params["norm_scale"], eps=1e-6)
+    yz = (y * F.silu(z)).to(torch.float32)
+    n = yz.shape[-1] * pjit_hints.current().model_size
+    var = pjit_hints.sum_over_model(
+        torch.sum(torch.square(yz), dim=-1, keepdim=True)) / n
+    return (yz * torch.rsqrt(var + 1e-6)
+            * params["norm_scale"].to(torch.float32)).to(y.dtype)
 
 
 def ssm_apply(params, cfg, x, *, initial_state=None, return_state=False):
-    """Full-sequence Mamba2 block. x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence Mamba2 block. x: (B, S, d) -> (B, S, d); the final
+    state is the rank's heads' under a split."""
     s = cfg.ssm
     bsz, seq, _ = x.shape
-    d_inner, h, gn = _dims(cfg)
-    z, xbc, dt = _split_proj(cfg, dense(params["in_proj"], x))
+    split = pjit_hints.ssm_split(cfg)
+    if split:
+        x = pjit_hints.copy_to_model(x)
+    params, d_inner, h = rank_params(params, cfg)
+    gn = _dims(cfg)[2]
+    z, xbc, dt = _split_proj(dense(params["in_proj"], x), d_inner, h, gn)
     xbc = _causal_conv(xbc, params["conv_w"].to(x.dtype),
                        params["conv_b"].to(x.dtype))
     xs, b_mat, c_mat = torch.split(xbc, [d_inner, gn, gn], dim=-1)
@@ -156,7 +215,9 @@ def ssm_apply(params, cfg, x, *, initial_state=None, return_state=False):
     y = y + xs.to(torch.float32) * params["d_skip"].to(torch.float32)[
         None, None, :, None]
     y = y.reshape(bsz, seq, d_inner).to(x.dtype)
-    out = dense(params["out_proj"], _gated_norm(params, y, z))
+    out = dense(params["out_proj"], _gated_norm(params, y, z, split))
+    if split:
+        out = pjit_hints.reduce_from_model(out)
     if return_state:
         return out, state
     return out
@@ -180,20 +241,31 @@ def init_ssm_cache(cfg, batch: int, dtype=torch.float32, device=None):
 def ssm_decode(params, cfg, x, cache):
     """One-token step. x: (B, 1, d). Returns (y, cache); the cache's
     ``state`` and ``conv`` are updated in place (the JAX package returns
-    new arrays), with the same arithmetic."""
+    new arrays), with the same arithmetic. Under a head split ``state``
+    holds the rank's heads and ``conv`` every channel: the rank's new x
+    channels are gathered over ``model`` to shift the whole buffer, and
+    the conv runs on the local channels."""
     s = cfg.ssm
     bsz = x.shape[0]
-    d_inner, h, gn = _dims(cfg)
+    split = pjit_hints.ssm_split(cfg)
+    params, d_inner, h = rank_params(params, cfg)
+    whole, _, gn = _dims(cfg)
     f32 = torch.float32
-    z, xbc, dt = _split_proj(cfg, dense(params["in_proj"], x))
+    z, xbc, dt = _split_proj(dense(params["in_proj"], x), d_inner, h, gn)
 
     # rolling conv buffer
     conv = cache["conv"]
+    if split:
+        xbc = torch.cat([pjit_hints.gather_from_model(xbc[..., :d_inner], -1),
+                         xbc[..., d_inner:]], dim=-1)
     window = torch.cat([conv, xbc.to(conv.dtype)], dim=1)       # (B, K, C)
+    conv.copy_(window[:, 1:])
+    if split:
+        rows = pjit_hints.block_of(whole)
+        window = _cols(window, 2, [(rows.start, d_inner), (whole, 2 * gn)])
     conv_out = (window.to(f32) * params["conv_w"].to(f32)).sum(1) \
         + params["conv_b"].to(f32)
     xbc1 = F.silu(conv_out)[:, None, :].to(x.dtype)
-    conv.copy_(window[:, 1:])
 
     xs, b_mat, c_mat = torch.split(xbc1, [d_inner, gn, gn], dim=-1)
     xs = xs.reshape(bsz, h, s.head_dim).to(f32)
@@ -213,4 +285,5 @@ def ssm_decode(params, cfg, x, cache):
         + xs * params["d_skip"].to(f32)[None, :, None]
 
     y = y.reshape(bsz, 1, d_inner).to(x.dtype)
-    return dense(params["out_proj"], _gated_norm(params, y, z)), cache
+    out = dense(params["out_proj"], _gated_norm(params, y, z, split))
+    return (pjit_hints.reduce_from_model(out) if split else out), cache

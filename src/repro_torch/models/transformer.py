@@ -14,10 +14,11 @@ vision frontend's patch embeddings, prepended to the token embeddings;
 its decode takes none (the JAX package's decode drops the prefix too).
 
 On a mesh each rank runs this code on its rows of the batch with the
-layout :mod:`repro_torch.models.pjit_hints` decides: attention heads, MLP
-columns and the vocab split over ``model`` where they divide it (the
-logits, and a decode step's, are then this rank's vocab block); MoE,
-MLA and SSM layers compute whole on every ``model`` rank.
+layout :mod:`repro_torch.models.pjit_hints` decides: attention heads (MLA
+too), SSM heads, MLP columns and the vocab split over ``model`` where
+they divide it (the logits, and a decode step's, are then this rank's
+vocab block); a MoE layer computes its experts' block on the rank's
+tokens.
 """
 
 from __future__ import annotations

@@ -315,14 +315,84 @@ def run(rank: int, world: int, store: str, out: str, mesh_shape: tuple,
 # The layer-wise gather (``test_torch_layer_gather``)
 # ---------------------------------------------------------------------------
 
-def gather_case(mesh, arch: str, remat: str, overrides=None) -> dict:
+def chip_smoke():
+    """``chip_smoke.py`` as a module (it imports torch inside its
+    functions), for the recorder of what each layer computes with
+    (``LayerShapes``) and its planted faults (``HintsRebound``)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def shape_arrays(shapes) -> dict:
+    """A ``LayerShapes``' records as arrays (a call a row), keys prefixed
+    ``local/``."""
+    return {f"local/{k}": np.array(v, dtype=np.int64)
+            for k, v in shapes.rec.items()}
+
+
+# the planted faults of ``gather_case``: each breaks one reduction of the
+# split over ``model`` that ``test_torch_layer_gather`` must catch: the
+# SSM's gated norm with its statistic over the rank's columns alone; the
+# SSM block's or the MLA layer's output without its row-parallel
+# all-reduce; MLA's ``wkv_a`` gradient taken as whole (not summed over
+# ``model``)
+FAULTS = ("gated_norm_local", "ssm_sum_dropped", "mla_sum_dropped",
+          "wkv_a_grad_partial")
+
+
+class WkvAWhole:
+    """While in use, ``param_use`` says MLA's ``wkv_a`` has a whole
+    gradient on each rank (it is partial: the latent serves the local
+    heads only)."""
+
+    def __enter__(self):
+        from repro_torch.models import pjit_hints
+        self.real = real = pjit_hints.param_use
+
+        def param_use(path, cfg):
+            use = real(path, cfg)
+            return (use[0], False, use[2]) if path.endswith("wkv_a/w") \
+                else use
+
+        pjit_hints.param_use = param_use
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import pjit_hints
+        pjit_hints.param_use = self.real
+
+
+def planted(smoke, fault: str | None):
+    """The context that plants ``fault`` (one of :data:`FAULTS`, or
+    none)."""
+    import contextlib
+    def identity(x):
+        return x
+    return {None: contextlib.nullcontext(),
+            "gated_norm_local": smoke.norm_sum_dropped(),
+            "ssm_sum_dropped": smoke.HintsRebound(
+                "ssm", reduce_from_model=identity),
+            "mla_sum_dropped": smoke.HintsRebound(
+                "attention", reduce_from_model=identity),
+            "wkv_a_grad_partial": WkvAWhole()}[fault]
+
+
+def gather_case(mesh, arch: str, remat: str, overrides=None,
+                fault: str | None = None) -> dict:
     """One ``sync`` fsdp forward and backward of reduced ``arch`` under
     ``remat`` over the mesh (the train step's ``loss_and_grads``, on the
     batch of seed 0, each rank its rows): the loss (the mean over the
-    ranks), every whole gradient, and the gathered parameter bytes alive
+    ranks), every whole gradient, the gathered parameter bytes alive
     (``GatherMeter``): their peak in the forward and in the backward, what
     the leaves outside the stacked trees and each stacked layer gather
-    alone (``pjit_hints.gathered_alone``), and what is alive after."""
+    alone (``pjit_hints.gathered_alone``), and what is alive after; and
+    what the layers computed with on rank 0 (``LayerShapes``).
+    ``fault``: one of :data:`FAULTS` planted (:func:`planted`)."""
     from repro_torch.launch import sharding as shd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import build_model, pjit_hints
@@ -335,7 +405,9 @@ def gather_case(mesh, arch: str, remat: str, overrides=None) -> dict:
     blocks = shd.shard_tree(params(arch, **kw), bundle.params_shardings)
     local = bundle.local_batch(batch(arch, **kw))
     peaks = {}
-    with pjit_hints.GatherMeter() as meter:
+    smoke = chip_smoke()
+    with pjit_hints.GatherMeter() as meter, smoke.LayerShapes() as shapes, \
+            planted(smoke, fault):
         def clock(part):
             if part == "backward":
                 peaks["forward"], meter.peak = meter.peak, meter.live
@@ -352,26 +424,47 @@ def gather_case(mesh, arch: str, remat: str, overrides=None) -> dict:
             "peak_forward": np.array(peaks["forward"]),
             "peak_backward": np.array(peaks["backward"]),
             "alive_after": np.array(after), "outside": np.array(outside),
-            "layers": np.array(layers)}
+            "layers": np.array(layers), **shape_arrays(shapes)}
 
 
-def serve_gather_case(mesh, arch: str = "qwen3-0.6b") -> dict:
+def serve_frames(arch: str, overrides=None):
+    """An encoder-decoder's (SERVE_BATCH, encoder_seq_len, d) float32
+    frames from a numpy seed; None for another family."""
+    import torch
+    cfg = config(arch, overrides=overrides)
+    if not cfg.n_encoder_layers:
+        return None
+    r = np.random.default_rng(11)
+    return torch.from_numpy(r.normal(size=(
+        SERVE_BATCH, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))
+
+
+def serve_gather_case(mesh, arch: str = "qwen3-0.6b",
+                      overrides=None) -> dict:
     """``serve_case`` over the mesh on the parameter blocks, under a
     ``GatherMeter``: the tokens and prompt logits, the gathered bytes
     alive after each step and the most alive during one, beside what the
-    leaves outside the stacked trees and each layer gather alone."""
+    leaves outside the stacked trees and each layer gather alone, and
+    what the layers computed with on rank 0 (``LayerShapes``). An
+    encoder-decoder's rows of ``serve_frames``."""
     from repro_torch.launch.serve import serve
-    from repro_torch.launch.sharding import shard_tree
+    from repro_torch.launch.sharding import NamedSharding, shard_tree
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import ShapeSpec, build_model, pjit_hints
-    cfg = config(arch)
+    cfg = config(arch, overrides=overrides)
     model = build_model(cfg)
     max_len = SERVE_PROMPT + SERVE_NEW
     bundle = make_serve_step(model, mesh, ShapeSpec("serve_test", max_len,
                                                     SERVE_BATCH, "decode"))
-    local = shard_tree(params(arch), bundle.params_shardings)
+    local = shard_tree(params(arch, overrides=overrides),
+                       bundle.params_shardings)
+    frames = serve_frames(arch, overrides)
+    if frames is not None:
+        frames = NamedSharding(mesh, bundle.token_sharding.spec
+                               + (None, None)).local(frames)
     after, peaks = [], []
-    with pjit_hints.GatherMeter() as meter:
+    with pjit_hints.GatherMeter() as meter, \
+            chip_smoke().LayerShapes() as shapes:
         def watched(fn):
             def step(*args):
                 meter.peak = meter.live
@@ -385,14 +478,15 @@ def serve_gather_case(mesh, arch: str = "qwen3-0.6b") -> dict:
         bundle.decode_fn = watched(bundle.decode_fn)
         res = serve(model, local,
                     bundle.token_sharding.local(serve_prompts(arch)),
-                    SERVE_NEW, max_len=max_len, keep_prompt_logits=True,
-                    bundle=bundle)
+                    SERVE_NEW, max_len=max_len, frames=frames,
+                    keep_prompt_logits=True, bundle=bundle)
     with pjit_hints.hints_ctx(bundle.hints):
         outside, layers = pjit_hints.gathered_alone(local, cfg)
     return {"tokens": res.tokens.numpy(),
             "logits": res.prompt_logits.numpy(),
             "alive_after": np.array(after), "peaks": np.array(peaks),
-            "outside": np.array(outside), "layers": np.array(layers)}
+            "outside": np.array(outside), "layers": np.array(layers),
+            **shape_arrays(shapes)}
 
 
 def dryrun_depths(rank: int, world: int, out: str, arch: str,
@@ -429,5 +523,29 @@ def dryrun_depths(rank: int, world: int, out: str, arch: str,
             res[f"layer_block_{n}"] = np.array(block)
             res[f"layer_whole_{n}"] = np.array(whole)
         np.savez(f"{out}/dryrun_depths.npz", **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def dryrun_share(rank: int, world: int, out: str, archs: list) -> None:
+    """The dry run's counted FLOPs of one ``sync`` fsdp step of each of
+    ``archs`` (reduced, ``remat="none"``), on rank 0 of a (data=1,
+    model=2) mesh of fake ranks and alone (``mesh=None``) on the same
+    whole batch, in a process of its own, to ``out/dryrun_share.npz``
+    (``<arch>/split``, ``<arch>/whole``)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        mesh = make_test_mesh((1, 2), ("data", "model"), device_type="cpu")
+        res = {}
+        for arch in archs:
+            cfg = config(arch, remat="none")
+            for key, m in (("split", mesh), ("whole", None)):
+                c = dryrun.count_train_step(cfg, shape(), mesh=m)["step"]
+                res[f"{arch}/{key}"] = np.array(c.flops)
+        np.savez(f"{out}/dryrun_share.npz", **res)
     finally:
         dist.destroy_process_group()

@@ -12,8 +12,9 @@ over ``model``) at capacity factors 1.25 and 0.5 and with a planted fault
 greedy serving of reduced qwen3 and deepseek, and a checkpoint saved from
 that mesh and restored onto (data=4, model=1); on (pod=2, data=2,
 model=1) olmo-1b's ``hierarchical`` steps (4, a cloud sync every 2, the
-JAX launcher test's case), reduced deepseek's (2 and a sync: each pod's
-MoE capacity its own) and the DTensor placements of two axes on one
+JAX launcher test's case) and mamba2's, zamba2's, whisper's and
+internvl2's alike, reduced deepseek's (2 and a sync: each pod's MoE
+capacity its own) and the DTensor placements of two axes on one
 dim. Rank 0 writes what it gathered; the test process runs the one-rank
 step on the same params and batches, and the MoE layer's oracle, the JAX
 package's unsharded ``moe_apply`` (skipped without JAX).
@@ -62,6 +63,8 @@ MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_CASES = [(a, cf) for a in (MOE_ARCH, "kimi-k2-1t-a32b")
              for cf in (1.25, 0.5)]
 MOE_TOL = 1e-5           # test_torch_moe's: y and aux against JAX
+HIER_FAMILIES = ["mamba2-1.3b", "zamba2-2.7b", "whisper-large-v3",
+                 "internvl2-1b"]
 
 
 def spawn(tmp, mesh_shape, axes, cases) -> dict:
@@ -105,6 +108,10 @@ def mesh221(tmp_path_factory):
               dict(arch=MOE_ARCH, mode="hierarchical", sharding_mode="fsdp",
                    steps=worker.HIER_PERIOD, period=worker.HIER_PERIOD)),
              ("placements", "placements_case", {})]
+    cases += [(f"{a}-hier", "train_case",
+               dict(arch=a, mode="hierarchical", sharding_mode="fsdp",
+                    steps=worker.HIER_STEPS, period=worker.HIER_PERIOD))
+              for a in HIER_FAMILIES]
     return spawn(tmp, (2, 2, 1), ("pod", "data", "model"), cases)
 
 
@@ -214,6 +221,39 @@ def test_moe_hierarchical_steps_match_one_card(mesh221):
                                      steps * worker.LR * (1 + 1e-6))
         if not noisy.all():
             close(a[~noisy], b[~noisy])
+
+
+@pytest.mark.parametrize("arch", HIER_FAMILIES)
+def test_hierarchical_families_match_one_card(mesh221, arch):
+    """mamba2, zamba2, whisper and internvl2, 4 hierarchical steps with a
+    cloud sync every 2 over (pod=2, data=2, model=1), against the
+    one-card step's loop over pods: the pods' copies equal bit for bit
+    after each sync; the losses at ``LOSS_RTOL``; both moments at
+    ``RTOL`` (whisper's key biases, whose exact gradient is zero, at the
+    scale of the same projection's weight). The moments carry the
+    gradients' check: after several AdamW steps a param's gap follows
+    the ratio of its moments, which float32 summation noise moves by more
+    than ``RTOL`` where the gradients cancel across steps (up to 1.5e-4
+    of a leaf's largest entry here), so each param is held within an
+    AdamW step's size a step (``LR``), the bound of this file's rule for
+    near-zero gradients."""
+    got = mesh221[f"{arch}-hier"]
+    steps, period = worker.HIER_STEPS, worker.HIER_PERIOD
+    want, losses, _ = one_rank(arch, "hierarchical", steps, period)
+    zero_grad = worker.config(arch).qkv_bias \
+        and not worker.config(arch).use_rope
+    np.testing.assert_allclose(got["losses"], losses, rtol=LOSS_RTOL)
+    assert int(got["step"]) == steps
+    assert got["synced_equal"].shape == (steps // period,)
+    assert bool(got["synced_equal"].all())
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+        if name.startswith("opt/"):
+            scale = key_bias_scale(want, name) if zero_grad else None
+            close(got[name], want[name], scale)
+        else:
+            np.testing.assert_array_less(np.abs(got[name] - want[name]),
+                                         steps * worker.LR * (1 + 1e-6))
 
 
 def test_pods_equal_after_each_cloud_sync(mesh221):

@@ -389,11 +389,16 @@ def test_helpers_give_no_spec_without_hints():
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_layers_compute_in_jax_specs(monkeypatch, arch, mesh):
     """What each layer computes with on a rank (``param_use``'s
-    ``keep_model``, ``attention_split``, ``mlp_split``, ``vocab_split``)
-    is split over ``model`` exactly where JAX's ``shard_*`` spec of that
-    layer's activation names ``model`` on a model axis above one: the
-    expert weights where ``shard_experts`` splits E, the MoE router and
-    shared experts never (they run on the rank's own tokens)."""
+    ``keep_model``, ``attention_split``, ``ssm_split``, ``mlp_split``,
+    ``vocab_split``) is split over ``model`` exactly where JAX's
+    ``shard_*`` spec of that layer's activation names ``model`` on a model
+    axis above one: attention (MLA too: ``wkv_b`` column-parallel, its
+    latent's ``wkv_a`` and ``kv_norm`` whole with partial gradients) and
+    the SSM block (``shard_heads`` of its SSM heads: ``out_proj``
+    row-parallel, every other SSM leaf gathered whole and sliced, its
+    gradient partial) on their heads, the expert weights where
+    ``shard_experts`` splits E, the MoE router and shared experts never
+    (they run on the rank's own tokens)."""
     need_jax()
     cfg = tget(arch)
     model_size = sizes(mesh).get("model", 1)
@@ -406,9 +411,12 @@ def test_layers_compute_in_jax_specs(monkeypatch, arch, mesh):
     heads = on_model("shard_heads", (1, 1, cfg.n_heads, hd), 2)
     kv_heads = on_model("shard_heads", (1, 1, cfg.n_kv_heads, hd), 2)
     vocab = on_model("shard_logits", (1, 1, cfg.vocab_size), 2)
-    attn = cfg.mla is None and heads
+    attn = heads
+    ssm = cfg.ssm is not None and on_model(
+        "shard_heads", (1, 1, thints.ssm_heads(cfg), cfg.ssm.head_dim), 2)
     with thints.hints_ctx(thints.from_mesh(sizes(mesh))):
         assert thints.attention_split(cfg) == attn
+        assert thints.ssm_split(cfg) == ssm
         assert thints.vocab_split(cfg.vocab_size) == vocab
         for path, leaf in tree_leaves_with_path(tbuild(cfg).param_specs()):
             key = tsh._key_str(path)
@@ -419,13 +427,17 @@ def test_layers_compute_in_jax_specs(monkeypatch, arch, mesh):
             elif "experts" in parts:
                 want = (on_model("shard_experts", (cfg.moe.n_experts, 1,
                                                    cfg.d_model), 0), False)
-            elif any(p in parts for p in ("router", "ssm")) \
-                    or "ffn/shared" in key:
+            elif "router" in parts or "ffn/shared" in key:
                 want = (False, False)
+            elif "ssm" in parts:
+                want = (False, False) if not ssm else \
+                    (True, False) if key.endswith("out_proj/w") else \
+                    (False, True)
             elif any(p in parts for p in ("attn", "self_attn",
                                           "cross_attn")):
                 want = (False, False) if not attn else \
-                    (True, False) if key.endswith(("wq/w", "wo/w")) else \
+                    (True, False) if key.endswith(("wq/w", "wo/w",
+                                                   "wkv_b/w")) else \
                     (kv_heads, True) if key.endswith(("wk/w", "wv/w")) \
                     else (False, True)
             elif "ffn" in parts and parts[-1] == "w":
