@@ -85,6 +85,32 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
 7. ``train_card_vs_cpu``: ``train_federated`` on the card and on the CPU
    agree on ``make_mnist_like(30)`` with the engine's assignment for
    ``make_scenario(30, 5)``.
+33. (run after phase 7) Algorithm 3's host engine and the elastic failover
+   built on it. (a) ``host_engine``: ``AssociationEngine(sc, kind="fast",
+   seed=0)`` on the card at the JAX package's calls (``HOST_ENGINE_RUNS``:
+   quickstart's ``run_batched("random")`` and the faithful ``run`` from
+   "nearest" at (20, 5), ``paper_convergence``'s ``run_batched("random")``
+   at its seven points), each line with its moves, seconds, golden-section
+   launches (asserted: K for the initial total, one a pricing call with a
+   cache miss, one at finalize; ``EngineProbe``), largest batch (groups,
+   packed width), host syncs, and the device seconds of ``solve_batch``
+   and of the kernel; ``HOST_ENGINE_CHECK``'s runs again on the CPU (in a
+   process of their own, started before phase 1): the same assignment and
+   moves, cost within ``PIN_RTOL`` (asserted). (b)
+   ``elastic_failover``: ``examples/elastic_failover.py`` through the port
+   (N = 20, K = 4, its ``FailureInjector`` and hook, 15 HFEL rounds), on
+   the card and on the CPU (the CPU's run in a process of its own,
+   started before phase 1): the same events (round, live count,
+   adjustments), assignments, costs within ``PIN_RTOL``, final params
+   within phase 7's rule, test accuracy within one sample (asserted);
+   seconds and launches a re-association, hier_aggregate launches a round
+   (asserted against ``_group_means``' count). (c) ``elastic_scale``: the
+   same flow at N = 100, K = 10 over 5 rounds on the card alone, each
+   re-association gated (the dead on their nearest server, the live where
+   ``avail`` allows, a descent from its warm start, a fresh
+   ``run_batched(exchange_samples=0)`` from it making no move; asserted),
+   with ``initial()``'s and each re-association's seconds and the host's
+   share against the kernel's.
 8. ``kernel`` (rmsnorm, flash_attention): each serving kernel against its
    plain version at the serving path's shapes (qwen3-0.6b's prefill and
    decode rows; its attention layer at B=4, S=4096) and at ragged ones;
@@ -109,7 +135,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    (28 flash, 57 rmsnorm per forward, asserted), peak memory, and
    ``prefill_profile``: device time of flash, GEMMs and the rest, and the
    idle share.
-10. ``serve_path``: the server answers 8 requests of a 256-token prompt
+10. ``serve_path``: the server answers 8 requests of a 64-token prompt
    and 32 greedy tokens: prompts prefilled by ``Model.logits``, fed through
    the decode step token by token, then decoded greedily by the serve
    step; ms per step, tokens/s, launches per step (57 rmsnorm, 0 flash,
@@ -136,7 +162,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``ssd_chunked``; ``ssm_prefill_profile``: device time by kernel class
    and idle share.
 14. ``ssm_serve_path``: the server answers 128 requests of mamba2-1.3b
-   (decode_32k's batch) with a 512-token prompt (two chunks) and 32 greedy
+   (decode_32k's batch) with a 264-token prompt (two chunks) and 32 greedy
    tokens: ms per step, tokens/s, the cache's bytes (asserted equal to
    ``cache_bytes``), launches (48 scans in the check prefill, 97 rmsnorm
    per step and no scan in decode, asserted); on the first 8 requests the
@@ -210,8 +236,8 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    within that of zero to lr: AdamW's first step), and the cloud sync
    under TopK and Int8 on identical inputs at 1e-6.
 22. ``train_lm_sync`` and ``train_lm_hierarchical``: full-width
-   qwen3-0.6b (28 layers, bf16 activations, float32 params and AdamW
-   state) at sequence 4096, random weights from seed 0, tokens from one
+   qwen3-0.6b (cut to 8 of 28 layers, bf16 activations, float32 params
+   and AdamW state) at sequence 4096, random weights from seed 0, tokens from one
    ``TokenPipeline`` draw: ``sync`` at batch 4 for 3 steps, then
    ``hierarchical`` with 2 pods x 2 sequences, a cloud sync every 2 steps
    under ``TopKCompressor(0.01)``, 2 steps. Each line: s a step split into
@@ -246,7 +272,7 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    prefill shape under ``set_sync_debug_mode("error")`` (no host sync);
    ``moe_prefill_profile``: device time of flash, GEMMs, the MoE dispatch
    and the rest, idle share. (c) ``moe_serve_path``: 8 requests of a
-   64-token prompt and 32 greedy tokens through ``serve_shape``: ms per
+   16-token prompt and 32 greedy tokens through ``serve_shape``: ms per
    step, launches (0 flash, 55 rmsnorm a step, asserted), the MLA cache's
    bytes (asserted equal to ``cache_bytes``), the bf16 decode-vs-prefill
    gap and the positions whose top-k routing differs between the two
@@ -336,27 +362,26 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    the ``mesh=None`` step bit for bit (asserted), whose loss is (a)'s
    reference. Then four gloo ranks (``mesh_rank``): the collectives the
    backend carries on CUDA tensors; (a) ``sync``, ``fsdp`` over (data=2,
-   model=2) at 4096 x 2, 2 steps: s a step, each rank's peak (their sum
+   model=2) at 4096 x 2, 1 step: s a step, each rank's peak (their sum
    under 75 GB, asserted), flash forward and backward 28 + 28 and rmsnorm
    57 launches a step on every rank (asserted), the first loss within
    ``MESH_LOSS_RTOL`` of (f)'s and the logits at every 256th position
    within ``MESH_BF16_LOGIT_ATOL`` of (f)'s, while a control forward with
    the last layer's row-parallel all-reduce dropped lands outside both
-   (asserted); (e) (a)'s params written by rank 0 and
-   restored onto (data=4, model=1), every leaf reassembled bit for bit
    (asserted); (b) (a) at float32 and 2 layers, one step, the loss within
    1e-5 and the state within ``TRAIN_TOL`` of the one-rank step's
-   (asserted); (c) ``hierarchical`` over (pod=2, data=2, model=1) at 2048
-   x 4, 2 steps and a cloud sync: the pods' leaves equal bit for bit
+   (asserted); (e) (b)'s params written by rank 0 and restored onto
+   (data=4, model=1), every leaf reassembled bit for bit (asserted); (c) ``hierarchical`` over (pod=2, data=2, model=1) at 8
+   layers, 2048 x 4, 2 steps and a cloud sync: the pods' leaves equal bit for bit
    after it (asserted), ms a sync; (d) serving over (data=2, model=2) on
    the rank's parameter blocks (each step gathers every layer's):
-   phase 10's 8 requests with 8-token prompts and 8 new tokens in
-   bf16 (ms a step, the share of greedy tokens equal to one rank's), then
+   phase 10's 8 requests with 4-token prompts and 4 new tokens in
+   bf16 at 8 layers (ms a step, the share of greedy tokens equal to one rank's), then
    at float32 and 2 layers, with 32-token prompts and 16 new tokens, the
    same greedy tokens and decode logits
    within 1e-4 (asserted); (g) deepseek-v2-lite-16b at full width cut to
    1 dense + 2 MoE layers, ``sync`` ``fsdp`` over (data=2, model=2) at
-   4096 x 2, 2 steps, its experts split over ``model``: every rank's
+   4096 x 2, 1 step, its experts split over ``model``: every rank's
    expert weights and buffer hold 32 of the 64 experts (shapes and bytes,
    asserted), 3 flash, 3 flash backward and 7 rmsnorm launches a step
    (asserted), the first loss within ``MESH_LOSS_RTOL`` and each MoE
@@ -365,7 +390,13 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    control forward with the MoE combine's sum over ``model`` dropped
    lands outside both (asserted), s a step, each rank's peak beside the
    dry run's count of the same cell (``mesh_moe_predict``, a CPU process
-   of its own started before phase 27); (h) (a)'s steps under remat
+   of its own started before phase 27), and ``mesh_moe_grads``: the
+   router's and the MoE layers' wi, wg and wo gradient blocks of every
+   rank in float32 (at ``MESH_MOE_GRAD_SEQ`` positions, from the same
+   params, each token routed to the experts (f)'s pass chose; the tokens
+   whose own choice differs counted) within ``MESH_MOE_GRAD_RTOL`` of the
+   leaf's largest entry of the same blocks of (f)'s one-rank gradient
+   (asserted); (h) (a)'s steps under remat
    "block" (each layer gathers its blocks in its forward and again in its
    recompute): each step's loss equal to (a)'s bit for bit, 56 flash, 28
    flash backward and 113 rmsnorm launches a step a rank, the gathered
@@ -406,8 +437,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    phases 9 and 10's code, launches from the config (olmo: no rmsnorm),
    peaks under 75 GB, decode within phase 10's bound of the prefill; then
    each reduced in float32, card against CPU. (c) ``zoo_train_*``: olmo-1b
-   whole (4 x 4096, 3 steps) and qwen2-7b cut to 4 layers (2 x 4096, 2
-   steps), ``zoo_dryrun``: each one's one-rank fake count (a CPU process
+   whole (4 x 4096, 3 steps), qwen2-7b cut to 4 layers (2 x 4096, 2
+   steps) and qwen3-32b cut to 4 of 64 layers (1 x 4096, 2 steps),
+   ``zoo_dryrun``: each one's one-rank fake count (a CPU process
    started before phase 27) against the card's step, the FLOPs equal and
    the peak within ``DRYRUN_PEAK_RTOL``; ``train_hybrid_sync``: zamba2-2.7b
    cut to 12 layers (two applications of the shared block) at 2 x 2048;
@@ -434,8 +466,9 @@ and exits non-zero if any phase fails. Each phase prints one JSON line:
    ``seconds``: each phase's seconds.
 
 Then a ``kernels`` line (golden_section's launches are phases 4 and 4b's,
-with each path's, phases 16-19's, phase 28's and the HFEL scheme runs'
-beside them;
+with each path's, phases 16-19's, phase 28's, phase 33's and the HFEL
+scheme runs' beside them; hier_aggregate's phase 6's, with phases 18-19's
+and 33's beside them;
 rmsnorm, flash and the scan add their train paths' launches (phases 22,
 24 and 27) and a ``backward`` entry; rmsnorm and flash phases 25 and
 26's launches, phase 29's (a), (g) and (h) (``mesh_train``, summed over
@@ -605,7 +638,10 @@ FLASH_BWD_FAULTS = {
 }
 
 PREFILL_BATCH, PREFILL_SEQ, PREFILL_REPS = 4, 4096, 3
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 256, 32
+# phase 10: 8 requests of a 64-token prompt and 32 new tokens; the serve
+# feeds the prompt a token a step (59.8 ms a step on an H100 80GB HBM3 at
+# 700 W, PERF.md): 256 until the whole script's time needed the cut
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 8, 64, 32
 # decode logits vs prefill logits of the full bfloat16 model, elementwise
 # |decode - prefill| <= atol + rtol * |prefill|: both paths round every
 # activation of 28 layers to bfloat16 (2^-8 relative) at other places, the
@@ -614,9 +650,16 @@ SERVE_GAP_ATOL, SERVE_GAP_RTOL = 0.1, 0.05
 SERVE_PEAK_LIMIT = 75e9  # bytes, the acceptance bound on the card's 80 GB
 CARD_VS_CPU_TOL = 1e-4   # reduced float32 model: kernels vs plain versions
 # mamba2-1.3b serving: decode_32k's batch of 128 (its float32 state, 13.2
-# GB, fits one card), a prompt of two chunks of 256, and greedy tokens; the
-# decode-vs-prefill gap is checked on the first 8 requests
-SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT, SSM_SERVE_NEW = 128, 512, 32
+# GB, fits one card), a prompt of 264 tokens (a chunk of 256 and 8
+# positions of the next) and greedy tokens; the decode-vs-prefill gap is
+# checked on the first 8 requests, against a prefill of SSM_PREFILL_CHECK
+# positions (whole chunks, as the model takes them; each prompt the first
+# 264 of its request's), at the prompt's positions: its last 8 are past
+# the boundary the scan carries its state over. The serve feeds the
+# prompt a position a step (50.7 ms a step on an H100 80GB HBM3 at 700 W,
+# PERF.md): the whole 512 until the whole script's time needed the cut
+SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT, SSM_SERVE_NEW = 128, 264, 32
+SSM_PREFILL_CHECK = 512
 SSM_CHECK_REQUESTS = 8
 # float32 decode vs float32 prefill of full mamba2-1.3b: atol = rtol, the
 # bound of tests/test_models.py's decode-vs-forward test. Phase 10's bf16
@@ -886,14 +929,15 @@ class KeepTrainer:
 
 def profiled(phase: str, fn):
     """``fn()`` under ``torch.profiler``: (wall seconds, [(kernel name,
-    device microseconds, count)]) of the card's events. A failure of the
+    device microseconds, count)]) of the card's events. The profiler
+    records the card's activity alone: the host's operators are not read
+    here, and recording them made the trace slower to read. A failure of the
     profiler itself is reported on the phase's line and gives None; an
     error raised by ``fn`` (a kernel launch, say) fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     try:
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CUDA])
         prof.start()
     except (RuntimeError, AttributeError) as exc:
         emit(phase, error=repr(exc))
@@ -2113,8 +2157,10 @@ def ssm_serve_path(dev) -> dict:
     ``SSM_SERVE_NEW`` greedy tokens from the bfloat16 serving copy: ms per
     step, tokens/s, the cache's bytes against ``cache_bytes``, launches and
     a profiled step. On the first ``SSM_CHECK_REQUESTS`` requests the
-    decode logits are held to ``Model.logits`` (which carries the state
-    across the chunk boundary through the scan kernel): in float32, on the
+    decode logits are held to ``Model.logits`` of ``SSM_PREFILL_CHECK``
+    tokens of the same requests at the prompt's positions (the prefill
+    carries the state across the chunk boundary through the scan kernel):
+    in float32, on the
     float32 weights the serving copy rounds, at ``SSM_GAP_F32`` (asserted);
     in bfloat16 against phase 10's bound, reported beside the bfloat16
     prefill's own distance to the float32 one. Returns the launch
@@ -2136,9 +2182,11 @@ def ssm_serve_path(dev) -> dict:
     params = model.serving_params(params32)
     per_step = 2 * cfg.n_layers + 1
     rng = np.random.default_rng(1)
-    prompts = torch.tensor(rng.integers(
-        0, cfg.vocab_size, (SSM_SERVE_REQUESTS, SSM_SERVE_PROMPT)),
+    requests = torch.tensor(rng.integers(
+        0, cfg.vocab_size, (SSM_SERVE_REQUESTS, SSM_PREFILL_CHECK)),
         dtype=torch.int32, device=dev)
+    p = SSM_SERVE_PROMPT
+    prompts = requests[:, :p].contiguous()
     shape = ShapeSpec("ssm_serve_smoke",
                       seq_len=SSM_SERVE_PROMPT + SSM_SERVE_NEW,
                       global_batch=SSM_SERVE_REQUESTS, kind="decode")
@@ -2151,12 +2199,14 @@ def ssm_serve_path(dev) -> dict:
         raise AssertionError(f"cache of {built} B, cache_bytes says "
                              f"{expected_bytes}")
     check = prompts[:SSM_CHECK_REQUESTS]
+    whole = requests[:SSM_CHECK_REQUESTS]
     pad = torch.zeros(len(check), 1, dtype=torch.int32, device=dev)
     ssd_scan.LAUNCHES = flash_attention.LAUNCHES = rmsnorm.LAUNCHES = 0
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill = model.logits(params, {"tokens": torch.cat([check, pad], 1)})
+        prefill = model.logits(params,
+                               {"tokens": torch.cat([whole, pad], 1)})
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
     at_prefill = (ssd_scan.LAUNCHES, rmsnorm.LAUNCHES)
@@ -2167,15 +2217,15 @@ def ssm_serve_path(dev) -> dict:
     steps = res.prompt_steps + res.decode_steps
     decode = (ssd_scan.LAUNCHES - at_prefill[0],
               rmsnorm.LAUNCHES - at_prefill[1])
-    pre = prefill.float()
+    pre = prefill[:, :p].float()
     dec = res.prompt_logits[:SSM_CHECK_REQUESTS].float()
     del res.prompt_logits, prefill
 
     # the same check in float32 on the float32 weights
     before = (ssd_scan.LAUNCHES, rmsnorm.LAUNCHES)
     with torch.inference_mode():
-        pre32 = model32.logits(params32,
-                               {"tokens": torch.cat([check, pad], 1)})
+        pre32 = model32.logits(params32, {"tokens": torch.cat(
+            [whole, pad], 1)})[:, :p]
     dec32 = serve(model32, params32, check, 1,
                   keep_prompt_logits=True).prompt_logits
     f32_launches = (ssd_scan.LAUNCHES - before[0],
@@ -2189,7 +2239,8 @@ def ssm_serve_path(dev) -> dict:
     first = int((res.tokens[:SSM_CHECK_REQUESTS, 0]
                  == pre[:, -1].argmax(-1)).sum())
     emit("ssm_serve_path", arch=cfg.name, requests=SSM_SERVE_REQUESTS,
-         prompt=SSM_SERVE_PROMPT, chunk=cfg.ssm.chunk_size,
+         prompt=SSM_SERVE_PROMPT, prefill_check=SSM_PREFILL_CHECK,
+         chunk=cfg.ssm.chunk_size,
          new_tokens=SSM_SERVE_NEW, cache_bytes=built,
          cache_bytes_expected=expected_bytes,
          max_memory_allocated_serving=peak, prefill_check_s=prefill_s,
@@ -2371,50 +2422,45 @@ def exchange_batch_kernel(dev, main_sc, assignment, iters: dict,
     return fields
 
 
-def exchange_card_vs_cpu(dev) -> None:
-    """``make_scenario(*CHECK_FIXTURE)`` with exchanges from the nearest
-    start on the card and on the CPU: the same stable point, moves and
-    exchanges (at least one)."""
-    import numpy as np
+# writes argv[1]: the CPU side of phase 5's and phase 20's card-vs-CPU
+# checks (``phase5_runs`` and ``compact_check_run`` on the CPU), in a
+# process of its own at CPU_SIDE_NICE (two threads), started before phase
+# 1, beside phases 1-5
+_PHASE5_CPU = """
+import os, sys
+os.nice(int(os.environ["CPU_SIDE_NICE"]))
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+cpu = torch.device("cpu")
+torch.save(dict(chip_smoke.phase5_runs(cpu),
+                compact=chip_smoke.compact_check_run(cpu)), sys.argv[1])
+"""
+
+
+def engine_check_run(where, exchanges: bool) -> dict:
+    """``FastAssociationEngine`` on ``make_scenario(*CHECK_FIXTURE)`` (made
+    on the CPU) from the nearest start on ``where``, with its default
+    exchanges or none (``where`` None: the engine's default device, the
+    card): the assignment, moves, cost, counts and seconds."""
     from repro_torch.core.assoc_fast import FastAssociationEngine
     from repro_torch.core.scenario import make_scenario
     n, k, seed = CHECK_FIXTURE
     sc = make_scenario(n, k, seed=seed, device="cpu")
-    out = {}
-    for where in (dev, "cpu"):
-        t0 = time.perf_counter()
-        eng = FastAssociationEngine(sc, device=where)
-        out[where] = (eng.run("nearest"), eng.last_counts,
-                      time.perf_counter() - t0)
-    (card, c_counts, card_s), (cpu, p_counts, cpu_s) = out[dev], out["cpu"]
-    same = (np.array_equal(card.assignment, cpu.assignment)
-            and card.n_adjustments == cpu.n_adjustments
-            and c_counts == p_counts
-            and math.isclose(card.total_cost, cpu.total_cost,
-                             rel_tol=PIN_RTOL))
-    emit("exchange_card_vs_cpu", fixture=list(CHECK_FIXTURE), init="nearest",
-         counts_card=c_counts, counts_cpu=p_counts,
-         total_cost_card=card.total_cost, total_cost_cpu=cpu.total_cost,
-         same=bool(same), card_s=card_s, cpu_s=cpu_s)
-    if not same or c_counts["exchanges"] < 1:
-        raise AssertionError(f"card and CPU disagree with exchanges on "
-                             f"{CHECK_FIXTURE}, or none applied")
+    kw = {} if where is None else {"device": where}
+    t0 = time.perf_counter()
+    eng = FastAssociationEngine(sc, **kw)
+    res = eng.run("nearest", **({} if exchanges else {"exchange_samples": 0}))
+    return dict(assignment=res.assignment, moves=res.n_adjustments,
+                total_cost=res.total_cost, counts=eng.last_counts,
+                s=time.perf_counter() - t0)
 
 
-# solve_paper's bound across devices: the JAX solver's own jit-vs-eager
-# spread (tests/test_torch_ra_solvers.py's PAPER_RTOL)
-PAPER_RTOL = 2.5e-2
-
-
-def solvers_card_vs_cpu(dev) -> None:
+def solvers_check_run(where) -> dict:
     """Each plain-solver scheme kind on one batch of 8 groups of
-    ``make_scenario(30, 5, 1)`` (one empty), card against CPU: whether
-    each output is the CPU's bit for bit, and the largest relative cost
-    difference (asserted within the pin, ``solve_paper`` within
-    ``PAPER_RTOL``); and the share of 2^20 float32 inputs on which the
-    card's ``exp``, ``log`` and ``sqrt`` round otherwise than the CPU's."""
+    ``make_scenario(30, 5, 1)`` (one empty) on ``where``: its f, beta,
+    cost and deadline on the CPU, and its seconds."""
     import numpy as np
-    import torch
     from repro_torch.core.edge_association import GroupSolver
     from repro_torch.core.scenario import make_scenario
     sc = make_scenario(30, 5, seed=1, device="cpu")
@@ -2422,22 +2468,137 @@ def solvers_card_vs_cpu(dev) -> None:
     masks = rng.uniform(size=(8, 30)) < 0.4
     masks[0] = False
     sids = np.arange(8) % 5
-    kinds = {}
+    out = {}
     for kind in ("comp_only", "comm_only", "uniform", "proportional",
                  "optimal", "paper"):
-        out, secs = {}, {}
-        for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        sol = GroupSolver(sc, kind, device=where).solve_batch(sids, masks)
+        out[kind] = ([x.cpu() for x in (sol.f, sol.beta, sol.cost,
+                                        sol.deadline)],
+                     time.perf_counter() - t0)
+    return out
+
+
+def schemes_check_run(where) -> dict:
+    """Every scheme at ``SCHEME_CHECK_POINTS`` on ``where`` (the scenario
+    made on the CPU): (n, k, seed) -> scheme -> its assignment, moves,
+    total and true cost, seconds."""
+    from repro_torch.core.edge_association import evaluate_scheme
+    from repro_torch.core.scenario import make_scenario
+    out = {}
+    for n, k, seed in SCHEME_CHECK_POINTS:
+        sc = make_scenario(n, k, seed=seed, device="cpu")
+        out[(n, k, seed)] = rows = {}
+        for scheme in SCHEMES:
+            if scheme in SCHEME_CHECK_SKIP.get((n, k, seed), ()):
+                continue
             t0 = time.perf_counter()
-            sol = GroupSolver(sc, kind, device=where).solve_batch(sids, masks)
-            out[where] = [x.cpu() for x in (sol.f, sol.beta, sol.cost,
-                                            sol.deadline)]
-            secs[str(where)] = time.perf_counter() - t0
-        card, cpu = out[dev], out["cpu"]
-        rel = float(((card[2] - cpu[2]).abs()
-                     / cpu[2].abs().clamp_min(1e-30)).max())
+            r = evaluate_scheme(sc, scheme, seed=0, device=where)
+            rows[scheme] = dict(assignment=r.assignment,
+                                moves=r.n_adjustments,
+                                total_cost=r.total_cost,
+                                true_cost=r.true_cost,
+                                s=time.perf_counter() - t0)
+    return out
+
+
+def phase5_runs(where) -> dict:
+    """One side of phase 5's card-vs-CPU checks on ``where``: 5's engine
+    run without exchanges (on the card through the engine's default
+    device), 5b's with them, 5c's solvers and schemes."""
+    card = where.type == "cuda"
+    return dict(engine=engine_check_run(None if card else where, False),
+                exchange=engine_check_run(where, True),
+                solvers=solvers_check_run(where),
+                schemes=schemes_check_run(where))
+
+
+def start_phase5_cpu() -> dict:
+    """:func:`phase5_runs` and :func:`compact_check_run` on the CPU in a
+    process of its own (:func:`start_cpu_side`); the results land in
+    ``dir/phase5.pt``."""
+    return start_cpu_side(_PHASE5_CPU, "{dir}/phase5.pt")
+
+
+def finish_phase5_cpu(cpu_side: dict) -> dict:
+    """:func:`start_phase5_cpu`'s results, waited for; raises with the
+    process's stderr when it wrote none."""
+    return finish_side_file(cpu_side, "phase5.pt")
+
+
+def finish_side_file(cpu_side: dict, name: str):
+    """The object a :func:`start_cpu_side` process saved to ``dir/name``
+    (``torch.save``), once the process has ended; raises with its stderr
+    when it wrote none."""
+    import torch
+    with cpu_side["dir"] as tmp:
+        rc = finish_cpu_side(cpu_side)
+        path = Path(tmp) / name
+        if not path.exists():
+            raise RuntimeError(f"a CPU side process exited {rc}:\n"
+                               + Path(f"{tmp}/stderr").read_text()[-4000:])
+        return torch.load(path, weights_only=False)
+
+
+def card_vs_cpu(card: dict, cpu: dict) -> None:
+    """Phases 5 and 5b: the engine without and with exchanges, card
+    against CPU (``engine_check_run``'s sides): the same stable point,
+    moves (and exchange counts, at least one exchange applied) and cost
+    within the pin (asserted)."""
+    import numpy as np
+    c, p = card["engine"], cpu["engine"]
+    same = (np.array_equal(c["assignment"], p["assignment"])
+            and c["moves"] == p["moves"]
+            and math.isclose(c["total_cost"], p["total_cost"],
+                             rel_tol=PIN_RTOL))
+    emit("card_vs_cpu", fixture=list(CHECK_FIXTURE),
+         moves_card=c["moves"], moves_cpu=p["moves"],
+         total_cost_card=c["total_cost"], total_cost_cpu=p["total_cost"],
+         same_assignment=bool(np.array_equal(c["assignment"],
+                                             p["assignment"])),
+         card_s=c["s"], cpu_s=p["s"], cpu_process=CPU_SIDE_PROCESS)
+    if not same:
+        raise AssertionError(f"card and CPU engines disagree on "
+                             f"{CHECK_FIXTURE}")
+    c, p = card["exchange"], cpu["exchange"]
+    same = (np.array_equal(c["assignment"], p["assignment"])
+            and c["moves"] == p["moves"] and c["counts"] == p["counts"]
+            and math.isclose(c["total_cost"], p["total_cost"],
+                             rel_tol=PIN_RTOL))
+    emit("exchange_card_vs_cpu", fixture=list(CHECK_FIXTURE), init="nearest",
+         counts_card=c["counts"], counts_cpu=p["counts"],
+         total_cost_card=c["total_cost"], total_cost_cpu=p["total_cost"],
+         same=bool(same), card_s=c["s"], cpu_s=p["s"],
+         cpu_process=CPU_SIDE_PROCESS)
+    if not same or c["counts"]["exchanges"] < 1:
+        raise AssertionError(f"card and CPU disagree with exchanges on "
+                             f"{CHECK_FIXTURE}, or none applied")
+
+
+# solve_paper's bound across devices: the JAX solver's own jit-vs-eager
+# spread (tests/test_torch_ra_solvers.py's PAPER_RTOL)
+PAPER_RTOL = 2.5e-2
+# where phase 5's CPU sides ran
+CPU_SIDE_PROCESS = "CPU_SIDE_NICE, 2 threads, beside phases 1-5"
+
+
+def solvers_card_vs_cpu(dev, card: dict, cpu: dict) -> None:
+    """Each plain-solver scheme kind (``solvers_check_run``'s sides), card
+    against CPU: whether each output is the CPU's bit for bit, and the
+    largest relative cost difference (asserted within the pin,
+    ``solve_paper`` within ``PAPER_RTOL``); and the share of 2^20 float32
+    inputs on which the card's ``exp``, ``log`` and ``sqrt`` round
+    otherwise than the CPU's."""
+    import torch
+    kinds = {}
+    for kind, (got, card_s) in card.items():
+        want, cpu_s = cpu[kind]
+        rel = float(((got[2] - want[2]).abs()
+                     / want[2].abs().clamp_min(1e-30)).max())
         kinds[kind] = dict(bitwise=[bool(torch.equal(a, b))
-                                    for a, b in zip(card, cpu)],
-                           max_rel_diff_cost=rel, seconds=secs)
+                                    for a, b in zip(got, want)],
+                           max_rel_diff_cost=rel,
+                           seconds={str(dev): card_s, "cpu": cpu_s})
     gen = torch.Generator().manual_seed(0)
     x = torch.rand(1 << 20, generator=gen) * 60 - 30
     pos = torch.rand(1 << 20, generator=gen) * 1e6 + 1e-3
@@ -2447,7 +2608,7 @@ def solvers_card_vs_cpu(dev) -> None:
                                       ("log", torch.log, pos),
                                       ("sqrt", torch.sqrt, pos))}
     emit("solvers_card_vs_cpu", batch=[8, 30], **kinds,
-         share_rounding_otherwise=rounding)
+         share_rounding_otherwise=rounding, cpu_process=CPU_SIDE_PROCESS)
     bad = [k for k, v in kinds.items()
            if v["max_rel_diff_cost"] > (PAPER_RTOL if k == "paper"
                                         else PIN_RTOL)]
@@ -2455,13 +2616,44 @@ def solvers_card_vs_cpu(dev) -> None:
         raise AssertionError(f"card and CPU solvers disagree: {bad}")
 
 
+def schemes_card_vs_cpu(card: dict, cpu: dict) -> None:
+    """Every scheme at ``SCHEME_CHECK_POINTS`` (``schemes_check_run``'s
+    sides), card against CPU: the same assignment and moves, costs within
+    the pin (asserted)."""
+    import numpy as np
+    for (n, k, seed), rows in card.items():
+        diffs, secs = {}, {}
+        for scheme, c in rows.items():
+            p = cpu[(n, k, seed)][scheme]
+            secs[f"{scheme}_card"], secs[f"{scheme}_cpu"] = c["s"], p["s"]
+            diffs[scheme] = dict(
+                same_assignment=bool(np.array_equal(c["assignment"],
+                                                    p["assignment"])),
+                moves=[c["moves"], p["moves"]],
+                rel_diff_total=abs(c["total_cost"] - p["total_cost"])
+                / p["total_cost"],
+                rel_diff_true=abs(c["true_cost"] - p["true_cost"])
+                / p["true_cost"],
+                bitwise_total=c["total_cost"] == p["total_cost"])
+        emit("schemes_card_vs_cpu", fixture=[n, k, seed], seconds=secs,
+             left_out=list(SCHEME_CHECK_SKIP.get((n, k, seed), ())),
+             cpu_process=CPU_SIDE_PROCESS, **diffs)
+        bad = [s for s, d in diffs.items()
+               if not (d["same_assignment"] and d["moves"][0] == d["moves"][1]
+                       and d["rel_diff_total"] <= PIN_RTOL
+                       and d["rel_diff_true"] <= PIN_RTOL)]
+        if bad:
+            raise AssertionError(f"card and CPU disagree on {bad} at "
+                                 f"{(n, k, seed)}")
+
+
 def schemes(dev) -> dict:
     """The §V.A schemes on the card at the Fig. 3/4 points: each scheme's
     total cost over uniform's, its true cost, seconds, moves and the
     kernel's launches; HFEL asserted at or below ``HFEL_BOUND`` x random
-    and x uniform. Then every scheme at ``SCHEME_CHECK_POINTS`` on the card
-    and on the CPU: the same assignment, costs within the pin. Returns the
-    points' rows and the launches of the HFEL runs."""
+    and x uniform (``schemes_card_vs_cpu`` holds them to the CPU at
+    ``SCHEME_CHECK_POINTS``). Returns the points' rows and the launches of
+    the HFEL runs."""
     import numpy as np
     import torch
     from repro_torch.core.edge_association import evaluate_scheme
@@ -2502,39 +2694,6 @@ def schemes(dev) -> dict:
                    for x in rows.values()):
             raise AssertionError(f"a scheme's cost is not finite at N={n}, "
                                  f"K={k}")
-    for n, k, seed in SCHEME_CHECK_POINTS:
-        sc = make_scenario(n, k, seed=seed, device="cpu")
-        diffs, secs = {}, {}
-        for scheme in SCHEMES:
-            if scheme in SCHEME_CHECK_SKIP.get((n, k, seed), ()):
-                continue
-            got = {}
-            for where in ("card", "cpu"):
-                t0 = time.perf_counter()
-                got[where] = evaluate_scheme(
-                    sc, scheme, seed=0,
-                    device=dev if where == "card" else "cpu")
-                secs[f"{scheme}_{where}"] = time.perf_counter() - t0
-            card, cpu = got["card"], got["cpu"]
-            diffs[scheme] = dict(
-                same_assignment=bool(np.array_equal(card.assignment,
-                                                    cpu.assignment)),
-                moves=[card.n_adjustments, cpu.n_adjustments],
-                rel_diff_total=abs(card.total_cost - cpu.total_cost)
-                / cpu.total_cost,
-                rel_diff_true=abs(card.true_cost - cpu.true_cost)
-                / cpu.true_cost,
-                bitwise_total=card.total_cost == cpu.total_cost)
-        emit("schemes_card_vs_cpu", fixture=[n, k, seed], seconds=secs,
-             left_out=list(SCHEME_CHECK_SKIP.get((n, k, seed), ())),
-             **diffs)
-        bad = [s for s, d in diffs.items()
-               if not (d["same_assignment"] and d["moves"][0] == d["moves"][1]
-                       and d["rel_diff_total"] <= PIN_RTOL
-                       and d["rel_diff_true"] <= PIN_RTOL)]
-        if bad:
-            raise AssertionError(f"card and CPU disagree on {bad} at "
-                                 f"{(n, k, seed)}")
     return dict(points=points, hfel_launches=hfel_launches)
 
 
@@ -3037,13 +3196,12 @@ def live_scale(dev) -> dict:
     return dict(launches=launches)
 
 
-def compact_card_vs_cpu(dev) -> None:
-    """Phase 20: the bucketed engine with 64 exchanges on
-    ``make_scenario(16, 4, seed=1, reach_m=300)``, then ``rerun_incremental``
-    after one churn tick, on the card and on the CPU: the same assignments
-    (asserted). ``run_live`` at N = 40 / K = 4, 2 rounds, verify on, card
-    and CPU: the same swap assignments (asserted)."""
-    import numpy as np
+def compact_check_run(where) -> dict:
+    """Phase 20's runs on ``where``: the bucketed engine with 64 exchanges
+    on ``make_scenario(16, 4, seed=1, reach_m=300)``, then
+    ``rerun_incremental`` after one churn tick (both assignments, the
+    counts, the warm moves); ``run_live`` at N = 40 / K = 4, 2 rounds,
+    verify on (the swap rounds and assignments, the system cost)."""
     from repro_torch.core.assoc_fast import FastAssociationEngine
     from repro_torch.core.scenario import (make_large_scenario,
                                            make_scenario, perturb_scenario)
@@ -3052,36 +3210,42 @@ def compact_card_vs_cpu(dev) -> None:
     sc = make_scenario(16, 4, seed=1, reach_m=300.0, device="cpu")
     sc2, delta = perturb_scenario(sc, seed=5, drift_m=80.0, move_frac=0.2,
                                   flip_frac=0.1, depart_frac=0.15)
-    out = {}
-    for where in (dev, "cpu"):
-        eng = FastAssociationEngine(sc, compact="bucketed", device=where)
-        first = eng.run("nearest", finalize=False)
-        counts = dict(eng.last_counts)
-        second = eng.rerun_incremental(sc2, delta, verify=True,
-                                       finalize=False)
-        out[str(where)] = (first, second, counts, eng.last_moves)
-    card, cpu = out[str(dev)], out["cpu"]
-    same_engine = (np.array_equal(card[0], cpu[0])
-                   and np.array_equal(card[1], cpu[1])
-                   and card[2] == cpu[2] and card[3] == cpu[3])
+    eng = FastAssociationEngine(sc, compact="bucketed", device=where)
+    first = eng.run("nearest", finalize=False)
+    counts = dict(eng.last_counts)
+    second = eng.rerun_incremental(sc2, delta, verify=True, finalize=False)
     sc40 = make_large_scenario(40, 4, seed=0, device="cpu")
     ds40 = make_mnist_like(40, samples_total=800, seed=0)
-    lives = {where: run_live(sc40, ds40, policy="incremental-warm",
-                             rounds=2, resolve_every=1, churn=DEFAULT_CHURN,
-                             seed=0, local_iters=1, edge_iters=1,
-                             profile="coarse", rel_tol=1e-3, verify=True,
-                             device=where)
-             for where in (dev, "cpu")}
-    hc, hp = lives[dev], lives["cpu"]
-    same_live = (hc.swap_rounds == hp.swap_rounds
+    live = run_live(sc40, ds40, policy="incremental-warm", rounds=2,
+                    resolve_every=1, churn=DEFAULT_CHURN, seed=0,
+                    local_iters=1, edge_iters=1, profile="coarse",
+                    rel_tol=1e-3, verify=True, device=where)
+    return dict(first=first, second=second, counts=counts,
+                moves=eng.last_moves, swap_rounds=live.swap_rounds,
+                swap_assignments=live.swap_assignments,
+                system_cost=live.system_cost)
+
+
+def compact_card_vs_cpu(card: dict, cpu: dict) -> None:
+    """Phase 20: :func:`compact_check_run` on the card against the CPU's
+    (run beside phases 1-5): the same assignments, counts and warm moves,
+    the same live swap rounds and assignments (asserted)."""
+    import numpy as np
+    same_engine = (np.array_equal(card["first"], cpu["first"])
+                   and np.array_equal(card["second"], cpu["second"])
+                   and card["counts"] == cpu["counts"]
+                   and card["moves"] == cpu["moves"])
+    same_live = (card["swap_rounds"] == cpu["swap_rounds"]
                  and all(np.array_equal(a, b) for a, b in
-                         zip(hc.swap_assignments, hp.swap_assignments)))
+                         zip(card["swap_assignments"],
+                             cpu["swap_assignments"])))
     emit("compact_card_vs_cpu", fixture=[16, 4, 1], compact="bucketed",
-         counts_card=card[2], counts_cpu=cpu[2],
-         warm_moves=[card[3], cpu[3]], same_engine=bool(same_engine),
-         live_fixture=[40, 4, 0], live_swaps=hc.swap_rounds,
-         live_cost_card=hc.system_cost, live_cost_cpu=hp.system_cost,
-         same_live=bool(same_live))
+         counts_card=card["counts"], counts_cpu=cpu["counts"],
+         warm_moves=[card["moves"], cpu["moves"]],
+         same_engine=bool(same_engine), live_fixture=[40, 4, 0],
+         live_swaps=card["swap_rounds"], live_cost_card=card["system_cost"],
+         live_cost_cpu=cpu["system_cost"], same_live=bool(same_live),
+         cpu_process=CPU_SIDE_PROCESS)
     if not (same_engine and same_live):
         raise AssertionError("card and CPU disagree in a compact space or "
                              "in the live loop")
@@ -3159,20 +3323,40 @@ def collective_rank(rank: int, world: int, backend: str, out: str) -> None:
         dist.destroy_process_group()
 
 
-def spawn_ranks(world: int, backend: str, out: str) -> tuple[list, float]:
-    """Phase 28e's ranks as spawned processes, joined; (each rank's
-    results, seconds from spawn to join)."""
-    import numpy as np
+def start_collective_ranks() -> dict:
+    """Phase 28e's ranks as spawned processes, started now and joined by
+    :func:`collectives`: four gloo ranks and, beside them, one NCCL rank,
+    each set with its own store; their output directory ``dir`` (a
+    ``TemporaryDirectory``), the groups (world, backend, out), their
+    process contexts and the time they started."""
     import torch.multiprocessing as mp
+    tmp = tempfile.TemporaryDirectory()
+    nccl_dir = os.path.join(tmp.name, "nccl")
+    os.makedirs(nccl_dir)
+    groups = [(4, "gloo", tmp.name), (1, "nccl", nccl_dir)]
     t0 = time.perf_counter()
-    mp.start_processes(collective_rank, args=(world, backend, out),
-                       nprocs=world, join=True, start_method="spawn")
-    seconds = time.perf_counter() - t0
-    ranks = []
-    for r in range(world):
-        with np.load(f"{out}/rank{r}.npz") as z:
-            ranks.append({k: z[k] for k in z.files})
-    return ranks, seconds
+    ctxs = [mp.start_processes(collective_rank, args=group, nprocs=group[0],
+                               join=False, start_method="spawn")
+            for group in groups]
+    return dict(dir=tmp, groups=groups, ctxs=ctxs, t0=t0)
+
+
+def join_collective_ranks(started: dict) -> list[tuple[list, float]]:
+    """:func:`start_collective_ranks`' groups joined: each group's (each
+    rank's results, seconds from spawn to its join)."""
+    import numpy as np
+    out = []
+    with started["dir"]:
+        for (world, _, path), ctx in zip(started["groups"], started["ctxs"]):
+            while not ctx.join():
+                pass
+            seconds = time.perf_counter() - started["t0"]
+            ranks = []
+            for r in range(world):
+                with np.load(f"{path}/rank{r}.npz") as z:
+                    ranks.append({k: z[k] for k in z.files})
+            out.append((ranks, seconds))
+    return out
 
 
 def collective_want(case: str, leaf: str):
@@ -3204,20 +3388,19 @@ def collective_want(case: str, leaf: str):
     return of(x), of(np.abs(x))
 
 
-def collectives(dev) -> dict:
+def collectives(dev, started: dict | None = None) -> dict:
     """Phase 28e: ``psum_mean`` and ``hierarchical_sync`` over a (pod=2,
     data=2) mesh of four gloo ranks on the one card, against plain weighted
     means on one process (asserted within ``COLLECTIVE_RTOL`` of the
-    magnitudes), with the seconds of a cloud sync; then a 1-rank NCCL
-    mesh whose mean over ``data`` is its own tree (asserted)."""
+    magnitudes), with the seconds of a cloud sync; beside them a 1-rank
+    NCCL mesh whose mean over ``data`` is its own tree (asserted). The
+    ranks are ``started`` (:func:`start_collective_ranks`; started here
+    when None)."""
     import numpy as np
     cases = ([f"{k}_{a}" for k in ("mean", "wmean") for a in ("data", "pod")]
              + [f"sync_{n}" for n in LEVEL_NAMES])
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks, gloo_s = spawn_ranks(4, "gloo", tmp)
-        nccl_dir = os.path.join(tmp, "nccl")
-        os.makedirs(nccl_dir)
-        nccl, nccl_s = spawn_ranks(1, "nccl", nccl_dir)
+    (ranks, gloo_s), (nccl, nccl_s) = join_collective_ranks(
+        started or start_collective_ranks())
     errs = {}
     for case in cases:
         worst = 0.0
@@ -3414,6 +3597,11 @@ def sharded_path(dev, main_sc, main_res, ex, scale, live) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH, TRAIN_SEQ = "qwen3-0.6b", 4096       # train_4k's sequence
+# phases 22-23 at full width with the 28 layers cut to 8: the checkpoint
+# of the hierarchical state (two pods' float32 params and AdamW moments)
+# is 14.3 GB at 28 layers, 46 s of the whole script written and read back
+# on an H100 host (PERF.md); phase 30 and 31e still train all 28
+TRAIN_LM_LAYERS = 8
 TRAIN_SYNC_BATCH, TRAIN_SYNC_STEPS = 4, 3        # train_4k's 256, cut to 4
 # hierarchical: 2 steps and one cloud sync (4 steps and two syncs took
 # 11.3-16.5 s of the whole script)
@@ -3794,18 +3982,22 @@ def train_data(model, rows: int, seq: int, dev):
 
 
 def train_lm_path(dev) -> dict:
-    """Phases 22 and 23: full-width qwen3-0.6b (bf16 activations, float32
-    params and AdamW state) at sequence 4096: ``sync`` at batch 4 for 3
+    """Phases 22 and 23: full-width qwen3-0.6b cut to ``TRAIN_LM_LAYERS``
+    (bf16 activations, float32 params and AdamW state) at sequence 4096:
+    ``sync`` at batch 4 for 3
     steps, then ``hierarchical`` with 2 pods x 2 sequences, a cloud sync
     every 2 steps under ``TopKCompressor(0.01)``, 2 steps; then the
     hierarchical train state through ``CheckpointManager`` and back, bit
     for bit. Returns the launches of the kernels and backwards."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import TopKCompressor
     from repro_torch.models import build_model
 
-    cfg = no_remat(get_config(TRAIN_ARCH))
+    cfg = no_remat(dataclasses.replace(get_config(TRAIN_ARCH),
+                                       n_layers=TRAIN_LM_LAYERS))
     model = build_model(cfg)
     need = max(TRAIN_SYNC_STEPS, TRAIN_HIER_STEPS) + 1
     data, data_s = train_data(
@@ -4203,7 +4395,10 @@ def train_card_vs_cpu(dev, configs=None,
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "deepseek-v2-lite-16b"
-MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 8, 64, 32
+# phase 25c: 8 requests of a 16-token prompt and 32 new tokens; the serve
+# feeds the prompt a token a step (170 ms a step on a slow H100 host,
+# PERF.md): 64 until the whole script's time needed the cut
+MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 8, 16, 32
 # phase 25e: full width at depth 4 (the dense layer and 3 MoE layers) in
 # float32, a capacity factor of 64 (no pair drops, as tests/test_models.py
 # sets it), decode against prefill at tests/test_models.py's 2e-3
@@ -4484,8 +4679,8 @@ ENCDEC_BATCH, ENCDEC_DEC_SEQ = 4, 448
 WHISPER_PROMPT = (50258, 50259, 50360, 50364)
 ENCDEC_SERVE_REQUESTS, ENCDEC_SERVE_NEW = 8, 32
 # internvl2: 256 vision tokens before the text, 4 x 4096 positions in all;
-# 8 served requests of 64 + 32 tokens (phase 10's 256-token prompt fed a
-# token a step took 13 s); decode_32k's 128 requests over a 32,768-position
+# 8 served requests of 64 + 32 tokens (a 256-token prompt fed a token a
+# step took 13 s); decode_32k's 128 requests over a 32,768-position
 # cache, 8 new tokens each
 VLM_PREFIX, VLM_PREFILL_TEXT = 256, PREFILL_SEQ - 256
 VLM_SERVE_PROMPT = 64
@@ -5028,7 +5223,16 @@ def train_entry(kernel: str, bwd: dict, paths: dict) -> dict:
 # ranks sharing one card measure the mechanism and its cost, not the
 # speed-up of four cards.
 MESH_ARCH = "qwen3-0.6b"
-MESH_SEQ, MESH_BATCH, MESH_STEPS = 4096, 2, 2        # (a), (b), (f)
+# (a) and (h) take one step: each check reads the first, and over gloo a
+# step of the 28 layers took 6.2-7.2 s (8.2 s under remat; H100 80GB HBM3
+# at 700 W, PERF.md). 2 until the whole script's time needed the cut; at
+# 8 layers instead the control's loss lands inside MESH_LOSS_RTOL (PERF.md)
+MESH_SEQ, MESH_BATCH, MESH_STEPS = 4096, 2, 1        # (a), (b), (f)
+# (c) and (d)'s bf16 serve, which hold no planted control, at full width
+# with the 28 layers cut to 8: over gloo their time is the layers' gathers
+# and all-reduces (on a slow H100 host (c) took 47.2 s and (d) 37.9 s at
+# 28 layers, PERF.md)
+MESH_CUT_LAYERS = 8
 # (a)'s bf16 first-step loss against the one-rank step's (relative), and
 # the max abs gap of its logits at every MESH_LOGIT_STRIDE-th position.
 # Each limit is the geometric mean of the sound reading and a control's:
@@ -5049,11 +5253,12 @@ MESH_F32_LAYERS = 2                                  # (b), (d)'s check
 MESH_HIER_SEQ, MESH_HIER_BATCH = 2048, 4
 MESH_HIER_STEPS, MESH_HIER_PERIOD = 2, 2      # one cloud sync
 # (d): phase 10's 8 requests with their prompts cut from 256 to the first
-# 8 tokens and 8 new ones: over gloo a step that gathers each layer's
-# blocks takes ~1.2 s (1.186 s a decode step on an H100 80GB HBM3 at 700
-# W, PERF.md; 0.43-0.54 s when the ranks kept the gathered tree), so the
-# 287 steps of the whole requests would take ~340 s; 15 steps take ~18 s
-MESH_SERVE_PROMPT, MESH_SERVE_NEW = 8, 8
+# 4 tokens and 4 new ones: over gloo a step that gathers each layer's
+# blocks takes 1.2-2.0 s (1.186-1.979 s a step on an H100 80GB HBM3 at
+# 700 W, PERF.md; 0.43-0.54 s when the ranks kept the gathered tree), so
+# the 287 steps of the whole requests would take ~340 s; 7 steps take
+# ~12 s (8 + 8 until the whole script's time needed the cut)
+MESH_SERVE_PROMPT, MESH_SERVE_NEW = 4, 4
 MESH_SERVE_F32 = (32, 16)          # (d)'s float32 check: prompt, new tokens
 MESH_LOGIT_ATOL = 1e-4
 MESH_PEAK_LIMIT = 75e9             # bytes: the ranks' peaks summed
@@ -5064,7 +5269,10 @@ MESH_TIMEOUT_S = 600               # a collective's deadline in the ranks
 # (PERF.md) a rank peaks under 15 GB, so the four fit the card's 75 GB
 # together with room to spare; (f) runs its one-rank step alone first
 MESH_MOE_ARCH, MESH_MOE_LAYERS = MOE_ARCH, 3
-MESH_MOE_SEQ, MESH_MOE_BATCH, MESH_MOE_STEPS = 4096, 2, 2
+# one step: every check of (g) reads the first (a step took 15.1 s over
+# gloo on an H100 80GB HBM3 at 700 W, PERF.md; 2 until the whole
+# script's time needed the cut)
+MESH_MOE_SEQ, MESH_MOE_BATCH, MESH_MOE_STEPS = 4096, 2, 1
 # (g)'s MoE layers' outputs in the first step's forward against the
 # one-rank step's, at every MESH_MOE_Y_STRIDE-th position: the mean
 # |error| over the mean |y| of a layer's rows. A mean, not a maximum: a
@@ -5076,6 +5284,28 @@ MESH_MOE_SEQ, MESH_MOE_BATCH, MESH_MOE_STEPS = 4096, 2, 2
 # 700.00 W (PERF.md)
 MESH_MOE_Y_STRIDE = 16
 MESH_MOE_Y_RTOL = 0.08
+# (g)'s MoE backward against (f)'s one-rank step: the gradient of the
+# router and of each MoE layer's wi, wg and wo from (g)'s initial params on
+# the first batch's rows cut to MESH_MOE_GRAD_SEQ positions, in float32,
+# each rank routing its tokens to the experts the one-rank pass chose
+# (``ForcedRouting``; the gate is still the rank's own probs at them). The
+# top-k choice is discontinuous: a token whose choice flips under the
+# split's other rounding moves its whole gradient to another expert, and
+# through the next layer's attention every later token's. Unforced, the
+# gap was 0.053-0.066 of the leaf's largest entry in float32 (bf16: the MoE
+# outputs above differ by 1.75-3.04% of mean |y|) on an H100 80GB HBM3 at
+# 700.00 W (PERF.md); the tokens whose own top-k differs are counted. Each
+# rank's blocks after the reduction against the same blocks of the
+# one-rank gradient: every MESH_MOE_GRAD_STRIDE-th entry of a block and
+# each (layer, expert)'s Frobenius norm within MESH_MOE_GRAD_RTOL of the
+# leaf's largest entry (largest norm), the bound of
+# tests/test_torch_layer_gather.py. {leaf: its expert dim}
+MESH_MOE_GRAD_LEAVES = {"blocks/ffn/router/w": -1,
+                        "blocks/ffn/experts/wi/w": 1,
+                        "blocks/ffn/experts/wg/w": 1,
+                        "blocks/ffn/experts/wo/w": 1}
+MESH_MOE_GRAD_SEQ, MESH_MOE_GRAD_STRIDE = 1024, 997
+MESH_MOE_GRAD_RTOL = 1e-4
 # (i): mamba2-1.3b at full width (hf state-spaces/mamba2-1.3b: d 2048, 64
 # SSM heads of 64), its 48 layers cut to 4, over (data=2, model=2): each
 # `model` rank computes 32 heads (its z, x and dt columns of in_proj, the
@@ -5085,20 +5315,21 @@ MESH_MOE_Y_RTOL = 0.08
 MESH_SSM_ARCH, MESH_SSM_LAYERS = "mamba2-1.3b", 4
 MESH_SSM_SEQ, MESH_SSM_BATCH, MESH_SSM_STEPS = 2048, 2, 2
 # then float32 serving over (2, 2) at 2 layers (deepseek: 1 dense + 1
-# MoE) of mamba2 and deepseek: phase 10's first 8 requests cut to 8
-# prompt tokens, 4 new, against one rank's (tokens equal, logits within
-# MESH_LOGIT_ATOL). A float32 deepseek step over gloo gathers its 64
-# experts' blocks, 3.58 s a step on an H100 80GB HBM3 at 700 W (PERF.md;
-# mamba2 0.35 s), so 11 steps, not the 23 of 16 + 8
-MESH_SPLIT_SERVE = ((MESH_SSM_ARCH, 2), (MOE_ARCH, 2))
-MESH_SPLIT_SERVE_SIZE = (8, 4)
+# MoE) of mamba2 and deepseek: phase 10's first 8 requests cut to their
+# first prompt tokens, against one rank's (tokens equal, logits within
+# MESH_LOGIT_ATOL): (arch, layers, prompt, new). A float32 deepseek step
+# over gloo gathers its 64 experts' blocks, 2.92-3.58 s a step on an H100
+# 80GB HBM3 at 700 W (PERF.md; mamba2 0.28-0.35 s), so mamba2 serves 8 +
+# 4 tokens and deepseek 2 + 2 (8 + 4, then 4 + 2, until the whole
+# script's time needed the cuts)
+MESH_SPLIT_SERVE = ((MESH_SSM_ARCH, 2, 8, 4), (MOE_ARCH, 2, 2, 2))
 
 
 def mesh_plan(device: str = "cuda") -> dict:
     """Phase 29's sizes, handed to the spawned ranks (which do not see
     this module's globals as a test may have patched them)."""
     return dict(device=device, arch=MESH_ARCH, reduced=False, seq=MESH_SEQ,
-                batch=MESH_BATCH, steps=MESH_STEPS,
+                batch=MESH_BATCH, steps=MESH_STEPS, cut_layers=MESH_CUT_LAYERS,
                 f32_layers=MESH_F32_LAYERS, hier_seq=MESH_HIER_SEQ,
                 hier_batch=MESH_HIER_BATCH, hier_steps=MESH_HIER_STEPS,
                 hier_period=MESH_HIER_PERIOD,
@@ -5108,19 +5339,22 @@ def mesh_plan(device: str = "cuda") -> dict:
                 fault_layers=list(MESH_FAULT_LAYERS),
                 moe=dict(arch=MESH_MOE_ARCH, layers=MESH_MOE_LAYERS,
                          seq=MESH_MOE_SEQ, batch=MESH_MOE_BATCH,
-                         steps=MESH_MOE_STEPS, y_stride=MESH_MOE_Y_STRIDE),
+                         steps=MESH_MOE_STEPS, y_stride=MESH_MOE_Y_STRIDE,
+                         grad_seq=MESH_MOE_GRAD_SEQ,
+                         grad_stride=MESH_MOE_GRAD_STRIDE),
                 ssm=dict(arch=MESH_SSM_ARCH, layers=MESH_SSM_LAYERS,
                          seq=MESH_SSM_SEQ, batch=MESH_SSM_BATCH,
                          steps=MESH_SSM_STEPS,
-                         serve=[list(a) for a in MESH_SPLIT_SERVE],
-                         serve_size=list(MESH_SPLIT_SERVE_SIZE)),
+                         serve=[list(a) for a in MESH_SPLIT_SERVE]),
                 jobs=["a", "h", "b", "c", "d", "g", "i"])
 
 
-def mesh_config(plan: dict, f32: bool = False, remat: bool = False):
+def mesh_config(plan: dict, f32: bool = False, remat: bool = False,
+                cut: bool = False):
     """(a)'s config (``remat="none"``; the config's own ``"block"`` with
-    ``remat``, (h)'s), reduced on a CPU rehearsal; float32 at
-    ``plan["f32_layers"]`` layers with ``f32``."""
+    ``remat``, (h)'s), reduced on a CPU rehearsal; at
+    ``plan["cut_layers"]`` layers with ``cut`` ((c)'s, (d)'s bf16 serve's);
+    float32 at ``plan["f32_layers"]`` layers with ``f32``."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(plan["arch"])
@@ -5128,6 +5362,8 @@ def mesh_config(plan: dict, f32: bool = False, remat: bool = False):
         cfg = no_remat(cfg)
     if plan["reduced"]:
         cfg = cfg.reduced(dtype="bfloat16")
+    elif cut:
+        cfg = dataclasses.replace(cfg, n_layers=plan["cut_layers"])
     if f32:
         cfg = dataclasses.replace(cfg, dtype="float32",
                                   n_layers=plan["f32_layers"])
@@ -5341,13 +5577,8 @@ def mesh_controls(bundle, model, mesh, params, batch, plan, out) -> dict:
 
 
 def mesh_job_a(mesh, plan, dev, out) -> dict:
-    """(a) sync fsdp over (data=2, model=2) at full width, then (e): its
-    params written by rank 0 and restored onto (data=4, model=1)."""
+    """(a) sync fsdp over (data=2, model=2) at full width."""
     import torch
-    import torch.distributed as dist
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.launch import sharding as shd
-    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import ShapeSpec, build_model
     from repro_torch.utils import tree_leaves
@@ -5370,8 +5601,21 @@ def mesh_job_a(mesh, plan, dev, out) -> dict:
     res["controls"], res["controls_s"] = controls, controls_s
     res["local_param_bytes"] = sum(x.numel() * x.element_size()
                                    for x in tree_leaves(p))
-    del o
-    # (e): whole leaves written by rank 0, restored onto (data=4, model=1)
+    del p, o
+    return res
+
+
+def restore_check(bundle, p, plan: dict, dev, out: str) -> dict:
+    """(e): the rank's parameter blocks ``p`` under ``bundle`` (over (data=2,
+    model=2)) written whole by rank 0 through ``CheckpointManager`` and
+    restored onto (data=4, model=1): every leaf reassembled and every
+    rank's block bit for bit, the seconds of each."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.utils import tree_leaves
     other = make_test_mesh((4, 1), ("data", "model"), device_type=dev.type)
     target = shd.param_shardings(bundle.params_spec, other)
     mgr = CheckpointManager(os.path.join(out, "ckpt"), keep=1,
@@ -5385,18 +5629,17 @@ def mesh_job_a(mesh, plan, dev, out) -> dict:
     at, got, _ = mgr.restore({"params": p}, shardings={"params": target})
     restore_s = time.perf_counter() - t0
     whole = shd.gather_tree(p, bundle.params_shardings)
-    del p
     again = shd.gather_tree(got["params"], target)
     same = all(torch.equal(a, b) for a, b in zip(tree_leaves(again),
                                                  tree_leaves(whole)))
     blocks = all(torch.equal(a.to(dev), sh.local(b)) for a, b, sh in zip(
         tree_leaves(got["params"]), tree_leaves(whole),
         shd._sharding_leaves(target)))
-    res["restore"] = dict(step=at, reassembled_bitwise=bool(same),
-                          blocks_bitwise=bool(blocks), save_s=save_s,
-                          restore_s=restore_s, to_mesh=[4, 1])
-    del whole, again, got
-    return res
+    return dict(step=at, reassembled_bitwise=bool(same),
+                blocks_bitwise=bool(blocks), save_s=save_s,
+                restore_s=restore_s, to_mesh=[4, 1],
+                bytes=sum(x.numel() * x.element_size()
+                          for x in tree_leaves(whole)))
 
 
 def mesh_job_h(mesh, plan, dev) -> dict:
@@ -5434,9 +5677,10 @@ def mesh_job_h(mesh, plan, dev) -> dict:
     return res
 
 
-def mesh_job_b(mesh, plan, dev) -> dict:
+def mesh_job_b(mesh, plan, dev, out: str) -> dict:
     """(b) (a) at float32 and 2 layers, one step; rank 0 holds it to the
-    one-rank step (loss at 1e-5, state at ``TRAIN_TOL``)."""
+    one-rank step (loss at 1e-5, state at ``TRAIN_TOL``); then (e) on its
+    params (:func:`restore_check`)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import sharding as shd
@@ -5457,7 +5701,9 @@ def mesh_job_b(mesh, plan, dev) -> dict:
     got = {"params": shd.gather_tree(p, bundle.params_shardings),
            "m": shd.gather_tree(o["m"], bundle.opt_shardings["m"]),
            "v": shd.gather_tree(o["v"], bundle.opt_shardings["v"])}
-    del p, o
+    del o
+    res["restore"] = restore_check(bundle, p, plan, dev, out)
+    del p
     if dist.get_rank() == 0:
         one = make_train_step(model, shape, lr=plan["lr"], device=dev)
         p1, o1, s1 = one.init_state(params)
@@ -5491,9 +5737,10 @@ def mesh_job_b(mesh, plan, dev) -> dict:
 
 
 def mesh_job_c(plan, dev) -> dict:
-    """(c) hierarchical over (pod=2, data=2, model=1): 4 steps, a cloud
-    sync every 2; after each sync every leaf of the two pods' copies equal
-    bit for bit."""
+    """(c) hierarchical over (pod=2, data=2, model=1) at
+    ``plan["cut_layers"]`` layers: ``plan["hier_steps"]`` steps, a cloud
+    sync every ``plan["hier_period"]``; after each sync every leaf of the
+    two pods' copies equal bit for bit."""
     import torch
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import make_train_step
@@ -5503,7 +5750,7 @@ def mesh_job_c(plan, dev) -> dict:
 
     mesh = make_test_mesh((2, 2, 1), ("pod", "data", "model"),
                           device_type=dev.type)
-    cfg = mesh_config(plan)
+    cfg = mesh_config(plan, cut=True)
     model = build_model(cfg)
     shape = ShapeSpec("train_mesh_hier", plan["hier_seq"],
                       plan["hier_batch"], "train")
@@ -5580,15 +5827,16 @@ def mesh_serve_case(mesh, model, prompts, new: int, dev, f32: bool) -> dict:
 
 
 def mesh_job_d(mesh, plan, dev) -> dict:
-    """(d) serving over (data=2, model=2): phase 10's requests in bf16 (ms
-    a decode step, the share of greedy tokens equal to one rank's), then
+    """(d) serving over (data=2, model=2): phase 10's requests in bf16 at
+    ``plan["cut_layers"]`` layers (ms a decode step, the share of greedy
+    tokens equal to one rank's), then
     at float32 and 2 layers the same greedy tokens and decode logits
     within ``MESH_LOGIT_ATOL`` of one rank's."""
     from repro_torch.models import build_model
 
     out = {}
     for case, f32 in (("bf16", False), ("f32", True)):
-        cfg = mesh_config(plan, f32=f32)
+        cfg = mesh_config(plan, f32=f32, cut=not f32)
         width, new = plan["serve_f32"] if f32 else plan["serve"][1:]
         out[case] = mesh_serve_case(mesh, build_model(cfg),
                                     mesh_prompts(cfg, plan, dev, width),
@@ -5630,9 +5878,8 @@ def mesh_job_i(mesh, plan, dev) -> dict:
     res.update(control_loss=control, control_s=control_s,
                layer_shapes=heads.distinct(),
                n_scan_calls=len(heads.rec["scan_heads"]))
-    width, new = m["serve_size"]
     res["serve"] = {}
-    for arch, layers in m["serve"]:
+    for arch, layers, width, new in m["serve"]:
         scfg = mesh_split_serve_config(plan, arch, layers)
         res["serve"][arch] = mesh_serve_case(
             mesh, build_model(scfg), mesh_prompts(scfg, plan, dev, width),
@@ -5808,6 +6055,91 @@ def mesh_forward_loss(bundle, model, mesh, blocks, batch) -> float:
     return float(coll.all_reduce(loss, data) / coll.size(data))
 
 
+def moe_grad_stats(grad, expert_dim: int, stride: int) -> dict:
+    """A gradient (block)'s every ``stride``-th entry, flattened, and each
+    (layer, expert)'s Frobenius norm, float32 on the CPU, and its largest
+    |entry|."""
+    import torch
+    g = grad.detach().float()
+    dims = [d for d in range(1, g.dim()) if d != expert_dim % g.dim()]
+    return dict(entries=g.flatten()[::stride].cpu(),
+                norms=torch.linalg.vector_norm(g, dim=dims).cpu(),
+                largest=float(g.abs().max()))
+
+
+class ForcedRouting:
+    """Wraps ``moe.route`` while in use: given ``ids`` (each MoE call's
+    (T, k) top-k ids over the whole batch, as :class:`RoutingRecorder`
+    records them) and ``rows`` (this rank's batch rows), the n-th call
+    routes this rank's tokens to the n-th entry's ids at those rows, in
+    that order, its gate the call's own probs at them renormalised as
+    ``route`` does; ``flipped`` counts, a call, the tokens whose own top-k
+    set differs (one host sync a call)."""
+
+    def __init__(self, ids, rows):
+        self.ids, self.rows, self.flipped = ids, rows, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.real = moe.route
+
+        def routed(params, cfg, tokens):
+            probs, _, own = self.real(params, cfg, tokens)
+            whole = self.ids[len(self.flipped)].to(own.device)
+            seq = tokens.shape[0] // len(self.rows)
+            ids = whole.view(-1, seq, whole.shape[1])[
+                self.rows.to(own.device)].reshape(own.shape)
+            self.flipped.append(int((own.sort(-1).values
+                                     != ids.sort(-1).values).any(-1).sum()))
+            gate = probs.gather(-1, ids)
+            gate = gate / torch.clamp_min(
+                torch.sum(gate, dim=-1, keepdim=True), 1e-9)
+            return probs, gate, ids
+
+        moe.route = routed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self.real
+
+
+def mesh_moe_grads(model, plan: dict, blocks, whole: dict, mesh, dev,
+                   ids=None) -> tuple:
+    """(g)'s float32 gradient pass: the train step's ``loss_and_grads`` of
+    ``model``'s config in float32 on ``mesh`` from this rank's ``blocks``
+    (the whole params on one rank) on its rows of ``whole`` (a whole batch)
+    cut to ``plan["moe"]["grad_seq"]`` positions, routed to ``ids``
+    (:class:`ForcedRouting`; None: its own, recorded by a
+    :class:`RoutingRecorder`): ((path, spec, gradient block) of each
+    ``MESH_MOE_GRAD_LEAVES`` leaf, the routing context)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import ShapeSpec, build_model
+    from repro_torch.utils import tree_leaves_with_path
+    m = plan["moe"]
+    f32 = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    bundle = make_train_step(f32, ShapeSpec("train_mesh_moe_grad",
+                                            m["grad_seq"], m["batch"],
+                                            "train"),
+                             mesh=mesh, lr=plan["lr"], device=dev)
+    cut = {"tokens": whole["tokens"][:, :m["grad_seq"] + 1]}
+    index = torch.arange(cut["tokens"].shape[0], device=dev)[:, None] \
+        .expand(cut["tokens"].shape).contiguous()
+    rows = bundle.local_batch({"tokens": index})["tokens"][:, 0].cpu()
+    with (RoutingRecorder() if ids is None
+          else ForcedRouting(ids, rows)) as routing:
+        _, grads = bundle.loss_and_grads(blocks, bundle.local_batch(cut))
+    paths = [shd._key_str(p) for p, _ in tree_leaves_with_path(blocks)]
+    specs = [sh.spec for sh in shd._sharding_leaves(bundle.params_shardings)]
+    return [(path, spec, g) for path, spec, g in zip(paths, specs, grads)
+            if path in MESH_MOE_GRAD_LEAVES], routing
+
+
 def mesh_job_g(mesh, plan, dev, out: str) -> dict:
     """(g) deepseek-v2-lite at full width cut to 1 dense + 2 MoE layers,
     ``sync`` fsdp over (data=2, model=2): the planted control (the MoE
@@ -5815,9 +6147,15 @@ def mesh_job_g(mesh, plan, dev, out: str) -> dict:
     ``plan["moe"]["steps"]`` steps, recording the expert buffers and
     weights each layer computes with. The MoE layers' outputs of the
     control and of the first step's forward (``MoEOutputs``), with the
-    global batch rows they belong to, to ``out/g_y<rank>.pt``."""
+    global batch rows they belong to, to ``out/g_y<rank>.pt``; before the
+    steps, the float32 gradient pass (:func:`mesh_moe_grads`): the rank's
+    coordinates, its tokens whose own top-k differs from the one-rank
+    pass's (which it routes to: ``out/one/one_rank_moe_ids.pt``), the
+    pass's seconds and each leaf's spec and ``moe_grad_stats`` to
+    ``out/g_grad<rank>.pt``."""
     import torch
     import torch.distributed as dist
+    from repro_torch.launch.mesh import coordinates
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import ShapeSpec, build_model
     from repro_torch.utils import tree_leaves
@@ -5837,6 +6175,16 @@ def mesh_job_g(mesh, plan, dev, out: str) -> dict:
         control = mesh_forward_loss(bundle, model, mesh, state[0],
                                 bundle.local_batch(batches[0]))
     control_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads, routing = mesh_moe_grads(
+        model, plan, state[0], batches[0], mesh, dev,
+        ids=torch.load(f"{out}/one/one_rank_moe_ids.pt"))
+    torch.save(dict(coords=coordinates(mesh), flipped=routing.flipped,
+                    grad_s=time.perf_counter() - t0, leaves={
+        path: dict(spec=list(spec), **moe_grad_stats(
+            g, MESH_MOE_GRAD_LEAVES[path], m["grad_stride"]))
+        for path, spec, g in grads}), f"{out}/g_grad{dist.get_rank()}.pt")
+    del grads
     _zero_counts()
     with ExpertShapes() as shapes, MoEOutputs(m["y_stride"]) as ys, \
             LayerShapes() as heads:
@@ -5928,7 +6276,7 @@ def mesh_rank(rank: int, world: int, out: str, plan: dict) -> None:
         fields["carries"] = coll.probe(dist.group.WORLD, dev)
         for job, fn in (("a", lambda: mesh_job_a(mesh, plan, dev, out)),
                         ("h", lambda: mesh_job_h(mesh, plan, dev)),
-                        ("b", lambda: mesh_job_b(mesh, plan, dev)),
+                        ("b", lambda: mesh_job_b(mesh, plan, dev, out)),
                         ("c", lambda: mesh_job_c(plan, dev)),
                         ("d", lambda: mesh_job_d(mesh, plan, dev)),
                         ("g", lambda: mesh_job_g(mesh, plan, dev, out)),
@@ -6002,8 +6350,14 @@ def mesh_one_rank_g(mesh, out: str, plan: dict, dev) -> None:
     """(g)'s one-rank reference: its first step on the 1-rank NCCL mesh
     from the same params and batch; the loss, s and peak to
     ``out/one_rank_moe.json``, the MoE layers' outputs (``MoEOutputs``)
-    to ``out/one_rank_moe_y.pt``."""
+    to ``out/one_rank_moe_y.pt``; before it the float32 gradient pass
+    (:func:`mesh_moe_grads`) on the whole params, each leaf's spec over
+    (g)'s (data=2, model=2), its largest entry and norm and the
+    ``moe_grad_stats`` of each (data, model) rank's block of it to
+    ``out/one_rank_moe_grad.pt``, its routing (each MoE call's top-k ids)
+    to ``out/one_rank_moe_ids.pt``."""
     import torch
+    from repro_torch.launch import sharding as shd
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import ShapeSpec, build_model
     cfg = mesh_moe_config(plan)
@@ -6015,6 +6369,23 @@ def mesh_one_rank_g(mesh, out: str, plan: dict, dev) -> None:
     batch = mesh_moe_data(cfg, plan, dev)[0]
     state = bundle.init_state(model.init(
         torch.Generator(device=dev).manual_seed(0)))
+    sizes = {"data": 2, "model": 2}          # (g)'s mesh
+    want = {}
+    grads, routing = mesh_moe_grads(model, plan, state[0], batch, mesh, dev)
+    torch.save([ids.cpu() for ids in routing.calls],
+               f"{out}/one_rank_moe_ids.pt")
+    for path, _, g in grads:
+        dim, stride = MESH_MOE_GRAD_LEAVES[path], m["grad_stride"]
+        spec = shd.param_pspec(path, g.shape, sizes)
+        whole = moe_grad_stats(g, dim, stride)
+        want[path] = dict(
+            spec=list(spec), largest=whole["largest"],
+            largest_norm=float(whole["norms"].max()),
+            blocks={(d, mm): moe_grad_stats(g[shd.NamedSharding(
+                sizes, spec).block(g.shape, {"data": d, "model": mm})],
+                dim, stride) for d in range(2) for mm in range(2)})
+    del grads, g
+    torch.save(want, f"{out}/one_rank_moe_grad.pt")
     _reset_peak(dev)
     _dev_sync(dev)
     t0 = time.perf_counter()
@@ -6133,6 +6504,10 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
         if "g" in plan["jobs"]:
             outs["g_y"] = [torch.load(f"{tmp}/g_y{r}.pt") for r in range(4)]
             outs["one_moe_y"] = torch.load(f"{tmp}/one/one_rank_moe_y.pt")
+            outs["g_grads"] = [torch.load(f"{tmp}/g_grad{r}.pt")
+                               for r in range(4)]
+            outs["one_moe_grads"] = torch.load(
+                f"{tmp}/one/one_rank_moe_grad.pt")
         for name, path in (("one", "one/one_rank.json"),
                            ("one_moe", "one/one_rank_moe.json"),
                            ("one_ssm", "one/one_rank_ssm.json")):
@@ -6153,6 +6528,8 @@ def mesh_path(dev, plan: dict | None = None, predict: dict | None = None,
         g_checks, g_launches = mesh_moe_report(
             outs["one_moe"], outs["predict"], ranks, plan, smi,
             outs["g_y"], outs["one_moe_y"], beside)
+        g_checks.update(moe_grads=moe_grad_report(
+            outs["g_grads"], outs["one_moe_grads"], plan, smi))
         checks.update(g_checks)
         launches = {k: launches.get(k, 0) + v for k, v in g_launches.items()}
     if "i" in plan["jobs"]:
@@ -6186,7 +6563,8 @@ def mesh_report(one, ranks, plan, smi, one_s, four_s, held, beside=()):
               if k != "sound"}
     logit_err = ctrl["sound"]["max_abs_logit_err"]
     peaks = [ra["peak"] for ra in a]
-    emit("mesh_train", card=smi, arch=cfg.name, mesh={"data": 2, "model": 2},
+    emit("mesh_train", card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+         mesh={"data": 2, "model": 2},
          sharding="fsdp", backend="gloo", ranks_on_one_card=4,
          seq=plan["seq"], global_batch=plan["batch"], steps=plan["steps"],
          dtype=cfg.dtype, carries=ranks[0]["carries"],
@@ -6204,7 +6582,7 @@ def mesh_report(one, ranks, plan, smi, one_s, four_s, held, beside=()):
          job_s=[ra["job_s"] for ra in a], spawn_to_join_s=four_s,
          parent_reserved_bytes=held, beside_cpu_processes=list(beside),
          their_nice=CPU_SIDE_NICE)
-    rest = [r["a"]["restore"] for r in ranks]
+    rest = [r["b"]["restore"] for r in ranks]
     emit("mesh_restore", **rest[0],
          bitwise_all_ranks=all(x["reassembled_bitwise"] and x["blocks_bitwise"]
                                for x in rest))
@@ -6216,6 +6594,7 @@ def mesh_report(one, ranks, plan, smi, one_s, four_s, held, beside=()):
     c = [r["c"] for r in ranks]
     syncs = [row for row in c[0]["rows"] if "cloud_sync_ms" in row]
     emit("mesh_hier", mesh={"pod": 2, "data": 2, "model": 1},
+         n_layers=mesh_config(plan, cut=True).n_layers,
          seq=plan["hier_seq"], global_batch=plan["hier_batch"],
          steps=plan["hier_steps"], edge_period=plan["hier_period"],
          s_per_step_median=[rc["s_median"] for rc in c],
@@ -6282,7 +6661,8 @@ def mesh_remat_report(ranks, plan, smi, predict, beside=()):
         if "a" in ranks[0] else None
     bound = [rh["outside"] + rh["layer_max"] for rh in h]
     peaks = [rh["peak"] for rh in h]
-    emit("mesh_train_remat", card=smi, arch=cfg.name, remat=cfg.remat,
+    emit("mesh_train_remat", card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+         remat=cfg.remat,
          mesh={"data": 2, "model": 2}, sharding="fsdp", backend="gloo",
          ranks_on_one_card=4, seq=plan["seq"], global_batch=plan["batch"],
          steps=plan["steps"], dtype=cfg.dtype, losses=losses[0],
@@ -6426,6 +6806,48 @@ def mesh_moe_report(one, predict, ranks, plan, smi, ys, one_y, beside=()):
                        for row in rg["rows"]))
     return checks, {key: sum(sum(row["launches"][key] for row in rg["rows"])
                              for rg in g) for key in per_step}
+
+
+def moe_grad_report(ranks: list, one: dict, plan: dict, smi) -> bool:
+    """(g)'s float32 MoE gradients: each rank's blocks against the same
+    blocks of the one-rank gradient (``moe_grad_stats``' entries and
+    norms), each leaf's largest gap over its largest entry (norm), its
+    spec equal to the one-rank side's over (g)'s mesh. Emits
+    ``mesh_moe_grads``; whether every gap is within
+    ``MESH_MOE_GRAD_RTOL``."""
+    gaps, specs_equal, compared = {}, True, 0
+    flipped = [rank["flipped"] for rank in ranks]
+    for rank in ranks:
+        c = rank["coords"]
+        for path, got in rank["leaves"].items():
+            w = one[path]
+            want = w["blocks"][(c["data"], c["model"])]
+            specs_equal &= got["spec"] == w["spec"]
+            gap = gaps.setdefault(path, dict(entries=0.0, norms=0.0))
+            for key, scale in (("entries", w["largest"]),
+                               ("norms", w["largest_norm"])):
+                if got[key].shape != want[key].shape:
+                    gap[key] = math.inf
+                    continue
+                compared += got[key].numel()
+                gap[key] = max(gap[key], float(
+                    (got[key] - want[key]).abs().max()) / scale)
+    largest = max((v for g in gaps.values() for v in g.values()),
+                  default=math.inf)
+    ok = (specs_equal and largest <= MESH_MOE_GRAD_RTOL
+          and set(gaps) == set(MESH_MOE_GRAD_LEAVES))
+    emit("mesh_moe_grads", card=smi, dtype="float32",
+         seq=plan["moe"]["grad_seq"], global_batch=plan["moe"]["batch"],
+         stride=plan["moe"]["grad_stride"], leaves=sorted(gaps),
+         gap_over_leaf_largest=gaps, largest_gap=largest,
+         rtol=MESH_MOE_GRAD_RTOL, values_compared=compared,
+         leaf_largest={p: one[p]["largest"] for p in one},
+         specs={p: one[p]["spec"] for p in one}, specs_equal=specs_equal,
+         routing="the one-rank pass's top-k, forced on every rank",
+         own_topk_differs_per_rank_layer=flipped,
+         tokens_per_layer=plan["moe"]["batch"] * plan["moe"]["grad_seq"],
+         grad_s_per_rank=[rank["grad_s"] for rank in ranks], within=ok)
+    return ok
 
 
 def mesh_ssm_report(one, ranks, plan, smi, beside=()):
@@ -6697,6 +7119,9 @@ def remat_families(dev) -> dict:
 # the CPU processes that phase 29's ranks share the host with run at this
 # niceness, so that the ranks' timed steps take the cores first
 CPU_SIDE_NICE = 10
+# the kernel builds that phases 3-28 do not need run at this niceness,
+# behind the main process and the CPU side processes
+BUILD_LATER_NICE = 19
 
 # runs launch/dryrun.py's CLI at CPU_SIDE_NICE and writes the seconds it
 # took to argv[1] (argv[2:] are the CLI's arguments)
@@ -6981,8 +7406,13 @@ ZOO_SERVE = (("olmo-1b", 4, 8, 64, 16, None), ("qwen2-7b", 4, 8, 64, 16, 8),
 # (c) training at full width, float32 params and AdamW, bf16 activations,
 # remat "none" as phases 21-29: (arch, layers or None for all, batch at
 # TRAIN_SEQ, steps); olmo-1b whole, qwen2-7b cut to 4 of 28 layers (~2.0 G
-# params, 32 GB with its moments)
-ZOO_TRAIN = (("olmo-1b", None, 4, 3), ("qwen2-7b", 4, 2, 2))
+# params, 32 GB with its moments), qwen3-32b cut to 4 of 64 at batch 1
+# (d 5120, 64/8 heads of 128, d_ff 25,600, vocab 151,936: 3.506 G params,
+# whose float32 params, gradients and AdamW moments take 56.1 GB before
+# activations). The deepest cut whose one-rank dry run peaks under 70 GB:
+# 52.15, 58.18 and 69.27 GB at 2, 3 and 4 layers (PERF.md)
+ZOO_TRAIN = (("olmo-1b", None, 4, 3), ("qwen2-7b", 4, 2, 2),
+             ("qwen3-32b", 4, 1, 2))
 # zamba2-2.7b cut to 12 of 54 layers: two applications of the shared
 # block, whose gradient sums them; (arch, layers, batch, seq, steps)
 HYBRID_TRAIN = ("zamba2-2.7b", 12, 2, 2048, 2)
@@ -7381,6 +7811,525 @@ def kimi_serving(dev) -> dict:
     return got
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 33: Algorithm 3's host engine (core/edge_association.py::
+# AssociationEngine, whose every group price is a GroupSolver.solve_batch:
+# one golden-section launch and its host syncs) and the elastic failover
+# built on it (runtime/fault_tolerance.py::ElasticReassociator), with
+# training masked through FederatedTrainer.client_mask (hier_aggregate)
+# ---------------------------------------------------------------------------
+
+# (a) the JAX package's own calls of the host engine, (N, K, method, init),
+# each on make_scenario(N, K, seed=0) with the engine's seed 0:
+# examples/quickstart.py's run_batched("random") at (20, 5) and the
+# faithful loop beside it (run from "nearest", one exchange attempt a
+# round); benchmarks/paper_convergence.py's run_batched("random") at N =
+# 15, 30, 45, 60 with K = 5 (Fig. 5) and K = 15, 25 with N = 60 (Fig. 6,
+# whose K = 5 point is Fig. 5's N = 60)
+HOST_ENGINE_RUNS = ((20, 5, "run_batched", "random"),
+                    (20, 5, "run", "nearest"),
+                    (15, 5, "run_batched", "random"),
+                    (30, 5, "run_batched", "random"),
+                    (45, 5, "run_batched", "random"),
+                    (60, 5, "run_batched", "random"),
+                    (60, 15, "run_batched", "random"),
+                    (60, 25, "run_batched", "random"))
+# the runs repeated on the CPU (the kernel's plain version) and held to
+# the card's by phase 5's rule: the same assignment and moves, the cost
+# within PIN_RTOL. They run in a process of their own at CPU_SIDE_NICE
+# (two threads), started before phase 1, beside phases 1-7: in this
+# process on an H100 host they took 5.2-5.5, 16.5-22.8 and 12.7-14.7 s,
+# and (60, 25) 23.1-23.6 s, which ran until the whole script's time
+# needed the cut (PERF.md)
+HOST_ENGINE_CHECK = ((20, 5, "run_batched"), (20, 5, "run"),
+                     (60, 5, "run_batched"))
+
+# writes argv[1]: the CPU runs of argv[2] (a JSON list of [N, K, method,
+# init]) through host_engine_run, each its assignment, moves and costs
+_HOST_ENGINE_CPU = """
+import json, os, sys
+os.nice(int(os.environ["CPU_SIDE_NICE"]))
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+out = []
+for n, k, method, init in json.loads(sys.argv[2]):
+    res, line = chip_smoke.host_engine_run(n, k, method, init,
+                                           torch.device("cpu"))
+    out.append(dict(run=[n, k, method], assignment=res.assignment.tolist(),
+                    moves=res.n_adjustments, total_cost=res.total_cost,
+                    true_cost=res.true_cost, s=line["s"],
+                    batches=line["batches"]))
+with open(sys.argv[1], "w") as f:
+    json.dump(out, f)
+"""
+# (b) examples/elastic_failover.py: make_scenario(20, 4, seed=0) and
+# make_mnist_like(20, seed=0), 15 HFEL rounds under its FailureInjector,
+# re-associating on every round with a dead device; (c) the same flow at
+# N = 100, K = 10 over 5 rounds, on the card alone
+ELASTIC_EXAMPLE = dict(n=20, k=4, rounds=15)
+ELASTIC_SCALE = dict(n=100, k=10, rounds=5)
+ELASTIC_INJECTOR = dict(p_fail=0.08, p_recover=0.4, seed=3)
+ELASTIC_TRAIN = dict(method="hfel", local_iters=10, edge_iters=5, lr=0.05,
+                     eval_every=3)
+
+
+class EngineProbe:
+    """While in use, every ``AssociationEngine``'s group pricing: each
+    ``group_costs_batch`` call's pairs and cache misses (a call with a
+    miss solves them in one ``GroupSolver.solve_batch``: one golden-section
+    launch), each ``solve_batch``'s groups and packed width (its widest
+    group; ``_finalize``'s (K, N) tensor is counted, its width not), its
+    host seconds and, on the card, CUDA events around it and around each
+    launch inside (``ops.golden_section_solve``), and the synchronizing
+    CUDA calls (torch's sync debug mode "warn": one warning each)."""
+
+    def __init__(self, dev):
+        self.cuda = dev.type == "cuda"
+        self.calls, self.batches, self.solve_s = [], [], 0.0
+        self.spans = {"solve": [], "kernel": []}
+        self.syncs = None
+
+    def __enter__(self):
+        import warnings
+
+        import numpy as np
+        import torch
+        from repro_torch.core import edge_association as ea
+        from repro_torch.kernels import ops
+        probe = self
+        costs, solve, kernel = (ea.AssociationEngine.group_costs_batch,
+                                ea.GroupSolver.solve_batch,
+                                ops.golden_section_solve)
+        self.saved = [(ea.AssociationEngine, "group_costs_batch", costs),
+                      (ea.GroupSolver, "solve_batch", solve),
+                      (ops, "golden_section_solve", kernel)]
+
+        def span(key, fn, *args, **kw):
+            if not probe.cuda:
+                return fn(*args, **kw)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            probe.spans[key].append((start, end))
+            return out
+
+        def priced(eng, pairs):
+            before = len(eng._cache)
+            out = costs(eng, pairs)
+            probe.calls.append((len(pairs), len(eng._cache) - before))
+            return out
+
+        def solved(solver, server_ids, masks):
+            width = (int(masks.sum(1).max()) if isinstance(masks, np.ndarray)
+                     else None)
+            t0 = time.perf_counter()
+            out = span("solve", solve, solver, server_ids, masks)
+            probe.solve_s += time.perf_counter() - t0
+            probe.batches.append((len(masks), width))
+            return out
+
+        ea.AssociationEngine.group_costs_batch = priced
+        ea.GroupSolver.solve_batch = solved
+        ops.golden_section_solve = functools.partial(span, "kernel", kernel)
+        if self.cuda:
+            self.caught = warnings.catch_warnings(record=True)
+            self.warned = self.caught.__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
+        if self.cuda:
+            import torch
+            torch.cuda.set_sync_debug_mode("default")
+            self.caught.__exit__(*exc)
+            self.syncs = sum("synchroniz" in str(w.message)
+                             for w in self.warned)
+
+    def expected_launches(self, k: int) -> tuple[int, bool]:
+        """K one-group launches for the initial ``_total`` (whether the
+        first K calls were those is the second value), one for each later
+        call with a miss, one for ``_finalize``."""
+        head = self.calls[:k] == [(1, 1)] * k
+        return k + sum(1 for _, miss in self.calls[k:] if miss) + 1, head
+
+    def summary(self, k: int, wall_s: float) -> dict:
+        """The fields of a line: the calls and batches, the largest batch,
+        host syncs, and on the card the device seconds of the
+        ``solve_batch`` spans and of the kernels beside the host seconds
+        outside ``solve_batch`` (Python: candidates, sets, the cache)."""
+        import torch
+        expected, head = self.expected_launches(k)
+        largest = max(self.batches, key=lambda b: (b[0], b[1] or 0),
+                      default=(0, None))
+        out = dict(pricing_calls=len(self.calls),
+                   calls_with_a_miss=sum(1 for _, m in self.calls if m),
+                   groups_priced=sum(m for _, m in self.calls),
+                   batches=len(self.batches), largest_batch=list(largest),
+                   launches_expected=expected, initial_one_group=head,
+                   host_syncs=self.syncs, solve_host_s=self.solve_s,
+                   host_share_outside_solve=1.0 - self.solve_s / wall_s)
+        if self.cuda:
+            torch.cuda.synchronize()
+            solve_s, kernel_s = (sum(a.elapsed_time(b) for a, b in
+                                     self.spans[key]) / 1e3
+                                 for key in ("solve", "kernel"))
+            out.update(solve_device_s=solve_s, kernel_device_s=kernel_s,
+                       kernel_share=kernel_s / wall_s,
+                       kernel_launches_timed=len(self.spans["kernel"]))
+        return out
+
+
+def host_engine_run(n: int, k: int, method: str, init: str, dev) -> tuple:
+    """One of ``HOST_ENGINE_RUNS`` on ``dev`` (on the card through the
+    entry points' default device), the scenario on the same device, under
+    an :class:`EngineProbe`: (result, the line's fields: seconds, moves,
+    costs, the kernel's launches, the probe's summary)."""
+    import numpy as np
+    from repro_torch.core.edge_association import AssociationEngine
+    from repro_torch.core.scenario import make_scenario
+    from repro_torch.kernels import golden_section
+    device = None if dev.type == "cuda" else dev.type
+    sc = make_scenario(n, k, seed=0, device=device)
+    before = golden_section.LAUNCHES
+    _dev_sync(dev)
+    t0 = time.perf_counter()
+    with EngineProbe(dev) as probe:
+        res = getattr(AssociationEngine(sc, kind="fast", seed=0,
+                                        device=device), method)(init)
+    _dev_sync(dev)
+    s = time.perf_counter() - t0
+    trace = np.asarray(res.cost_trace)
+    fields = dict(s=s, moves=res.n_adjustments, rounds=res.n_rounds,
+                  first_cost=float(trace[0]), total_cost=res.total_cost,
+                  true_cost=res.true_cost,
+                  monotone=bool(np.all(np.diff(trace) <= 0)),
+                  launches=golden_section.LAUNCHES - before,
+                  **probe.summary(k, s))
+    return res, fields
+
+
+def start_host_engine_cpu() -> dict:
+    """Phase 33 (a)'s CPU runs (``HOST_ENGINE_CHECK``) in a process of
+    their own (:func:`start_cpu_side`); the results land in
+    ``dir/cpu.json``."""
+    runs = [[n, k, method, init] for n, k, method, init in HOST_ENGINE_RUNS
+            if (n, k, method) in HOST_ENGINE_CHECK]
+    return start_cpu_side(_HOST_ENGINE_CPU, "{dir}/cpu.json",
+                          json.dumps(runs))
+
+
+def host_engine(dev, cpu_side: dict) -> dict:
+    """Phase 33 (a): ``HOST_ENGINE_RUNS`` on the card, each line with its
+    moves, seconds, launches (asserted: ``EngineProbe.expected_launches``),
+    largest batch and host syncs; each ``HOST_ENGINE_CHECK`` run beside
+    the same run on the CPU (``cpu_side``, from
+    :func:`start_host_engine_cpu`): the same assignment and moves, the
+    cost within ``PIN_RTOL`` (asserted). Returns the kernel's launches
+    over the phase's card runs, counted from 0."""
+    import numpy as np
+    from repro_torch.kernels import golden_section
+    golden_section.LAUNCHES = 0
+    card = []
+    for n, k, method, init in HOST_ENGINE_RUNS:
+        res, line = host_engine_run(n, k, method, init, dev)
+        line["ok"] = (line["launches"] == line["launches_expected"]
+                      and line["initial_one_group"] and line["monotone"]
+                      and math.isfinite(res.total_cost)
+                      and math.isfinite(res.true_cost))
+        card.append(((n, k, method, init), res, line))
+    with cpu_side["dir"] as tmp:
+        rc = finish_cpu_side(cpu_side)
+        path = Path(tmp) / "cpu.json"
+        cpu = {tuple(r["run"]): r for r in json.loads(path.read_text())} \
+            if path.exists() else {}
+        stderr = Path(f"{tmp}/stderr").read_text()[-2000:]
+    failed = []
+    for (n, k, method, init), res, line in card:
+        if (n, k, method) in HOST_ENGINE_CHECK:
+            c = cpu.get((n, k, method))
+            if c is None:
+                line.update(ok=False, cpu_rc=rc, cpu_stderr=stderr)
+            else:
+                rel = abs(res.total_cost - c["total_cost"]) / c["total_cost"]
+                same = bool(np.array_equal(res.assignment, c["assignment"]))
+                line.update(cpu_s=c["s"], cpu_process="CPU_SIDE_NICE, 2 "
+                            "threads, beside phases 1-7",
+                            moves_cpu=c["moves"],
+                            total_cost_cpu=c["total_cost"],
+                            true_cost_cpu=c["true_cost"], cost_rel_err=rel,
+                            same_assignment=same, cpu_batches=c["batches"])
+                line["ok"] = line["ok"] and same and rel <= PIN_RTOL \
+                    and c["moves"] == res.n_adjustments
+        emit("host_engine", point=[n, k], seed=0, method=method, init=init,
+             kind="fast", **line)
+        if not line["ok"]:
+            failed.append((n, k, method))
+    if failed:
+        raise AssertionError(f"host_engine failed at {failed}")
+    return dict(launches=golden_section.LAUNCHES)
+
+
+def elastic_flow(dev, n: int, k: int, rounds: int) -> dict:
+    """``examples/elastic_failover.py`` through the port on ``dev``:
+    ``ElasticReassociator(make_scenario(n, k, seed=0), seed=0)``, its
+    ``initial()``, ``make_mnist_like(n, seed=0)``, the example's
+    ``FailureInjector`` and hook (the client mask set each round, a
+    re-association on every round with a dead device, its assignment
+    written into a box that nothing reads, as the example does: training
+    keeps the initial assignment) and ``train_federated`` over ``rounds``.
+    Each association is timed under an :class:`EngineProbe`, with its
+    golden-section launches; the hier_aggregate launches a round are read
+    at the hook. Returns the scenarios each re-association
+    priced, the results, the history, the final global params and the
+    seconds."""
+    import numpy as np
+    from repro_torch.core.scenario import make_scenario
+    from repro_torch.data import make_mnist_like
+    from repro_torch.fl import train_federated
+    from repro_torch.kernels import golden_section, hier_aggregate
+    from repro_torch.runtime import ElasticReassociator, FailureInjector
+    where = None if dev.type == "cuda" else "cpu"
+    t_start = time.perf_counter()
+    sc = make_scenario(n, k, seed=0, device=where)
+    er = ElasticReassociator(sc, seed=0, device=where)
+    scenarios, engine = [], er._engine      # the scenario of each call
+
+    def recording(s):
+        scenarios.append(s)
+        return engine(s)
+
+    er._engine = recording
+
+    def timed(fn):
+        before = golden_section.LAUNCHES
+        _dev_sync(dev)
+        t0 = time.perf_counter()
+        with EngineProbe(dev) as probe:
+            res = fn()
+        _dev_sync(dev)
+        s = time.perf_counter() - t0
+        return res, dict(s=s, moves=res.n_adjustments,
+                         launches=golden_section.LAUNCHES - before,
+                         **probe.summary(k, s))
+
+    initial, initial_fields = timed(er.initial)
+    ds = make_mnist_like(n, seed=0)
+    fi = FailureInjector(n, **ELASTIC_INJECTOR)
+    assignment_box = {"a": initial.assignment}
+    events, marks, kept = [], [], {}
+
+    def hook(trainer, r):
+        kept["trainer"] = trainer
+        marks.append(hier_aggregate.LAUNCHES)
+        alive = fi.step()
+        trainer.client_mask = alive
+        if alive.sum() < n:   # membership changed -> re-associate live devices
+            res, fields = timed(lambda: er.on_membership_change(alive))
+            assignment_box["a"] = res.assignment
+            events.append(dict(round=r, alive=alive, result=res,
+                               scenario=scenarios[-1], **fields))
+
+    hist = train_federated(ds, assignment=np.asarray(initial.assignment),
+                           n_servers=k, rounds=rounds, round_hook=hook,
+                           device=where, **ELASTIC_TRAIN)
+    _dev_sync(dev)
+    marks.append(hier_aggregate.LAUNCHES)
+    return dict(sc=sc, initial=initial, initial_fields=initial_fields,
+                events=events, hist=hist, n_test=len(ds.test_y),
+                params={key: v.cpu().numpy() for key, v in
+                        kept["trainer"].global_params().items()},
+                hier_per_round=np.diff(marks).tolist(),
+                s=time.perf_counter() - t_start)
+
+
+# writes argv[1]: phase 33 (b)'s CPU flow (``elastic_flow`` on the CPU at
+# ELASTIC_EXAMPLE), what ``elastic_failover`` compares of it
+_ELASTIC_CPU = """
+import os, sys
+os.nice(int(os.environ["CPU_SIDE_NICE"]))
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+run = chip_smoke.elastic_flow(torch.device("cpu"), **chip_smoke.ELASTIC_EXAMPLE)
+torch.save(chip_smoke.elastic_kept(run), sys.argv[1])
+"""
+
+
+def elastic_kept(run: dict) -> dict:
+    """What :func:`elastic_failover` reads of an :func:`elastic_flow` run:
+    the initial result, each event's round, live mask, result and
+    seconds, the history, the test set's size, the params and seconds."""
+    return dict(initial=run["initial"], hist=run["hist"],
+                n_test=run["n_test"], params=run["params"], s=run["s"],
+                events=[{k: e[k] for k in ("round", "alive", "result", "s")}
+                        for e in run["events"]])
+
+
+def start_elastic_cpu() -> dict:
+    """Phase 33 (b)'s CPU flow in a process of its own
+    (:func:`start_cpu_side`); the result lands in ``dir/elastic.pt``."""
+    return start_cpu_side(_ELASTIC_CPU, "{dir}/elastic.pt")
+
+
+def finish_elastic_cpu(cpu_side: dict) -> dict:
+    """:func:`start_elastic_cpu`'s result, waited for; raises with the
+    process's stderr when it wrote none."""
+    return finish_side_file(cpu_side, "elastic.pt")
+
+
+def elastic_lines(run: dict) -> tuple:
+    """(each re-association's fields for a line, whether every one
+    launched what its probe expected and every round the hier_aggregate
+    launches of the code's own count, the servers with members, that
+    count): ``_group_means`` launches once a server with members an edge
+    iteration, and once for the cloud."""
+    import numpy as np
+    lines = [dict(round=e["round"], alive=int(e["alive"].sum()),
+                  adjustments=e["result"].n_adjustments,
+                  total_cost=e["result"].total_cost,
+                  true_cost=e["result"].true_cost,
+                  warm_cost=e["result"].cost_trace[0],
+                  **{key: v for key, v in e.items() if key not in (
+                      "round", "alive", "result", "scenario")})
+             for e in run["events"]]
+    servers = len(np.unique(run["initial"].assignment))
+    per_round = ELASTIC_TRAIN["edge_iters"] * servers + 1
+    ok = all(x["launches"] == x["launches_expected"] for x in lines) and \
+        run["hier_per_round"] == [per_round] * len(run["hier_per_round"])
+    return lines, ok, servers, per_round
+
+
+def elastic_failover(dev, cpu: dict) -> dict:
+    """Phase 33 (b): :func:`elastic_flow` at ``ELASTIC_EXAMPLE`` on the card
+    (the counts from 0) against ``cpu``, the same flow on the CPU
+    (:func:`start_elastic_cpu`'s, in a process of its own): the same
+    events (round, live count, adjustments) and initial association, each
+    event's assignment equal and cost within ``PIN_RTOL``, the final
+    global params within
+    phase 7's rule (rtol 1e-4, atol 1e-5), test accuracy within one test
+    sample (asserted); seconds and golden-section launches a
+    re-association (asserted against the probe's count), hier_aggregate
+    launches a round (asserted), total seconds. Returns both kernels'
+    launches on the card."""
+    import numpy as np
+    from repro_torch.kernels import golden_section, hier_aggregate
+    golden_section.LAUNCHES = hier_aggregate.LAUNCHES = 0
+    card = elastic_flow(dev, **ELASTIC_EXAMPLE)
+    launches = dict(golden_section=golden_section.LAUNCHES,
+                    hier_aggregate=hier_aggregate.LAUNCHES)
+    lines, counted, servers, per_round = elastic_lines(card)
+
+    def key(run):
+        return [(e["round"], int(e["alive"].sum()),
+                 e["result"].n_adjustments) for e in run["events"]]
+
+    pairs = list(zip(card["events"], cpu["events"]))
+    same_events = key(card) == key(cpu)
+    same_assignment = same_events and np.array_equal(
+        card["initial"].assignment, cpu["initial"].assignment) and all(
+        np.array_equal(a["result"].assignment, b["result"].assignment)
+        for a, b in pairs)
+    cost_rel = [abs(a["result"].total_cost - b["result"].total_cost)
+                / b["result"].total_cost for a, b in pairs]
+    params_close = all(np.allclose(card["params"][p], cpu["params"][p],
+                                   rtol=1e-4, atol=1e-5)
+                       for p in cpu["params"])
+    acc_gap = float(np.abs(np.subtract(card["hist"].test_acc,
+                                       cpu["hist"].test_acc)).max())
+    one_sample = 1.0 / card["n_test"]
+    ok = (same_events and same_assignment and counted
+          and max(cost_rel, default=0.0) <= PIN_RTOL and params_close
+          and acc_gap <= one_sample + 1e-9 and len(pairs) > 0
+          and all(math.isfinite(x) for x in card["hist"].train_loss))
+    emit("elastic_failover", **ELASTIC_EXAMPLE, injector=ELASTIC_INJECTOR,
+         train=ELASTIC_TRAIN, model="mlr", ok=ok,
+         initial_cost=card["initial"].total_cost,
+         initial_cost_cpu=cpu["initial"].total_cost,
+         initial=card["initial_fields"], events=lines,
+         events_cpu=[dict(round=e["round"], s=e["s"]) for e in
+                     cpu["events"]],
+         same_events=same_events, same_assignment=same_assignment,
+         max_cost_rel_err=max(cost_rel, default=None),
+         s_per_reassociation=[x["s"] for x in lines],
+         launches_per_reassociation=[x["launches"] for x in lines],
+         launches_counted=counted, servers_with_members=servers,
+         hier_aggregate_per_round=card["hier_per_round"],
+         hier_aggregate_per_round_expected=per_round,
+         test_acc=card["hist"].test_acc,
+         test_acc_cpu=cpu["hist"].test_acc,
+         train_loss=card["hist"].train_loss,
+         train_loss_cpu=cpu["hist"].train_loss, max_test_acc_gap=acc_gap,
+         one_test_sample=one_sample, params_close=params_close,
+         max_abs_err_params=max(float(np.abs(card["params"][p]
+                                             - cpu["params"][p]).max())
+                                for p in cpu["params"]),
+         card_s=card["s"], cpu_s=cpu["s"],
+         cpu_process=CPU_SIDE_PROCESS.replace("1-5", "1-7"))
+    if not ok:
+        raise AssertionError("elastic_failover: the card and the CPU "
+                             "disagree")
+    return launches
+
+
+def elastic_scale(dev) -> dict:
+    """Phase 33 (c): :func:`elastic_flow` at ``ELASTIC_SCALE`` on the card
+    alone (the counts from 0). Each re-association is gated on its own
+    (asserted): the dead devices on their nearest server, every live one
+    on a server ``avail`` allows, its cost at most its warm start's, and a
+    fresh ``run_batched(assignment=result, exchange_samples=0)`` on its
+    scenario making no move. Reports ``initial()``'s and each
+    re-association's seconds, moves, largest batch, host syncs and the
+    host's share against the kernel's. Returns both kernels' launches."""
+    import numpy as np
+    from repro_torch.core.edge_association import AssociationEngine
+    from repro_torch.kernels import golden_section, hier_aggregate
+    golden_section.LAUNCHES = hier_aggregate.LAUNCHES = 0
+    run = elastic_flow(dev, **ELASTIC_SCALE)
+    launches = dict(golden_section=golden_section.LAUNCHES,
+                    hier_aggregate=hier_aggregate.LAUNCHES)
+    lines, counted, servers, per_round = elastic_lines(run)
+    sc = run["sc"]
+    nearest = np.argmin(sc.dist, axis=0)
+    gates = []
+    for e, line in zip(run["events"], lines):
+        res, alive = e["result"], e["alive"]
+        dead, live = ~alive, np.flatnonzero(alive)
+        again = AssociationEngine(
+            e["scenario"], kind="fast", seed=0,
+            device=None if dev.type == "cuda" else dev.type).run_batched(
+            assignment=res.assignment, exchange_samples=0)
+        gate = dict(
+            dead_on_nearest=bool(np.array_equal(res.assignment[dead],
+                                                nearest[dead])),
+            live_available=bool(sc.avail[res.assignment[live], live].all()),
+            descent=bool(res.total_cost <= res.cost_trace[0]),
+            stable=again.n_adjustments == 0)
+        line.update(gate)
+        gates.append(all(gate.values()))
+    ok = (counted and all(gates) and len(gates) > 0
+          and all(math.isfinite(x) for x in run["hist"].train_loss))
+    emit("elastic_scale", **ELASTIC_SCALE, injector=ELASTIC_INJECTOR,
+         train=ELASTIC_TRAIN, model="mlr", ok=ok,
+         initial_cost=run["initial"].total_cost,
+         initial=run["initial_fields"], events=lines,
+         launches_counted=counted, servers_with_members=servers,
+         hier_aggregate_per_round=run["hier_per_round"],
+         hier_aggregate_per_round_expected=per_round,
+         test_acc=run["hist"].test_acc, train_loss=run["hist"].train_loss,
+         total_s=run["s"])
+    if not ok:
+        raise AssertionError("elastic_scale: a re-association failed its "
+                             "gates")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7417,6 +8366,12 @@ def main() -> int:
         seconds[phase] = time.perf_counter() - t_start - sum(
             seconds.values())
 
+    # the CPU sides of phases 5 and 20 and of phase 33 (a) and (b), in
+    # processes of their own beside phases 1-7 (they need no kernel)
+    phase5_cpu = start_phase5_cpu()
+    host_cpu = start_host_engine_cpu()
+    elastic_cpu = start_elastic_cpu()
+
     # ---- 1. card ----
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -7424,7 +8379,13 @@ def main() -> int:
     emit("card", name=name, count=count, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- 2. build the main paths' kernels and the variant, all at once ----
+    # ---- 2. build every kernel, the variants and the planted faults of
+    # phases 8 and 21b, all started at once. Phases 3-28 need only
+    # golden_section, its variant and hier_aggregate: those are waited for
+    # here; the rest build on at BUILD_LATER_NICE beside phases 3-28 (each
+    # nvcc inherits its thread's niceness), behind the CPU side processes,
+    # and are waited for before phase 8. The faults build into a directory
+    # that goes once they are loaded ----
     variants = {"golden_section": ("golden_section", ()),
                 "golden_section_cbrtf": ("golden_section", ("GS_CBRT_F32",)),
                 "hier_aggregate": ("hier_aggregate", ()),
@@ -7434,26 +8395,35 @@ def main() -> int:
                 "flash_attention_bwd_counters": ("flash_attention_bwd",
                                                  ("FLASH_BWD_PROFILE",)),
                 "ssd_state_scan": ("ssd_scan", ())}
+    first = ("golden_section", "golden_section_cbrtf", "hier_aggregate")
     t0 = time.perf_counter()
-    # the planted faults of phases 8 and 21b build beside them, into a
-    # directory that goes once they are loaded
-    with tempfile.TemporaryDirectory() as fault_dir, ThreadPoolExecutor(
-            len(variants) + len(FLASH_FAULTS)
-            + len(FLASH_BWD_FAULTS)) as pool:
-        faults = {f: pool.submit(build_flash_fault, fault_dir, f)
+    fault_dir = tempfile.TemporaryDirectory()
+    later = ThreadPoolExecutor(
+        len(variants) - len(first) + len(FLASH_FAULTS)
+        + len(FLASH_BWD_FAULTS), initializer=os.nice,
+        initargs=(BUILD_LATER_NICE,))
+    with ThreadPoolExecutor(len(first)) as pool:
+        jobs = {k: (pool if k in first else later).submit(build.load, *job)
+                for k, job in variants.items()}
+        faults = {f: later.submit(build_flash_fault, fault_dir.name, f)
                   for f in FLASH_FAULTS}
-        bwd_faults = {f: pool.submit(build_flash_fault, fault_dir, f,
-                                     "flash_attention_bwd")
+        bwd_faults = {f: later.submit(build_flash_fault, fault_dir.name, f,
+                                      "flash_attention_bwd")
                       for f in FLASH_BWD_FAULTS}
-        built = dict(zip(variants, pool.map(
-            lambda job: build.load(*job), variants.values())))
-        fault_libs = {f: job.result() for f, job in faults.items()}
-        bwd_fault_libs = {f: job.result() for f, job in bwd_faults.items()}
-    build_s = time.perf_counter() - t0
-    ptxas = {kname: ptxas_report(b.ptxas_log) for kname, b in built.items()}
-    for kname, b in built.items():
-        emit("build", kernel=kname, seconds=build_s, nvcc_seconds=b.seconds,
-             library=str(b.path.relative_to(ROOT)), ptxas=ptxas[kname])
+        built = {k: jobs[k].result() for k in first}
+    ptxas = {}
+
+    def emit_built(names) -> None:
+        seconds = time.perf_counter() - t0
+        for kname in names:
+            b = built[kname]
+            ptxas[kname] = ptxas_report(b.ptxas_log)
+            emit("build", kernel=kname, seconds=seconds,
+                 nvcc_seconds=b.seconds, nice=0 if kname in first
+                 else BUILD_LATER_NICE, library=str(b.path.relative_to(ROOT)),
+                 ptxas=ptxas[kname])
+
+    emit_built(first)
     done("1-2 card, build")
 
     # ---- 3. kernel vs plain version on the card ----
@@ -7662,35 +8632,17 @@ def main() -> int:
 
     done("4, 4b, 3c main path, exchanges, hier_aggregate")
 
-    # ---- 5. card vs CPU on CHECK_FIXTURE ----
-    n_check, k_check, seed_check = CHECK_FIXTURE
-    sc_check = make_scenario(n_check, k_check, seed=seed_check, device="cpu")
-    t0 = time.perf_counter()
-    on_card = FastAssociationEngine(sc_check).run("nearest",
-                                                  exchange_samples=0)
-    card_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    on_cpu = FastAssociationEngine(sc_check, device="cpu").run(
-        "nearest", exchange_samples=0)
-    cpu_s = time.perf_counter() - t0
-    same = (np.array_equal(on_card.assignment, on_cpu.assignment)
-            and on_card.n_adjustments == on_cpu.n_adjustments
-            and math.isclose(on_card.total_cost, on_cpu.total_cost,
-                             rel_tol=PIN_RTOL))
-    emit("card_vs_cpu", fixture=list(CHECK_FIXTURE),
-         moves_card=on_card.n_adjustments,
-         moves_cpu=on_cpu.n_adjustments, total_cost_card=on_card.total_cost,
-         total_cost_cpu=on_cpu.total_cost, same_assignment=bool(np.array_equal(
-             on_card.assignment, on_cpu.assignment)),
-         card_s=card_s, cpu_s=cpu_s)
-    if not same:
-        raise AssertionError(f"card and CPU engines disagree on "
-                             f"{CHECK_FIXTURE}")
-
-    # ---- 5b. exchanges card vs CPU; 5c. the §V.A schemes ----
-    exchange_card_vs_cpu(dev)
-    solvers_card_vs_cpu(dev)
+    # ---- 5, 5b, 5c. card vs CPU: the engine on CHECK_FIXTURE without
+    # and with exchanges, the plain solvers, the §V.A schemes; each
+    # check's CPU side ran beside phases 1-5 ----
     scheme_runs = schemes(dev)
+    card5 = phase5_runs(dev)
+    cpu5 = finish_phase5_cpu(phase5_cpu)
+    card_vs_cpu(card5, cpu5)
+    solvers_card_vs_cpu(dev, card5["solvers"], cpu5["solvers"])
+    schemes_card_vs_cpu(card5["schemes"], cpu5["schemes"])
+    compact_cpu = cpu5["compact"]                 # phase 20's CPU side
+    del card5, cpu5
     done("5-5c card vs CPU, solvers, schemes")
 
     # ---- 6. HFEL training on the card from phase 4's stable assignment ----
@@ -7827,19 +8779,38 @@ def main() -> int:
 
     done("6-7 HFEL training")
 
+    # ---- 33. Algorithm 3's host engine at the JAX package's calls, and
+    # examples/elastic_failover.py through the port ----
+    host_run = host_engine(dev, host_cpu)
+    elastic = elastic_failover(dev, finish_elastic_cpu(elastic_cpu))
+    elastic_big = elastic_scale(dev)
+    done("33 host engine, elastic failover")
+
     # ---- 16-20. association at scale and under churn, the live loop ----
     compact_run = compact_path(dev)
     scale = scale_path(dev)
     live = live_path(dev)
     live_big = live_scale(dev)
-    compact_card_vs_cpu(dev)
+    compact_card_vs_cpu(compact_check_run(dev), compact_cpu)
     done("16-20 scale, churn, live loop")
 
     # ---- 28. the sharded sweep against phases 4, 4b, 17 and 18, and
     # Algorithm 1's collectives over spawned ranks ----
+    # (the collectives' ranks start first and run beside the sweep)
+    ranks = start_collective_ranks()
     sharded = sharded_path(dev, main_sc, res, ex, scale, live)
-    collectives(dev)
+    collectives(dev, ranks)
     done("28 sharded sweep, collectives")
+
+    # ---- the rest of phase 2's builds ----
+    built.update({k: job.result() for k, job in jobs.items()
+                  if k not in first})
+    fault_libs = {f: job.result() for f, job in faults.items()}
+    bwd_fault_libs = {f: job.result() for f, job in bwd_faults.items()}
+    later.shutdown()
+    fault_dir.cleanup()
+    emit_built([k for k in variants if k not in first])
+    done("2 the rest of the build, waited for")
 
     # ---- 8-11. serving: kernels, prefill and serve paths, card vs CPU ----
     serving = serving_kernels(dev, fault_libs, ptxas)
@@ -7983,6 +8954,11 @@ def main() -> int:
                                "live_scale":
                                    live_big["launches"]["golden_section"],
                                "sharded_path": sharded["total"],
+                               "host_engine": host_run["launches"],
+                               "elastic_failover":
+                                   elastic["golden_section"],
+                               "elastic_scale":
+                                   elastic_big["golden_section"],
                                **no_train},
              backward=None, library_ms=None, shape=list(masks.shape), **main_kernel,
              exchange_batch={key: ex_kernel[key] for key in (
@@ -8001,6 +8977,10 @@ def main() -> int:
                                    live["launches"]["hier_aggregate"],
                                "live_scale":
                                    live_big["launches"]["hier_aggregate"],
+                               "elastic_failover":
+                                   elastic["hier_aggregate"],
+                               "elastic_scale":
+                                   elastic_big["hier_aggregate"],
                                **no_train},
              backward=None, max_abs_err=cloud["max_abs_err"],
              ms=cloud["ms"], plain_ms=cloud["plain_ms"],
